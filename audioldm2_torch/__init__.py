@@ -6,8 +6,9 @@ The port imports the JAX package's jax-free host modules (config,
 diffusion schedule, tokenizers, wav IO) and never imports jax.
 
 Public surface: build_model, text_to_audio, save_wave, round_up_duration,
-default_audioldm_config. Only the t5 family (audioldm_16k_crossattn_t5)
-runs so far.
+default_audioldm_config. The t5 family (audioldm_16k_crossattn_t5) and
+audioldm2-full run, each in bf16 or in the int8 serving mode
+(``build_model(weight_quant="int8")``).
 """
 
 from audioldm2_tpu.config import CHECKPOINT_NAMES, default_audioldm_config

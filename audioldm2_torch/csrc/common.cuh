@@ -1,13 +1,24 @@
 // Shared pieces of the package's Hopper kernels: dtype helpers, reductions
 // and one tiled GEMM core with a prologue hook.
 //
-// The GEMM core computes out[M, N] = pro(A)[M, K] . W[K, N] + bias[N]
-// (+ residual[M, N]) with f32 accumulation. A is never read from memory as
-// a matrix: each element comes from the prologue functor, which computes it
-// from the real inputs as the tile loads (GroupNorm+SiLU of a shifted conv
-// tap, LayerNorm of a row, the GEGLU gate product) and is rounded to the
-// weight dtype before the product, as the Pallas kernels round it. The
-// intermediate therefore never exists in device memory.
+// The GEMM core computes out[M, N] = pro(A)[M, K] . W[K, N] * wscale[N] +
+// bias[N] (+ residual[M, N]) with f32 accumulation. A is never read from
+// memory as a matrix: each element comes from the prologue functor, which
+// computes it from the real inputs as the tile loads (GroupNorm+SiLU of a
+// shifted conv tap, LayerNorm of a row, the GEGLU gate product, or the
+// input itself) and is rounded to the tile type TC before the product, as
+// the Pallas kernels round it. The intermediate therefore never exists in
+// device memory.
+//
+// Three types: TC, the type of the A and B tiles in shared memory and of
+// the product (bf16 on the tensor cores, or f32 on the FMA units); TW, the
+// weight's type in device memory (TC, or int8, converted to TC as the B
+// tile is stored, which is exact since |q| <= 127); TIO, the type of the
+// residual and the output (the activation's type). The int8 weights carry
+// a per-column f32 scale, applied to the f32 accumulator before the bias
+// and the residual: the scale is per output column, so this equals the
+// product with the dequantized weight, and split-K partial sums are
+// linear, so the split-K reduction applies it after the sum.
 //
 // Tiles: 64 x 64 output per block, K in steps of 32, 128 threads (4 warps).
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (mma.sync
@@ -17,8 +28,9 @@
 //
 // Loads: with GEMM_VEC_A the prologue produces A eight consecutive k at a
 // time (one index computation and 16-byte loads per eight elements); with
-// GEMM_VEC_B the weight tile loads 16 bytes per thread. The wrapper sets
-// them only where K/N are multiples of 8 and the pointers 16-byte aligned.
+// GEMM_VEC_B the weight tile loads eight consecutive n per thread (16 bytes
+// of bf16, 32 of f32, 8 of int8). The wrapper sets them only where K/N are
+// multiples of 8 and the pointers aligned to those loads.
 // Split-K: a small-M product (the UNet's 32 x 2 level gives M = 128 at CFG
 // batch 2, i.e. 20 blocks on 132 SMs) runs gridDim.z slices of K, each
 // writing an f32 partial tile to a workspace; splitk_reduce sums the slices
@@ -39,6 +51,7 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -63,6 +76,13 @@ __device__ __forceinline__ void load8(const bf16* p, float v[8]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+// Eight consecutive int8, 8-byte aligned, to f32 (exact).
+__device__ __forceinline__ void load8(const int8_t* p, float v[8]) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = (float)b[i];
 }
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -115,13 +135,14 @@ constexpr int GEMM_VEC_B = 2;
 //   __device__ void eight(int m, int k, const float* sm, float v[8]) const;
 //       // elements k..k+7 of row m; called only under GEMM_VEC_A
 // `sm` is 2 * BM floats of shared memory owned by the prologue.
-template <typename T, typename Prologue>
+template <typename TC, typename TW, typename TIO, typename Prologue>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_prologue_kernel(Prologue pro, const T* __restrict__ w, const float* __restrict__ bias,
-                     const T* __restrict__ residual, T* __restrict__ out,
-                     float* __restrict__ ws, int M, int N, int K, int k_split, int vec) {
-  __shared__ __align__(128) T As[BM * A_LD];
-  __shared__ __align__(128) T Bs[BK * B_LD];
+gemm_prologue_kernel(Prologue pro, const TW* __restrict__ w, const float* __restrict__ wscale,
+                     const float* __restrict__ bias, const TIO* __restrict__ residual,
+                     TIO* __restrict__ out, float* __restrict__ ws, int M, int N, int K,
+                     int k_split, int vec) {
+  __shared__ __align__(128) TC As[BM * A_LD];
+  __shared__ __align__(128) TC Bs[BK * B_LD];
   __shared__ __align__(128) float Cs[BM * C_LD];
   __shared__ float pro_sm[2 * BM];
 
@@ -154,7 +175,7 @@ gemm_prologue_kernel(Prologue pro, const T* __restrict__ w, const float* __restr
         const int r = idx / BK, c = idx % BK;
         const int m = m0 + r, k = k0 + c;
         const float v = (m < M && k < ke) ? pro(m, k, pro_sm) : 0.f;
-        As[r * A_LD + c] = from_f<T>(v);
+        As[r * A_LD + c] = from_f<TC>(v);
       }
     }
     if (vec & GEMM_VEC_B) {
@@ -175,12 +196,12 @@ gemm_prologue_kernel(Prologue pro, const T* __restrict__ w, const float* __restr
       for (int idx = tid; idx < BK * BN; idx += GEMM_THREADS) {
         const int r = idx / BN, c = idx % BN;
         const int k = k0 + r, n = n0 + c;
-        Bs[r * B_LD + c] = (k < ke && n < N) ? w[(size_t)k * N + n] : from_f<T>(0.f);
+        Bs[r * B_LD + c] = from_f<TC>((k < ke && n < N) ? to_f(w[(size_t)k * N + n]) : 0.f);
       }
     }
   };
 
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<TC, float>::value) {
     // f32: 8 x 4 outputs per thread on the FMA units.
     const int tx = tid % 16, ty = tid / 16;
     float acc[8][4];
@@ -247,8 +268,8 @@ gemm_prologue_kernel(Prologue pro, const T* __restrict__ w, const float* __restr
   }
   __syncthreads();
 
-  // Epilogue: the f32 partial tile to the split-K workspace, or + bias
-  // (+ residual) in f32 with one rounding to the output dtype.
+  // Epilogue: the f32 partial tile to the split-K workspace, or * wscale
+  // + bias (+ residual) in f32 with one rounding to the output dtype.
   for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
     const int r = idx / BN, c = idx % BN;
     const int m = m0 + r, n = n0 + c;
@@ -258,31 +279,35 @@ gemm_prologue_kernel(Prologue pro, const T* __restrict__ w, const float* __restr
       if (ws != nullptr) {
         ws[(size_t)blockIdx.z * M * N + o] = v;
       } else {
+        if (wscale != nullptr) v *= wscale[n];
         if (bias != nullptr) v += bias[n];
         if (residual != nullptr) v += to_f(residual[o]);
-        out[o] = from_f<T>(v);
+        out[o] = from_f<TIO>(v);
       }
     }
   }
 }
 
-template <typename T>
+template <typename TIO>
 __global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ ws, int splits, const float* __restrict__ bias,
-                     const T* __restrict__ residual, T* __restrict__ out, int M, int N) {
+splitk_reduce_kernel(const float* __restrict__ ws, int splits,
+                     const float* __restrict__ wscale, const float* __restrict__ bias,
+                     const TIO* __restrict__ residual, TIO* __restrict__ out, int M, int N) {
   const size_t mn = (size_t)M * N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
   float v = 0.f;
   for (int z = 0; z < splits; ++z) v += ws[z * mn + i];
+  if (wscale != nullptr) v *= wscale[i % N];
   if (bias != nullptr) v += bias[i % N];
   if (residual != nullptr) v += to_f(residual[i]);
-  out[i] = from_f<T>(v);
+  out[i] = from_f<TIO>(v);
 }
 
+// wscale: null, or the int8 weight's f32 [N] scale.
 // ws: null, or an f32 workspace of ceil(K / k_split) * M * N for split-K.
-template <typename T, typename Prologue>
-inline int launch_gemm(const Prologue& pro, const void* w, const void* bias,
+template <typename TC, typename TW, typename TIO, typename Prologue>
+inline int launch_gemm(const Prologue& pro, const void* w, const void* wscale, const void* bias,
                        const void* residual, void* out, float* ws, int M, int N, int K,
                        int k_split, int vec, cudaStream_t stream) {
   if (ws == nullptr || k_split <= 0 || k_split >= K) {
@@ -291,14 +316,15 @@ inline int launch_gemm(const Prologue& pro, const void* w, const void* bias,
   }
   const int splits = (K + k_split - 1) / k_split;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  gemm_prologue_kernel<T, Prologue><<<grid, GEMM_THREADS, 0, stream>>>(
-      pro, static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<const T*>(residual), static_cast<T*>(out), ws, M, N, K, k_split, vec);
+  gemm_prologue_kernel<TC, TW, TIO, Prologue><<<grid, GEMM_THREADS, 0, stream>>>(
+      pro, static_cast<const TW*>(w), static_cast<const float*>(wscale),
+      static_cast<const float*>(bias), static_cast<const TIO*>(residual),
+      static_cast<TIO*>(out), ws, M, N, K, k_split, vec);
   if (ws != nullptr) {
     const size_t mn = (size_t)M * N;
-    splitk_reduce_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-        ws, splits, static_cast<const float*>(bias), static_cast<const T*>(residual),
-        static_cast<T*>(out), M, N);
+    splitk_reduce_kernel<TIO><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+        ws, splits, static_cast<const float*>(wscale), static_cast<const float*>(bias),
+        static_cast<const TIO*>(residual), static_cast<TIO*>(out), M, N);
   }
   return (int)cudaGetLastError();
 }

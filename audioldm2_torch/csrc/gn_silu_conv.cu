@@ -1,9 +1,19 @@
-// K1: GroupNorm + SiLU + 3x3 SAME conv, the UNet and VAE ResBlock body.
+// K1: GroupNorm + SiLU + 3x3 SAME conv, the UNet and VAE ResBlock body,
+// and K1q, its int8-weight variant.
 //
-// Replaces audioldm2_tpu/ops/resblock_pallas.py: gn_silu_conv3x3 (:130),
+// K1 replaces audioldm2_tpu/ops/resblock_pallas.py: gn_silu_conv3x3 (:130),
 // gn_silu_conv3x3_cat (:282), gn_silu_conv3x3_tiled (:426) and
-// gn_silu_conv3x3_cat_tiled (:520). The four Pallas variants exist only
-// because of the TPU's 16 MB scoped VMEM; here they are one design:
+// gn_silu_conv3x3_cat_tiled (:520). K1q replaces gn_silu_conv3x3_q (:157,
+// kernel _kernel_q :62): int8 taps [3, 3, Cin, Cout] with a per-output-
+// channel f32 scale applied once to the f32 accumulator, and the activation
+// rounded to bf16 whatever x's dtype (:73-74), so its GEMM runs on the
+// tensor cores even for f32 inputs and writes x's dtype. It halves the
+// weight bytes, which at CFG batch 2 are the larger share of the deep
+// levels' traffic (640x640x9 weights against M = 128 rows); the int8 tile
+// is converted to bf16 as it is stored to shared memory (exact), and the
+// concat parts go in as two pointers where the JAX package concatenates.
+// The four Pallas K1 variants exist only because of the TPU's 16 MB scoped
+// VMEM; here they are one design:
 //
 //   1. a2k_gn_stats: one block per (batch, group) reduces the group over
 //      the whole sample and both concat parts, two-pass (mean, then the
@@ -135,10 +145,12 @@ static int gn_stats_impl(const void* x1, const void* x2, int B, int S, int C1, i
   return (int)cudaGetLastError();
 }
 
+// wscale null: K1 (w in T); else K1q (w int8, bf16 tiles, output in T).
 template <typename T>
 static int conv_impl(const void* x1, const void* x2, const void* a, const void* c,
-                     const void* w, const void* bias, void* out, int B, int T_, int F, int C1,
-                     int C2, int Cout, void* ws, int k_split, int vec, cudaStream_t stream) {
+                     const void* w, const void* wscale, const void* bias, void* out, int B,
+                     int T_, int F, int C1, int C2, int Cout, void* ws, int k_split, int vec,
+                     cudaStream_t stream) {
   ConvPrologue<T> pro;
   pro.x1 = static_cast<const T*>(x1);
   pro.x2 = static_cast<const T*>(x2);
@@ -151,8 +163,11 @@ static int conv_impl(const void* x1, const void* x2, const void* a, const void* 
   pro.Cin = C1 + C2;
   const int M = B * T_ * F;
   const int K = 9 * (C1 + C2);
-  return launch_gemm<T>(pro, w, bias, nullptr, out, static_cast<float*>(ws), M, Cout, K,
-                        k_split, vec, stream);
+  if (wscale == nullptr)
+    return launch_gemm<T, T, T>(pro, w, nullptr, bias, nullptr, out, static_cast<float*>(ws), M,
+                                Cout, K, k_split, vec, stream);
+  return launch_gemm<bf16, int8_t, T>(pro, w, wscale, bias, nullptr, out,
+                                      static_cast<float*>(ws), M, Cout, K, k_split, vec, stream);
 }
 
 }  // namespace a2k
@@ -180,10 +195,25 @@ int a2k_gn_silu_conv3x3(const void* x1, const void* x2, const void* a, const voi
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return a2k::conv_impl<a2k::bf16>(x1, x2, a, c, w, bias, out, B, T, F, C1, C2, Cout, ws,
-                                     k_split, vec, s);
-  return a2k::conv_impl<float>(x1, x2, a, c, w, bias, out, B, T, F, C1, C2, Cout, ws, k_split,
-                               vec, s);
+    return a2k::conv_impl<a2k::bf16>(x1, x2, a, c, w, nullptr, bias, out, B, T, F, C1, C2, Cout,
+                                     ws, k_split, vec, s);
+  return a2k::conv_impl<float>(x1, x2, a, c, w, nullptr, bias, out, B, T, F, C1, C2, Cout, ws,
+                               k_split, vec, s);
+}
+
+// As a2k_gn_silu_conv3x3 with wq: int8 [3, 3, C1+C2, Cout] and wscale: f32
+// [Cout]; dtype is the activation's (and the output's).
+int a2k_gn_silu_conv3x3_q(const void* x1, const void* x2, const void* a, const void* c,
+                          const void* wq, const void* wscale, const void* bias, void* out, int B,
+                          int T, int F, int C1, int C2, int Cout, void* ws, int k_split, int vec,
+                          int dtype, void* stream) {
+  if (wscale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return a2k::conv_impl<a2k::bf16>(x1, x2, a, c, wq, wscale, bias, out, B, T, F, C1, C2,
+                                     Cout, ws, k_split, vec, s);
+  return a2k::conv_impl<float>(x1, x2, a, c, wq, wscale, bias, out, B, T, F, C1, C2, Cout, ws,
+                               k_split, vec, s);
 }
 
 const char* a2k_error_string(int code) {

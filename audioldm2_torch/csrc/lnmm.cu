@@ -1,5 +1,6 @@
 // K3: LayerNorm + matmul and K4: GEGLU gate + matmul + residual, the
-// spatial-transformer blocks' fused matmuls.
+// spatial-transformer blocks' fused matmuls; K3q/K4q, their int8-weight
+// variants; K5: matmul with an int8 weight.
 //
 // K3 replaces audioldm2_tpu/ops/lnmm_pallas.py: ln_matmul (:101, kernel
 // _ln_matmul_kernel :83): out = LN(x) . W[C, N] + bias, LN stats in f32
@@ -22,6 +23,19 @@
 // CFG batch 2 is set by the weight read and by the prologue (K4 evaluates
 // erff once per A element for every 64-wide N tile), not by the tensor
 // cores; the small-M products of the deep levels split K (common.cuh).
+//
+// The int8 serving mode (ops/quant.py): K3q and K4q are the w_scale paths
+// of the same Pallas kernels (ln_matmul :83-91 and geglu_matmul :202-209
+// with an int8 weight): the LN output or the gate product is rounded to
+// bf16 whatever the input dtype, the int8 weight tile is converted to bf16
+// as it is stored to shared memory (exact for |q| <= 127), and the
+// per-column scale multiplies the f32 accumulator. K5 replaces
+// lnmm_pallas.py: int8_matmul (:143, kernel _matmul_kernel :132), the
+// attention to_out projections: the same GEMM core with the input as its
+// own prologue, which is NOT rounded (the Pallas dot runs in x's dtype; an
+// f32 input takes the FMA path with the exact int8 values). They halve the
+// weight bytes the GEMM streams, the larger share of these small-M
+// products; int8 tensor-core MMA is later work.
 #include "common.cuh"
 
 namespace a2k {
@@ -100,29 +114,68 @@ struct GegluPrologue {
   }
 };
 
+// The input itself as the A operand (K5), in its own dtype.
+template <typename T>
+struct IdentityPrologue {
+  const T* x;
+  int K;
+
+  __device__ void block_init(int, int, float*) const {}
+
+  __device__ float operator()(int m, int k, const float*) const {
+    return to_f(x[(size_t)m * K + k]);
+  }
+
+  __device__ void eight(int m, int k, const float*, float v[8]) const {
+    load8(x + (size_t)m * K + k, v);
+  }
+};
+
+// wscale null: w in T and T tiles; else w int8 with bf16 tiles (the int8
+// w_scale paths round A to bf16); the output is in T either way.
+template <typename T, typename Prologue>
+static int lnmm_gemm(const Prologue& pro, const void* w, const void* wscale, const void* bias,
+                     const void* residual, void* out, int M, int N, int K, void* ws,
+                     int k_split, int vec, cudaStream_t stream) {
+  if (wscale == nullptr)
+    return launch_gemm<T, T, T>(pro, w, nullptr, bias, residual, out, static_cast<float*>(ws),
+                                M, N, K, k_split, vec, stream);
+  return launch_gemm<bf16, int8_t, T>(pro, w, wscale, bias, residual, out,
+                                      static_cast<float*>(ws), M, N, K, k_split, vec, stream);
+}
+
 template <typename T>
 static int ln_impl(const void* x, const void* gamma, const void* beta, const void* w,
-                   const void* bias, void* out, int M, int C, int N, float eps, void* ws,
-                   int k_split, int vec, cudaStream_t stream) {
+                   const void* wscale, const void* bias, void* out, int M, int C, int N,
+                   float eps, void* ws, int k_split, int vec, cudaStream_t stream) {
   LnPrologue<T> pro;
   pro.x = static_cast<const T*>(x);
   pro.gamma = static_cast<const float*>(gamma);
   pro.beta = static_cast<const float*>(beta);
   pro.C = C;
   pro.eps = eps;
-  return launch_gemm<T>(pro, w, bias, nullptr, out, static_cast<float*>(ws), M, N, C, k_split,
-                        vec, stream);
+  return lnmm_gemm<T>(pro, w, wscale, bias, nullptr, out, M, N, C, ws, k_split, vec, stream);
 }
 
 template <typename T>
-static int geglu_impl(const void* h, const void* w, const void* bias, const void* residual,
-                      void* out, int M, int F, int N, void* ws, int k_split, int vec,
-                      cudaStream_t stream) {
+static int geglu_impl(const void* h, const void* w, const void* wscale, const void* bias,
+                      const void* residual, void* out, int M, int F, int N, void* ws,
+                      int k_split, int vec, cudaStream_t stream) {
   GegluPrologue<T> pro;
   pro.h = static_cast<const T*>(h);
   pro.F = F;
-  return launch_gemm<T>(pro, w, bias, residual, out, static_cast<float*>(ws), M, N, F, k_split,
-                        vec, stream);
+  return lnmm_gemm<T>(pro, w, wscale, bias, residual, out, M, N, F, ws, k_split, vec, stream);
+}
+
+template <typename T>
+static int int8_impl(const void* x, const void* wq, const void* wscale, const void* bias,
+                     void* out, int M, int K, int N, void* ws, int k_split, int vec,
+                     cudaStream_t stream) {
+  IdentityPrologue<T> pro;
+  pro.x = static_cast<const T*>(x);
+  pro.K = K;
+  return launch_gemm<T, int8_t, T>(pro, wq, wscale, bias, nullptr, out, static_cast<float*>(ws),
+                                   M, N, K, k_split, vec, stream);
 }
 
 }  // namespace a2k
@@ -136,9 +189,23 @@ int a2k_ln_matmul(const void* x, const void* gamma, const void* beta, const void
                   int k_split, int vec, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return a2k::ln_impl<a2k::bf16>(x, gamma, beta, w, bias, out, M, C, N, eps, ws, k_split,
-                                   vec, s);
-  return a2k::ln_impl<float>(x, gamma, beta, w, bias, out, M, C, N, eps, ws, k_split, vec, s);
+    return a2k::ln_impl<a2k::bf16>(x, gamma, beta, w, nullptr, bias, out, M, C, N, eps, ws,
+                                   k_split, vec, s);
+  return a2k::ln_impl<float>(x, gamma, beta, w, nullptr, bias, out, M, C, N, eps, ws, k_split,
+                             vec, s);
+}
+
+// As a2k_ln_matmul with wq: int8 [C, N] and wscale: f32 [N].
+int a2k_ln_matmul_q(const void* x, const void* gamma, const void* beta, const void* wq,
+                    const void* wscale, const void* bias, void* out, int M, int C, int N,
+                    float eps, void* ws, int k_split, int vec, int dtype, void* stream) {
+  if (wscale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return a2k::ln_impl<a2k::bf16>(x, gamma, beta, wq, wscale, bias, out, M, C, N, eps, ws,
+                                   k_split, vec, s);
+  return a2k::ln_impl<float>(x, gamma, beta, wq, wscale, bias, out, M, C, N, eps, ws, k_split,
+                             vec, s);
 }
 
 // h: [M, 2F]; w: [F, N]; bias: f32 [N]; residual, out: [M, N];
@@ -148,8 +215,35 @@ int a2k_geglu_matmul(const void* h, const void* w, const void* bias, const void*
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return a2k::geglu_impl<a2k::bf16>(h, w, bias, residual, out, M, F, N, ws, k_split, vec, s);
-  return a2k::geglu_impl<float>(h, w, bias, residual, out, M, F, N, ws, k_split, vec, s);
+    return a2k::geglu_impl<a2k::bf16>(h, w, nullptr, bias, residual, out, M, F, N, ws, k_split,
+                                      vec, s);
+  return a2k::geglu_impl<float>(h, w, nullptr, bias, residual, out, M, F, N, ws, k_split, vec,
+                                s);
+}
+
+// As a2k_geglu_matmul with wq: int8 [F, N] and wscale: f32 [N].
+int a2k_geglu_matmul_q(const void* h, const void* wq, const void* wscale, const void* bias,
+                       const void* residual, void* out, int M, int F, int N, void* ws,
+                       int k_split, int vec, int dtype, void* stream) {
+  if (wscale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return a2k::geglu_impl<a2k::bf16>(h, wq, wscale, bias, residual, out, M, F, N, ws, k_split,
+                                      vec, s);
+  return a2k::geglu_impl<float>(h, wq, wscale, bias, residual, out, M, F, N, ws, k_split, vec,
+                                s);
+}
+
+// x: [M, K] (f32 or bf16, not rounded); wq: int8 [K, N]; wscale: f32 [N];
+// bias: f32 [N] or null; out: [M, N] in x's dtype; ws, vec as above.
+int a2k_int8_matmul(const void* x, const void* wq, const void* wscale, const void* bias,
+                    void* out, int M, int K, int N, void* ws, int k_split, int vec, int dtype,
+                    void* stream) {
+  if (wscale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return a2k::int8_impl<a2k::bf16>(x, wq, wscale, bias, out, M, K, N, ws, k_split, vec, s);
+  return a2k::int8_impl<float>(x, wq, wscale, bias, out, M, K, N, ws, k_split, vec, s);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 """Latent diffusion orchestration: conditioning -> DDIM -> VAE -> vocoder.
 
-Port of ``audioldm2_tpu/diffusion/latent_diffusion.py`` for the t5 slice.
-Conditioning runs once per call; the UNet, VAE and vocoder weights are cast
-to the config's compute dtype (bf16 for the shipped configs) as the JAX
-package's cast_tree does, while the latents and the sampler math stay
-float32. Cross-attention K/V and the fused self-attention QKV weights are
+Port of ``audioldm2_tpu/diffusion/latent_diffusion.py`` (the DDIM path).
+Conditioning runs once per call in float32; the UNet, VAE and vocoder
+weights are cast to the config's compute dtype (bf16 for the shipped
+configs) as the JAX package's cast_tree does, while the latents and the
+sampler math stay float32. Cross-attention K/V, the fused self-attention
+QKV weights and, in the int8 serving mode, the quantized UNet weights are
 built once per call, outside the step loop.
 """
 
@@ -29,47 +30,80 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
-    """(contexts, masks) per cross-attention slot, stacked (uncond || cond *
-    n_gen) for a [2 * B * n_gen] CFG batch, or the cond inputs alone when
-    guidance == 1; plus B * n_gen and whether CFG is on. Every ported
-    conditioner is a cross-attention one (no FiLM ``y`` yet)."""
-    cond = []
-    for s in cfg.conditioners:
-        _, (ctx, mask) = conditioners.encode(params["cond"][s.name], s, batch)
-        cond.append((_tile(ctx, n_gen), _tile(mask, n_gen)))
-    bsz = cond[0][0].shape[0]
-    if guidance == 1.0:
-        return [c for c, _ in cond], [m for _, m in cond], bsz, False
+def assemble_unet_inputs(outputs):
+    """[(kind, value)] per conditioner -> (y, context_list, mask_list):
+    "film" embeddings concatenate on the feature axis into the UNet's y,
+    "crossattn" (ctx, mask) pairs fill the context slots in order."""
+    y = None
     contexts, masks = [], []
-    for s, (ctx, mask) in zip(cfg.conditioners, cond):
-        _, (u_ctx, u_mask) = conditioners.unconditional(params["cond"][s.name], s, batch, bsz)
-        contexts.append(torch.cat([u_ctx, ctx]))
-        masks.append(torch.cat([u_mask, mask]))
-    return contexts, masks, bsz, True
+    for kind, value in outputs:
+        if kind == "film":
+            emb = value[:, 0] if value.dim() == 3 else value  # [B, 1, D] -> [B, D]
+            y = emb if y is None else torch.cat([y, emb], dim=-1)
+        elif kind == "crossattn":
+            contexts.append(value[0])
+            masks.append(value[1])
+        else:
+            raise ValueError(f"unknown conditioning kind {kind!r}")
+    return y, contexts, masks
+
+
+def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
+    """Encode every conditioner; returns ((y, contexts, masks), B * n_gen,
+    cfg_on): the UNet inputs stacked (uncond || cond * n_gen) for a
+    [2 * B * n_gen] CFG batch, or the cond inputs alone when guidance == 1."""
+    cond = [conditioners.encode(params["cond"][s.name], s, batch) for s in cfg.conditioners]
+    kind, v = cond[0]
+    bsz = (v[0] if kind == "crossattn" else v).shape[0] * n_gen
+
+    def tile(kind, v):
+        return (kind, (_tile(v[0], n_gen), _tile(v[1], n_gen)) if kind == "crossattn"
+                else _tile(v, n_gen))
+
+    cond = [tile(*c) for c in cond]
+    if guidance == 1.0:
+        return assemble_unet_inputs(cond), bsz, False
+    stacked = []
+    for s, (kind, vc) in zip(cfg.conditioners, cond):
+        kind_u, vu = conditioners.unconditional(params["cond"][s.name], s, batch, bsz)
+        assert kind_u == kind
+        if kind == "crossattn":
+            stacked.append((kind, (torch.cat([vu[0], vc[0]]), torch.cat([vu[1], vc[1]]))))
+        else:
+            squeeze = (lambda e: e[:, 0] if e.dim() == 3 else e)  # noqa: E731
+            stacked.append((kind, torch.cat([squeeze(vu), squeeze(vc)])))
+    return assemble_unet_inputs(stacked), bsz, True
+
+
+def prepare_unet(params, cfg: ModelConfig, contexts_c):
+    """The per-call UNet transforms, in the JAX package's order: the cast
+    to the compute dtype, the cross K/V, the fused self-attention QKV, then
+    (``weight_quant="int8"``) the int8 ST linears and ResBlock convs, whose
+    scales come from the cast weights and stay f32."""
+    unet_p = cast_floating(params["unet"], compute_dtype(cfg))
+    cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
+    unet_p = unet.fuse_self_qkv(unet_p)
+    if cfg.weight_quant == "int8":
+        unet_p = unet.quantize_resblock_convs(unet.quantize_st_linears(unet_p))
+    return unet_p, cross_kv
 
 
 def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
                    latent_t_size: int, n_gen: int, guidance: float, ddim_steps: int,
                    ddim_eta: float, generator: Optional[torch.Generator],
                    x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
-    if cfg.weight_quant is not None:
-        raise NotImplementedError(
-            "weight_quant is not ported to audioldm2_torch yet (ROADMAP queue 2: int8 kernels)"
-        )
-    contexts, masks, bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
-    device = contexts[0].device
+    (y, contexts, masks), bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
+    device = params["scale_factor"].device
     shape = (bsz, latent_t_size, cfg.latent_f_size, cfg.latent_channels)
     cdtype = compute_dtype(cfg)
 
-    unet_p = cast_floating(params["unet"], cdtype)
     contexts_c = [c.to(cdtype) for c in contexts]
-    cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
-    unet_p = unet.fuse_self_qkv(unet_p)
+    y_c = y.to(cdtype) if y is not None else None
+    unet_p, cross_kv = prepare_unet(params, cfg, contexts_c)
 
     def model_fn(x, t):
         eps = unet.apply_unet(unet_p, cfg.unet, x.to(cdtype), t, context_list=contexts_c,
-                              context_mask_list=masks, cross_kv=cross_kv)
+                              context_mask_list=masks, y=y_c, cross_kv=cross_kv)
         return eps.float()
 
     eps_fn = ddim.cfg_eps_fn(model_fn, guidance) if cfg_on else model_fn
@@ -110,9 +144,11 @@ class LatentDiffusionModel:
 
 def kernel_launches_per_generate(cfg: ModelConfig, ddim_steps: int) -> Dict[str, int]:
     """Kernel launches of one generate call on CUDA: ``ddim_steps`` UNet
-    forwards (one batched CFG call per step) and one VAE decode. The T5
-    encoder runs no kernel (masked, biased attention; RMSNorm matmuls)."""
-    per_step = unet.kernel_launches_per_forward(cfg.unet)
+    forwards (one batched CFG call per step; int8 kernels in the int8
+    serving mode) and one VAE decode (never quantized). The conditioners
+    run no kernel: T5, RoBERTa and GPT-2 attention is masked (and T5's
+    biased), and their matmuls are plain f32 products."""
+    per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant)
     dec = vae.kernel_launches_per_decode(cfg.vae)
     return {k: ddim_steps * per_step[k] + dec[k] for k in per_step}
 

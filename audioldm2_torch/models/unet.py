@@ -7,6 +7,10 @@ every attention level, then one cross-attention SpatialTransformer per
 context slot. The ResBlock bodies, the LN-fused projections, the GEGLU
 output and the self-attention go through the dispatch points of
 ``ops.nn``, which launch the Hopper kernels on CUDA tensors.
+
+The int8 serving mode (``quantize_st_linears``, ``quantize_resblock_convs``,
+JAX ``unet.py:294-349``) swaps weights for int8 ones with the same
+predicates; the dispatch points then launch the int8 kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from audioldm2_tpu.config import UNetConfig
-from audioldm2_torch.ops import nn
+from audioldm2_torch.ops import KERNEL_NAMES, nn, quant
 from audioldm2_torch.params import Init
 
 GN_EPS_RES = 1e-5
@@ -314,23 +318,113 @@ def apply_unet(params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Tensor
     return nn.conv2d(params["out_conv"], h)
 
 
-def kernel_launches_per_forward(cfg: UNetConfig) -> dict:
+_QUANT_KEYS = ("to_qkv", "to_q", "to_out", "proj_in", "proj_out")
+
+
+def _st_linear_quantizable(k: int, n: int) -> bool:
+    return k % 128 == 0 and n % 128 == 0
+
+
+def _conv_quantizable(cin: int, cout: int) -> bool:
+    return cin % 128 == 0 and cout % 128 == 0
+
+
+def quantize_st_linears(params):
+    """int8-quantize the spatial-transformer matmul weights read every
+    step (``_QUANT_KEYS`` under attn1, attn2 or ff, K and N multiples of
+    128). to_k/to_v stay: the cross K/V are precomputed once per call.
+    Apply after fuse_self_qkv and precompute_cross_kv, once per call."""
+
+    def pred(path, p):
+        if not path or path[-1] not in _QUANT_KEYS:
+            return False
+        if not any(seg in ("attn1", "attn2", "ff") for seg in path):
+            return False
+        return _st_linear_quantizable(*p["w"].shape)
+
+    return quant.quantize_tree(params, pred)
+
+
+def quantize_resblock_convs(params):
+    """int8-quantize the ResBlock 3x3 convs (``in_conv``/``out_conv``) whose
+    Cin and Cout are multiples of 128; the rest keep their weights."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                w = v.get("w") if isinstance(v, dict) else None
+                if (k in ("in_conv", "out_conv") and isinstance(w, torch.Tensor)
+                        and w.dim() == 4 and w.shape[0] == 3
+                        and _conv_quantizable(w.shape[2], w.shape[3])):
+                    out[k] = quant.quantize_conv3x3_dict(v)
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def _layout(cfg: UNetConfig):
+    """(ResBlock (Cin, Cout) pairs, transformer-ladder widths) of one
+    forward, in the order init_unet builds them."""
+    mc = cfg.model_channels
+    res, ladders = [], []
+    ch, ds, chans = mc, 1, [mc]
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            res.append((ch, mult * mc))
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                ladders.append(ch)
+            chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            chans.append(ch)
+            ds *= 2
+    res += [(ch, ch), (ch, ch)]
+    ladders.append(ch)
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            res.append((ch + chans.pop(), mult * mc))
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                ladders.append(ch)
+            if level and i == cfg.num_res_blocks:
+                ds //= 2
+    return res, ladders
+
+
+def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = None) -> dict:
     """Kernel launches of one apply_unet call with a context in every
-    cross slot: two K1 per ResBlock; per transformer block three K3 (the
-    self-attention's fused QKV, attn2's q or fused QKV, the GEGLU proj_in)
-    and one K4; K2 for every self-attention whose head_dim the kernel
-    takes (attn1 everywhere, attn2 in the self-ST)."""
-    n_levels = len(cfg.channel_mult)
-    n_res = n_levels * cfg.num_res_blocks + 2 + n_levels * (cfg.num_res_blocks + 1)
-    att_levels = [lvl for lvl in range(n_levels) if 2 ** lvl in cfg.attention_resolutions]
-    n_ladders = (len(att_levels) * (2 * cfg.num_res_blocks + 1)) + 1
-    sts_per_ladder = 1 + len(cfg.context_dims)
-    blocks = n_ladders * sts_per_ladder * cfg.transformer_depth
+    cross slot, from the config and, for ``weight_quant="int8"``, the
+    quantization predicates. Per ResBlock two convs: K1, or K1q where the
+    conv is quantized. Per transformer block three LN-fused projections
+    (the self-attention's fused QKV, attn2's q or fused QKV, the GEGLU
+    proj_in): K3 or K3q; the GEGLU proj_out: K4 or K4q; the two to_out
+    projections: K5 when quantized, else a plain matmul. K2 for every
+    self-attention whose head_dim the kernel takes (attn1 everywhere,
+    attn2 in the self-ST)."""
+    q = weight_quant == "int8"
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    res, ladders = _layout(cfg)
+    for cin, cout in res:
+        for a, b in ((cin, cout), (cout, cout)):
+            counts["gn_silu_conv3x3_q" if q and _conv_quantizable(a, b) else "gn_silu_conv3x3"] += 1
     kernel_heads = cfg.num_head_channels in (32, 64, 128)
-    self_attn = n_ladders * cfg.transformer_depth * (2 + len(cfg.context_dims))
-    return {
-        "gn_silu_conv3x3": 2 * n_res,
-        "flash_self_attention": self_attn if kernel_heads else 0,
-        "ln_matmul": 3 * blocks,
-        "geglu_matmul": blocks,
-    }
+    for c in ladders:
+        # (attn2's LN-fused projection, block count): the self-ST, then the cross-STs
+        for attn2_n, blocks in ((3 * c, cfg.transformer_depth),
+                                (c, len(cfg.context_dims) * cfg.transformer_depth)):
+            for k, n in ((c, 3 * c), (c, attn2_n), (c, 8 * c)):
+                lq = q and _st_linear_quantizable(k, n)
+                counts["ln_matmul_q" if lq else "ln_matmul"] += blocks
+            lq = q and _st_linear_quantizable(4 * c, c)
+            counts["geglu_matmul_q" if lq else "geglu_matmul"] += blocks
+            if q and _st_linear_quantizable(c, c):  # attn1 and attn2 to_out
+                counts["int8_matmul"] += 2 * blocks
+        if kernel_heads:
+            counts["flash_self_attention"] += cfg.transformer_depth * (2 + len(cfg.context_dims))
+    return counts

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from audioldm2_tpu.config import VAEConfig
-from audioldm2_torch.ops import nn
+from audioldm2_torch.ops import KERNEL_NAMES, nn
 from audioldm2_torch.params import Init
 
 GN_EPS = 1e-6
@@ -152,6 +152,6 @@ def kernel_launches_per_decode(cfg: VAEConfig) -> dict:
     512 in every shipped config, so it runs the plain path)."""
     n_res = 2 + len(cfg.ch_mult) * (cfg.num_res_blocks + 1)
     width = cfg.ch * cfg.ch_mult[-1]
-    return {"gn_silu_conv3x3": 2 * n_res,
-            "flash_self_attention": int(width in (32, 64, 128)),
-            "ln_matmul": 0, "geglu_matmul": 0}
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    counts.update(gn_silu_conv3x3=2 * n_res, flash_self_attention=int(width in (32, 64, 128)))
+    return counts

@@ -5,8 +5,13 @@ from __future__ import annotations
 from typing import Dict
 
 
+KERNEL_NAMES = ("gn_silu_conv3x3", "flash_self_attention", "ln_matmul", "geglu_matmul",
+                "gn_silu_conv3x3_q", "int8_matmul", "ln_matmul_q", "geglu_matmul_q")
+
+
 def kernel_wrappers():
-    """name -> wrapper of every hand-written kernel, in K1..K4 order."""
+    """name -> wrapper of every hand-written kernel, in KERNEL_NAMES order
+    (K1..K4, then the int8 kernels K1q, K5, K3q, K4q)."""
     from audioldm2_torch.ops import attention_kernel, lnmm_kernel, resblock_kernel
 
     return {
@@ -14,6 +19,10 @@ def kernel_wrappers():
         "flash_self_attention": attention_kernel.flash_self_attention,
         "ln_matmul": lnmm_kernel.ln_matmul,
         "geglu_matmul": lnmm_kernel.geglu_matmul,
+        "gn_silu_conv3x3_q": resblock_kernel.gn_silu_conv3x3_q,
+        "int8_matmul": lnmm_kernel.int8_matmul,
+        "ln_matmul_q": lnmm_kernel.ln_matmul_q,
+        "geglu_matmul_q": lnmm_kernel.geglu_matmul_q,
     }
 
 

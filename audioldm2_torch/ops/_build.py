@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface, which is loaded with ``ctypes``. The
+Each ``csrc/*.cu`` file compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``. The
 library lands in ``audioldm2_torch/_build/`` and is keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the library already there. Nothing builds at import: the first kernel call
@@ -31,7 +33,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -48,6 +50,11 @@ SIGNATURES = {
     "a2k_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "a2k_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "a2k_geglu_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _I, _I, _I, _P],
+    "a2k_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
+    "a2k_geglu_matmul_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "a2k_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,14 +109,26 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     cus, _ = _sources()
-    tmp = BUILD_DIR / f".tmp_{digest}_{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    tag = f"{digest}_{os.getpid()}"
+    tmp = BUILD_DIR / f".tmp_{tag}.so"
+    objs = [BUILD_DIR / f".{cu.stem}_{tag}.o" for cu in cus]
     t0 = time.perf_counter()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)] for cu, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]  # every process ends before any raise
+    log = "".join(outs)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    for o in objs:
+        o.unlink()
+    seconds = time.perf_counter() - t0
     log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
     BUILD_INFO.update(path=str(lib_path), seconds=seconds, cached=False, log=log)
@@ -157,7 +176,12 @@ def gemm_launch_args(device, m: int, n: int, k: int, vec_a: bool, w: torch.Tenso
     two waves of the card's SMs (the small-M products of the UNet's deep
     levels), keeping at least four K tiles per split; the f32 partial sums
     go to a workspace allocated here and are reduced in a fixed order. The
-    caller holds the returned workspace tensor over the launch."""
+    caller holds the returned workspace tensor over the launch.
+
+    The weight tile loads eight consecutive n at a time when N is a
+    multiple of 8 and the weight pointer is aligned to those eight
+    elements' load: 16 bytes for f32 (two float4) and bf16 (one uint4), 8
+    bytes for int8 (one int2)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
     ktiles = -(-k // GEMM_BK)
@@ -166,8 +190,23 @@ def gemm_launch_args(device, m: int, n: int, k: int, vec_a: bool, w: torch.Tenso
     if splits > 1:
         k_split = -(-ktiles // splits) * GEMM_BK
         ws = torch.empty((-(-k // k_split), m, n), device=device, dtype=torch.float32)
-    vec = (GEMM_VEC_A if vec_a else 0) | (GEMM_VEC_B if n % 8 == 0 and aligned16(w) else 0)
+    vec_b = n % 8 == 0 and w.data_ptr() % min(16, 8 * w.element_size()) == 0
+    vec = (GEMM_VEC_A if vec_a else 0) | (GEMM_VEC_B if vec_b else 0)
     return ws, k_split, vec
+
+
+def require_int8(name: str, wq: torch.Tensor, ws: torch.Tensor, device) -> None:
+    """An int8 weight (last dim N) and its f32 [N] scale, contiguous on ``device``."""
+    for t in (wq, ws):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: all tensors must be on {device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if wq.dtype != torch.int8 or ws.dtype != torch.float32:
+        raise TypeError(f"{name}: takes an int8 weight and an f32 scale, got {wq.dtype} "
+                        f"and {ws.dtype}")
+    if ws.shape != (wq.shape[-1],):
+        raise ValueError(f"{name}: scale {tuple(ws.shape)} is not [{wq.shape[-1]}]")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

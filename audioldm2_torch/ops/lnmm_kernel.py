@@ -1,9 +1,14 @@
-"""K3: LayerNorm + matmul, and K4: GEGLU gate + matmul + residual.
+"""K3: LayerNorm + matmul, K4: GEGLU gate + matmul + residual, their int8
+variants K3q/K4q, and K5: int8-weight matmul.
 
-Replace ``audioldm2_tpu/ops/lnmm_pallas.py:ln_matmul`` and
-``geglu_matmul`` (full-precision weights; the int8 ``w_scale`` paths are
-not ported yet) with ``csrc/lnmm.cu``: the LN output and the gate product
+K3 and K4 replace ``audioldm2_tpu/ops/lnmm_pallas.py:ln_matmul`` and
+``geglu_matmul`` with ``csrc/lnmm.cu``: the LN output and the gate product
 are computed as the GEMM loads its A tile and never reach device memory.
+K3q and K4q are the same kernels on the Pallas functions' ``w_scale``
+path: an int8 weight tile converted to bf16 in shared memory, the A tile
+rounded to bf16 whatever x's dtype, and the per-column scale applied to
+the f32 accumulator. K5 replaces ``lnmm_pallas.int8_matmul``: a plain
+GEMM with the int8 weight, whose activation stays in x's dtype.
 
 Each wrapper takes the plain version for CPU tensors and the kernel for
 CUDA tensors; the ``*_plain`` functions are the oracles.
@@ -17,6 +22,19 @@ import torch
 
 from audioldm2_torch.ops import _build
 from audioldm2_torch.ops import nn as _nn
+
+BF16 = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the Pallas kernels' rounding points)
+# ---------------------------------------------------------------------------
+
+
+def _scaled(acc: torch.Tensor, ws, bias) -> torch.Tensor:
+    """The int8 epilogue in f32: acc * ws (+ bias)."""
+    acc = acc * ws.float()
+    return acc if bias is None else acc + bias.float()
 
 
 def ln_matmul_plain(x, ln_scale, ln_bias, w, bias=None, eps: float = 1e-5):
@@ -42,33 +60,110 @@ def geglu_matmul_plain(h, w, bias, residual):
     return out.to(residual.dtype)
 
 
+def ln_matmul_q_plain(x, ln_scale, ln_bias, wq, ws, bias=None, eps: float = 1e-5):
+    """ln_matmul with an int8 weight (``_ln_matmul_kernel`` with w_scale):
+    LN in f32 rounded to bf16 whatever x's dtype, the int8 weight as exact
+    f32, an f32 product, * ws + bias, one rounding to x.dtype."""
+    y = _nn.layer_norm({"scale": ln_scale, "bias": ln_bias}, x.float(), eps)
+    return _scaled(y.to(BF16).float() @ wq.float(), ws, bias).to(x.dtype)
+
+
+def geglu_matmul_q_plain(h, wq, ws, bias, residual):
+    """geglu_matmul with an int8 weight (``_geglu_matmul_kernel`` with
+    w_scale): the gate product rounded to bf16 whatever h's dtype, an f32
+    product, * ws + bias + residual, one rounding to residual.dtype."""
+    a, gate = torch.chunk(h.float(), 2, dim=-1)
+    u = (a * _nn.gelu(gate)).to(BF16).float()
+    return (_scaled(u @ wq.float(), ws, bias) + residual.float()).to(residual.dtype)
+
+
+def int8_matmul_plain(x, wq, ws, bias=None):
+    """x @ dequant(wq) + bias as ``_matmul_kernel``: x is not rounded (the
+    int8 values are exact in any float type), an f32 product, * ws + bias,
+    one rounding to x.dtype."""
+    return _scaled(x.float() @ wq.float(), ws, bias).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _f32(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dev, torch.float32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _weight(name, x, w, ws, k):
+    """Checks of the [K, N] weight (in x.dtype, or int8 with its scale)."""
+    if ws is None:
+        _build.require_cuda(name, x, w)
+    else:
+        _build.require_int8(name, w, ws, x.device)
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} is not [{k}, N]")
+    return w.shape[1]
+
+
+def _ln(name, x, ln_scale, ln_bias, w, ws, bias, eps):
+    x = x.contiguous()
+    _build.require_cuda(name, x)
+    c = x.shape[-1]
+    n = _weight(name, x, w, ws, c)
+    m = x.numel() // c
+    dev = x.device
+    gamma, beta, b = _f32(ln_scale, dev), _f32(ln_bias, dev), _f32(bias, dev)
+    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
+    vec_a = c % 8 == 0 and _build.aligned16(x, gamma, beta)
+    work, k_split, vec = _build.gemm_launch_args(dev, m, n, c, vec_a, w)
+    lib = _build.lib()
+    head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr())
+    tail = (_ptr(b), out.data_ptr(), m, c, n, float(eps), _ptr(work), k_split, vec,
+            _build.dtype_code(x), _build.stream_of(x))
+    if ws is None:
+        rc = lib.a2k_ln_matmul(*head, *tail)
+    else:
+        rc = lib.a2k_ln_matmul_q(*head, ws.data_ptr(), *tail)
+    _build.check(rc, name)
+    return out
+
+
+def _geglu(name, h, w, ws, bias, residual):
+    h = h.contiguous()
+    residual = residual.contiguous()
+    _build.require_cuda(name, h, residual)
+    f2 = h.shape[-1]
+    f = f2 // 2
+    if f2 % 2:
+        raise ValueError(f"{name}: h [..., {f2}] has no value | gate halves")
+    n = _weight(name, h, w, ws, f)
+    m = h.numel() // f2
+    if residual.shape != (*h.shape[:-1], n):
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} is not [..., {n}]")
+    b = _f32(bias, h.device)
+    out = torch.empty_like(residual)
+    vec_a = f % 8 == 0 and _build.aligned16(h)
+    work, k_split, vec = _build.gemm_launch_args(h.device, m, n, f, vec_a, w)
+    lib = _build.lib()
+    tail = (b.data_ptr(), residual.data_ptr(), out.data_ptr(), m, f, n, _ptr(work), k_split,
+            vec, _build.dtype_code(h), _build.stream_of(h))
+    if ws is None:
+        rc = lib.a2k_geglu_matmul(h.data_ptr(), w.data_ptr(), *tail)
+    else:
+        rc = lib.a2k_geglu_matmul_q(h.data_ptr(), w.data_ptr(), ws.data_ptr(), *tail)
+    _build.check(rc, name)
+    return out
+
+
 def ln_matmul(x: torch.Tensor, ln_scale, ln_bias, w, bias: Optional[torch.Tensor] = None,
               eps: float = 1e-5) -> torch.Tensor:
     """x: [..., C]; w: [C, N]; returns [..., N] in x.dtype."""
     if not x.is_cuda:
         return ln_matmul_plain(x, ln_scale, ln_bias, w, bias, eps)
-    name = "ln_matmul"
-    w = w.to(x.dtype).contiguous()
-    x = x.contiguous()
-    _build.require_cuda(name, x, w)
-    c = x.shape[-1]
-    if w.dim() != 2 or w.shape[0] != c:
-        raise ValueError(f"{name}: weight {tuple(w.shape)} is not [{c}, N]")
-    n = w.shape[1]
-    m = x.numel() // c
-    dev = x.device
-    gamma = ln_scale.to(dev, torch.float32).contiguous()
-    beta = ln_bias.to(dev, torch.float32).contiguous()
-    b = None if bias is None else bias.to(dev, torch.float32).contiguous()
-    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
-    vec_a = c % 8 == 0 and _build.aligned16(x, gamma, beta)
-    ws, k_split, vec = _build.gemm_launch_args(dev, m, n, c, vec_a, w)
-    _build.check(_build.lib().a2k_ln_matmul(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), m, c, n, float(eps),
-        None if ws is None else ws.data_ptr(), k_split, vec,
-        _build.dtype_code(x), _build.stream_of(x),
-    ), name)
+    out = _ln("ln_matmul", x, ln_scale, ln_bias, w.to(x.dtype).contiguous(), None, bias, eps)
     ln_matmul.launches += 1
     return out
 
@@ -78,31 +173,57 @@ def geglu_matmul(h: torch.Tensor, w, bias, residual: torch.Tensor) -> torch.Tens
     residual + (a * gelu(g)) @ w + bias in residual.dtype."""
     if not h.is_cuda:
         return geglu_matmul_plain(h, w, bias, residual)
-    name = "geglu_matmul"
-    w = w.to(h.dtype).contiguous()
-    h = h.contiguous()
-    residual = residual.contiguous()
-    _build.require_cuda(name, h, w, residual)
-    f2 = h.shape[-1]
-    f = f2 // 2
-    if f2 % 2 or w.dim() != 2 or w.shape[0] != f:
-        raise ValueError(f"{name}: h [..., {f2}] does not match weight {tuple(w.shape)}")
-    n = w.shape[1]
-    m = h.numel() // f2
-    if residual.shape != (*h.shape[:-1], n):
-        raise ValueError(f"{name}: residual {tuple(residual.shape)} is not [..., {n}]")
-    b = bias.to(h.device, torch.float32).contiguous()
-    out = torch.empty_like(residual)
-    vec_a = f % 8 == 0 and _build.aligned16(h)
-    ws, k_split, vec = _build.gemm_launch_args(h.device, m, n, f, vec_a, w)
-    _build.check(_build.lib().a2k_geglu_matmul(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), residual.data_ptr(), out.data_ptr(),
-        m, f, n, None if ws is None else ws.data_ptr(), k_split, vec,
-        _build.dtype_code(h), _build.stream_of(h),
-    ), name)
+    out = _geglu("geglu_matmul", h, w.to(h.dtype).contiguous(), None, bias, residual)
     geglu_matmul.launches += 1
+    return out
+
+
+def ln_matmul_q(x: torch.Tensor, ln_scale, ln_bias, wq, ws,
+                bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+    """x: [..., C]; wq: int8 [C, N]; ws: f32 [N]; returns [..., N] in x.dtype."""
+    if not x.is_cuda:
+        return ln_matmul_q_plain(x, ln_scale, ln_bias, wq, ws, bias, eps)
+    out = _ln("ln_matmul_q", x, ln_scale, ln_bias, wq, _f32(ws, x.device), bias, eps)
+    ln_matmul_q.launches += 1
+    return out
+
+
+def geglu_matmul_q(h: torch.Tensor, wq, ws, bias, residual: torch.Tensor) -> torch.Tensor:
+    """h: [..., 2F]; wq: int8 [F, N]; ws: f32 [N]; residual: [..., N];
+    returns residual + (a * gelu(g)) @ dequant(wq) + bias in residual.dtype."""
+    if not h.is_cuda:
+        return geglu_matmul_q_plain(h, wq, ws, bias, residual)
+    out = _geglu("geglu_matmul_q", h, wq, _f32(ws, h.device), bias, residual)
+    geglu_matmul_q.launches += 1
+    return out
+
+
+def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [..., K]; wq: int8 [K, N]; ws: f32 [N]; returns
+    x @ dequant(wq) + bias in x.dtype."""
+    if not x.is_cuda:
+        return int8_matmul_plain(x, wq, ws, bias)
+    name = "int8_matmul"
+    x = x.contiguous()
+    _build.require_cuda(name, x)
+    k = x.shape[-1]
+    ws = _f32(ws, x.device)
+    n = _weight(name, x, wq, ws, k)
+    m = x.numel() // k
+    b = _f32(bias, x.device)
+    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+    vec_a = k % 8 == 0 and _build.aligned16(x)
+    work, k_split, vec = _build.gemm_launch_args(x.device, m, n, k, vec_a, wq)
+    _build.check(_build.lib().a2k_int8_matmul(
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), _ptr(b), out.data_ptr(), m, k, n,
+        _ptr(work), k_split, vec, _build.dtype_code(x), _build.stream_of(x),
+    ), name)
+    int8_matmul.launches += 1
     return out
 
 
 ln_matmul.launches = 0
 geglu_matmul.launches = 0
+ln_matmul_q.launches = 0
+geglu_matmul_q.launches = 0
+int8_matmul.launches = 0

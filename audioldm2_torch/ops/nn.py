@@ -7,13 +7,18 @@ Layout (same as ``audioldm2_tpu.ops.nn``): activations are channels-last
 every public function takes and returns the JAX layout.
 
 Numerics: normalizations and softmax compute in float32 and cast back to
-the input dtype; matmuls and convs run in the input dtype with the bias
-added in float32, as the JAX ops do with ``preferred_element_type``.
+the input dtype. Matmuls and convs take the bias inside the op
+(``F.linear``, ``F.conv*d(..., bias=)``), so the f32 accumulator and the
+bias are summed before the one rounding to the input dtype, as the JAX ops
+do with ``preferred_element_type``; a bias of another dtype than the input
+sends the op through float32 with one rounding at the end.
 
 Dispatch points (``gn_silu_conv``, ``gn_silu_conv_cat``, ``ln_linear``,
-``geglu_ff_out``, ``attention``) route by device: a CPU tensor takes the
-plain composition; a CUDA tensor takes the hand-written Hopper kernel,
-whose wrapper raises if the kernel cannot take the call.
+``geglu_ff_out``, ``attention``, and ``linear`` for an int8 weight) route
+by device: a CPU tensor takes the plain composition; a CUDA tensor takes
+the hand-written Hopper kernel, whose wrapper raises if the kernel cannot
+take the call. A parameter dict with ``"wq"`` (``ops.quant``) selects the
+int8 kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +35,21 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+def _one_rounding(op, x: torch.Tensor, w: torch.Tensor, b, **kw) -> torch.Tensor:
+    """op(x, w, bias=b) with the bias summed into the accumulator before the
+    one rounding to x.dtype. A bias in x.dtype goes into the op itself; any
+    other bias (an f32 bias on a bf16 input) runs the op in f32."""
+    if b is None or b.dtype == x.dtype:
+        return op(x, w.to(x.dtype), b, **kw)
+    return op(x.float(), w.to(x.dtype).float(), b.float(), **kw).to(x.dtype)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, p["w"].to(x.dtype))
-    if "b" in p:
-        y = y.float() + p["b"].float()
-    return y.to(x.dtype)
+    if "wq" in p:  # int8 weight (ops/quant.py): K5
+        from audioldm2_torch.ops import lnmm_kernel
+
+        return lnmm_kernel.int8_matmul(x, p["wq"], p["ws"], p.get("b"))
+    return _one_rounding(F.linear, x, p["w"].t(), p.get("b"))
 
 
 def _same_pads(size: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
@@ -49,7 +64,7 @@ def conv2d(p, x: torch.Tensor, stride: Tuple[int, int] = (1, 1),
            padding: Union[str, int] = "SAME") -> torch.Tensor:
     """x: [B, H, W, Cin]; p['w']: [kh, kw, Cin, Cout]; padding "SAME" (XLA's
     rule) or an int for both sides of both dims."""
-    w = p["w"].to(x.dtype)
+    w = p["w"]
     kh, kw = w.shape[0], w.shape[1]
     if padding == "SAME":
         pads = [_same_pads(x.shape[1], kh, stride[0]), _same_pads(x.shape[2], kw, stride[1])]
@@ -58,17 +73,17 @@ def conv2d(p, x: torch.Tensor, stride: Tuple[int, int] = (1, 1),
     xn = x.permute(0, 3, 1, 2)
     (ph0, ph1), (pw0, pw1) = pads
     if ph0 == ph1 and pw0 == pw1:
-        y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride, padding=(ph0, pw0))
+        pad = (ph0, pw0)
     else:
-        y = F.conv2d(F.pad(xn, (pw0, pw1, ph0, ph1)), w.permute(3, 2, 0, 1), stride=stride)
-    y = y.permute(0, 2, 3, 1).float() + p["b"].float()
-    return y.to(x.dtype).contiguous()
+        xn, pad = F.pad(xn, (pw0, pw1, ph0, ph1)), 0
+    y = _one_rounding(F.conv2d, xn, w.permute(3, 2, 0, 1), p["b"], stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv1d(p, x: torch.Tensor, stride: int = 1, padding: Union[str, int] = "SAME",
            dilation: int = 1) -> torch.Tensor:
     """x: [B, T, Cin]; p['w']: [k, Cin, Cout]; padding "SAME" or an int."""
-    w = p["w"].to(x.dtype)
+    w = p["w"]
     k = w.shape[0]
     if padding == "SAME":
         lo, hi = _same_pads(x.shape[1], k, stride, dilation)
@@ -78,9 +93,9 @@ def conv1d(p, x: torch.Tensor, stride: int = 1, padding: Union[str, int] = "SAME
     if lo != hi:
         xn = F.pad(xn, (lo, hi))
         lo = 0
-    y = F.conv1d(xn, w.permute(2, 1, 0), stride=stride, padding=lo, dilation=dilation)
-    y = y.permute(0, 2, 1).float() + p["b"].float()
-    return y.to(x.dtype).contiguous()
+    y = _one_rounding(F.conv1d, xn, w.permute(2, 1, 0), p["b"], stride=stride, padding=lo,
+                      dilation=dilation)
+    return y.permute(0, 2, 1).contiguous()
 
 
 def conv_transpose1d(p, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
@@ -89,10 +104,9 @@ def conv_transpose1d(p, x: torch.Tensor, stride: int, padding: int) -> torch.Ten
     p['w']: [k, Cout, Cin]; x: [B, T, Cin]. The JAX op flips the kernel and
     runs a dilated conv; torch's transposed conv is the same map with the
     weight as [Cin, Cout, k] unflipped."""
-    w = p["w"].to(x.dtype).permute(2, 1, 0)
-    y = F.conv_transpose1d(x.permute(0, 2, 1), w, stride=stride, padding=padding)
-    y = y.permute(0, 2, 1).float() + p["b"].float()
-    return y.to(x.dtype).contiguous()
+    y = _one_rounding(F.conv_transpose1d, x.permute(0, 2, 1), p["w"].permute(2, 1, 0), p["b"],
+                      stride=stride, padding=padding)
+    return y.permute(0, 2, 1).contiguous()
 
 
 def group_norm(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
@@ -199,7 +213,7 @@ def attention_plain(q, k, v, mask=None, bias=None, scale: Optional[float] = None
 
 
 # ---------------------------------------------------------------------------
-# Kernel dispatch points (JAX signatures, nn.py:332-426,606-714)
+# Kernel dispatch points (JAX signatures, nn.py:174-185,332-426,606-714)
 # ---------------------------------------------------------------------------
 
 
@@ -225,45 +239,56 @@ def attention(q, k, v, mask=None, bias=None, scale: Optional[float] = None):
 
 
 def gn_silu_conv(p_norm, p_conv, x, groups: int = 32, eps: float = 1e-5):
-    """GroupNorm -> SiLU -> 3x3 SAME conv (the ResBlock body)."""
-    from audioldm2_torch.ops import resblock_kernel
-
-    return resblock_kernel.gn_silu_conv3x3(
-        x, None, p_norm["scale"], p_norm["bias"], p_conv["w"], p_conv["b"], groups, eps
-    )
+    """GroupNorm -> SiLU -> 3x3 SAME conv (the ResBlock body): K1, or K1q
+    for an int8 weight."""
+    return _gn_silu_conv(p_norm, p_conv, x, None, groups, eps)
 
 
 def gn_silu_conv_cat(p_norm, p_conv, x1, x2, groups: int = 32, eps: float = 1e-5):
-    """gn_silu_conv over the virtual channel concat [x1 ; x2]."""
+    """gn_silu_conv over the virtual channel concat [x1 ; x2]. The int8
+    kernel takes the two parts as K1 does, where the JAX package
+    concatenates before its int8 kernel."""
+    return _gn_silu_conv(p_norm, p_conv, x1, x2, groups, eps)
+
+
+def _gn_silu_conv(p_norm, p_conv, x1, x2, groups: int, eps: float):
     from audioldm2_torch.ops import resblock_kernel
 
+    if "wq" in p_conv:
+        return resblock_kernel.gn_silu_conv3x3_q(
+            x1, x2, p_norm["scale"], p_norm["bias"], p_conv["wq"], p_conv["ws"], p_conv["b"],
+            groups, eps,
+        )
     return resblock_kernel.gn_silu_conv3x3(
         x1, x2, p_norm["scale"], p_norm["bias"], p_conv["w"], p_conv["b"], groups, eps
     )
 
 
 def conv1x1_cat(p, x1, x2):
-    """1x1 conv over the virtual concat [x1 ; x2] as two matmuls against
-    the row slices of the [1, 1, C1+C2, Cout] weight."""
-    w = p["w"][0, 0].to(x1.dtype)
-    c1 = x1.shape[-1]
-    y = torch.matmul(x1, w[:c1]).float() + torch.matmul(x2, w[c1:]).float()
-    if "b" in p:
-        y = y + p["b"].float()
-    return y.to(x1.dtype)
+    """1x1 conv over the channel concat [x1 ; x2] as one matmul against the
+    [C1+C2, Cout] weight, so both parts' products and the bias are summed
+    before the one rounding (the JAX op's two f32 einsums)."""
+    return _one_rounding(F.linear, torch.cat([x1, x2], -1), p["w"][0, 0].t(), p.get("b"))
 
 
 def ln_linear(p_norm, p_lin, x, eps: float = 1e-5):
-    """linear(layer_norm(x))."""
+    """linear(layer_norm(x)): K3, or K3q for an int8 weight."""
     from audioldm2_torch.ops import lnmm_kernel
 
+    if "wq" in p_lin:
+        return lnmm_kernel.ln_matmul_q(
+            x, p_norm["scale"], p_norm["bias"], p_lin["wq"], p_lin["ws"], p_lin.get("b"), eps
+        )
     return lnmm_kernel.ln_matmul(
         x, p_norm["scale"], p_norm["bias"], p_lin["w"], p_lin.get("b"), eps
     )
 
 
 def geglu_ff_out(p_lin, h, residual):
-    """residual + linear(a * gelu(gate)) for the GEGLU hidden h = [a | gate]."""
+    """residual + linear(a * gelu(gate)) for the GEGLU hidden h = [a | gate]:
+    K4, or K4q for an int8 weight."""
     from audioldm2_torch.ops import lnmm_kernel
 
+    if "wq" in p_lin:
+        return lnmm_kernel.geglu_matmul_q(h, p_lin["wq"], p_lin["ws"], p_lin["b"], residual)
     return lnmm_kernel.geglu_matmul(h, p_lin["w"], p_lin["b"], residual)

@@ -105,8 +105,9 @@ class Init:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 nonzero: bool = False) -> Dict:
     """Random tree with the JAX ``pipeline.init_params`` structure for the
-    UNet, VAE, vocoder and conditioners. The DDPM-level CLAP reranker is
-    not drawn: CLAP is not ported yet."""
+    UNet, VAE, vocoder and conditioners. Not drawn, since nothing ported
+    reads them: the DDPM-level CLAP reranker, CLAP's audio side, and nested
+    conditioners that feed no sequence generator input."""
     from audioldm2_torch.models import conditioners, unet, vae, vocoder
 
     ini = Init(generator, device, nonzero=nonzero)

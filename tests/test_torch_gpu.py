@@ -1,4 +1,5 @@
-"""The Hopper kernels against their plain PyTorch versions on the card.
+"""The Hopper kernels (K1-K4 and the int8 K1q, K3q, K4q, K5) against their
+plain PyTorch versions on the card.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -6,7 +7,10 @@ Without CUDA every test here skips (decided inside the ``cuda`` fixture,
 never at import, so every worker collects the same tests).
 
 Bound: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4 in
-f32, with TF32 off so the f32 plain path is a full-precision oracle."""
+f32, with TF32 off so the f32 plain path is a full-precision oracle. K1q,
+K3q and K4q round their activation to bf16 even in f32; their f32 inputs
+come from chip_smoke.exact_f32_args, which keeps that activation off the
+bf16 rounding boundaries."""
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import torch
 
 from audioldm2_torch import ops
 from audioldm2_torch.ops import attention_kernel, lnmm_kernel, resblock_kernel
+from chip_smoke import exact_f32_args
 
 pytestmark = pytest.mark.gpu
 
@@ -92,6 +97,86 @@ def test_geglu_matmul_kernel(cuda, dt, M, F, N):
     _check(lnmm_kernel.geglu_matmul(*args), lnmm_kernel.geglu_matmul_plain(*args), dt)
 
 
+def _int8(g, shape, device):
+    wq = torch.randint(-127, 128, shape, generator=g, device=device).to(torch.int8)
+    ws = torch.rand(shape[-1], generator=g, device=device) * 0.01 + 1e-3
+    return wq, ws
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,T,F,c1,c2,cout", [
+    (2, 32, 2, 640, 0, 640),       # deepest UNet level: split-K
+    (2, 64, 4, 640, 384, 384),     # decoder concat
+    (1, 6, 3, 64, 32, 96),         # a group straddling the split
+    (1, 6, 3, 60, 36, 100),        # channels not a multiple of 8: scalar loads
+])
+def test_gn_silu_conv3x3_q_kernel(cuda, dt, B, T, F, c1, c2, cout):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x1 = _rand(g, (B, T, F, c1), dt, cuda)
+    x2 = _rand(g, (B, T, F, c2), dt, cuda) if c2 else None
+    cin = c1 + c2
+    wq, ws = _int8(g, (3, 3, cin, cout), cuda)
+    args = (x1, x2, _rand(g, (cin,), torch.float32, cuda), _rand(g, (cin,), torch.float32, cuda),
+            wq, ws, _rand(g, (cout,), torch.float32, cuda), 32, 1e-5)
+    if dt == torch.float32:
+        args = exact_f32_args("gn_silu_conv3x3_q", args)
+    _check(resblock_kernel.gn_silu_conv3x3_q(*args),
+           resblock_kernel.gn_silu_conv3x3_q_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("M,C,N,with_bias", [(4096, 128, 384, False), (128, 640, 5120, True),
+                                             (100, 40, 36, True)])
+def test_ln_matmul_q_kernel(cuda, dt, M, C, N, with_bias):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wq, ws = _int8(g, (C, N), cuda)
+    args = (_rand(g, (1, M, C), dt, cuda, offset=2.0), _rand(g, (C,), torch.float32, cuda),
+            _rand(g, (C,), torch.float32, cuda), wq, ws,
+            _rand(g, (N,), torch.float32, cuda) if with_bias else None, 1e-5)
+    if dt == torch.float32:
+        args = exact_f32_args("ln_matmul_q", args)
+    _check(lnmm_kernel.ln_matmul_q(*args), lnmm_kernel.ln_matmul_q_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("M,F,N", [(128, 2560, 640), (4096, 512, 128), (50, 20, 12)])
+def test_geglu_matmul_q_kernel(cuda, dt, M, F, N):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    wq, ws = _int8(g, (F, N), cuda)
+    args = (_rand(g, (M, 2 * F), dt, cuda), wq, ws, _rand(g, (N,), torch.float32, cuda),
+            _rand(g, (M, N), dt, cuda))
+    if dt == torch.float32:
+        args = exact_f32_args("geglu_matmul_q", args)
+    _check(lnmm_kernel.geglu_matmul_q(*args), lnmm_kernel.geglu_matmul_q_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("M,K,N,with_bias", [(4096, 128, 128, True), (128, 640, 640, True),
+                                             (77, 36, 20, False)])
+def test_int8_matmul_kernel(cuda, dt, M, K, N, with_bias):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    wq, ws = _int8(g, (K, N), cuda)
+    args = (_rand(g, (2, M, K), dt, cuda), wq, ws,
+            _rand(g, (N,), torch.float32, cuda) if with_bias else None)
+    _check(lnmm_kernel.int8_matmul(*args), lnmm_kernel.int8_matmul_plain(*args), dt)
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(2, 16, 128, device=cuda)
+    wq = torch.zeros(128, 128, dtype=torch.int8, device=cuda)
+    ws = torch.ones(128, device=cuda)
+    with pytest.raises(TypeError):
+        lnmm_kernel.int8_matmul(x, wq.float(), ws)
+    with pytest.raises(ValueError):
+        lnmm_kernel.int8_matmul(x, wq[:64], ws)
+    with pytest.raises(ValueError):
+        lnmm_kernel.int8_matmul(x, wq, torch.ones(64, device=cuda))
+    with pytest.raises(ValueError):
+        lnmm_kernel.ln_matmul_q(x, ws, ws, wq.cpu(), ws)
+    with pytest.raises(ValueError):
+        resblock_kernel.gn_silu_conv3x3_q(x[:, None], None, ws, ws, wq[None, None], ws, ws)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 4, 4, 64, device=cuda)
     w = torch.randn(3, 3, 64, 64, device=cuda)
@@ -117,9 +202,13 @@ def test_launch_counters_count_launches(cuda):
     attention_kernel.flash_self_attention(q, q, q, 0.2)
     attention_kernel.flash_self_attention(q, q, q, 0.2)
     attention_kernel.self_attention_plain(q, q, q, 0.2)
+    wq = torch.zeros(32, 128, dtype=torch.int8, device=cuda)
+    lnmm_kernel.int8_matmul(q.reshape(1, 64, 64)[..., :32], wq, torch.ones(128, device=cuda))
+    lnmm_kernel.int8_matmul_plain(q.reshape(1, 64, 64)[..., :32], wq, torch.ones(128, device=cuda))
     counts = ops.launch_counts()
-    assert counts["flash_self_attention"] == 2
-    assert counts["gn_silu_conv3x3"] == counts["ln_matmul"] == counts["geglu_matmul"] == 0
+    assert counts.pop("flash_self_attention") == 2
+    assert counts.pop("int8_matmul") == 1
+    assert set(counts.values()) == {0}
 
 
 def test_tiny_slice_on_the_card_matches_cpu(cuda):

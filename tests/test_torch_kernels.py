@@ -165,4 +165,5 @@ def test_kernel_launch_counters_stay_zero_on_cpu(rng):
     q = _t(rng.standard_normal((1, 8, 1, 32)))
     attention_kernel.flash_self_attention(q, q, q, 0.2)
     assert ops.launch_counts() == {"gn_silu_conv3x3": 0, "flash_self_attention": 0,
-                                   "ln_matmul": 0, "geglu_matmul": 0}
+                                   "ln_matmul": 0, "geglu_matmul": 0, "gn_silu_conv3x3_q": 0,
+                                   "int8_matmul": 0, "ln_matmul_q": 0, "geglu_matmul_q": 0}

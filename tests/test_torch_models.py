@@ -28,6 +28,7 @@ from audioldm2_torch.models import t5 as tt5
 from audioldm2_torch.models import unet as tunet
 from audioldm2_torch.models import vae as tvae
 from audioldm2_torch.models import vocoder as tvoc
+from audioldm2_torch.ops import KERNEL_NAMES
 from audioldm2_torch.ops import nn as tnn
 from tiny import TINY_T5, tiny_t5_model_config
 
@@ -201,7 +202,7 @@ def test_kernel_launch_formula_matches_dispatch_calls(cfg, monkeypatch):
     """unet/vae.kernel_launches_* equal the calls that reach each kernel's
     dispatch point in one forward (head_dim 32 so self-attention takes K2)."""
     ucfg = dataclasses.replace(cfg.unet, num_head_channels=32)
-    calls = {"gn_silu_conv3x3": 0, "flash_self_attention": 0, "ln_matmul": 0, "geglu_matmul": 0}
+    calls = dict.fromkeys(KERNEL_NAMES, 0)
 
     def counting(name, fn, cond=None):
         def wrapped(*a, **kw):
@@ -240,8 +241,10 @@ def test_full_config_launch_counts():
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
 
     full = default_audioldm_config("audioldm_16k_crossattn_t5")
+    none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(full.unet) == {
-        "gn_silu_conv3x3": 44, "flash_self_attention": 48, "ln_matmul": 96, "geglu_matmul": 32}
+        **none, "gn_silu_conv3x3": 44, "flash_self_attention": 48, "ln_matmul": 96,
+        "geglu_matmul": 32}
     assert kernel_launches_per_generate(full, 200) == {
-        "gn_silu_conv3x3": 200 * 44 + 22, "flash_self_attention": 200 * 48,
+        **none, "gn_silu_conv3x3": 200 * 44 + 22, "flash_self_attention": 200 * 48,
         "ln_matmul": 200 * 96, "geglu_matmul": 200 * 32}

@@ -222,3 +222,56 @@ def test_import_does_not_import_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# ---------------------------------------------------------------------------
+# bf16: the bias is summed into the f32 accumulator before the one rounding
+# ---------------------------------------------------------------------------
+
+ROUND_ONCE_SHARE = 1e-3
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16))
+
+
+def _round_once_case(op, rng):
+    """(JAX op output, port op output), both bf16, on bf16-rounded inputs
+    at UNet-like widths."""
+    def p(*shape, scale):
+        return {"w": _bf16(rng.standard_normal(shape) * scale),
+                "b": _bf16(rng.standard_normal(shape[-1]))}
+
+    if op == "linear":
+        pp, x, kw = p(640, 640, scale=0.04), _bf16(rng.standard_normal((512, 640))), {}
+    elif op == "conv2d":
+        pp, x, kw = p(3, 3, 256, 128, scale=0.02), _bf16(rng.standard_normal((1, 16, 16, 256))), {}
+    elif op == "conv1d":
+        pp, x, kw = p(7, 128, 128, scale=0.03), _bf16(rng.standard_normal((2, 256, 128))), {}
+    elif op == "conv_transpose1d":
+        pp = {"w": _bf16(rng.standard_normal((16, 128, 256)) * 0.02),
+              "b": _bf16(rng.standard_normal(128))}
+        x, kw = _bf16(rng.standard_normal((1, 64, 256))), dict(stride=8, padding=4)
+    else:  # conv1x1_cat
+        pp, kw = p(1, 1, 640, 384, scale=0.04), {}
+        x = (_bf16(rng.standard_normal((2, 16, 16, 384))), _bf16(rng.standard_normal((2, 16, 16, 256))))
+    jp = {k: jnp.asarray(v) for k, v in pp.items()}
+    tp = {k: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16) for k, v in pp.items()}
+    xs = x if isinstance(x, tuple) else (x,)
+    want = getattr(jnn, op)(jp, *(jnp.asarray(a) for a in xs), **kw)
+    got = getattr(tnn, op)(tp, *(torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+                                 for a in xs), **kw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("op", ["linear", "conv2d", "conv1d", "conv_transpose1d", "conv1x1_cat"])
+def test_plain_op_rounds_once_in_bf16_like_jax(op):
+    """The JAX ops keep the f32 accumulator, add the bias and round once.
+    The port gives the bias to the op: the measured share of bf16 outputs
+    that differ from JAX's is 0 (linear) to 1.5e-4 (conv1d) on the CPU;
+    with the product rounded before the bias add it was 0.23-0.32."""
+    want, got = _round_once_case(op, np.random.default_rng(zlib.crc32(op.encode())))
+    assert got.shape == want.shape
+    share = float(np.mean(got != want))
+    assert share <= ROUND_ONCE_SHARE, share

@@ -6,6 +6,8 @@ prompt tokenized by the shared tokenizer, the same x_T, eta 0, 4 DDIM steps
 (the smallest count above 3 that divides the 1000-step schedule).
 Bar: mel MAE < 1e-3 (ROADMAP)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import jax
 
 import audioldm2_torch as at
 from audioldm2_tpu import pipeline as jpipe
-from test_torch_models import nonzero_tree
+from test_torch_models import _flatten, nonzero_tree
 from tiny import tiny_t5_model_config
 
 torch.set_num_threads(2)
@@ -74,11 +76,31 @@ def test_text_to_audio_refuses_candidates_without_clap(tmodel):
                          duration=0.32, duration_bucket=None)
 
 
-@pytest.mark.parametrize("name", ["audioldm2-full", "audioldm2-full-large-1150k",
-                                  "audioldm_48k", "audioldm2-speech-gigaspeech"])
+@pytest.mark.parametrize("name", ["audioldm2-full-large-1150k", "audioldm_48k",
+                                  "audioldm2-speech-gigaspeech"])
 def test_build_model_refuses_unported_families(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         at.build_model(model_name=name, device="cpu")
+
+
+def test_build_model_builds_audioldm2_full_and_refuses_candidates():
+    """The full-width audioldm2-full tree, drawn on the meta device (shapes
+    only: its 1.35 B parameters would take 5.4 GB on the CPU); the tiny
+    tree's structure is held against JAX in test_torch_full.py.
+    text_to_audio refuses n_candidate_gen_per_text > 1."""
+    model = at.build_model(model_name="audioldm2-full", device="meta")
+    p = model.ldm.params
+    seqgen = p["cond"]["crossattn_audiomae_generated"]
+    assert sorted(seqgen["cond"]) == ["crossattn_flan_t5", "film_clap_cond1"]
+    assert len(seqgen["gpt2"]["blocks"]) == 12
+    assert seqgen["cond"]["film_clap_cond1"]["clap"]["text_projection"]["lin2"]["w"].shape == (
+        512, 512)
+    cross = p["unet"]["middle_block"]["cross_sts"]
+    assert [st["blocks"][0]["attn2"]["to_k"]["w"].shape[0] for st in cross] == [768, 1024]
+    n = sum(math.prod(shape) for shape in _flatten(p).values())
+    assert 1.3e9 < n < 1.4e9, n
+    with pytest.raises(NotImplementedError, match="CLAP"):
+        at.text_to_audio(model, "rain", n_candidate_gen_per_text=3)
 
 
 def test_build_model_needs_a_card_for_cuda(monkeypatch):
