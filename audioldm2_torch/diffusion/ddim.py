@@ -6,8 +6,9 @@ descending t as a Python loop. Guidance is one batched model call with the
 unconditional half first and the conditional half second.
 
 Randomness comes from an explicit ``torch.Generator``. JAX's threefry and
-torch's Philox never give the same numbers, so ``x_T`` and the per-step
-``noise`` can be injected to feed both packages identical values.
+torch's Philox never give the same numbers, so ``x_T``, the per-step
+``noise`` and the inpainting blend's ``mask_noise`` can be injected to feed
+both packages identical values (here and in ``plms``/``ddpm_ancestral``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,44 @@ def q_sample(sqrt_acum, sqrt_1macum, x0, t, noise):
     return sqrt_acum[t] * x0 + sqrt_1macum[t] * noise
 
 
+def check_steps(n_steps: int, **injected) -> None:
+    """Every injected per-step noise tensor has one entry per loop step."""
+    for name, arr in injected.items():
+        if arr is not None and arr.shape[0] != n_steps:
+            raise ValueError(f"{name} has {arr.shape[0]} steps, the trajectory {n_steps}")
+
+
+def initial_latent(shape, x_T: Optional[torch.Tensor], generator, device) -> torch.Tensor:
+    """x_T in float32, or a draw from ``generator``."""
+    if x_T is not None:
+        return x_T.float()
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+class MaskBlend:
+    """The inpainting blend img <- q_sample(x0, t) * mask + (1 - mask) * img
+    (mask 1 = keep the original). Step i's q-sample noise is mask_noise[i],
+    or a draw from ``generator``. Without a mask it returns img unchanged."""
+
+    def __init__(self, schedule: DiffusionSchedule, mask, x0, mask_noise, generator, device):
+        self.mask, self.x0, self.mask_noise, self.generator = mask, x0, mask_noise, generator
+        if mask is not None:
+            self.sqrt_acum = torch.as_tensor(schedule.sqrt_alphas_cumprod, device=device)
+            self.sqrt_1macum = torch.as_tensor(schedule.sqrt_one_minus_alphas_cumprod,
+                                               device=device)
+
+    def __call__(self, img: torch.Tensor, t: int, i: int) -> torch.Tensor:
+        if self.mask is None:
+            return img
+        if self.mask_noise is not None:
+            qn = self.mask_noise[i].to(img)
+        else:
+            qn = torch.randn(self.x0.shape, generator=self.generator, device=img.device,
+                             dtype=torch.float32)
+        orig = q_sample(self.sqrt_acum, self.sqrt_1macum, self.x0, t, qn)
+        return orig * self.mask + (1.0 - self.mask) * img
+
+
 def ddim_sample(
     eps_fn: EpsFn,
     shape,
@@ -52,30 +91,27 @@ def ddim_sample(
     generator: Optional[torch.Generator] = None,
     device="cpu",
     noise: Optional[torch.Tensor] = None,
+    mask_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the DDIM trajectory in float32; returns x_0 latents [B, ...].
 
-    mask: [B, T, F, 1], 1 = keep the q-sampled x0 (inpainting blend).
-    t_start: run only the first ``t_start`` subset steps (descending).
-    noise: optional [n_steps, *shape] per-step noise for the sigma term, in
-    loop order; drawn from ``generator`` when None."""
+    mask: [B, T, F, 1], 1 = keep the q-sampled x0 (inpainting blend, before
+    the model call). t_start: run only the first ``t_start`` subset steps
+    (descending). noise: optional [n_steps, *shape] per-step noise for the
+    sigma term, mask_noise: optional [n_steps, *x0.shape] q-sample noise of
+    the blend, both in loop order and drawn from ``generator`` when None."""
     ts, alphas, alphas_prev, sigmas = make_ddim_params(schedule, num_steps, eta)
     if t_start is not None:
         ts, alphas, alphas_prev, sigmas = (a[:t_start] for a in (ts, alphas, alphas_prev, sigmas))
     rows = list(zip(ts[::-1], alphas[::-1], alphas_prev[::-1], sigmas[::-1]))
-    if noise is not None and noise.shape[0] != len(rows):
-        raise ValueError(f"noise has {noise.shape[0]} steps, the trajectory {len(rows)}")
+    check_steps(len(rows), noise=noise, mask_noise=mask_noise)
 
-    img = (x_T.float() if x_T is not None
-           else torch.randn(shape, generator=generator, device=device, dtype=torch.float32))
-    sqrt_acum = torch.as_tensor(schedule.sqrt_alphas_cumprod, device=img.device)
-    sqrt_1macum = torch.as_tensor(schedule.sqrt_one_minus_alphas_cumprod, device=img.device)
+    img = initial_latent(shape, x_T, generator, device)
+    blend = MaskBlend(schedule, mask, x0, mask_noise, generator, img.device)
     b = img.shape[0]
     one = np.float32(1.0)
     for i, (t, a_t, a_prev, sigma) in enumerate(rows):
-        if mask is not None:
-            qn = torch.randn(x0.shape, generator=generator, device=img.device, dtype=torch.float32)
-            img = q_sample(sqrt_acum, sqrt_1macum, x0, int(t), qn) * mask + (1.0 - mask) * img
+        img = blend(img, int(t), i)
         tb = torch.full((b,), int(t), dtype=torch.int32, device=img.device)
         e_t = eps_fn(img, tb)
         # coefficients in float32, as the JAX scan computes them

@@ -1,12 +1,14 @@
-"""Latent diffusion orchestration: conditioning -> DDIM -> VAE -> vocoder.
+"""Latent diffusion orchestration: conditioning -> sampler -> VAE ->
+vocoder, and the VAE encode of the sr/inpainting path.
 
-Port of ``audioldm2_tpu/diffusion/latent_diffusion.py`` (the DDIM path).
-Conditioning runs once per call in float32; the UNet, VAE and vocoder
-weights are cast to the config's compute dtype (bf16 for the shipped
-configs) as the JAX package's cast_tree does, while the latents and the
-sampler math stay float32. Cross-attention K/V, the fused self-attention
-QKV weights and, in the int8 serving mode, the quantized UNet weights are
-built once per call, outside the step loop.
+Port of ``audioldm2_tpu/diffusion/latent_diffusion.py``. Conditioning runs
+once per call in float32; the UNet, VAE and vocoder weights are cast to the
+config's compute dtype (bf16 for the shipped configs) as the JAX package's
+cast_tree does, while the latents and the sampler math stay float32.
+Cross-attention K/V, the fused self-attention QKV weights and, in the int8
+serving mode, the quantized UNet weights are built once per call, outside
+the step loop. The samplers are DDIM, PLMS and ancestral DDPM, each with the
+inpainting mask blend; the VAE encoder runs on the uncast f32 weights.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import torch
 
 from audioldm2_tpu.config import ModelConfig
 from audioldm2_tpu.diffusion.schedule import DiffusionSchedule
-from audioldm2_torch.diffusion import ddim
+from audioldm2_torch.diffusion import ddim, ddpm_ancestral, plms
 from audioldm2_torch.models import conditioners, unet, vae, vocoder
+from audioldm2_torch.ops.nn import full_f32
 from audioldm2_torch.params import cast_floating
+
+SAMPLERS = ("ddim", "plms", "ddpm")
 
 
 def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -90,8 +95,12 @@ def prepare_unet(params, cfg: ModelConfig, contexts_c):
 
 def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
                    latent_t_size: int, n_gen: int, guidance: float, ddim_steps: int,
-                   ddim_eta: float, generator: Optional[torch.Generator],
-                   x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+                   ddim_eta: float, generator: Optional[torch.Generator], use_mask: bool,
+                   sampler: str, x_T: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   mask_noise: Optional[torch.Tensor] = None):
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r} (ddim|plms|ddpm)")
     (y, contexts, masks), bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
     device = params["scale_factor"].device
     shape = (bsz, latent_t_size, cfg.latent_f_size, cfg.latent_channels)
@@ -107,8 +116,18 @@ def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
         return eps.float()
 
     eps_fn = ddim.cfg_eps_fn(model_fn, guidance) if cfg_on else model_fn
-    z = ddim.ddim_sample(eps_fn, shape, schedule, num_steps=ddim_steps, eta=ddim_eta,
-                         x_T=x_T, generator=generator, device=device, noise=noise)
+    inpaint = {}
+    if use_mask:
+        inpaint = dict(mask=_tile(batch["inpaint_mask"].float(), n_gen),
+                       x0=_tile(batch["inpaint_x0"].float(), n_gen), mask_noise=mask_noise)
+    common = dict(x_T=x_T, generator=generator, device=device, **inpaint)
+    if sampler == "plms":
+        z = plms.plms_sample(eps_fn, shape, schedule, num_steps=ddim_steps, **common)
+    elif sampler == "ddpm":
+        z = ddpm_ancestral.ddpm_sample(eps_fn, shape, schedule, noise=noise, **common)
+    else:
+        z = ddim.ddim_sample(eps_fn, shape, schedule, num_steps=ddim_steps, eta=ddim_eta,
+                             noise=noise, **common)
     z = z / params["scale_factor"]
     mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
     wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder, mel[..., 0])
@@ -126,29 +145,67 @@ class LatentDiffusionModel:
                                                  d.linear_start, d.linear_end)
 
     @torch.inference_mode()
+    def encode_mel(self, generator: Optional[torch.Generator], mel: torch.Tensor,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mel [B, T, M, 1] -> scale_factor * z, the posterior sample of the
+        f32 VAE encoder (uncast weights, no TF32). ``noise`` fixes the
+        posterior draw [B, T/f, M/f, embed_dim]; else it comes from
+        ``generator``."""
+        with full_f32():
+            mean, logvar = vae.encode_moments(self.params["vae"], self.cfg.vae, mel.float())
+            z = vae.sample_posterior(mean, logvar, generator=generator, noise=noise)
+        return self.params["scale_factor"] * z
+
+    @torch.inference_mode()
     def generate(self, batch: Dict, generator: Optional[torch.Generator], latent_t_size: int,
                  n_gen: int = 1, guidance: float = 3.5, ddim_steps: int = 200,
-                 ddim_eta: float = 1.0, x_T: Optional[torch.Tensor] = None,
-                 noise: Optional[torch.Tensor] = None):
-        """DDIM generation (the only sampler ported so far; PLMS, DDPM, the
-        inpainting mask and EMA weights are ROADMAP queue 1 items 13-14).
+                 ddim_eta: float = 1.0, use_mask: bool = False, sampler: str = "ddim",
+                 x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                 mask_noise: Optional[torch.Tensor] = None, use_ema: bool = False):
+        """Returns (waveform [B*n_gen, N], mel [B*n_gen, T, M, 1]) as float32
+        numpy arrays.
 
-        Returns (waveform [B*n_gen, N], mel [B*n_gen, T, M, 1]) as float32
-        numpy arrays. ``x_T`` fixes the initial latent [B*n_gen, T, F, C];
-        ``noise`` fixes the per-step DDIM noise (see ddim.ddim_sample)."""
-        wav, mel = _generate_impl(self.params, batch, self.cfg, self.schedule, latent_t_size,
+        ``sampler``: "ddim" (eta ``ddim_eta``), "plms" (``ddim_steps`` steps,
+        eta 0) or "ddpm" (all schedule steps). ``use_mask``: blend
+        ``batch["inpaint_x0"]`` where ``batch["inpaint_mask"]`` is 1 (both
+        [B, T, F, *], tiled n_gen times). ``use_ema``: denoise with
+        ``params["unet_ema"]``, which must be present. ``x_T`` fixes the
+        initial latent [B*n_gen, T, F, C]; ``noise`` the per-step sampler
+        noise and ``mask_noise`` the blend's q-sample noise (see the
+        samplers)."""
+        params = self.params
+        if use_ema:
+            if "unet_ema" not in params:
+                raise ValueError("use_ema=True but the parameter tree has no 'unet_ema' "
+                                 "(the checkpoint carried no model_ema.* shadow weights)")
+            params = {**params, "unet": params["unet_ema"]}
+        wav, mel = _generate_impl(params, batch, self.cfg, self.schedule, latent_t_size,
                                   n_gen, float(guidance), int(ddim_steps), float(ddim_eta),
-                                  generator, x_T=x_T, noise=noise)
+                                  generator, bool(use_mask), str(sampler), x_T=x_T, noise=noise,
+                                  mask_noise=mask_noise)
         return wav.cpu().numpy(), mel.cpu().numpy()
 
 
-def kernel_launches_per_generate(cfg: ModelConfig, ddim_steps: int) -> Dict[str, int]:
-    """Kernel launches of one generate call on CUDA: ``ddim_steps`` UNet
-    forwards (one batched CFG call per step; int8 kernels in the int8
-    serving mode) and one VAE decode (never quantized). The conditioners
-    run no kernel: T5, RoBERTa and GPT-2 attention is masked (and T5's
-    biased), and their matmuls are plain f32 products."""
-    per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant)
-    dec = vae.kernel_launches_per_decode(cfg.vae)
-    return {k: ddim_steps * per_step[k] + dec[k] for k in per_step}
+def unet_forwards(cfg: ModelConfig, ddim_steps: int, sampler: str = "ddim") -> int:
+    """UNet calls of one trajectory: one per DDIM step, one more for PLMS's
+    first step, one per schedule step for DDPM."""
+    if sampler == "plms":
+        return ddim_steps + 1
+    if sampler == "ddpm":
+        return cfg.diffusion.timesteps
+    return ddim_steps
 
+
+def kernel_launches_per_generate(cfg: ModelConfig, ddim_steps: int, sampler: str = "ddim",
+                                 encode: bool = False) -> Dict[str, int]:
+    """Kernel launches of one generate call on CUDA: the sampler's UNet
+    forwards (one batched CFG call each; int8 kernels in the int8 serving
+    mode), one VAE decode (never quantized) and, with ``encode`` (the
+    sr/inpainting path), one VAE encode. The conditioners run no kernel:
+    T5, RoBERTa and GPT-2 attention is masked (and T5's biased), and their
+    matmuls are plain f32 products."""
+    per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant)
+    n = unet_forwards(cfg, ddim_steps, sampler)
+    dec = vae.kernel_launches_per_decode(cfg.vae)
+    enc = vae.kernel_launches_per_encode(cfg.vae) if encode else dict.fromkeys(per_step, 0)
+    return {k: n * per_step[k] + dec[k] + enc[k] for k in per_step}

@@ -406,9 +406,10 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
     proj_in): K3 or K3q; the GEGLU proj_out: K4 or K4q; the two to_out
     projections: K5 when quantized, else a plain matmul. K2 for every
     self-attention whose head_dim the kernel takes (attn1 everywhere,
-    attn2 in the self-ST)."""
+    attn2 in the self-ST); K6 for the final GroupNorm+SiLU."""
     q = weight_quant == "int8"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
+    counts["group_norm_silu"] = 1  # out_norm
     res, ladders = _layout(cfg)
     for cin, cout in res:
         for a, b in ((cin, cout), (cout, cout)):

@@ -1,17 +1,21 @@
-"""KL-VAE decoder over mel spectrograms, in PyTorch.
+"""KL-VAE over mel spectrograms, in PyTorch.
 
-Port of the decode path of ``audioldm2_tpu/models/vae.py``: GroupNorm(32,
-eps 1e-6) + SiLU ResNet blocks through the K1 dispatch point, single-head
-mid-block attention over all T*M positions (head width 512, which the plain
-attention path takes, as XLA does in the JAX package), nearest-2x
-upsampling. Activations are [B, T, M, C]. ``init_vae`` draws the whole
-tree (encoder included) so it matches the JAX structure; the encoder's
-apply path is not ported yet.
+Port of ``audioldm2_tpu/models/vae.py``: GroupNorm(32, eps 1e-6) + SiLU
+ResNet blocks through the K1 dispatch point, single-head mid-block
+attention over all T*M positions (head width 512, which the plain
+attention path takes, as XLA does in the JAX package), the final
+GroupNorm+SiLU through K6, asymmetric-padded stride-2 (or time-stride-4)
+downsampling in the encoder and nearest upsampling in the decoder.
+Activations are [B, T, M, C]. The encoder serves the sr/inpainting path,
+which runs it in f32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from audioldm2_tpu.config import VAEConfig
 from audioldm2_torch.ops import KERNEL_NAMES, nn
@@ -122,6 +126,52 @@ def _attnblock(p, x):
     return x + nn.conv2d(p["proj_out"], out)
 
 
+def _downsample(p, x):
+    """Pad (0, 1) in T and M, then 3x3 stride 2 VALID."""
+    return nn.conv2d(p, F.pad(x, (0, 0, 0, 1, 0, 1)), stride=(2, 2), padding=0)
+
+
+def _downsample_ts4(p, x):
+    """DownsampleTimeStride4: pad (1, 2) in T and M, then 5x5 stride (4, 2)
+    VALID."""
+    return nn.conv2d(p, F.pad(x, (0, 0, 1, 2, 1, 2)), stride=(4, 2), padding=0)
+
+
+def apply_encoder(p, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
+    h = nn.conv2d(p["conv_in"], x)
+    for level in p["down"]:
+        for rb in level["block"]:
+            h = _resblock(rb, h)
+        if "downsample" in level:
+            h = _downsample(level["downsample"], h)
+        elif "downsample_ts4" in level:
+            h = _downsample_ts4(level["downsample_ts4"], h)
+    h = _resblock(p["mid"]["block_1"], h)
+    h = _attnblock(p["mid"]["attn_1"], h)
+    h = _resblock(p["mid"]["block_2"], h)
+    h = nn.group_norm_silu(p["norm_out"], h, eps=GN_EPS)
+    return nn.conv2d(p["conv_out"], h)
+
+
+def encode_moments(p, cfg: VAEConfig, x: torch.Tensor):
+    """x: [B, T, M, 1] mel -> (mean, logvar), each [B, T/f, M/f, embed_dim];
+    logvar clamped to [-30, 20]."""
+    moments = nn.conv2d(p["quant_conv"], apply_encoder(p["encoder"], cfg, x))
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    return mean, torch.clamp(logvar, -30.0, 20.0)
+
+
+def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + exp(logvar / 2) * noise, the noise drawn from ``generator``
+    unless given (as [B, T/f, M/f, embed_dim])."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean)
+
+
 def apply_decoder(p, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     h = nn.conv2d(p["conv_in"], z)
     h = _resblock(p["mid"]["block_1"], h)
@@ -145,13 +195,24 @@ def decode(p, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     return apply_decoder(p["decoder"], cfg, z)
 
 
-def kernel_launches_per_decode(cfg: VAEConfig) -> dict:
-    """Kernel launches of one decode: two K1 per decoder ResBlock (two
-    mid-block ResBlocks, num_res_blocks + 1 per level); the single-head
-    mid attention takes K2 only if its width is a kernel head_dim (it is
-    512 in every shipped config, so it runs the plain path)."""
-    n_res = 2 + len(cfg.ch_mult) * (cfg.num_res_blocks + 1)
+def _launches(cfg: VAEConfig, n_res: int) -> dict:
+    """Two K1 per ResBlock, one K6 (norm_out); the single-head mid attention
+    takes K2 only if its width is a kernel head_dim (it is 512 in every
+    shipped config, so it runs the plain path)."""
     width = cfg.ch * cfg.ch_mult[-1]
     counts = dict.fromkeys(KERNEL_NAMES, 0)
-    counts.update(gn_silu_conv3x3=2 * n_res, flash_self_attention=int(width in (32, 64, 128)))
+    counts.update(gn_silu_conv3x3=2 * n_res, group_norm_silu=1,
+                  flash_self_attention=int(width in (32, 64, 128)))
     return counts
+
+
+def kernel_launches_per_decode(cfg: VAEConfig) -> dict:
+    """Kernel launches of one decode: two mid-block ResBlocks and
+    num_res_blocks + 1 per level."""
+    return _launches(cfg, 2 + len(cfg.ch_mult) * (cfg.num_res_blocks + 1))
+
+
+def kernel_launches_per_encode(cfg: VAEConfig) -> dict:
+    """Kernel launches of one encode: num_res_blocks ResBlocks per level and
+    two mid-block ResBlocks."""
+    return _launches(cfg, 2 + len(cfg.ch_mult) * cfg.num_res_blocks)

@@ -6,13 +6,15 @@ from typing import Dict
 
 
 KERNEL_NAMES = ("gn_silu_conv3x3", "flash_self_attention", "ln_matmul", "geglu_matmul",
-                "gn_silu_conv3x3_q", "int8_matmul", "ln_matmul_q", "geglu_matmul_q")
+                "gn_silu_conv3x3_q", "int8_matmul", "ln_matmul_q", "geglu_matmul_q",
+                "group_norm_silu")
 
 
 def kernel_wrappers():
     """name -> wrapper of every hand-written kernel, in KERNEL_NAMES order
-    (K1..K4, then the int8 kernels K1q, K5, K3q, K4q)."""
-    from audioldm2_torch.ops import attention_kernel, lnmm_kernel, resblock_kernel
+    (K1..K4, the int8 kernels K1q, K5, K3q, K4q, then K6)."""
+    from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, lnmm_kernel
+    from audioldm2_torch.ops import resblock_kernel
 
     return {
         "gn_silu_conv3x3": resblock_kernel.gn_silu_conv3x3,
@@ -23,6 +25,7 @@ def kernel_wrappers():
         "int8_matmul": lnmm_kernel.int8_matmul,
         "ln_matmul_q": lnmm_kernel.ln_matmul_q,
         "geglu_matmul_q": lnmm_kernel.geglu_matmul_q,
+        "group_norm_silu": groupnorm_kernel.group_norm_silu,
     }
 
 

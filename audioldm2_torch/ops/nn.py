@@ -13,16 +13,21 @@ bias are summed before the one rounding to the input dtype, as the JAX ops
 do with ``preferred_element_type``; a bias of another dtype than the input
 sends the op through float32 with one rounding at the end.
 
-Dispatch points (``gn_silu_conv``, ``gn_silu_conv_cat``, ``ln_linear``,
-``geglu_ff_out``, ``attention``, and ``linear`` for an int8 weight) route
-by device: a CPU tensor takes the plain composition; a CUDA tensor takes
-the hand-written Hopper kernel, whose wrapper raises if the kernel cannot
-take the call. A parameter dict with ``"wq"`` (``ops.quant``) selects the
-int8 kernels.
+On a CUDA bf16 input cuDNN rounds the conv product before PyTorch adds
+the bias, so ``conv2d``, ``conv1d`` and ``conv_transpose1d`` convolve exact
+f32 copies there and round once (``_conv_one_rounding``).
+
+Dispatch points (``gn_silu_conv``, ``gn_silu_conv_cat``, ``group_norm_silu``,
+``ln_linear``, ``geglu_ff_out``, ``attention``, and ``linear`` for an int8
+weight) route by device: a CPU tensor takes the plain composition; a CUDA
+tensor takes the hand-written Hopper kernel, whose wrapper raises if the
+kernel cannot take the call. A parameter dict with ``"wq"`` (``ops.quant``)
+selects the int8 kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -35,6 +40,19 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def full_f32():
+    """Full-precision f32 matmuls and cuDNN convs (no TF32) inside the block,
+    whatever the process-wide settings; the previous settings come back on
+    exit."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
 def _one_rounding(op, x: torch.Tensor, w: torch.Tensor, b, **kw) -> torch.Tensor:
     """op(x, w, bias=b) with the bias summed into the accumulator before the
     one rounding to x.dtype. A bias in x.dtype goes into the op itself; any
@@ -42,6 +60,20 @@ def _one_rounding(op, x: torch.Tensor, w: torch.Tensor, b, **kw) -> torch.Tensor
     if b is None or b.dtype == x.dtype:
         return op(x, w.to(x.dtype), b, **kw)
     return op(x.float(), w.to(x.dtype).float(), b.float(), **kw).to(x.dtype)
+
+
+def _conv_one_rounding(op, x: torch.Tensor, w: torch.Tensor, b, **kw) -> torch.Tensor:
+    """_one_rounding for the cuDNN convs. On a CUDA bf16 input cuDNN returns
+    the product already rounded to bf16 and PyTorch adds the bias after it
+    (two roundings), so the conv runs on exact f32 copies of the bf16
+    operands with an f32 bias, and the sum is rounded once. TF32 stays off
+    there: cuDNN's TF32 convs of those copies left 0.1-0.2% of outputs off
+    one rounding on an H100, full f32 none."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16):
+        return _one_rounding(op, x, w, b, **kw)
+    with full_f32():
+        y = op(x.float(), w.to(x.dtype).float(), None if b is None else b.float(), **kw)
+    return y.to(x.dtype)
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +108,8 @@ def conv2d(p, x: torch.Tensor, stride: Tuple[int, int] = (1, 1),
         pad = (ph0, pw0)
     else:
         xn, pad = F.pad(xn, (pw0, pw1, ph0, ph1)), 0
-    y = _one_rounding(F.conv2d, xn, w.permute(3, 2, 0, 1), p["b"], stride=stride, padding=pad)
+    y = _conv_one_rounding(F.conv2d, xn, w.permute(3, 2, 0, 1), p["b"], stride=stride,
+                           padding=pad)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -93,8 +126,8 @@ def conv1d(p, x: torch.Tensor, stride: int = 1, padding: Union[str, int] = "SAME
     if lo != hi:
         xn = F.pad(xn, (lo, hi))
         lo = 0
-    y = _one_rounding(F.conv1d, xn, w.permute(2, 1, 0), p["b"], stride=stride, padding=lo,
-                      dilation=dilation)
+    y = _conv_one_rounding(F.conv1d, xn, w.permute(2, 1, 0), p["b"], stride=stride,
+                           padding=lo, dilation=dilation)
     return y.permute(0, 2, 1).contiguous()
 
 
@@ -104,8 +137,8 @@ def conv_transpose1d(p, x: torch.Tensor, stride: int, padding: int) -> torch.Ten
     p['w']: [k, Cout, Cin]; x: [B, T, Cin]. The JAX op flips the kernel and
     runs a dilated conv; torch's transposed conv is the same map with the
     weight as [Cin, Cout, k] unflipped."""
-    y = _one_rounding(F.conv_transpose1d, x.permute(0, 2, 1), p["w"].permute(2, 1, 0), p["b"],
-                      stride=stride, padding=padding)
+    y = _conv_one_rounding(F.conv_transpose1d, x.permute(0, 2, 1), p["w"].permute(2, 1, 0),
+                           p["b"], stride=stride, padding=padding)
     return y.permute(0, 2, 1).contiguous()
 
 
@@ -123,7 +156,10 @@ def group_norm(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch
 
 
 def group_norm_silu(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    return silu(group_norm(p, x, groups, eps))
+    """GroupNorm -> SiLU (the UNet's out_norm, the VAE's norm_out): K6."""
+    from audioldm2_torch.ops import groupnorm_kernel
+
+    return groupnorm_kernel.group_norm_silu(x, p["scale"], p["bias"], groups, eps)
 
 
 def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

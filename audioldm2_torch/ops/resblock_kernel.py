@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from audioldm2_torch.ops import _build
+from audioldm2_torch.ops import _build, groupnorm_kernel
 from audioldm2_torch.ops import nn as _nn
 
 BF16 = torch.bfloat16
@@ -34,7 +34,7 @@ def gn_silu_conv3x3_plain(x1, x2, gn_scale, gn_bias, w, b, groups: int = 32,
     rounded once. In f32 this is the JAX package's plain composition."""
     dt = x1.dtype
     x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
-    h = _nn.group_norm_silu({"scale": gn_scale, "bias": gn_bias}, x.float(), groups, eps)
+    h = groupnorm_kernel.group_norm_silu_plain(x.float(), gn_scale, gn_bias, groups, eps)
     y = _nn.conv2d({"w": w.to(dt).float(), "b": b}, h.to(dt).float())
     return y.to(dt)
 
@@ -47,7 +47,7 @@ def gn_silu_conv3x3_q_plain(x1, x2, gn_scale, gn_bias, wq, ws, b, groups: int = 
     as exact f32, the conv accumulated in f32, then acc * ws + b and one
     rounding to x1.dtype."""
     x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
-    h = _nn.group_norm_silu({"scale": gn_scale, "bias": gn_bias}, x.float(), groups, eps)
+    h = groupnorm_kernel.group_norm_silu_plain(x.float(), gn_scale, gn_bias, groups, eps)
     zero = torch.zeros(wq.shape[-1], device=x1.device)
     acc = _nn.conv2d({"w": wq.float(), "b": zero}, h.to(BF16).float())
     return (acc * ws.float() + b.float()).to(x1.dtype)

@@ -1,12 +1,15 @@
-"""Public pipeline API of the port: build_model / text_to_audio.
+"""Public pipeline API of the port: build_model / text_to_audio /
+super_resolution_and_inpainting.
 
 Port of ``audioldm2_tpu/pipeline.py`` for the t5 family
 (audioldm_16k_crossattn_t5) and the audioldm2-full family, each in bf16 or
 in the int8 serving mode (``weight_quant="int8"`` or
 ``AUDIOLDM2_WEIGHT_QUANT=int8``). Host side: tokenization through the JAX
 package's jax-free ``utils.text`` (so both packages see the same ids, hash
-fallback included), batch assembly and timing. Device side: conditioning
--> CFG DDIM -> VAE decode -> vocoder in ``diffusion.latent_diffusion``.
+fallback included), wav reading through its jax-free ``utils.audio_io``,
+batch assembly and timing. Device side: conditioning -> CFG sampler (DDIM,
+PLMS or DDPM) -> VAE decode -> vocoder in ``diffusion.latent_diffusion``;
+for sr/inpainting also the log-mel (``ops.stft``) and the f32 VAE encode.
 
 No checkpoint is loaded yet: ``build_model`` draws random weights on the
 device from ``seed``, or takes an existing parameter tree (the JAX
@@ -19,15 +22,17 @@ import dataclasses
 import math
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from audioldm2_tpu.config import CLAPConfig, ModelConfig, default_audioldm_config
 from audioldm2_tpu.utils import text as text_utils
+from audioldm2_tpu.utils.audio_io import read_wav_file
 from audioldm2_torch import params as params_m
 from audioldm2_torch.diffusion.latent_diffusion import LatentDiffusionModel
 from audioldm2_torch.models import conditioners
+from audioldm2_torch.ops.stft import MelSpectrogram
 
 
 def _t5_max_length(cfg: ModelConfig) -> int:
@@ -79,6 +84,13 @@ class AudioLDM2:
                        if any(s.kind in ("flan_t5", "sequence_gen") for s in cfg.conditioners)
                        else None)
         self.clap_tok = text_utils.clap_tokenizer(_first_clap_cfg(cfg))
+        pre = cfg.preprocessing
+        self.mel = MelSpectrogram(
+            filter_length=pre.filter_length, hop_length=pre.hop_length,
+            win_length=pre.win_length, n_mel_channels=pre.n_mel_channels,
+            sampling_rate=pre.sampling_rate, mel_fmin=pre.mel_fmin, mel_fmax=pre.mel_fmax,
+            device=self.device,
+        )
         self.last_timings: Dict[str, float] = {}
 
     def make_batch(self, text: str, batchsize: int = 1) -> Dict[str, torch.Tensor]:
@@ -135,16 +147,13 @@ def build_model(config=None, device="cuda", model_name: str = "audioldm_16k_cros
     return AudioLDM2(cfg, params, device)
 
 
-def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
-                  ddim_steps: int = 200, duration: float = 10, batchsize: int = 1,
-                  guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 1,
-                  duration_bucket: Optional[float] = 2.5):
-    """Generate [batchsize, 1, N] float32 waveforms in [-1, 1] (numpy) with
-    the DDIM sampler (eta 1, as the JAX package's generate).
+def _record_timings(model: AudioLDM2, duration: float, batchsize: int, **stages) -> None:
+    total = sum(stages.values())
+    model.last_timings = {**stages, "total_s": total,
+                          "x_realtime": duration * batchsize / total if total > 0 else 0.0}
 
-    ``n_candidate_gen_per_text > 1`` needs the CLAP reranker (its audio
-    tower is not ported yet) and raises rather than returning an unranked
-    candidate."""
+
+def _check_request(transcription: str, n_candidate_gen_per_text: int) -> None:
     if n_candidate_gen_per_text != 1:
         raise NotImplementedError(
             "n_candidate_gen_per_text > 1 needs CLAP reranking, whose audio tower is not "
@@ -152,6 +161,22 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
         )
     if transcription:
         raise NotImplementedError("transcriptions need the TTS family (ROADMAP queue 1 item 12)")
+
+
+def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
+                  ddim_steps: int = 200, duration: float = 10, batchsize: int = 1,
+                  guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 1,
+                  duration_bucket: Optional[float] = 2.5, sampler: str = "ddim",
+                  use_ema: bool = False):
+    """Generate [batchsize, 1, N] float32 waveforms in [-1, 1] (numpy).
+
+    ``sampler``: "ddim" (eta 1, as the JAX package's generate), "plms"
+    (``ddim_steps`` steps) or "ddpm" (the full ancestral schedule).
+    ``use_ema`` denoises with the EMA UNet weights (``params["unet_ema"]``).
+    ``n_candidate_gen_per_text > 1`` needs the CLAP reranker (its audio
+    tower is not ported yet) and raises rather than returning an unranked
+    candidate."""
+    _check_request(transcription, n_candidate_gen_per_text)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     t0 = time.perf_counter()
     batch = model.make_batch(text, batchsize=batchsize)
@@ -159,10 +184,63 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
     gen_duration = round_up_duration(duration, duration_bucket) if duration_bucket else duration
     latent_t_size = int(gen_duration * model.cfg.latent_t_per_second)
     wav, _ = model.ldm.generate(batch, gen, latent_t_size=latent_t_size, n_gen=1,
-                                guidance=guidance_scale, ddim_steps=ddim_steps)
+                                guidance=guidance_scale, ddim_steps=ddim_steps, sampler=sampler,
+                                use_ema=use_ema)
     t2 = time.perf_counter()
-    total = t2 - t0
-    model.last_timings = {"tokenize_s": t1 - t0, "generate_s": t2 - t1, "total_s": total,
-                          "x_realtime": duration * batchsize / total if total > 0 else 0.0}
+    _record_timings(model, duration, batchsize, tokenize_s=t1 - t0, generate_s=t2 - t1)
     n_samples = int(duration * model.cfg.preprocessing.sampling_rate)
     return wav[:, None, :n_samples]
+
+
+def latent_inpaint_mask(shape, time_ratio: Tuple[float, float],
+                        freq_ratio: Tuple[float, float]) -> torch.Tensor:
+    """[B, h, w, 1] ones with the latent frames int(h * t0):int(h * t1) and
+    the latent bins int(w * f0):int(w * f1) set to 0 (0 = regenerate)."""
+    b, h, w = shape[:3]
+    mask = torch.ones((b, h, w, 1))
+    mask[:, int(h * time_ratio[0]):int(h * time_ratio[1])] = 0.0
+    mask[:, :, int(w * freq_ratio[0]):int(w * freq_ratio[1])] = 0.0
+    return mask
+
+
+def super_resolution_and_inpainting(
+    model: AudioLDM2, text: str, transcription: str = "",
+    original_audio_file_path: Optional[str] = None, seed: int = 42, ddim_steps: int = 200,
+    duration: float = 10, batchsize: int = 1, guidance_scale: float = 2.5,
+    n_candidate_gen_per_text: int = 1,
+    time_mask_ratio_start_and_end: Tuple[float, float] = (0.40, 0.60),
+    freq_mask_ratio_start_and_end: Tuple[float, float] = (1.0, 1.0), sampler: str = "ddim",
+):
+    """Regenerate the masked part of a recording: [batchsize, 1, N] float32
+    waveforms in [-1, 1] (numpy).
+
+    The wav is read (mono, resampled, normalized) to the mel frames of
+    ``duration``, turned into the log-mel fbank, encoded by the f32 VAE, and
+    generated with the latent mask (time span ``time_mask_ratio_start_and_end``
+    and frequency span ``freq_mask_ratio_start_and_end`` regenerated, the
+    rest blended from the q-sampled encoding at every step)."""
+    _check_request(transcription, n_candidate_gen_per_text)
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(int(seed))
+    t0 = time.perf_counter()
+    sr = cfg.preprocessing.sampling_rate
+    # mel frames = latent frames per second x the VAE's downsampling
+    target_frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+    wav_in = read_wav_file(original_audio_file_path,
+                           target_frames * cfg.preprocessing.hop_length, target_sr=sr)
+    fbank = model.mel.fbank(wav_in, target_length=target_frames)  # [1, T, M]
+    mel_in = fbank[..., None].repeat(batchsize, 1, 1, 1)
+    batch = model.make_batch(text, batchsize=batchsize)
+    z0 = model.ldm.encode_mel(gen, mel_in)
+    batch["inpaint_mask"] = latent_inpaint_mask(
+        z0.shape, time_mask_ratio_start_and_end, freq_mask_ratio_start_and_end).to(z0.device)
+    batch["inpaint_x0"] = z0
+    if z0.is_cuda:  # prepare_s covers the encode, not only its enqueue
+        torch.cuda.synchronize(z0.device)
+    t1 = time.perf_counter()
+    wav, _ = model.ldm.generate(batch, gen, latent_t_size=z0.shape[1], n_gen=1,
+                                guidance=guidance_scale, ddim_steps=ddim_steps, use_mask=True,
+                                sampler=sampler)
+    t2 = time.perf_counter()
+    _record_timings(model, duration, batchsize, prepare_s=t1 - t0, generate_s=t2 - t1)
+    return wav[:, None, :int(duration * sr)]

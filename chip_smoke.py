@@ -3,34 +3,43 @@
 
     python3 chip_smoke.py            # full run: 10 s clips, 200 DDIM steps
 
-Three main paths, each through build_model / text_to_audio on random
-weights at full published width:
-  t5      audioldm_16k_crossattn_t5, bf16 (kernels K1-K4);
+Paths, each through the public API on random weights at full published
+width:
+  t5      audioldm_16k_crossattn_t5, bf16, text_to_audio (kernels K1-K4, K6),
+          with one PLMS and one DDPM (1000-step) request besides DDIM;
   full    audioldm2-full (CLAP text tower, GPT-2 sequence generator, two
-          cross-attention slots), bf16 (K1-K4);
+          cross-attention slots), bf16, text_to_audio (K1-K4, K6);
+  sr      audioldm2-full through super_resolution_and_inpainting on a
+          synthesized 10 s 16 kHz wav: log-mel, f32 VAE encode (K1 and K6
+          in f32), masked DDIM at guidance 2.5;
   full8   audioldm2-full in the int8 serving mode (weight_quant="int8":
-          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder).
+          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder, K6).
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
      nvcc build (sm_90a, one nvcc per source, in parallel) with ptxas
      registers and spills;
-  2. rounding: whether the plain ops' cuBLAS/cuDNN calls in bf16 round the
-     product plus bias once (printed, not a check);
-  3. kernels: every distinct shape the t5 path gives K1-K4 (UNet at 10 s
-     and CFG batch 2, VAE decode at batch 1) and the full8 path gives the
-     int8 kernels (its UNet), kernel against its plain PyTorch version in
-     bf16, plus one shape per kernel in f32 and a VAE shape offset by +10
-     (GroupNorm cancellation); times of both;
+  2. rounding: the plain bf16 convs (cuDNN) must round the f32 product plus
+     bias once: at most 1e-3 of outputs may differ from one rounding (the
+     cuBLAS linear is printed); the convs' times before and after the repair;
+  3. kernels: every distinct shape the t5 path gives K1-K4 and K6 (UNet at
+     10 s and CFG batch 2, VAE decode at batch 1), the f32 shapes of one
+     full-width VAE encode (K1, K6), and the full8 path's int8 kernels (its
+     UNet), kernel against its plain PyTorch version, plus one shape per
+     kernel in f32 and the VAE decoder's largest K1 and K6 shapes offset by
+     +10 (GroupNorm cancellation); times of both;
   4. one full-width UNet forward (all leaves non-zero), kernels against the
      all-plain path: the t5 UNet in bf16 and f32, the audioldm2-full UNet
-     in int8 (bf16 activations);
+     in int8 (bf16 activations); one full-width f32 VAE encode, kernels
+     against the all-plain path, and its time;
   5. requests on each path: three at the reference defaults (10 s, 200
-     steps, guidance 3.5, batch 1; their median is the p50 latency) and
-     one at batch 2, each with output checks (and, on the full paths, the
-     GPT-2 tokens finite and the CLAP text embedding of unit norm), no CUDA
-     tensor reaching a plain version, and launch counts, reset to 0 just
-     before the request, equal to the counts computed from the config.
+     steps, guidance 3.5, or 2.5 for sr; batch 1; their median is the p50
+     latency) and one at batch 2, each with output checks (and, on the full
+     paths, the GPT-2 tokens finite and the CLAP text embedding of unit
+     norm), no CUDA tensor reaching a plain version, and launch counts,
+     reset to 0 just before the request, equal to the counts computed from
+     the config (the sr path's VAE encode included); the PLMS and DDPM
+     requests likewise, once each at batch 1.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -54,6 +63,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -62,6 +72,7 @@ T5_MODEL = "audioldm_16k_crossattn_t5"
 FULL_MODEL = "audioldm2-full"
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
+ROUND_ONCE_SHARE = 1e-3
 # The audioldm2-full UNet with every leaf drawn non-zero amplifies bf16
 # rounding: its all-plain bf16 forward lies 2.2e-2 from its all-plain f32
 # forward (H100 run), above BF16_TOL, so two bf16 paths that round at
@@ -81,6 +92,8 @@ KERNELS = {
     "int8_matmul": ("audioldm2_torch/csrc/lnmm.cu", "audioldm2_tpu/ops/lnmm_pallas.py:143"),
     "ln_matmul_q": ("audioldm2_torch/csrc/lnmm.cu", "audioldm2_tpu/ops/lnmm_pallas.py:101"),
     "geglu_matmul_q": ("audioldm2_torch/csrc/lnmm.cu", "audioldm2_tpu/ops/lnmm_pallas.py:221"),
+    "group_norm_silu": ("audioldm2_torch/csrc/groupnorm.cu",
+                        "audioldm2_tpu/ops/groupnorm_pallas.py:51"),
 }
 
 
@@ -134,8 +147,8 @@ def rel_err(got, want):
 
 def _wrappers():
     """name -> (kernel wrapper, plain version) of every kernel."""
-    from audioldm2_torch.ops import attention_kernel as ak, lnmm_kernel as lk
-    from audioldm2_torch.ops import resblock_kernel as rk
+    from audioldm2_torch.ops import attention_kernel as ak, groupnorm_kernel as gk
+    from audioldm2_torch.ops import lnmm_kernel as lk, resblock_kernel as rk
 
     return {
         "gn_silu_conv3x3": (rk.gn_silu_conv3x3, rk.gn_silu_conv3x3_plain),
@@ -146,6 +159,7 @@ def _wrappers():
         "int8_matmul": (lk.int8_matmul, lk.int8_matmul_plain),
         "ln_matmul_q": (lk.ln_matmul_q, lk.ln_matmul_q_plain),
         "geglu_matmul_q": (lk.geglu_matmul_q, lk.geglu_matmul_q_plain),
+        "group_norm_silu": (gk.group_norm_silu, gk.group_norm_silu_plain),
     }
 
 
@@ -156,7 +170,7 @@ def patched_dispatch(mode: str, record=None):
     wrappers = _wrappers()
     orig = {k: getattr(nn, k) for k in
             ("gn_silu_conv", "gn_silu_conv_cat", "ln_linear", "geglu_ff_out", "attention",
-             "linear")}
+             "linear", "group_norm_silu")}
 
     def call(name, args):
         if mode == "plain":
@@ -177,6 +191,9 @@ def patched_dispatch(mode: str, record=None):
 
     def gn_silu_conv_cat(p_norm, p_conv, x1, x2, groups=32, eps=1e-5):
         return k1(x1, x2, p_norm, p_conv, groups, eps)
+
+    def group_norm_silu(p, x, groups=32, eps=1e-5):
+        return call("group_norm_silu", (x, p["scale"], p["bias"], groups, eps))
 
     def ln_linear(p_norm, p_lin, x, eps=1e-5):
         norm = (p_norm["scale"], p_norm["bias"])
@@ -203,7 +220,7 @@ def patched_dispatch(mode: str, record=None):
 
     new = dict(gn_silu_conv=gn_silu_conv, gn_silu_conv_cat=gn_silu_conv_cat,
                ln_linear=ln_linear, geglu_ff_out=geglu_ff_out, attention=attention,
-               linear=linear)
+               linear=linear, group_norm_silu=group_norm_silu)
     for k, v in new.items():
         setattr(nn, k, v)
     try:
@@ -358,10 +375,25 @@ def phase_device():
             log(f"  ptxas {entry[:90]}: spills {m.group(1)} B store / {m.group(2)} B load")
 
 
+@contextlib.contextmanager
+def _convs_as_before():
+    """The plain convs as before the one-rounding repair: cuDNN's own bf16
+    conv with the bias given to it."""
+    from audioldm2_torch.ops import nn
+
+    saved = nn._conv_one_rounding
+    nn._conv_one_rounding = nn._one_rounding
+    try:
+        yield
+    finally:
+        nn._conv_one_rounding = saved
+
+
 def phase_rounding(device):
-    """Whether the repaired plain ops (bias given to the op) round the f32
-    accumulator plus bias once in bf16 on the card: the share of outputs
-    that differ from an f32 computation rounded once. Printed, not a check."""
+    """The share of bf16 outputs of the plain ops that differ from an f32
+    computation rounded once. Each conv's must be at most ROUND_ONCE_SHARE
+    (cuBLAS linear: printed only). Also the share and time of each conv as
+    before the repair."""
     import torch
     from audioldm2_torch.ops import nn
 
@@ -377,19 +409,36 @@ def phase_rounding(device):
                                                         "b": rnd(640)}, rnd(2, 1024, 640), {}),
         "conv2d 3x3 256->128 [2, 64, 16]": (nn.conv2d, {"w": rnd(3, 3, 256, 128, scale=0.02),
                                                         "b": rnd(128)}, rnd(2, 64, 16, 256), {}),
+        "conv2d 3x3 128->128 [1, 1024, 64]": (nn.conv2d, {"w": rnd(3, 3, 128, 128, scale=0.03),
+                                                          "b": rnd(128)}, rnd(1, 1024, 64, 128),
+                                              {}),
         "conv1d k7 256->256 [1, 1024]": (nn.conv1d, {"w": rnd(7, 256, 256, scale=0.02),
                                                      "b": rnd(256)}, rnd(1, 1024, 256), {}),
         "conv_transpose1d k16 s8 512->256 [1, 128]": (
             nn.conv_transpose1d, {"w": rnd(16, 256, 512, scale=0.02), "b": rnd(256)},
             rnd(1, 128, 512), dict(stride=8, padding=4)),
     }
-    shares = {}
+    shares, failures = {}, []
     with torch.inference_mode():
         for tag, (op, p, x, kw) in cases.items():
-            got = op(p, x, **kw)
             once = op({k: v.float() for k, v in p.items()}, x.float(), **kw).to(torch.bfloat16)
-            shares[tag] = (got != once).float().mean().item()
-            log(f"  {tag}: {shares[tag]:.3e} of outputs differ from one rounding")
+            is_conv = op is not nn.linear
+            row = {}
+            for mode in ("after", "before") if is_conv else ("after",):
+                with _convs_as_before() if mode == "before" else contextlib.nullcontext():
+                    got = op(p, x, **kw)
+                    share = (got != once).float().mean().item()
+                    row[mode] = (share, cuda_ms(lambda: op(p, x, **kw)))
+            shares[tag] = row["after"][0]
+            status = ("ok" if shares[tag] <= ROUND_ONCE_SHARE else "FAIL") if is_conv else "info"
+            log(f"  {status} {tag}: {shares[tag]:.3e} of outputs differ from one rounding "
+                f"(bound {ROUND_ONCE_SHARE:g} for the convs), {row['after'][1]:.4f} ms"
+                + (f"; before the repair {row['before'][0]:.3e}, {row['before'][1]:.4f} ms"
+                   if is_conv else ""))
+            if status == "FAIL":
+                failures.append(tag)
+    if failures:
+        raise AssertionError(f"bf16 convs round twice: {failures}")
     return shares
 
 
@@ -443,10 +492,56 @@ def discover_calls(cfg, unet_f32, vae_p, ctxs, masks, device):
     return first, counts
 
 
-def phase_kernels(first, counts, offset_check: bool):
-    """Each recorded shape in bf16, then the smallest shape of each kernel
-    in f32 (exact_f32_args for the kernels that round their activation to
-    bf16); with offset_check, the largest VAE K1 shape offset by +10."""
+def chirp(sr: int, seconds: float, seed: int = 0):
+    """A 10 s-style test signal: a linear chirp over most of the band plus
+    noise, peak 0.5, float32 numpy [N]."""
+    import numpy as np
+
+    t = np.arange(int(sr * seconds)) / sr
+    f0, f1 = 0.01 * sr, 0.45 * sr
+    x = np.sin(2 * np.pi * (f0 * t + (f1 - f0) * t ** 2 / (2 * seconds)))
+    x = x + 0.1 * np.random.default_rng(seed).standard_normal(t.shape)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def encoder_mel(cfg, device, duration: float):
+    """The [1, T, M, 1] log-mel of a chirp at the sr path's frame count."""
+    from audioldm2_torch.ops.stft import MelSpectrogram
+
+    pre = cfg.preprocessing
+    frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+    mel = MelSpectrogram(pre.filter_length, pre.hop_length, pre.win_length, pre.n_mel_channels,
+                         pre.sampling_rate, pre.mel_fmin, pre.mel_fmax, device=device)
+    wav = chirp(pre.sampling_rate, frames * pre.hop_length / pre.sampling_rate)
+    return mel.fbank(wav[None], target_length=frames)[..., None]
+
+
+def discover_encode_calls(cfg, vae_f32, mel):
+    """One f32 VAE encode through the kernels, recording the first call of
+    each distinct shape and how many calls each shape gets."""
+    import torch
+    from audioldm2_torch.models import vae
+    from audioldm2_torch.ops.nn import full_f32
+
+    first, counts = {}, {}
+
+    def record(name, args):
+        sig = signature(name, args)
+        counts[sig] = counts.get(sig, 0) + 1
+        first.setdefault(sig, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+
+    with torch.inference_mode(), full_f32(), patched_dispatch("record", record):
+        vae.encode_moments(vae_f32, cfg.vae, mel)
+    torch.cuda.synchronize()
+    return first, counts
+
+
+def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
+    """Each recorded shape in its dtype, then (f32_pass) the smallest shape
+    of each kernel in f32 (exact_f32_args for the kernels that round their
+    activation to bf16); with offset_check, the largest VAE K1 and K6
+    shapes offset by +10."""
     import torch
 
     wrappers = _wrappers()
@@ -475,7 +570,9 @@ def phase_kernels(first, counts, offset_check: bool):
     for sig, args in first.items():
         name = sig[0]
         n = counts[sig]
-        d, r, k_ms, p_ms = check(name, args, BF16_TOL, f"bf16 {describe(sig)} x{n}")
+        bf16 = args[0].dtype == torch.bfloat16
+        d, r, k_ms, p_ms = check(name, args, BF16_TOL if bf16 else F32_TOL,
+                                 f"{'bf16' if bf16 else 'f32'} {describe(sig)} x{n}")
         st = stats[name]
         st["ms"] += n * k_ms
         st["plain_ms"] += n * p_ms
@@ -484,7 +581,7 @@ def phase_kernels(first, counts, offset_check: bool):
         st["shapes"] += 1
 
     # one shape per kernel in f32 (the smallest recorded), TF32 off
-    for name in names:
+    for name in names if f32_pass else ():
         sigs = sorted((s for s in first if s[0] == name),
                       key=lambda s: sum(math.prod(a[0]) for a in s[1:] if isinstance(a, tuple)))
         args = first[sigs[0]]
@@ -496,15 +593,16 @@ def phase_kernels(first, counts, offset_check: bool):
         _, r, _, _ = check(name, args, F32_TOL, f"f32 {describe(signature(name, args))}")
         stats[name]["f32_rel_err"] = r
 
-    if offset_check:  # GroupNorm cancellation: the largest VAE shape, inputs offset by +10
-        vae_sigs = [s for s in first if s[0] == "gn_silu_conv3x3" and s[-1] == 1e-6]
-        big = max(vae_sigs, key=lambda s: math.prod(s[1][0]))
+    # GroupNorm cancellation: the largest VAE (eps 1e-6) shape, inputs offset by +10
+    for name in ("gn_silu_conv3x3", "group_norm_silu") if offset_check else ():
+        big = max((s for s in first if s[0] == name and s[-1] == 1e-6),
+                  key=lambda s: math.prod(s[1][0]))
         for dt in (torch.bfloat16, torch.float32):
             args = list(first[big])
             args[0] = args[0].float() + 10.0
             args = tuple(a.to(dt) if isinstance(a, torch.Tensor) else a for a in args)
             tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
-            check("gn_silu_conv3x3", args, tol, f"{dt} +10 offset {describe(big)}")
+            check(name, args, tol, f"{dt} +10 offset {describe(big)}")
 
     for name, st in stats.items():
         log(f"  {name}: {st['shapes']} shapes, one forward: "
@@ -555,24 +653,16 @@ def unet_check(tag, kernel, plain, ref, tol):
                              f"({r:.3e} > {tol:g})")
 
 
-def phase_requests(tag, model_name, steps: int, duration: float, device, config=None,
-                   weight_quant=None):
-    """Three batch-1 requests and one batch-2 request through build_model /
-    text_to_audio; returns the launch counts of the first request and the
-    timings."""
-    import numpy as np
+def build(tag, cfg, device):
+    """build_model on the card with every leaf drawn non-zero (seed 0)."""
     import torch
     import audioldm2_torch as at
-    from audioldm2_torch import ops
-    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
 
-    log(f"== requests on path {tag}: build_model({model_name!r}, "
-        f"weight_quant={weight_quant!r}) / text_to_audio")
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
+    log(f"== requests on path {tag}: build_model({cfg.name!r}, "
+        f"weight_quant={cfg.weight_quant!r})")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    model = at.build_model(config=config, model_name=model_name, device=device, seed=0,
-                           nonzero_init=True, weight_quant=weight_quant)
+    model = at.build_model(config=cfg, device=device, seed=0, nonzero_init=True)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(model.ldm.params))
     log(f"  build_model: {time.perf_counter() - t0:.2f} s, {n_params / 1e6:.1f} M parameters "
@@ -580,58 +670,139 @@ def phase_requests(tag, model_name, steps: int, duration: float, device, config=
     for leaf in _leaves(model.ldm.params):
         if leaf.device.type != torch.device(device).type:
             raise AssertionError(f"a parameter lies on {leaf.device}, not {device}")
-    expected = kernel_launches_per_generate(model.cfg, steps)
-    sr = model.cfg.preprocessing.sampling_rate
-    launches = None
-    walls = {1: [], 2: []}
-    # warm-up (allocator, cuDNN plans, lazy module state) on a short request
-    at.text_to_audio(model, "warm up", seed=1, ddim_steps=10, duration=2.5)
-    requests = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
-                ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
-    for prompt, bsz in requests:
-        cond = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        with plain_versions_forbidden(), conditioning_recorded(cond):
-            wav = at.text_to_audio(model, prompt, seed=42, ddim_steps=steps, duration=duration,
-                                   batchsize=bsz, guidance_scale=3.5, n_candidate_gen_per_text=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"  request batch {bsz}, {duration} s, {steps} steps, guidance 3.5: wall {wall:.3f} s, "
-            f"real-time factor {duration * bsz / wall:.3f}x, peak memory {peak:.2f} GiB, "
-            f"timings {json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
-        log(f"    launches {counts}")
-        want_shape = (bsz, 1, int(duration * sr))
-        if wav.shape != want_shape:
-            raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")
-        if not np.isfinite(wav).all() or not np.abs(wav).max() > 0 or np.abs(wav).max() > 1.0:
-            raise AssertionError("waveform is not finite, all zero, or out of [-1, 1]")
-        log(f"    waveform {wav.shape} rms {float(np.sqrt(np.mean(wav ** 2))):.4f} "
-            f"max {float(np.abs(wav).max()):.4f}")
-        for tokens in cond.get("gpt2", []):
-            if tokens.shape[0] != bsz or not bool(torch.isfinite(tokens).all()):
-                raise AssertionError(f"GPT-2 tokens {tuple(tokens.shape)} not finite or mis-sized")
-        for emb in cond.get("clap", []):
-            dev = (torch.linalg.vector_norm(emb.float(), dim=-1) - 1.0).abs().max().item()
-            if dev > 1e-4:
-                raise AssertionError(f"CLAP text embedding norm is off 1 by {dev:.3e}")
-        if cond:
-            log(f"    GPT-2 tokens {[tuple(t.shape) for t in cond['gpt2']]} finite; CLAP "
-                f"embeddings {[tuple(e.shape) for e in cond['clap']]} of unit norm")
-        if counts != expected:
-            raise AssertionError(f"launch counts {counts} != expected {expected}")
-        if launches is None:
-            launches = counts
+    return model
+
+
+def one_request(model, call, expected, bsz: int, duration: float, label: str):
+    """call(bsz) -> waveform, with the launch counts set to 0 just before and
+    read just after; checks the output, the conditioning, that no CUDA
+    tensor reached a plain version and the counts. Returns (wall, counts)."""
+    import numpy as np
+    import torch
+    from audioldm2_torch import ops
+
+    cond = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_versions_forbidden(), conditioning_recorded(cond):
+        wav = call(bsz)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  request {label}, batch {bsz}, {duration} s: wall {wall:.3f} s, real-time factor "
+        f"{duration * bsz / wall:.3f}x, peak memory {peak:.2f} GiB, timings "
+        f"{json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
+    log(f"    launches {counts}")
+    want_shape = (bsz, 1, int(duration * model.cfg.preprocessing.sampling_rate))
+    if wav.shape != want_shape:
+        raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")
+    if not np.isfinite(wav).all() or not np.abs(wav).max() > 0 or np.abs(wav).max() > 1.0:
+        raise AssertionError("waveform is not finite, all zero, or out of [-1, 1]")
+    log(f"    waveform {wav.shape} rms {float(np.sqrt(np.mean(wav ** 2))):.4f} "
+        f"max {float(np.abs(wav).max()):.4f}")
+    for tokens in cond.get("gpt2", []):
+        if tokens.shape[0] != bsz or not bool(torch.isfinite(tokens).all()):
+            raise AssertionError(f"GPT-2 tokens {tuple(tokens.shape)} not finite or mis-sized")
+    for emb in cond.get("clap", []):
+        dev = (torch.linalg.vector_norm(emb.float(), dim=-1) - 1.0).abs().max().item()
+        if dev > 1e-4:
+            raise AssertionError(f"CLAP text embedding norm is off 1 by {dev:.3e}")
+    if cond:
+        log(f"    GPT-2 tokens {[tuple(t.shape) for t in cond['gpt2']]} finite; CLAP "
+            f"embeddings {[tuple(e.shape) for e in cond['clap']]} of unit norm")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    return wall, counts
+
+
+PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
+           ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
+
+
+def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str):
+    """A short warm-up request (allocator, cuDNN plans, lazy module state),
+    then three batch-1 requests and one batch-2 request through
+    ``request(prompt, batchsize, steps, duration)``; returns the launch counts
+    of the first request and the timings."""
+    request("warm up", 1, 10, 2.5)
+    launches, walls = None, {1: [], 2: []}
+    for prompt, bsz in PROMPTS:
+        wall, counts = one_request(model, lambda b: request(prompt, b, steps, duration),
+                                   expected, bsz, duration, f"{label}, {steps} steps")
+        launches = launches or counts
         walls[bsz].append(wall)
     p50 = sorted(walls[1])[len(walls[1]) // 2]
     s_audio = duration * 2 / walls[2][0]
     log(f"  path {tag} end to end ({duration} s clips, {steps} steps): p50 latency at batch 1 "
         f"{p50:.3f} s over {len(walls[1])} requests; {s_audio:.3f} s-audio/s at batch 2")
     return launches, {"p50_s": p50, "s_audio_per_s": s_audio}
+
+
+def write_wav(path: str, sr: int, seconds: float) -> str:
+    import numpy as np
+    from scipy.io import wavfile
+
+    wavfile.write(path, sr, (chirp(sr, seconds, seed=5) * 32767).astype(np.int16))
+    return path
+
+
+def phase_5(t5_cfg, full_cfg, device, steps: int, duration: float):
+    """The requests of every path; returns {path: launch counts of its first
+    request} and {path: timings}."""
+    import dataclasses
+
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate as expect
+
+    log("== phase 5: requests")
+    launches, e2e = {}, {}
+
+    def t2a(model, guidance=3.5, **kw):
+        def request(prompt, bsz, n_steps, dur):
+            return at.text_to_audio(model, prompt, seed=42, ddim_steps=n_steps, duration=dur,
+                                    batchsize=bsz, guidance_scale=guidance, **kw)
+        return request
+
+    model = build("t5", t5_cfg, device)
+    launches["t5"], e2e["t5"] = phase_requests(
+        "t5", model, t2a(model), expect(model.cfg, steps), steps, duration,
+        "text_to_audio ddim, guidance 3.5")
+    for sampler in ("plms", "ddpm"):
+        wall, launches[f"t5_{sampler}"] = one_request(
+            model, lambda b: t2a(model, sampler=sampler)("A bell tolling twice.", b, steps,
+                                                         duration),
+            expect(model.cfg, steps, sampler), 1, duration,
+            f"text_to_audio {sampler}, {steps if sampler == 'plms' else 'all 1000'} steps")
+        e2e[f"t5_{sampler}"] = {"wall_s": wall}
+    del model
+
+    model = build("full", full_cfg, device)
+    launches["full"], e2e["full"] = phase_requests(
+        "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
+        "text_to_audio ddim, guidance 3.5")
+    log("== requests on path sr: the same model through super_resolution_and_inpainting")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_wav(os.path.join(tmp, "in.wav"), full_cfg.preprocessing.sampling_rate,
+                             duration)
+
+        def sr_request(prompt, bsz, n_steps, dur):
+            return at.super_resolution_and_inpainting(
+                model, prompt, original_audio_file_path=wav_path, seed=42, ddim_steps=n_steps,
+                duration=dur, batchsize=bsz, guidance_scale=2.5)
+
+        launches["sr"], e2e["sr"] = phase_requests(
+            "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps, duration,
+            "super_resolution_and_inpainting, guidance 2.5")
+    del model
+
+    model = build("full8", dataclasses.replace(full_cfg, weight_quant="int8"), device)
+    launches["full8"], e2e["full8"] = phase_requests(
+        "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
+        "text_to_audio ddim, guidance 3.5")
+    return launches, e2e
 
 
 def _leaves(tree):
@@ -662,7 +833,8 @@ def run(t5_cfg, full_cfg, device, steps: int, duration: float):
     g = torch.Generator(device=device).manual_seed(7)
     ini = Init(g, device, nonzero=True)
     t5_unet = unet.init_unet(ini, t5_cfg.unet)
-    vae_p = cast_floating(init_vae(ini, t5_cfg.vae), torch.bfloat16)
+    vae_f32 = init_vae(ini, t5_cfg.vae)
+    vae_p = cast_floating(vae_f32, torch.bfloat16)
     t5_ctx, t5_mask = _ctx_inputs(t5_cfg, device, g)
     full8_cfg = dataclasses.replace(full_cfg, weight_quant="int8")
 
@@ -670,10 +842,16 @@ def run(t5_cfg, full_cfg, device, steps: int, duration: float):
     full_ctx, full_mask = _ctx_inputs(full_cfg, device, g)
 
     log("== phase 3: kernels against their plain versions")
-    log("  -- t5 path: K1-K4 (UNet forward + VAE decode)")
+    log("  -- t5 path: K1-K4, K6 (UNet forward + VAE decode)")
     stats = phase_kernels(*discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device),
                           offset_check=True)
     del vae_p
+    log("  -- sr path: K1 and K6 in f32 (one full-width VAE encode of a chirp's log-mel)")
+    mel = encoder_mel(full_cfg, device, duration)
+    enc_stats = phase_kernels(*discover_encode_calls(full_cfg, vae_f32, mel),
+                              offset_check=False, f32_pass=False)
+    for name, st in enc_stats.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
     log("  -- full8 path: the int8 kernels (UNet forward; its K2 shapes are the t5 path's)")
     first, counts = discover_calls(full8_cfg, full_unet, None, full_ctx, full_mask, device)
     int8 = {s: a for s, a in first.items() if s[0] not in stats}
@@ -709,14 +887,40 @@ def run(t5_cfg, full_cfg, device, steps: int, duration: float):
     log(f"  (information) audioldm2-full int8 eps against bf16 eps: max_abs_err {d:.3e} "
         f"rel {r:.3e}")
     del full_unet, eps_bf16, eps_int8
+    encode_check(full_cfg, vae_f32, mel)
+    del vae_f32, mel
 
-    log("== phase 5: requests")
-    launches, e2e = {}, {}
-    for tag, cfg, wq in (("t5", t5_cfg, None), ("full", full_cfg, None),
-                         ("full8", full_cfg, "int8")):
-        launches[tag], e2e[tag] = phase_requests(tag, cfg.name, steps, duration, device,
-                                                 config=cfg, weight_quant=wq)
+    launches, e2e = phase_5(t5_cfg, full_cfg, device, steps, duration)
     return stats, launches, e2e
+
+
+def encode_check(cfg, vae_f32, mel):
+    """One full-width f32 VAE encode (moments), kernels against the
+    all-plain path, and the time of both."""
+    import torch
+    from audioldm2_torch.models import vae
+    from audioldm2_torch.ops.nn import full_f32
+
+    log("== phase 4: full-width f32 VAE encode, kernels against the all-plain path")
+
+    def encode():
+        return torch.cat(vae.encode_moments(vae_f32, cfg.vae, mel), dim=-1)
+
+    with torch.inference_mode(), full_f32():
+        got = encode()
+        with patched_dispatch("plain"):
+            want = encode()
+            plain_ms = cuda_ms(encode, target_ms=200.0, max_reps=5)
+        kern_ms = cuda_ms(encode, target_ms=200.0, max_reps=5)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("VAE encode is not finite")
+    d, r = rel_err(got, want)
+    log(f"  encode mel {tuple(mel.shape)} -> moments {tuple(got.shape)}: kernels against "
+        f"all-plain max_abs_err {d:.3e} rel {r:.3e} (tol {F32_TOL:g}); kernels {kern_ms:.3f} ms, "
+        f"all-plain {plain_ms:.3f} ms")
+    if r > F32_TOL:
+        raise AssertionError(f"VAE encode: kernels disagree with the plain path ({r:.3e})")
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
-"""The Hopper kernels (K1-K4 and the int8 K1q, K3q, K4q, K5) against their
-plain PyTorch versions on the card.
+"""The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, and K6) against
+their plain PyTorch versions on the card, and the plain bf16 convs' one
+rounding.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from audioldm2_torch import ops
-from audioldm2_torch.ops import attention_kernel, lnmm_kernel, resblock_kernel
+from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, lnmm_kernel, resblock_kernel
+from audioldm2_torch.ops import nn
 from chip_smoke import exact_f32_args
 
 pytestmark = pytest.mark.gpu
@@ -161,6 +163,63 @@ def test_int8_matmul_kernel(cuda, dt, M, K, N, with_bias):
     _check(lnmm_kernel.int8_matmul(*args), lnmm_kernel.int8_matmul_plain(*args), dt)
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("shape,groups,eps,offset,silu", [
+    ((2, 256, 16, 128), 32, 1e-5, 0.0, True),     # UNet out_norm, CFG batch 2
+    ((1, 1024, 64, 128), 32, 1e-6, 0.0, True),    # VAE decoder norm_out
+    ((1, 1024, 64, 128), 32, 1e-6, 10.0, True),   # offset input: GroupNorm cancellation
+    ((1, 256, 16, 512), 32, 1e-6, 0.0, True),     # VAE encoder norm_out
+    ((2, 7, 5, 36), 4, 1e-5, 0.0, True),          # channels not a multiple of 8: scalar path
+    ((2, 40, 64), 32, 1e-5, 0.0, False),          # rank 3, no SiLU
+])
+def test_group_norm_silu_kernel(cuda, dt, shape, groups, eps, offset, silu):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    c = shape[-1]
+    args = (_rand(g, shape, dt, cuda, offset=offset), _rand(g, (c,), torch.float32, cuda),
+            _rand(g, (c,), torch.float32, cuda), groups, eps, silu)
+    _check(groupnorm_kernel.group_norm_silu(*args), groupnorm_kernel.group_norm_silu_plain(*args),
+           dt)
+
+
+def test_group_norm_silu_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(1, 8, 4, 64, device=cuda)
+    ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(TypeError):
+        groupnorm_kernel.group_norm_silu(x.half(), ones, zeros)
+    with pytest.raises(ValueError):
+        groupnorm_kernel.group_norm_silu(x, ones, zeros, groups=24)
+    with pytest.raises(ValueError):
+        groupnorm_kernel.group_norm_silu(x.transpose(1, 2), ones, zeros)
+    with pytest.raises(ValueError):
+        groupnorm_kernel.group_norm_silu(x, ones[:32], zeros[:32])
+
+
+@pytest.mark.parametrize("op", ["conv2d", "conv1d", "conv_transpose1d"])
+def test_bf16_conv_rounds_once_on_the_card(cuda, op):
+    """The plain convs sum the f32 product and the bias before the one
+    rounding to bf16: at most 1e-3 of the outputs differ from an f32
+    computation rounded once (cuDNN's own bf16 conv with the bias: 27-28%)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def rnd(*shape, scale=1.0):
+        return _rand(g, shape, torch.bfloat16, cuda, scale=scale)
+
+    kw = {}
+    if op == "conv2d":
+        p, x = {"w": rnd(3, 3, 256, 128, scale=0.02), "b": rnd(128)}, rnd(2, 64, 16, 256)
+    elif op == "conv1d":
+        p, x = {"w": rnd(7, 256, 256, scale=0.02), "b": rnd(256)}, rnd(1, 1024, 256)
+    else:
+        p, x = {"w": rnd(16, 256, 512, scale=0.02), "b": rnd(256)}, rnd(1, 128, 512)
+        kw = dict(stride=8, padding=4)
+    fn = getattr(nn, op)
+    with torch.inference_mode():
+        got = fn(p, x, **kw)
+        once = fn({k: v.float() for k, v in p.items()}, x.float(), **kw).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == once.shape
+    assert (got != once).float().mean().item() <= 1e-3
+
+
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 16, 128, device=cuda)
     wq = torch.zeros(128, 128, dtype=torch.int8, device=cuda)
@@ -205,9 +264,14 @@ def test_launch_counters_count_launches(cuda):
     wq = torch.zeros(32, 128, dtype=torch.int8, device=cuda)
     lnmm_kernel.int8_matmul(q.reshape(1, 64, 64)[..., :32], wq, torch.ones(128, device=cuda))
     lnmm_kernel.int8_matmul_plain(q.reshape(1, 64, 64)[..., :32], wq, torch.ones(128, device=cuda))
+    x = torch.randn(1, 4, 4, 64, device=cuda)
+    groupnorm_kernel.group_norm_silu(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+    groupnorm_kernel.group_norm_silu_plain(x, torch.ones(64, device=cuda),
+                                           torch.zeros(64, device=cuda))
     counts = ops.launch_counts()
     assert counts.pop("flash_self_attention") == 2
     assert counts.pop("int8_matmul") == 1
+    assert counts.pop("group_norm_silu") == 1
     assert set(counts.values()) == {0}
 
 

@@ -318,7 +318,7 @@ def test_int8_launch_formula_matches_kernel_calls(monkeypatch):
     """kernel_launches_per_forward(cfg, "int8") equals the calls that reach
     each kernel wrapper in one int8 forward (head_dim 32, so self-attention
     takes K2 by the dispatch rule)."""
-    from audioldm2_torch.ops import attention_kernel, nn
+    from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, nn
 
     cfg = _int8_unet_cfg()
     calls = dict.fromkeys(KERNEL_NAMES, 0)
@@ -332,7 +332,7 @@ def test_int8_launch_formula_matches_kernel_calls(monkeypatch):
     for mod, name in [(resblock_kernel, "gn_silu_conv3x3"), (resblock_kernel, "gn_silu_conv3x3_q"),
                       (lnmm_kernel, "ln_matmul"), (lnmm_kernel, "ln_matmul_q"),
                       (lnmm_kernel, "geglu_matmul"), (lnmm_kernel, "geglu_matmul_q"),
-                      (lnmm_kernel, "int8_matmul")]:
+                      (lnmm_kernel, "int8_matmul"), (groupnorm_kernel, "group_norm_silu")]:
         monkeypatch.setattr(mod, name, counting(name, getattr(mod, name)))
     orig_attention = nn.attention
 
@@ -365,12 +365,12 @@ def test_full_config_int8_launch_counts():
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(full.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 64, "ln_matmul": 144,
-        "geglu_matmul": 48}
+        "geglu_matmul": 48, "group_norm_silu": 1}
     assert tunet.kernel_launches_per_forward(full.unet, "int8") == {
         **none, "gn_silu_conv3x3_q": 44, "flash_self_attention": 64, "ln_matmul_q": 144,
-        "geglu_matmul_q": 48, "int8_matmul": 96}
+        "geglu_matmul_q": 48, "int8_matmul": 96, "group_norm_silu": 1}
     full8 = dataclasses.replace(full, weight_quant="int8")
     assert kernel_launches_per_generate(full8, 200) == {
         **none, "gn_silu_conv3x3": 22, "gn_silu_conv3x3_q": 200 * 44,
         "flash_self_attention": 200 * 64, "ln_matmul_q": 200 * 144, "geglu_matmul_q": 200 * 48,
-        "int8_matmul": 200 * 96}
+        "int8_matmul": 200 * 96, "group_norm_silu": 200 + 1}

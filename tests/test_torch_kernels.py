@@ -18,7 +18,7 @@ from jax.experimental import pallas as pl
 from audioldm2_tpu.ops import attention_pallas as ap
 from audioldm2_tpu.ops import lnmm_pallas as lp
 from audioldm2_tpu.ops import resblock_pallas as rp
-from audioldm2_torch.ops import attention_kernel, lnmm_kernel, resblock_kernel
+from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, lnmm_kernel, resblock_kernel
 
 torch.set_num_threads(2)
 
@@ -164,6 +164,8 @@ def test_kernel_launch_counters_stay_zero_on_cpu(rng):
                                     torch.zeros(3, 3, 32, 32), torch.zeros(32), 32, 1e-5)
     q = _t(rng.standard_normal((1, 8, 1, 32)))
     attention_kernel.flash_self_attention(q, q, q, 0.2)
+    groupnorm_kernel.group_norm_silu(x, torch.ones(32), torch.zeros(32))
     assert ops.launch_counts() == {"gn_silu_conv3x3": 0, "flash_self_attention": 0,
                                    "ln_matmul": 0, "geglu_matmul": 0, "gn_silu_conv3x3_q": 0,
-                                   "int8_matmul": 0, "ln_matmul_q": 0, "geglu_matmul_q": 0}
+                                   "int8_matmul": 0, "ln_matmul_q": 0, "geglu_matmul_q": 0,
+                                   "group_norm_silu": 0}

@@ -216,6 +216,7 @@ def test_kernel_launch_formula_matches_dispatch_calls(cfg, monkeypatch):
 
     for attr, name, cond in [("gn_silu_conv", "gn_silu_conv3x3", None),
                              ("gn_silu_conv_cat", "gn_silu_conv3x3", None),
+                             ("group_norm_silu", "group_norm_silu", None),
                              ("ln_linear", "ln_matmul", None),
                              ("geglu_ff_out", "geglu_matmul", None),
                              ("attention", "flash_self_attention", uses_kernel)]:
@@ -236,7 +237,8 @@ def test_kernel_launch_formula_matches_dispatch_calls(cfg, monkeypatch):
 
 def test_full_config_launch_counts():
     """The counts chip_smoke.py holds the t5 main path to: per UNet forward
-    44 K1 (22 ResBlocks), 48 K2, 96 K3, 32 K4; per VAE decode 22 K1."""
+    44 K1 (22 ResBlocks), 48 K2, 96 K3, 32 K4, 1 K6 (out_norm); per VAE
+    decode 22 K1 and 1 K6 (norm_out)."""
     from audioldm2_torch import default_audioldm_config
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
 
@@ -244,7 +246,7 @@ def test_full_config_launch_counts():
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(full.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 48, "ln_matmul": 96,
-        "geglu_matmul": 32}
+        "geglu_matmul": 32, "group_norm_silu": 1}
     assert kernel_launches_per_generate(full, 200) == {
         **none, "gn_silu_conv3x3": 200 * 44 + 22, "flash_self_attention": 200 * 48,
-        "ln_matmul": 200 * 96, "geglu_matmul": 200 * 32}
+        "ln_matmul": 200 * 96, "geglu_matmul": 200 * 32, "group_norm_silu": 200 + 1}

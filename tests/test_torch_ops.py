@@ -216,6 +216,8 @@ def test_import_does_not_import_jax():
         "import sys; import audioldm2_torch, audioldm2_torch.pipeline, audioldm2_torch.ops.nn; "
         "import audioldm2_torch.ops.resblock_kernel, audioldm2_torch.ops.attention_kernel; "
         "import audioldm2_torch.ops.lnmm_kernel, audioldm2_torch.ops._build; "
+        "import audioldm2_torch.ops.groupnorm_kernel, audioldm2_torch.ops.stft; "
+        "import audioldm2_torch.diffusion.plms, audioldm2_torch.diffusion.ddpm_ancestral; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
