@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from audioldm2_tpu.diffusion.schedule import DiffusionSchedule, make_ddim_params
+from audioldm2_torch.diffusion.schedule import DiffusionSchedule, make_ddim_params
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 

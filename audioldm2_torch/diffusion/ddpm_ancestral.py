@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from audioldm2_tpu.diffusion.schedule import DiffusionSchedule
+from audioldm2_torch.diffusion.schedule import DiffusionSchedule
 from audioldm2_torch.diffusion.ddim import EpsFn, MaskBlend, check_steps, initial_latent
 
 

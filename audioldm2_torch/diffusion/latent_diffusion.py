@@ -17,8 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
-from audioldm2_tpu.config import ModelConfig
-from audioldm2_tpu.diffusion.schedule import DiffusionSchedule
+from audioldm2_torch.config import ModelConfig
+from audioldm2_torch.diffusion.schedule import DiffusionSchedule
 from audioldm2_torch.diffusion import ddim, ddpm_ancestral, plms
 from audioldm2_torch.models import conditioners, unet, vae, vocoder
 from audioldm2_torch.ops.nn import full_f32

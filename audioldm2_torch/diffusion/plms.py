@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audioldm2_tpu.diffusion.schedule import DiffusionSchedule, make_ddim_params
+from audioldm2_torch.diffusion.schedule import DiffusionSchedule, make_ddim_params
 from audioldm2_torch.diffusion.ddim import EpsFn, MaskBlend, check_steps, initial_latent
 
 

@@ -1,32 +1,45 @@
-"""CLAP text embedding, in PyTorch.
+"""CLAP text and audio embeddings and the rerank scorer, in PyTorch.
 
-Port of the text side of ``audioldm2_tpu/models/clap.py``: the RoBERTa text
-tower, the two-layer ``text_projection`` MLP (``_project``) and the L2
-normalization, giving [B, 1, 512] unit-norm embeddings (``text_embedding``).
-The audio tower (HTSAT/PANN), the audio projection and the contrastive
-heads are not ported: ``init_clap`` does not draw them, and a tree from
-the JAX package keeps them untouched.
+Port of ``audioldm2_tpu/models/clap.py``: the RoBERTa text tower and the
+HTSAT audio tower (``models/htsat.py``), each projected through a two-layer
+MLP into the joint space and L2-normalized ([B, 1, D] text embeddings,
+[B, D] audio embeddings); the contrastive heads (``text_transform``,
+``audio_transform``, the two logit scales) are drawn so that the tree
+matches the JAX ``init_clap``, and nothing reads them. :func:`rerank_score`
+is the JAX ``_rerank_score``: the sinc resample to the CLAP rate as one
+strided conv over the phase bank, the repeat-pad clip fit, both embeddings
+and their cosine similarity, in f32 with TF32 off.
 
-Text towers are looked up by ``CLAPConfig.tmodel`` in :data:`TEXT_TOWERS`
-(the JAX registry's roberta entry); ``register_text_tower`` adds a RoBERTa
-variant, as the JAX registry's does. The bert, bart and transformer towers
-raise.
+Towers are looked up by ``CLAPConfig.tmodel`` / ``amodel`` in
+:data:`TEXT_TOWERS` and :data:`AUDIO_TOWERS` (the JAX registries' roberta
+and HTSAT entries); ``register_text_tower`` / ``register_audio_tower`` add
+variants, as the JAX registries' do. The bert, bart and transformer text
+towers and the PANN audio towers raise.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from audioldm2_tpu.config import CLAPConfig
-from audioldm2_torch.models import roberta
+from audioldm2_torch.config import CLAPConfig
+from audioldm2_torch.models import htsat, roberta
 from audioldm2_torch.ops import nn
+from audioldm2_torch.ops.nn import full_f32
 from audioldm2_torch.params import Init
+from audioldm2_torch.utils.audio_io import resample, sinc_interp_hann_kernel
 
-# name: (RobertaConfig factory, width feeding text_projection)
+# name: (config factory, width feeding the projection)
 TEXT_TOWERS: Dict[str, Tuple[Callable[[], roberta.RobertaConfig], int]] = {
     "roberta": (roberta.RobertaConfig, 768),
+}
+AUDIO_TOWERS: Dict[str, Tuple[Callable[[], htsat.HTSATConfig], int]] = {
+    "HTSAT-tiny": (lambda: htsat.HTSATConfig(embed_dim=96, depths=(2, 2, 6, 2)), 768),
+    "HTSAT-base": (htsat.HTSATConfig, 1024),
+    "HTSAT-large": (lambda: htsat.HTSATConfig(embed_dim=256), 2048),
 }
 
 _NOT_PORTED = ("bert", "bart", "transformer")
@@ -36,26 +49,49 @@ def register_text_tower(name: str, cfg_factory, width: int) -> None:
     TEXT_TOWERS[name] = (cfg_factory, width)
 
 
+def register_audio_tower(name: str, cfg_factory, width: int) -> None:
+    AUDIO_TOWERS[name] = (cfg_factory, width)
+
+
 def text_tower(cfg: CLAPConfig):
     if cfg.tmodel in _NOT_PORTED or cfg.tmodel not in TEXT_TOWERS:
         raise NotImplementedError(
             f"CLAP text tower {cfg.tmodel!r} is not ported to audioldm2_torch "
-            f"(ported: {sorted(TEXT_TOWERS)})"
+            f"(ported: {sorted(TEXT_TOWERS)}; ROADMAP queue 1 item 9)"
         )
     factory, width = TEXT_TOWERS[cfg.tmodel]
     return factory(), width
 
 
+def audio_tower(cfg: CLAPConfig):
+    if cfg.amodel not in AUDIO_TOWERS:
+        raise NotImplementedError(
+            f"CLAP audio tower {cfg.amodel!r} is not ported to audioldm2_torch "
+            f"(ported: {sorted(AUDIO_TOWERS)}; PANN is ROADMAP queue 1 item 9)"
+        )
+    factory, width = AUDIO_TOWERS[cfg.amodel]
+    return factory(), width
+
+
 def init_clap(ini: Init, cfg: CLAPConfig):
-    """The text branch and text_projection of the JAX ``init_clap`` tree."""
-    tcfg, width = text_tower(cfg)
-    return {
+    """The JAX ``init_clap`` tree. The audio branch and its projection are
+    drawn where the audio tower is ported (HTSAT); a CLAP with a PANN tower
+    gets its text side and heads only, which is all its text mode reads."""
+    tcfg, twidth = text_tower(cfg)
+    d = cfg.embed_dim
+    tree = {
         "text_branch": roberta.init_roberta(ini, tcfg),
-        "text_projection": {
-            "lin1": ini.linear(width, cfg.embed_dim),
-            "lin2": ini.linear(cfg.embed_dim, cfg.embed_dim),
-        },
+        "text_projection": {"lin1": ini.linear(twidth, d), "lin2": ini.linear(d, d)},
+        "text_transform": {"lin1": ini.linear(d, d), "lin2": ini.linear(d, d)},
+        "audio_transform": {"lin1": ini.linear(d, d), "lin2": ini.linear(d, d)},
+        "logit_scale_a": torch.tensor(float(np.log(1 / 0.07)), device=ini.device),
+        "logit_scale_t": torch.tensor(float(np.log(1 / 0.07)), device=ini.device),
     }
+    if cfg.amodel in AUDIO_TOWERS:
+        acfg, awidth = audio_tower(cfg)
+        tree["audio_projection"] = {"lin1": ini.linear(awidth, d), "lin2": ini.linear(d, d)}
+        tree["audio_branch"] = htsat.init_htsat(ini, acfg)
+    return tree
 
 
 def _project(p, x):
@@ -72,3 +108,74 @@ def text_embedding(params, cfg: CLAPConfig, input_ids: torch.Tensor,
     tcfg, _ = text_tower(cfg)
     _, pooled = roberta.apply_roberta(params["text_branch"], tcfg, input_ids, attention_mask)
     return _normalize(_project(params["text_projection"], pooled))[:, None, :]
+
+
+def audio_embedding(params, cfg: CLAPConfig, waveform_48k: torch.Tensor) -> torch.Tensor:
+    """HTSAT embedding -> MLP projection -> L2 norm. waveform: [B, N] at the
+    CLAP rate; returns [B, embed_dim]."""
+    acfg, _ = audio_tower(cfg)
+    feats = htsat.encode(params["audio_branch"], waveform_48k, acfg)
+    return _normalize(_project(params["audio_projection"], feats))
+
+
+def cos_similarity(audio_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
+    """Row-wise cosine similarity of the embeddings, [B]."""
+    a = audio_emb.reshape(audio_emb.shape[0], -1)
+    t = text_emb.reshape(text_emb.shape[0], -1)
+    return (_normalize(a) * _normalize(t)).sum(dim=-1)
+
+
+def _fit_clip(wav48: torch.Tensor, clip: int) -> torch.Tensor:
+    """The "repeatpad" clip fit of [B, N]: tile a short clip as many whole
+    times as fits and zero-pad the rest; cut a long one."""
+    n = wav48.shape[-1]
+    if n < clip:
+        wav48 = wav48.repeat(1, max(1, clip // n))
+        return F.pad(wav48, (0, clip - wav48.shape[-1]))
+    return wav48[:, :clip]
+
+
+def prepare_clap_audio(wav: np.ndarray, orig_sr: int, cfg: CLAPConfig) -> np.ndarray:
+    """Host-side waveform prep: resample to the CLAP rate and fit to one
+    clip. wav: [B, N] (or [B, 1, N]) -> [B, clip_samples] float32."""
+    wav = np.asarray(wav, np.float32)
+    if wav.ndim == 3:
+        wav = wav[:, 0]
+    wav48 = wav if orig_sr == cfg.sampling_rate else resample(wav, orig_sr, cfg.sampling_rate)
+    wav48 = torch.from_numpy(np.asarray(wav48, np.float32))
+    return _fit_clip(wav48, cfg.clip_samples).contiguous().numpy()
+
+
+def resample_sinc(wav: torch.Tensor, orig_sr: int, target_sr: int) -> torch.Tensor:
+    """The reference's sinc_interp_hann resample on the device: the
+    [n_phase, K] phase bank applied as one strided conv1d (f32, TF32 off).
+    wav: [B, N] -> [B, ceil(N * new / orig)]."""
+    if orig_sr == target_sr:
+        return wav
+    kernel, orig, new, width = sinc_interp_hann_kernel(orig_sr, target_sr)
+    n_in = wav.shape[-1]
+    n_out = -(-n_in * new // orig)
+    n_frames = -(-n_out // new)
+    pad_r = (n_frames - 1) * orig + kernel.shape[1] - width - n_in
+    x = F.pad(wav.float()[:, None, :], (width, max(0, pad_r)))
+    bank = torch.from_numpy(kernel).to(wav.device)[:, None, :]
+    with full_f32():
+        out = F.conv1d(x, bank, stride=orig)  # [B, n_phase, n_frames]
+    return out.transpose(1, 2).reshape(wav.shape[0], -1)[:, :n_out]
+
+
+def prepare_clap_audio_device(wav: torch.Tensor, orig_sr: int, cfg: CLAPConfig) -> torch.Tensor:
+    """:func:`prepare_clap_audio` on the device: resample and clip fit."""
+    return _fit_clip(resample_sinc(wav, orig_sr, cfg.sampling_rate), cfg.clip_samples)
+
+
+@torch.inference_mode()
+def rerank_score(params, cfg: CLAPConfig, orig_sr: int, wav: torch.Tensor,
+                 ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity [B] of each waveform (at ``orig_sr``) with its
+    prompt's tokens: resample, clip fit, audio and text embeddings, in f32
+    with TF32 off (the reranker's weights stay f32)."""
+    with full_f32():
+        a = audio_embedding(params, cfg, prepare_clap_audio_device(wav.float(), orig_sr, cfg))
+        t = text_embedding(params, cfg, ids, mask)[:, 0]
+        return cos_similarity(a, t)

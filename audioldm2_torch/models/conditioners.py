@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from audioldm2_tpu.config import ConditionerSpec
+from audioldm2_torch.config import ConditionerSpec
 from audioldm2_torch.models import clap as clap_model
 from audioldm2_torch.models import sequence_gen as sg_model
 from audioldm2_torch.models import t5 as t5_model

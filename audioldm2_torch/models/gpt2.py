@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from audioldm2_tpu.config import GPT2Config
+from audioldm2_torch.config import GPT2Config
 from audioldm2_torch.ops import nn
 from audioldm2_torch.params import Init
 

@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from audioldm2_tpu.config import ConditionerSpec
+from audioldm2_torch.config import ConditionerSpec
 from audioldm2_torch.models import gpt2
 from audioldm2_torch.ops import nn
 from audioldm2_torch.params import Init

@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from audioldm2_tpu.config import UNetConfig
+from audioldm2_torch.config import UNetConfig
 from audioldm2_torch.ops import KERNEL_NAMES, nn, quant
 from audioldm2_torch.params import Init
 
@@ -399,14 +399,17 @@ def _layout(cfg: UNetConfig):
 
 def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = None) -> dict:
     """Kernel launches of one apply_unet call with a context in every
-    cross slot, from the config and, for ``weight_quant="int8"``, the
-    quantization predicates. Per ResBlock two convs: K1, or K1q where the
-    conv is quantized. Per transformer block three LN-fused projections
-    (the self-attention's fused QKV, attn2's q or fused QKV, the GEGLU
-    proj_in): K3 or K3q; the GEGLU proj_out: K4 or K4q; the two to_out
-    projections: K5 when quantized, else a plain matmul. K2 for every
-    self-attention whose head_dim the kernel takes (attn1 everywhere,
-    attn2 in the self-ST); K6 for the final GroupNorm+SiLU."""
+    cross slot whose ``context_dims`` entry is set, from the config and,
+    for ``weight_quant="int8"``, the quantization predicates. Per ResBlock
+    two convs: K1, or K1q where the conv is quantized. Per transformer
+    block: the LN-fused projections (the self-attention's fused QKV; attn2's
+    q in a cross slot, its fused QKV in the self-ST; the GEGLU proj_in) run
+    K3 or K3q, the GEGLU proj_out K4 or K4q, the two to_out projections K5
+    when quantized (else a plain matmul), and every self-attention whose
+    head_dim the kernel takes runs K2 (attn1 everywhere, attn2 in the
+    self-ST). A ``None`` slot's attn2 is self-attention without the fused
+    projection, as in JAX: a plain LayerNorm, to_q (K5 when quantized),
+    plain to_k and to_v, and K2. K6 for the final GroupNorm+SiLU."""
     q = weight_quant == "int8"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts["group_norm_silu"] = 1  # out_norm
@@ -415,17 +418,28 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
         for a, b in ((cin, cout), (cout, cout)):
             counts["gn_silu_conv3x3_q" if q and _conv_quantizable(a, b) else "gn_silu_conv3x3"] += 1
     kernel_heads = cfg.num_head_channels in (32, 64, 128)
+    depth = cfg.transformer_depth
+
+    def add(name, k, n, blocks):
+        if q and _st_linear_quantizable(k, n):
+            counts[name + "_q" if name != "linear" else "int8_matmul"] += blocks
+        elif name != "linear":
+            counts[name] += blocks
+
     for c in ladders:
-        # (attn2's LN-fused projection, block count): the self-ST, then the cross-STs
-        for attn2_n, blocks in ((3 * c, cfg.transformer_depth),
-                                (c, len(cfg.context_dims) * cfg.transformer_depth)):
-            for k, n in ((c, 3 * c), (c, attn2_n), (c, 8 * c)):
-                lq = q and _st_linear_quantizable(k, n)
-                counts["ln_matmul_q" if lq else "ln_matmul"] += blocks
-            lq = q and _st_linear_quantizable(4 * c, c)
-            counts["geglu_matmul_q" if lq else "geglu_matmul"] += blocks
-            if q and _st_linear_quantizable(c, c):  # attn1 and attn2 to_out
-                counts["int8_matmul"] += 2 * blocks
-        if kernel_heads:
-            counts["flash_self_attention"] += cfg.transformer_depth * (2 + len(cfg.context_dims))
+        # per transformer block of each slot: (attn2's LN-fused width or None,
+        # self-attentions that reach K2)
+        slots = [(3 * c, 2)] + [(c, 1) if cd is not None else (None, 2)
+                                for cd in cfg.context_dims]
+        for attn2_n, self_attns in slots:
+            add("ln_matmul", c, 3 * c, depth)  # attn1's fused QKV
+            if attn2_n is None:
+                add("linear", c, c, depth)  # the None slot's to_q
+            else:
+                add("ln_matmul", c, attn2_n, depth)
+            add("ln_matmul", c, 8 * c, depth)  # GEGLU proj_in
+            add("geglu_matmul", 4 * c, c, depth)
+            add("linear", c, c, 2 * depth)  # attn1 and attn2 to_out
+            if kernel_heads:
+                counts["flash_self_attention"] += self_attns * depth
     return counts

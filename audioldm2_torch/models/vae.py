@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from audioldm2_tpu.config import VAEConfig
+from audioldm2_torch.config import VAEConfig
 from audioldm2_torch.ops import KERNEL_NAMES, nn
 from audioldm2_torch.params import Init
 

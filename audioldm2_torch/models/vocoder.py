@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from audioldm2_tpu.config import VocoderConfig
+from audioldm2_torch.config import VocoderConfig
 from audioldm2_torch.ops import nn
 from audioldm2_torch.params import Init
 

@@ -7,13 +7,14 @@ from typing import Dict
 
 KERNEL_NAMES = ("gn_silu_conv3x3", "flash_self_attention", "ln_matmul", "geglu_matmul",
                 "gn_silu_conv3x3_q", "int8_matmul", "ln_matmul_q", "geglu_matmul_q",
-                "group_norm_silu")
+                "group_norm_silu", "v6bd_attention", "v7_attention")
 
 
 def kernel_wrappers():
     """name -> wrapper of every hand-written kernel, in KERNEL_NAMES order
-    (K1..K4, the int8 kernels K1q, K5, K3q, K4q, then K6)."""
-    from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, lnmm_kernel
+    (K1..K4, the int8 kernels K1q, K5, K3q, K4q, then K6, K7 and K8)."""
+    from audioldm2_torch.ops import attention_kernel, attention_variants_kernel as avk
+    from audioldm2_torch.ops import groupnorm_kernel, lnmm_kernel
     from audioldm2_torch.ops import resblock_kernel
 
     return {
@@ -26,6 +27,8 @@ def kernel_wrappers():
         "ln_matmul_q": lnmm_kernel.ln_matmul_q,
         "geglu_matmul_q": lnmm_kernel.geglu_matmul_q,
         "group_norm_silu": groupnorm_kernel.group_norm_silu,
+        "v6bd_attention": avk.v6bd_attention,
+        "v7_attention": avk.v7_attention,
     }
 
 

@@ -56,6 +56,7 @@ SIGNATURES = {
     "a2k_geglu_matmul_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_attention_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

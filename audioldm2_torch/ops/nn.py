@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -93,15 +93,20 @@ def _same_pads(size: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, 
 
 
 def conv2d(p, x: torch.Tensor, stride: Tuple[int, int] = (1, 1),
-           padding: Union[str, int] = "SAME") -> torch.Tensor:
+           padding: Union[str, int, Sequence[Tuple[int, int]]] = "SAME") -> torch.Tensor:
     """x: [B, H, W, Cin]; p['w']: [kh, kw, Cin, Cout]; padding "SAME" (XLA's
-    rule) or an int for both sides of both dims."""
+    rule), "VALID", an int for both sides of both dims, or XLA's
+    [(low, high), (low, high)]."""
     w = p["w"]
     kh, kw = w.shape[0], w.shape[1]
     if padding == "SAME":
         pads = [_same_pads(x.shape[1], kh, stride[0]), _same_pads(x.shape[2], kw, stride[1])]
-    else:
+    elif padding == "VALID":
+        pads = [(0, 0), (0, 0)]
+    elif isinstance(padding, int):
         pads = [(padding, padding), (padding, padding)]
+    else:
+        pads = [tuple(pp) for pp in padding]
     xn = x.permute(0, 3, 1, 2)
     (ph0, ph1), (pw0, pw1) = pads
     if ph0 == ph1 and pw0 == pw1:

@@ -17,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from audioldm2_tpu.config import ModelConfig
+from audioldm2_torch.config import ModelConfig
 
 
 def from_jax_tree(tree: Any, device="cpu", dtype: torch.dtype = torch.float32) -> Any:
@@ -105,16 +105,21 @@ class Init:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 nonzero: bool = False) -> Dict:
     """Random tree with the JAX ``pipeline.init_params`` structure for the
-    UNet, VAE, vocoder and conditioners. Not drawn, since nothing ported
-    reads them: the DDPM-level CLAP reranker, CLAP's audio side, and nested
-    conditioners that feed no sequence generator input."""
-    from audioldm2_torch.models import conditioners, unet, vae, vocoder
+    UNet, VAE, vocoder, conditioners and, when ``cfg.reranker_clap`` is
+    set, the DDPM-level CLAP reranker (HTSAT audio and RoBERTa text towers,
+    read by the rerank of ``n_candidate_gen_per_text > 1``). Not drawn,
+    since nothing ported reads them: a PANN audio tower of a text-mode CLAP
+    and nested conditioners that feed no sequence generator input."""
+    from audioldm2_torch.models import clap, conditioners, unet, vae, vocoder
 
     ini = Init(generator, device, nonzero=nonzero)
-    return {
+    tree = {
         "unet": unet.init_unet(ini, cfg.unet),
         "vae": vae.init_vae(ini, cfg.vae),
         "vocoder": vocoder.init_vocoder(ini, cfg.vocoder),
         "cond": {spec.name: conditioners.init_conditioner(ini, spec) for spec in cfg.conditioners},
         "scale_factor": torch.tensor(1.0, device=ini.device),
     }
+    if cfg.reranker_clap is not None:
+        tree["reranker_clap"] = clap.init_clap(ini, cfg.reranker_clap)
+    return tree

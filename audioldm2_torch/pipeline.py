@@ -2,14 +2,16 @@
 super_resolution_and_inpainting.
 
 Port of ``audioldm2_tpu/pipeline.py`` for the t5 family
-(audioldm_16k_crossattn_t5) and the audioldm2-full family, each in bf16 or
-in the int8 serving mode (``weight_quant="int8"`` or
-``AUDIOLDM2_WEIGHT_QUANT=int8``). Host side: tokenization through the JAX
-package's jax-free ``utils.text`` (so both packages see the same ids, hash
-fallback included), wav reading through its jax-free ``utils.audio_io``,
-batch assembly and timing. Device side: conditioning -> CFG sampler (DDIM,
-PLMS or DDPM) -> VAE decode -> vocoder in ``diffusion.latent_diffusion``;
-for sr/inpainting also the log-mel (``ops.stft``) and the f32 VAE encode.
+(audioldm_16k_crossattn_t5), audioldm2-full and audioldm2-full-large-1150k,
+each in bf16 or in the int8 serving mode (``weight_quant="int8"`` or
+``AUDIOLDM2_WEIGHT_QUANT=int8``). Host side: tokenization through the
+port's ``utils.text`` (the JAX package's tokenizers, so both packages see
+the same ids, hash fallback included), wav reading through its
+``utils.audio_io``, batch assembly and timing. Device side: conditioning ->
+CFG sampler (DDIM, PLMS or DDPM) -> VAE decode -> vocoder in
+``diffusion.latent_diffusion``; for sr/inpainting also the log-mel
+(``ops.stft``) and the f32 VAE encode; with ``n_candidate_gen_per_text >
+1`` the CLAP rerank (``models.clap.rerank_score``) of the candidates.
 
 No checkpoint is loaded yet: ``build_model`` draws random weights on the
 device from ``seed``, or takes an existing parameter tree (the JAX
@@ -21,18 +23,22 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import sys
 import time
+import warnings
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from audioldm2_tpu.config import CLAPConfig, ModelConfig, default_audioldm_config
-from audioldm2_tpu.utils import text as text_utils
-from audioldm2_tpu.utils.audio_io import read_wav_file
+from audioldm2_torch import config as config_m
 from audioldm2_torch import params as params_m
+from audioldm2_torch.config import CLAPConfig, ModelConfig, default_audioldm_config
 from audioldm2_torch.diffusion.latent_diffusion import LatentDiffusionModel
-from audioldm2_torch.models import conditioners
+from audioldm2_torch.models import clap, conditioners
 from audioldm2_torch.ops.stft import MelSpectrogram
+from audioldm2_torch.utils import text as text_utils
+from audioldm2_torch.utils.audio_io import read_wav_file
 
 
 def _t5_max_length(cfg: ModelConfig) -> int:
@@ -84,6 +90,8 @@ class AudioLDM2:
                        if any(s.kind in ("flan_t5", "sequence_gen") for s in cfg.conditioners)
                        else None)
         self.clap_tok = text_utils.clap_tokenizer(_first_clap_cfg(cfg))
+        self.reranker_tok = (text_utils.clap_tokenizer(cfg.reranker_clap)
+                             if cfg.reranker_clap is not None else None)
         pre = cfg.preprocessing
         self.mel = MelSpectrogram(
             filter_length=pre.filter_length, hop_length=pre.hop_length,
@@ -92,6 +100,7 @@ class AudioLDM2:
             device=self.device,
         )
         self.last_timings: Dict[str, float] = {}
+        self.last_similarities: Optional[np.ndarray] = None  # the last rerank's, [B * n]
 
     def make_batch(self, text: str, batchsize: int = 1) -> Dict[str, torch.Tensor]:
         """Tokenize the prompt (and "" for the unconditional branch) with the
@@ -117,21 +126,24 @@ def build_model(config=None, device="cuda", model_name: str = "audioldm_16k_cros
     ``params``: an existing tree (the JAX package's numpy tree or the
     port's); when None, weights are drawn on the device from ``seed``
     (on the ``"meta"`` device, shapes only, with no memory).
+    ``config``: the port's ``ModelConfig`` or any dataclass with its fields
+    (the JAX package's), rebuilt by ``config.coerce``; None builds
+    ``default_audioldm_config(model_name)``.
     ``nonzero_init`` also draws the leaves the reference initializes to
     zero (see ``params.Init``). ``weight_quant="int8"`` (or the
     environment variable ``AUDIOLDM2_WEIGHT_QUANT=int8``) selects the int8
     serving mode: the UNet's transformer linears and ResBlock convs run
     int8 weights through the int8 kernels."""
-    cfg = config if isinstance(config, ModelConfig) else default_audioldm_config(model_name)
+    cfg = default_audioldm_config(model_name) if config is None else config_m.coerce(config)
     weight_quant = weight_quant or os.environ.get("AUDIOLDM2_WEIGHT_QUANT") or None
     if weight_quant:
         cfg = dataclasses.replace(cfg, weight_quant=weight_quant)
     if cfg.weight_quant not in (None, "int8"):
         raise ValueError(f"weight_quant {cfg.weight_quant!r}: only 'int8' is supported")
-    if None in cfg.unet.context_dims:
+    if cfg.unet.extra_film_condition_dim is not None:
         raise NotImplementedError(
-            f"{cfg.name}: a context-free cross-attention slot (audioldm2-full-large-1150k, "
-            "audioldm_48k) is not ported to audioldm2_torch yet (ROADMAP queue 1 items 10-11)"
+            f"{cfg.name}: the FiLM-conditioned UNet with the 48 kHz VAE and vocoder "
+            "(audioldm_48k) is not ported to audioldm2_torch yet (ROADMAP queue 1 item 11)"
         )
     for spec in cfg.conditioners:
         conditioners.check_kind(spec)
@@ -153,19 +165,14 @@ def _record_timings(model: AudioLDM2, duration: float, batchsize: int, **stages)
                           "x_realtime": duration * batchsize / total if total > 0 else 0.0}
 
 
-def _check_request(transcription: str, n_candidate_gen_per_text: int) -> None:
-    if n_candidate_gen_per_text != 1:
-        raise NotImplementedError(
-            "n_candidate_gen_per_text > 1 needs CLAP reranking, whose audio tower is not "
-            "ported to audioldm2_torch yet (ROADMAP queue 1 item 9)"
-        )
+def _check_request(transcription: str) -> None:
     if transcription:
         raise NotImplementedError("transcriptions need the TTS family (ROADMAP queue 1 item 12)")
 
 
 def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
                   ddim_steps: int = 200, duration: float = 10, batchsize: int = 1,
-                  guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 1,
+                  guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 3,
                   duration_bucket: Optional[float] = 2.5, sampler: str = "ddim",
                   use_ema: bool = False):
     """Generate [batchsize, 1, N] float32 waveforms in [-1, 1] (numpy).
@@ -173,23 +180,58 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
     ``sampler``: "ddim" (eta 1, as the JAX package's generate), "plms"
     (``ddim_steps`` steps) or "ddpm" (the full ancestral schedule).
     ``use_ema`` denoises with the EMA UNet weights (``params["unet_ema"]``).
-    ``n_candidate_gen_per_text > 1`` needs the CLAP reranker (its audio
-    tower is not ported yet) and raises rather than returning an unranked
-    candidate."""
-    _check_request(transcription, n_candidate_gen_per_text)
+    ``n_candidate_gen_per_text`` candidates are generated per prompt (CFG
+    batch 2 * batchsize * n) and the CLAP reranker keeps the best of each
+    prompt's (:func:`rerank_and_select`)."""
+    _check_request(transcription)
+    n = int(n_candidate_gen_per_text)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     t0 = time.perf_counter()
     batch = model.make_batch(text, batchsize=batchsize)
     t1 = time.perf_counter()
     gen_duration = round_up_duration(duration, duration_bucket) if duration_bucket else duration
     latent_t_size = int(gen_duration * model.cfg.latent_t_per_second)
-    wav, _ = model.ldm.generate(batch, gen, latent_t_size=latent_t_size, n_gen=1,
+    wav, _ = model.ldm.generate(batch, gen, latent_t_size=latent_t_size, n_gen=n,
                                 guidance=guidance_scale, ddim_steps=ddim_steps, sampler=sampler,
                                 use_ema=use_ema)
     t2 = time.perf_counter()
-    _record_timings(model, duration, batchsize, tokenize_s=t1 - t0, generate_s=t2 - t1)
+    wav = rerank_and_select(model, wav, text, batchsize, n)
+    t3 = time.perf_counter()
+    _record_timings(model, duration, batchsize, tokenize_s=t1 - t0, generate_s=t2 - t1,
+                    rerank_s=t3 - t2)
     n_samples = int(duration * model.cfg.preprocessing.sampling_rate)
     return wav[:, None, :n_samples]
+
+
+def rerank_and_select(model: AudioLDM2, wav: np.ndarray, text: str, batchsize: int,
+                      n_gen: int) -> np.ndarray:
+    """Keep, for each prompt, the candidate whose CLAP audio embedding is
+    closest to the prompt's text embedding (candidate ``i + j * batchsize``
+    belongs to prompt ``i``). The similarities print to stderr. With no
+    reranker weights it warns and returns each prompt's first candidate."""
+    if n_gen <= 1:
+        return wav
+    reranker = model.ldm.params.get("reranker_clap")
+    if reranker is None:
+        warnings.warn(
+            "n_candidate_gen_per_text > 1 but no CLAP reranker weights are loaded "
+            "(cfg.reranker_clap is None): returning candidate #1 un-reranked.", stacklevel=2)
+        return wav[:batchsize]
+    ids, mask = model.reranker_tok([text] * wav.shape[0])
+    dev = model.device
+    sim = clap.rerank_score(
+        reranker, model.cfg.reranker_clap, model.cfg.preprocessing.sampling_rate,
+        torch.as_tensor(np.asarray(wav), device=dev), torch.as_tensor(ids, device=dev),
+        torch.as_tensor(mask, device=dev)).cpu().numpy()
+    model.last_similarities = sim
+    best = [i + int(np.argmax(sim[i::batchsize])) * batchsize for i in range(batchsize)]
+    print("Similarity between generated audio and text:", file=sys.stderr)
+    print(" ".join("{:.4f}".format(float(v)) for v in sim), file=sys.stderr)
+    if float(np.max(sim) - np.min(sim)) == 0.0:
+        print("WARNING: all candidate similarities identical — the CLAP embedding path is "
+              "degenerate (argmax is arbitrary)", file=sys.stderr)
+    print("Choose the following indexes as the output:", best, file=sys.stderr)
+    return wav[best]
 
 
 def latent_inpaint_mask(shape, time_ratio: Tuple[float, float],
@@ -207,7 +249,7 @@ def super_resolution_and_inpainting(
     model: AudioLDM2, text: str, transcription: str = "",
     original_audio_file_path: Optional[str] = None, seed: int = 42, ddim_steps: int = 200,
     duration: float = 10, batchsize: int = 1, guidance_scale: float = 2.5,
-    n_candidate_gen_per_text: int = 1,
+    n_candidate_gen_per_text: int = 3,
     time_mask_ratio_start_and_end: Tuple[float, float] = (0.40, 0.60),
     freq_mask_ratio_start_and_end: Tuple[float, float] = (1.0, 1.0), sampler: str = "ddim",
 ):
@@ -218,8 +260,10 @@ def super_resolution_and_inpainting(
     ``duration``, turned into the log-mel fbank, encoded by the f32 VAE, and
     generated with the latent mask (time span ``time_mask_ratio_start_and_end``
     and frequency span ``freq_mask_ratio_start_and_end`` regenerated, the
-    rest blended from the q-sampled encoding at every step)."""
-    _check_request(transcription, n_candidate_gen_per_text)
+    rest blended from the q-sampled encoding at every step), with
+    ``n_candidate_gen_per_text`` candidates per prompt reranked by CLAP."""
+    _check_request(transcription)
+    n = int(n_candidate_gen_per_text)
     cfg = model.cfg
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     t0 = time.perf_counter()
@@ -238,9 +282,12 @@ def super_resolution_and_inpainting(
     if z0.is_cuda:  # prepare_s covers the encode, not only its enqueue
         torch.cuda.synchronize(z0.device)
     t1 = time.perf_counter()
-    wav, _ = model.ldm.generate(batch, gen, latent_t_size=z0.shape[1], n_gen=1,
+    wav, _ = model.ldm.generate(batch, gen, latent_t_size=z0.shape[1], n_gen=n,
                                 guidance=guidance_scale, ddim_steps=ddim_steps, use_mask=True,
                                 sampler=sampler)
     t2 = time.perf_counter()
-    _record_timings(model, duration, batchsize, prepare_s=t1 - t0, generate_s=t2 - t1)
+    wav = rerank_and_select(model, wav, text, batchsize, n)
+    t3 = time.perf_counter()
+    _record_timings(model, duration, batchsize, prepare_s=t1 - t0, generate_s=t2 - t1,
+                    rerank_s=t3 - t2)
     return wav[:, None, :int(duration * sr)]

@@ -13,7 +13,14 @@ width:
           synthesized 10 s 16 kHz wav: log-mel, f32 VAE encode (K1 and K6
           in f32), masked DDIM at guidance 2.5;
   full8   audioldm2-full in the int8 serving mode (weight_quant="int8":
-          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder, K6).
+          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder, K6);
+  large   audioldm2-full-large-1150k (depth-2 spatial transformers, a
+          context-free third cross slot whose attn2 runs K2), bf16,
+          text_to_audio at n_candidate_gen_per_text = 3 (CFG batch 6), with
+          the CLAP rerank (HTSAT-base audio tower, RoBERTa text tower, f32);
+  ab      the attention A/B entry point (audioldm2_torch.tools.
+          ab_attn_variants) once: the plain version, K2, K7 (v6bd), K8 (v7)
+          and scaled_dot_product_attention at the JAX tool's shapes.
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -24,14 +31,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      cuBLAS linear is printed); the convs' times before and after the repair;
   3. kernels: every distinct shape the t5 path gives K1-K4 and K6 (UNet at
      10 s and CFG batch 2, VAE decode at batch 1), the f32 shapes of one
-     full-width VAE encode (K1, K6), and the full8 path's int8 kernels (its
-     UNet), kernel against its plain PyTorch version, plus one shape per
-     kernel in f32 and the VAE decoder's largest K1 and K6 shapes offset by
-     +10 (GroupNorm cancellation); times of both;
+     full-width VAE encode (K1, K6), the full8 path's int8 kernels (its
+     UNet) and the large path's UNet at CFG batch 6, kernel against its
+     plain PyTorch version, plus one shape per kernel in f32 and the VAE
+     decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
+     cancellation); K7 and K8 at the A/B tool's four shapes (bf16), one f32
+     shape, the q, k, v of the large UNet's T = 1024 K2 calls, and inputs
+     whose logits clamp; times of both, the least time the card could take
+     (bound) and, for the attention kernels, scaled_dot_product_attention's;
   4. one full-width UNet forward (all leaves non-zero), kernels against the
      all-plain path: the t5 UNet in bf16 and f32, the audioldm2-full UNet
-     in int8 (bf16 activations); one full-width f32 VAE encode, kernels
-     against the all-plain path, and its time;
+     in int8 (bf16 activations), the large UNet at CFG batch 6 in bf16 and
+     f32; one full-width f32 VAE encode, kernels against the all-plain
+     path, and its time;
   5. requests on each path: three at the reference defaults (10 s, 200
      steps, guidance 3.5, or 2.5 for sr; batch 1; their median is the p50
      latency) and one at batch 2, each with output checks (and, on the full
@@ -39,13 +51,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      norm), no CUDA tensor reaching a plain version, and launch counts,
      reset to 0 just before the request, equal to the counts computed from
      the config (the sr path's VAE encode included); the PLMS and DDPM
-     requests likewise, once each at batch 1.
+     requests likewise, once each at batch 1; on the large path also the
+     rerank: the similarities finite and in [-1, 1], the kept candidate the
+     argmax of each prompt's, the CLAP audio embeddings of unit norm.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
 in f32; the whole audioldm2-full int8 UNet, whose bf16 rounding alone moves
 its output by more than 2e-2, is held to 1.25 times that movement (see
-FLOOR_FACTOR). TF32 is switched off for cuDNN and matmuls, so the f32 plain path
+FLOOR_FACTOR), and so is the large-1150k UNet in bf16. TF32 is switched off for cuDNN and matmuls, so the f32 plain path
 is a full-precision oracle. K1q, K3q and K4q round their activation to
 bf16 even in f32, as the Pallas kernels do; their f32 inputs are built so
 that this activation is an exact bf16 value in both versions (see
@@ -70,6 +84,7 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 T5_MODEL = "audioldm_16k_crossattn_t5"
 FULL_MODEL = "audioldm2-full"
+LARGE_MODEL = "audioldm2-full-large-1150k"
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
 ROUND_ONCE_SHARE = 1e-3
@@ -79,6 +94,10 @@ ROUND_ONCE_SHARE = 1e-3
 # different points cannot agree within BF16_TOL. Its int8 check is held to
 # this factor times that floor, measured in the same run.
 FLOOR_FACTOR = 1.25
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and operations/s
+# by the type a kernel multiplies in (bf16 tensor cores; f32 FMA units)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 KERNELS = {
     "gn_silu_conv3x3": ("audioldm2_torch/csrc/gn_silu_conv.cu",
@@ -94,7 +113,12 @@ KERNELS = {
     "geglu_matmul_q": ("audioldm2_torch/csrc/lnmm.cu", "audioldm2_tpu/ops/lnmm_pallas.py:221"),
     "group_norm_silu": ("audioldm2_torch/csrc/groupnorm.cu",
                         "audioldm2_tpu/ops/groupnorm_pallas.py:51"),
+    "v6bd_attention": ("audioldm2_torch/csrc/attention_variants.cu",
+                       "tools/ab_attn_variants.py:109"),
+    "v7_attention": ("audioldm2_torch/csrc/attention_variants.cu",
+                     "tools/ab_attn_variants.py:190"),
 }
+ATTENTION_KERNELS = ("flash_self_attention", "v6bd_attention", "v7_attention")
 
 
 def log(msg: str = "") -> None:
@@ -147,8 +171,9 @@ def rel_err(got, want):
 
 def _wrappers():
     """name -> (kernel wrapper, plain version) of every kernel."""
-    from audioldm2_torch.ops import attention_kernel as ak, groupnorm_kernel as gk
-    from audioldm2_torch.ops import lnmm_kernel as lk, resblock_kernel as rk
+    from audioldm2_torch.ops import attention_kernel as ak, attention_variants_kernel as avk
+    from audioldm2_torch.ops import groupnorm_kernel as gk, lnmm_kernel as lk
+    from audioldm2_torch.ops import resblock_kernel as rk
 
     return {
         "gn_silu_conv3x3": (rk.gn_silu_conv3x3, rk.gn_silu_conv3x3_plain),
@@ -160,6 +185,8 @@ def _wrappers():
         "ln_matmul_q": (lk.ln_matmul_q, lk.ln_matmul_q_plain),
         "geglu_matmul_q": (lk.geglu_matmul_q, lk.geglu_matmul_q_plain),
         "group_norm_silu": (gk.group_norm_silu, gk.group_norm_silu_plain),
+        "v6bd_attention": (avk.v6bd_attention, avk.v6bd_attention_plain),
+        "v7_attention": (avk.v7_attention, avk.v7_attention_plain),
     }
 
 
@@ -256,26 +283,35 @@ def plain_versions_forbidden():
 
 @contextlib.contextmanager
 def conditioning_recorded(out):
-    """Record the GPT-2 tokens and the CLAP text embeddings a request makes."""
+    """Record the GPT-2 tokens, the CLAP text and audio embeddings a request
+    makes, and each rerank's candidates, batch size and kept waveforms."""
+    from audioldm2_torch import pipeline
     from audioldm2_torch.models import clap, sequence_gen
 
-    saved = (clap.text_embedding, sequence_gen.generate)
+    saved = (clap.text_embedding, clap.audio_embedding, sequence_gen.generate,
+             pipeline.rerank_and_select)
 
-    def text_embedding(*a, **kw):
-        emb = saved[0](*a, **kw)
-        out.setdefault("clap", []).append(emb)
-        return emb
+    def recorder(key, fn):
+        def wrapped(*a, **kw):
+            got = fn(*a, **kw)
+            out.setdefault(key, []).append(got)
+            return got
+        return wrapped
 
-    def generate(*a, **kw):
-        tokens = saved[1](*a, **kw)
-        out.setdefault("gpt2", []).append(tokens)
-        return tokens
+    def rerank_and_select(model, wav, text, batchsize, n_gen):
+        kept = saved[3](model, wav, text, batchsize, n_gen)
+        out.setdefault("rerank", []).append((wav, batchsize, n_gen, kept))
+        return kept
 
-    clap.text_embedding, sequence_gen.generate = text_embedding, generate
+    clap.text_embedding = recorder("clap", saved[0])
+    clap.audio_embedding = recorder("clap_audio", saved[1])
+    sequence_gen.generate = recorder("gpt2", saved[2])
+    pipeline.rerank_and_select = rerank_and_select
     try:
         yield
     finally:
-        clap.text_embedding, sequence_gen.generate = saved
+        (clap.text_embedding, clap.audio_embedding, sequence_gen.generate,
+         pipeline.rerank_and_select) = saved
 
 
 def exact_f32_args(name, args, seed: int = 0):
@@ -325,6 +361,101 @@ def exact_f32_args(name, args, seed: int = 0):
     else:
         raise ValueError(f"{name} does not round its activation to bf16")
     return tuple(f32)
+
+
+def kernel_work(name, args):
+    """(bytes, operations, the type it multiplies in) of one kernel call:
+    each input read once and the output written once; the products' (or,
+    for K6, the elementwise) operations. K1q, K3q and K4q multiply bf16
+    tiles; the others in their activation's type."""
+    import torch
+
+    def nbytes(t):
+        return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+    x = args[0]
+    kind = "bf16" if name.endswith("_q") or x.dtype == torch.bfloat16 else "f32"
+    rows = x.numel() // x.shape[-1]
+    if name in ("gn_silu_conv3x3", "gn_silu_conv3x3_q"):
+        cin = x.shape[-1] + (0 if args[1] is None else args[1].shape[-1])
+        cout = args[4].shape[-1]
+        return (sum(map(nbytes, args)) + rows * cout * x.element_size(),
+                2 * rows * 9 * cin * cout, kind)
+    if name in ATTENTION_KERNELS:
+        b, t, h, d = x.shape
+        return sum(map(nbytes, args[:3])) + nbytes(x), 4 * b * h * t * t * d, kind
+    if name in ("ln_matmul", "ln_matmul_q", "int8_matmul", "geglu_matmul", "geglu_matmul_q"):
+        w = args[1] if name.startswith(("int8", "geglu")) else args[3]
+        k, n = w.shape
+        return sum(map(nbytes, args)) + rows * n * x.element_size(), 2 * rows * k * n, kind
+    if name == "group_norm_silu":  # stats, normalize, affine and SiLU: ~10 f32 ops an element
+        return sum(map(nbytes, args)) + nbytes(x), 10 * x.numel(), "f32"
+    raise ValueError(f"no work model for {name}")
+
+
+def bound_times(name, args):
+    """(bytes over the HBM rate, operations over the peak of their type), ms."""
+    nbytes, ops, kind = kernel_work(name, args)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+
+
+def library_call(name, args):
+    """One PyTorch call computing the same function, where there is one
+    (scaled_dot_product_attention for the unmasked self-attentions), else
+    None. Timed as a yardstick only; the port never calls it."""
+    if name not in ATTENTION_KERNELS:
+        return None
+    from audioldm2_torch.tools.ab_attn_variants import sdpa
+
+    return lambda: sdpa(*args[:4])
+
+
+def new_stats():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+            "library_ms": None, "max_abs_err": 0.0, "max_rel_err": 0.0, "f32_rel_err": 0.0,
+            "shapes": 0}
+
+
+def check_kernel(name, args, tol, tag, failures):
+    """The kernel against its plain version on the same inputs; logs the
+    error and both times. Returns (max_abs_err, rel_err, kernel ms, plain ms)."""
+    import torch
+
+    kern, plain = _wrappers()[name]
+    with torch.inference_mode():
+        got = kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        ok_finite = bool(torch.isfinite(got).all())
+        d, r = rel_err(got, want)
+        k_ms = cuda_ms(lambda: kern(*args))
+        p_ms = cuda_ms(lambda: plain(*args))
+    status = "ok" if ok_finite and r <= tol else "FAIL"
+    log(f"  {status} {tag}: max_abs_err {d:.3e} rel {r:.3e} (tol {tol:g}) "
+        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+    if status != "ok":
+        failures.append(tag)
+    return d, r, k_ms, p_ms
+
+
+def add_call(st, name, args, n, d, r, k_ms, p_ms):
+    """Add n calls of one shape to a kernel's stats: times, bound, the
+    library call's time (timed here) and the errors."""
+    import torch
+
+    b_ms, o_ms = bound_times(name, args)
+    st["ms"] += n * k_ms
+    st["plain_ms"] += n * p_ms
+    st["bound_ms"] += n * max(b_ms, o_ms)
+    st["bytes_ms"] += n * b_ms
+    st["ops_ms"] += n * o_ms
+    lib = library_call(name, args)
+    if lib is not None:
+        with torch.inference_mode():
+            st["library_ms"] = (st["library_ms"] or 0.0) + n * cuda_ms(lib)
+    st["max_abs_err"] = max(st["max_abs_err"], d)
+    st["max_rel_err"] = max(st["max_rel_err"], r)
+    st["shapes"] += 1
 
 
 def signature(name, args):
@@ -442,29 +573,30 @@ def phase_rounding(device):
     return shares
 
 
-def _ctx_inputs(cfg, device, g):
-    """One bf16 context per cross slot at CFG batch 2 and its mask: the
-    unconditional row keeps one token, the conditional a tenth."""
+def _ctx_inputs(cfg, device, g, batch: int = 2):
+    """One bf16 context per set cross slot (a None slot takes none) at CFG
+    batch ``batch`` and its mask: the unconditional half keeps one token,
+    the conditional half a tenth."""
     import torch
 
     n_tok = {1024: 128, 768: 8}  # T5 tokens; the GPT-2 sequence generator's 8
     ctxs, masks = [], []
-    for dim in cfg.unet.context_dims:
+    for dim in (d for d in cfg.unet.context_dims if d is not None):
         n = n_tok.get(dim, 16)
-        ctxs.append(torch.randn((2, n, dim), generator=g, device=device).to(torch.bfloat16))
-        mask = torch.ones((2, n), device=device)
+        ctxs.append(torch.randn((batch, n, dim), generator=g, device=device).to(torch.bfloat16))
+        mask = torch.ones((batch, n), device=device)
         if dim == 1024:
-            mask[0, 1:] = 0.0
-            mask[1, n // 10:] = 0.0
+            mask[:batch // 2, 1:] = 0.0
+            mask[batch // 2:, n // 10:] = 0.0
         masks.append(mask)
     return ctxs, masks
 
 
 def discover_calls(cfg, unet_f32, vae_p, ctxs, masks, device):
-    """One UNet forward (10 s, CFG batch 2) with the config's per-call
-    transforms (int8 ones included) and, when vae_p is given, one VAE decode
-    (batch 1), through the kernels, recording the first call of each
-    distinct shape and how many calls each shape gets."""
+    """One UNet forward (10 s, the contexts' CFG batch) with the config's
+    per-call transforms (int8 ones included) and, when vae_p is given, one
+    VAE decode (batch 1), through the kernels, recording the first call of
+    each distinct shape and how many calls each shape gets."""
     import torch
     from audioldm2_torch.diffusion.latent_diffusion import prepare_unet
     from audioldm2_torch.models import unet, vae
@@ -478,9 +610,10 @@ def discover_calls(cfg, unet_f32, vae_p, ctxs, masks, device):
             first[sig] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
     g = torch.Generator(device=device).manual_seed(11)
-    x = torch.randn((2, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
+    batch = ctxs[0].shape[0]
+    x = torch.randn((batch, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
                     generator=g, device=device).to(torch.bfloat16)
-    t = torch.full((2,), 500, dtype=torch.int32, device=device)
+    t = torch.full((batch,), 500, dtype=torch.int32, device=device)
     with torch.inference_mode(), patched_dispatch("record", record):
         unet_p, kv = prepare_unet({"unet": unet_f32}, cfg, ctxs)
         unet.apply_unet(unet_p, cfg.unet, x, t, ctxs, masks, cross_kv=kv)
@@ -544,41 +677,17 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
     shapes offset by +10."""
     import torch
 
-    wrappers = _wrappers()
     names = sorted({sig[0] for sig in first}, key=list(KERNELS).index)
-    stats = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0,
-                 "f32_rel_err": 0.0, "shapes": 0} for k in names}
+    stats = {k: new_stats() for k in names}
     failures = []
-
-    def check(name, args, tol, tag):
-        kern, plain = wrappers[name]
-        with torch.inference_mode():
-            got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            ok_finite = bool(torch.isfinite(got).all())
-            d, r = rel_err(got, want)
-            k_ms = cuda_ms(lambda: kern(*args))
-            p_ms = cuda_ms(lambda: plain(*args))
-        status = "ok" if ok_finite and r <= tol else "FAIL"
-        log(f"  {status} {tag}: max_abs_err {d:.3e} rel {r:.3e} (tol {tol:g}) "
-            f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
-        if status != "ok":
-            failures.append(tag)
-        return d, r, k_ms, p_ms
 
     for sig, args in first.items():
         name = sig[0]
         n = counts[sig]
         bf16 = args[0].dtype == torch.bfloat16
-        d, r, k_ms, p_ms = check(name, args, BF16_TOL if bf16 else F32_TOL,
-                                 f"{'bf16' if bf16 else 'f32'} {describe(sig)} x{n}")
-        st = stats[name]
-        st["ms"] += n * k_ms
-        st["plain_ms"] += n * p_ms
-        st["max_abs_err"] = max(st["max_abs_err"], d)
-        st["max_rel_err"] = max(st["max_rel_err"], r)
-        st["shapes"] += 1
+        res = check_kernel(name, args, BF16_TOL if bf16 else F32_TOL,
+                           f"{'bf16' if bf16 else 'f32'} {describe(sig)} x{n}", failures)
+        add_call(stats[name], name, args, n, *res)
 
     # one shape per kernel in f32 (the smallest recorded), TF32 off
     for name in names if f32_pass else ():
@@ -590,7 +699,8 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         else:
             args = tuple(a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
                          else a for a in args)
-        _, r, _, _ = check(name, args, F32_TOL, f"f32 {describe(signature(name, args))}")
+        _, r, _, _ = check_kernel(name, args, F32_TOL, f"f32 {describe(signature(name, args))}",
+                                  failures)
         stats[name]["f32_rel_err"] = r
 
     # GroupNorm cancellation: the largest VAE (eps 1e-6) shape, inputs offset by +10
@@ -602,20 +712,65 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
             args[0] = args[0].float() + 10.0
             args = tuple(a.to(dt) if isinstance(a, torch.Tensor) else a for a in args)
             tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
-            check(name, args, tol, f"{dt} +10 offset {describe(big)}")
+            check_kernel(name, args, tol, f"{dt} +10 offset {describe(big)}", failures)
 
     for name, st in stats.items():
+        lib = "" if st["library_ms"] is None else f", sdpa {st['library_ms']:.3f} ms"
         log(f"  {name}: {st['shapes']} shapes, one forward: "
-            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms")
+            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
+            f"{st['bound_ms']:.3f} ms{lib}")
+    if failures:
+        raise AssertionError(f"kernel checks failed: {failures}")
+    return stats
+
+
+def phase_variants(large_first, device):
+    """K7 and K8 against their plain versions: the A/B tool's four shapes in
+    bf16 (one call each: these make the record's times and bound), one f32
+    shape, the q, k, v of the large UNet's T = 1024 K2 calls, and one input
+    scaled so that logits pass +-100 (K8 clamps there, by design)."""
+    import torch
+    from audioldm2_torch.tools.ab_attn_variants import SHAPES
+
+    names = ("v6bd_attention", "v7_attention")
+    stats = {k: new_stats() for k in names}
+    failures = []
+    g = torch.Generator(device=device).manual_seed(21)
+
+    def qkv(shape, dt, q_scale=1.0):
+        q, k, v = (torch.randn(shape, generator=g, device=device) for _ in range(3))
+        return (q * q_scale).to(dt), k.to(dt), v.to(dt), shape[-1] ** -0.5
+
+    cases = [(f"bf16 A/B {label} {(b, t, h, d)}", qkv((b, t, h, d), torch.bfloat16), True)
+             for label, b, t, h, d in SHAPES]
+    cases.append(("f32 (2, 256, 8, 32)", qkv((2, 256, 8, 32), torch.float32), False))
+    cases += [(f"bf16 large UNet K2 call {describe(sig)}", args, False)
+              for sig, args in large_first.items()
+              if sig[0] == "flash_self_attention" and sig[1][0][1] == 1024]
+    cases.append(("bf16 (6, 1024, 8, 32), logits past +-100",
+                  qkv((6, 1024, 8, 32), torch.bfloat16, q_scale=40.0), False))
+    for tag, args, timed in cases:
+        tol = BF16_TOL if args[0].dtype == torch.bfloat16 else F32_TOL
+        for name in names:
+            res = check_kernel(name, args, tol, f"{name} {tag}", failures)
+            if timed:
+                add_call(stats[name], name, args, 1, *res)
+            else:
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], res[0])
+    for name, st in stats.items():
+        log(f"  {name}: the four A/B shapes, one call each: kernel {st['ms']:.3f} ms, plain "
+            f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms, sdpa "
+            f"{st['library_ms']:.3f} ms")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return stats
 
 
 def unet_eps(cfg, unet_f32, ctxs, masks, device, dt, plain: bool = False):
-    """One UNet forward (CFG batch 2, t = 981) in compute dtype ``dt`` with
-    the config's per-call transforms (int8 ones included), through the
-    kernels or, with ``plain``, through every kernel's plain version."""
+    """One UNet forward (the contexts' CFG batch, t = 981) in compute dtype
+    ``dt`` with the config's per-call transforms (int8 ones included),
+    through the kernels or, with ``plain``, through every kernel's plain
+    version."""
     import dataclasses
 
     import torch
@@ -623,9 +778,10 @@ def unet_eps(cfg, unet_f32, ctxs, masks, device, dt, plain: bool = False):
     from audioldm2_torch.models import unet
 
     g = torch.Generator(device=device).manual_seed(12)
-    x = torch.randn((2, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
+    batch = ctxs[0].shape[0]
+    x = torch.randn((batch, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
                     generator=g, device=device)
-    t = torch.tensor([981, 981], dtype=torch.int32, device=device)
+    t = torch.full((batch,), 981, dtype=torch.int32, device=device)
     dcfg = dataclasses.replace(cfg, compute_dtype="float32" if dt == torch.float32
                                else "bfloat16")
     c = [ctx.to(dt) for ctx in ctxs]
@@ -710,9 +866,28 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
         dev = (torch.linalg.vector_norm(emb.float(), dim=-1) - 1.0).abs().max().item()
         if dev > 1e-4:
             raise AssertionError(f"CLAP text embedding norm is off 1 by {dev:.3e}")
-    if cond:
+    for emb in cond.get("clap_audio", []):
+        dev = (torch.linalg.vector_norm(emb.float(), dim=-1) - 1.0).abs().max().item()
+        if dev > 1e-4:
+            raise AssertionError(f"CLAP audio embedding norm is off 1 by {dev:.3e}")
+    if cond.get("gpt2"):
         log(f"    GPT-2 tokens {[tuple(t.shape) for t in cond['gpt2']]} finite; CLAP "
             f"embeddings {[tuple(e.shape) for e in cond['clap']]} of unit norm")
+    for cands, b, n, kept in cond.get("rerank", []):
+        if n <= 1:
+            continue
+        sim = model.last_similarities
+        if sim is None or sim.shape != (b * n,) or not np.isfinite(sim).all() or \
+                np.abs(sim).max() > 1.0 + 1e-5:
+            raise AssertionError(f"rerank similarities {sim} not finite, mis-sized or outside "
+                                 "[-1, 1]")
+        picks = [i + int(np.argmax(sim[i::b])) * b for i in range(b)]
+        if not np.array_equal(kept, cands[picks]):
+            raise AssertionError(f"the kept candidates are not the argmax picks {picks}")
+        log(f"    rerank of {b * n} candidates: similarities "
+            f"{' '.join(f'{v:.4f}' for v in sim)}, kept {picks} (the argmax of each prompt's); "
+            f"CLAP audio embeddings {[tuple(e.shape) for e in cond['clap_audio']]} of unit "
+            f"norm; rerank_s {model.last_timings['rerank_s']:.4f}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     return wall, counts
@@ -749,7 +924,27 @@ def write_wav(path: str, sr: int, seconds: float) -> str:
     return path
 
 
-def phase_5(t5_cfg, full_cfg, device, steps: int, duration: float):
+def phase_ab(device):
+    """The A/B entry point once, with the launch counts set to 0 just before
+    and read just after; K7 and K8 must have launched. Returns (counts,
+    per-shape times)."""
+    import torch
+    from audioldm2_torch import ops
+    from audioldm2_torch.tools import ab_attn_variants
+
+    log("== path ab: python -m audioldm2_torch.tools.ab_attn_variants (bf16)")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = ab_attn_variants.run(reps=10, device=device, log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"    launches {counts}")
+    if not (counts["v6bd_attention"] and counts["v7_attention"]):
+        raise AssertionError(f"the A/B entry point did not launch K7 and K8: {counts}")
+    return counts, {r["label"]: {"ms": r["ms"], "max_abs_err": r["max_abs_err"]} for r in rows}
+
+
+def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     """The requests of every path; returns {path: launch counts of its first
     request} and {path: timings}."""
     import dataclasses
@@ -759,11 +954,13 @@ def phase_5(t5_cfg, full_cfg, device, steps: int, duration: float):
 
     log("== phase 5: requests")
     launches, e2e = {}, {}
+    launches["ab"], e2e["ab"] = phase_ab(device)
 
-    def t2a(model, guidance=3.5, **kw):
+    def t2a(model, guidance=3.5, n=1, **kw):
         def request(prompt, bsz, n_steps, dur):
             return at.text_to_audio(model, prompt, seed=42, ddim_steps=n_steps, duration=dur,
-                                    batchsize=bsz, guidance_scale=guidance, **kw)
+                                    batchsize=bsz, guidance_scale=guidance,
+                                    n_candidate_gen_per_text=n, **kw)
         return request
 
     model = build("t5", t5_cfg, device)
@@ -791,7 +988,7 @@ def phase_5(t5_cfg, full_cfg, device, steps: int, duration: float):
         def sr_request(prompt, bsz, n_steps, dur):
             return at.super_resolution_and_inpainting(
                 model, prompt, original_audio_file_path=wav_path, seed=42, ddim_steps=n_steps,
-                duration=dur, batchsize=bsz, guidance_scale=2.5)
+                duration=dur, batchsize=bsz, guidance_scale=2.5, n_candidate_gen_per_text=1)
 
         launches["sr"], e2e["sr"] = phase_requests(
             "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps, duration,
@@ -802,6 +999,12 @@ def phase_5(t5_cfg, full_cfg, device, steps: int, duration: float):
     launches["full8"], e2e["full8"] = phase_requests(
         "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
         "text_to_audio ddim, guidance 3.5")
+    del model
+
+    model = build("large", large_cfg, device)
+    launches["large"], e2e["large"] = phase_requests(
+        "large", model, t2a(model, n=3), expect(model.cfg, steps), steps, duration,
+        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP")
     return launches, e2e
 
 
@@ -818,7 +1021,7 @@ def _leaves(tree):
         yield tree
 
 
-def run(t5_cfg, full_cfg, device, steps: int, duration: float):
+def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     """Phases 2-5 at the configs' widths on ``device``; returns the
     per-kernel stats of phase 3 and the launch counts of the first request
     of each path."""
@@ -857,6 +1060,18 @@ def run(t5_cfg, full_cfg, device, steps: int, duration: float):
     int8 = {s: a for s, a in first.items() if s[0] not in stats}
     stats.update(phase_kernels(int8, counts, offset_check=False))
     del first, int8
+    log("  -- large path: K1-K4, K6 on the large-1150k UNet at CFG batch 6 (K2 also on the "
+        "None slot's attn2)")
+    large_unet = unet.init_unet(ini, large_cfg.unet)
+    large_ctx, large_mask = _ctx_inputs(large_cfg, device, g, batch=6)
+    large_first, large_counts = discover_calls(large_cfg, large_unet, None, large_ctx,
+                                               large_mask, device)
+    large_stats = phase_kernels(large_first, large_counts, offset_check=False, f32_pass=False)
+    for name, st in large_stats.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+    log("  -- K7 (v6bd) and K8 (v7), the A/B entry point's kernels")
+    stats.update(phase_variants(large_first, device))
+    del large_first
 
     log("== phase 4: full-width UNet forward, kernels against the all-plain path")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -887,10 +1102,20 @@ def run(t5_cfg, full_cfg, device, steps: int, duration: float):
     log(f"  (information) audioldm2-full int8 eps against bf16 eps: max_abs_err {d:.3e} "
         f"rel {r:.3e}")
     del full_unet, eps_bf16, eps_int8
+    large_args = (large_cfg, large_unet, large_ctx, large_mask, device)
+    ref_l = unet_eps(*large_args, f32, plain=True)
+    plain_l = unet_eps(*large_args, bf16, plain=True)
+    floor_l = rel_err(plain_l, ref_l)[1]
+    log(f"  large-1150k, CFG batch 6: bf16 rounding alone moves eps by {floor_l:.3e}; the "
+        f"kernels are held to max({BF16_TOL:g}, {FLOOR_FACTOR:g} x that)")
+    unet_check("large-1150k bf16", unet_eps(*large_args, bf16), plain_l, ref_l,
+               max(BF16_TOL, FLOOR_FACTOR * floor_l))
+    unet_check("large-1150k f32", unet_eps(*large_args, f32), ref_l, ref_l, F32_TOL)
+    del large_unet, ref_l, plain_l
     encode_check(full_cfg, vae_f32, mel)
     del vae_f32, mel
 
-    launches, e2e = phase_5(t5_cfg, full_cfg, device, steps, duration)
+    launches, e2e = phase_5(t5_cfg, full_cfg, large_cfg, device, steps, duration)
     return stats, launches, e2e
 
 
@@ -923,6 +1148,22 @@ def encode_check(cfg, vae_f32, mel):
         raise AssertionError(f"VAE encode: kernels disagree with the plain path ({r:.3e})")
 
 
+def kernel_record(stats, launches):
+    """The kernels' JSON record; fails if a kernel never launched on a path."""
+    missing = [n for n in KERNELS if not any(c[n] for c in launches.values())]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {missing}")
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": sum(c[name] for c in launches.values()),
+         "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+         "bound_ms": st["bound_ms"],
+         "bound_by": "operations" if st["ops_ms"] >= st["bytes_ms"] else "bytes",
+         "library_ms": st["library_ms"]}
+        for name, st in ((n, stats[n]) for n in KERNELS)
+    ]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=200, help="DDIM steps of the requests")
@@ -945,18 +1186,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_device()
     stats, launches, e2e = run(at.default_audioldm_config(T5_MODEL),
-                               at.default_audioldm_config(FULL_MODEL), "cuda", args.steps, 10.0)
-    missing = [n for n in KERNELS if not any(c[n] for c in launches.values())]
-    if missing:
-        raise AssertionError(f"kernels never launched on a main path: {missing}")
+                               at.default_audioldm_config(FULL_MODEL),
+                               at.default_audioldm_config(LARGE_MODEL), "cuda", args.steps, 10.0)
     log(f"end to end: {json.dumps(e2e)}")
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": sum(c[name] for c in launches.values()),
-         "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
-         "plain_ms": stats[name]["plain_ms"]}
-        for name in KERNELS
-    ]}
+    record = kernel_record(stats, launches)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
     log(json.dumps(record))

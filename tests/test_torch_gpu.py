@@ -1,6 +1,6 @@
-"""The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, and K6) against
-their plain PyTorch versions on the card, and the plain bf16 convs' one
-rounding.
+"""The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, K6, and the A/B
+attention variants K7 and K8) against their plain PyTorch versions on the
+card, and the plain bf16 convs' one rounding.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -19,6 +19,7 @@ import torch
 
 from audioldm2_torch import ops
 from audioldm2_torch.ops import attention_kernel, groupnorm_kernel, lnmm_kernel, resblock_kernel
+from audioldm2_torch.ops import attention_variants_kernel as avk
 from audioldm2_torch.ops import nn
 from chip_smoke import exact_f32_args
 
@@ -76,6 +77,36 @@ def test_flash_self_attention_kernel(cuda, dt, B, T, H, D):
     args = (q, k, v, D ** -0.5)
     _check(attention_kernel.flash_self_attention(*args),
            attention_kernel.self_attention_plain(*args), dt)
+
+
+@pytest.mark.parametrize("variant", ["v6bd", "v7"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,T,H,D,q_scale", [
+    (6, 1024, 8, 32, 1.0),   # the A/B tool's CFG-batch-6 shape
+    (1, 200, 4, 32, 1.0),    # ragged K/V and q tiles
+    (2, 100, 8, 16, 1.0),
+    (1, 256, 2, 64, 1.0),
+    (1, 384, 1, 128, 1.0),
+    (1, 256, 4, 32, 40.0),   # scaled logits past +-100: v7 clamps, v6bd does not
+])
+def test_attention_variant_kernels(cuda, variant, dt, B, T, H, D, q_scale):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (_rand(g, (B, T, H, D), dt, cuda, scale=s) for s in (q_scale, 1.0, 1.0))
+    args = (q, k, v, D ** -0.5)
+    _check(getattr(avk, f"{variant}_attention")(*args),
+           getattr(avk, f"{variant}_attention_plain")(*args), dt)
+
+
+def test_attention_variants_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 64, 4, 32, device=cuda)
+    for fn in (avk.v6bd_attention, avk.v7_attention):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(q[:, :, :3], q[:, :, :3], q[:, :, :3], 0.2)
+        with pytest.raises(ValueError, match="head_dim"):
+            x = torch.randn(1, 64, 16, 8, device=cuda)
+            fn(x, x, x, 0.2)
+        with pytest.raises(TypeError, match="mixed dtypes"):
+            fn(q, q, q.bfloat16(), 0.2)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -268,7 +299,14 @@ def test_launch_counters_count_launches(cuda):
     groupnorm_kernel.group_norm_silu(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
     groupnorm_kernel.group_norm_silu_plain(x, torch.ones(64, device=cuda),
                                            torch.zeros(64, device=cuda))
+    q4 = torch.randn(1, 64, 4, 32, device=cuda)
+    avk.v6bd_attention(q4, q4, q4, 0.2)
+    avk.v7_attention(q4, q4, q4, 0.2)
+    avk.v7_attention(q4, q4, q4, 0.2)
+    avk.v7_attention_plain(q4, q4, q4, 0.2)
     counts = ops.launch_counts()
+    assert counts.pop("v6bd_attention") == 1
+    assert counts.pop("v7_attention") == 2
     assert counts.pop("flash_self_attention") == 2
     assert counts.pop("int8_matmul") == 1
     assert counts.pop("group_norm_silu") == 1

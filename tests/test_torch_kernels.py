@@ -165,7 +165,13 @@ def test_kernel_launch_counters_stay_zero_on_cpu(rng):
     q = _t(rng.standard_normal((1, 8, 1, 32)))
     attention_kernel.flash_self_attention(q, q, q, 0.2)
     groupnorm_kernel.group_norm_silu(x, torch.ones(32), torch.zeros(32))
+    from audioldm2_torch.ops import attention_variants_kernel as avk
+
+    q4 = _t(rng.standard_normal((1, 8, 4, 32)))
+    avk.v6bd_attention(q4, q4, q4, 0.2)
+    avk.v7_attention(q4, q4, q4, 0.2)
     assert ops.launch_counts() == {"gn_silu_conv3x3": 0, "flash_self_attention": 0,
                                    "ln_matmul": 0, "geglu_matmul": 0, "gn_silu_conv3x3_q": 0,
                                    "int8_matmul": 0, "ln_matmul_q": 0, "geglu_matmul_q": 0,
-                                   "group_norm_silu": 0}
+                                   "group_norm_silu": 0, "v6bd_attention": 0,
+                                   "v7_attention": 0}

@@ -212,13 +212,17 @@ def test_attention_dispatch_rule(q_shape, k_shape, has_mask, has_bias, expected)
 
 
 def test_import_does_not_import_jax():
+    """Importing every module of the port (the A/B tool included) imports
+    neither jax nor anything of audioldm2_tpu."""
     code = (
-        "import sys; import audioldm2_torch, audioldm2_torch.pipeline, audioldm2_torch.ops.nn; "
-        "import audioldm2_torch.ops.resblock_kernel, audioldm2_torch.ops.attention_kernel; "
-        "import audioldm2_torch.ops.lnmm_kernel, audioldm2_torch.ops._build; "
-        "import audioldm2_torch.ops.groupnorm_kernel, audioldm2_torch.ops.stft; "
-        "import audioldm2_torch.diffusion.plms, audioldm2_torch.diffusion.ddpm_ancestral; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+        "import sys, pkgutil, importlib, audioldm2_torch; "
+        "names = [m.name for m in pkgutil.walk_packages(audioldm2_torch.__path__, "
+        "'audioldm2_torch.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "assert 'audioldm2_torch.tools.ab_attn_variants' in names, names; "
+        "assert 'audioldm2_torch.models.htsat' in names, names; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'audioldm2_tpu')); "
+        "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

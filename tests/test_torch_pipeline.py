@@ -59,7 +59,7 @@ def test_slice_end_to_end_matches_jax(cfg, np_tree, tmodel):
 
 
 def test_text_to_audio_shape_and_determinism(tmodel):
-    kw = dict(ddim_steps=5, duration=0.32, duration_bucket=None)
+    kw = dict(ddim_steps=5, duration=0.32, duration_bucket=None, n_candidate_gen_per_text=1)
     a = at.text_to_audio(tmodel, "rain", seed=3, batchsize=2, **kw)
     b = at.text_to_audio(tmodel, "rain", seed=3, batchsize=2, **kw)
     c = at.text_to_audio(tmodel, "rain", seed=4, batchsize=2, **kw)
@@ -67,17 +67,24 @@ def test_text_to_audio_shape_and_determinism(tmodel):
     assert np.isfinite(a).all() and np.abs(a).max() <= 1.0
     np.testing.assert_array_equal(a, b)
     assert np.abs(a - c).max() > 0
-    assert set(tmodel.last_timings) >= {"tokenize_s", "generate_s", "total_s", "x_realtime"}
+    assert set(tmodel.last_timings) >= {"tokenize_s", "generate_s", "rerank_s", "total_s",
+                                        "x_realtime"}
 
 
 def test_text_to_audio_refuses_candidates_without_clap(tmodel):
-    with pytest.raises(NotImplementedError, match="CLAP"):
-        at.text_to_audio(tmodel, "rain", n_candidate_gen_per_text=3, ddim_steps=5,
-                         duration=0.32, duration_bucket=None)
+    """A config without a reranker (the tiny t5 one) cannot rank
+    candidates: as in JAX, n_candidate_gen_per_text > 1 (the default 3)
+    warns and returns each prompt's first candidate; a transcription is
+    refused."""
+    kw = dict(seed=3, ddim_steps=5, duration=0.32, duration_bucket=None)
+    with pytest.warns(UserWarning, match="CLAP reranker"):
+        got = at.text_to_audio(tmodel, "rain", **kw)
+    assert got.shape == (1, 1, 512) and np.isfinite(got).all()
+    with pytest.raises(NotImplementedError, match="TTS"):
+        at.text_to_audio(tmodel, "rain", transcription="hello", **kw)
 
 
-@pytest.mark.parametrize("name", ["audioldm2-full-large-1150k", "audioldm_48k",
-                                  "audioldm2-speech-gigaspeech"])
+@pytest.mark.parametrize("name", ["audioldm_48k", "audioldm2-speech-gigaspeech"])
 def test_build_model_refuses_unported_families(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         at.build_model(model_name=name, device="cpu")
@@ -85,9 +92,10 @@ def test_build_model_refuses_unported_families(name):
 
 def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     """The full-width audioldm2-full tree, drawn on the meta device (shapes
-    only: its 1.35 B parameters would take 5.4 GB on the CPU); the tiny
-    tree's structure is held against JAX in test_torch_full.py.
-    text_to_audio refuses n_candidate_gen_per_text > 1."""
+    only: its 1.62 B parameters would take 6.5 GB on the CPU); the tiny
+    tree's structure is held against JAX in test_torch_full.py. It carries
+    the HTSAT-base + RoBERTa reranker CLAP (0.198 B) that the default
+    n_candidate_gen_per_text = 3 reads; a transcription is refused."""
     model = at.build_model(model_name="audioldm2-full", device="meta")
     p = model.ldm.params
     seqgen = p["cond"]["crossattn_audiomae_generated"]
@@ -98,9 +106,13 @@ def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     cross = p["unet"]["middle_block"]["cross_sts"]
     assert [st["blocks"][0]["attn2"]["to_k"]["w"].shape[0] for st in cross] == [768, 1024]
     n = sum(math.prod(shape) for shape in _flatten(p).values())
-    assert 1.3e9 < n < 1.4e9, n
-    with pytest.raises(NotImplementedError, match="CLAP"):
-        at.text_to_audio(model, "rain", n_candidate_gen_per_text=3)
+    assert 1.6e9 < n < 1.65e9, n
+    rr = sum(math.prod(shape) for shape in _flatten(p["reranker_clap"]).values())
+    assert 1.9e8 < rr < 2.0e8, rr
+    assert p["reranker_clap"]["audio_projection"]["lin1"]["w"].shape == (1024, 512)
+    assert model.reranker_tok is not None
+    with pytest.raises(NotImplementedError, match="TTS"):
+        at.text_to_audio(model, "rain", transcription="hello")
 
 
 def test_build_model_needs_a_card_for_cuda(monkeypatch):

@@ -186,7 +186,7 @@ def test_use_ema_matches_jax(ema_models):
     try:
         with pytest.raises(ValueError, match="unet_ema"):
             at.text_to_audio(tmodel, "rain", ddim_steps=4, duration=0.32, duration_bucket=None,
-                             use_ema=True)
+                             use_ema=True, n_candidate_gen_per_text=1)
     finally:
         tmodel.ldm.params = saved
 
@@ -201,7 +201,8 @@ def test_plms_generate_matches_jax(ema_models):
 
 def test_text_to_audio_takes_the_samplers(ema_models):
     _, _, tmodel = ema_models
-    kw = dict(seed=3, ddim_steps=4, duration=0.32, duration_bucket=None)
+    kw = dict(seed=3, ddim_steps=4, duration=0.32, duration_bucket=None,
+              n_candidate_gen_per_text=1)
     a = at.text_to_audio(tmodel, "rain", sampler="plms", **kw)
     b = at.text_to_audio(tmodel, "rain", sampler="ddim", **kw)
     assert a.shape == b.shape == (1, 1, 512)

@@ -277,7 +277,8 @@ def t5_model():
 
 def test_super_resolution_and_inpainting_api(t5_model, tmp_path):
     path = _wav_file(str(tmp_path / "in.wav"), 1600, 0.5)
-    kw = dict(original_audio_file_path=path, ddim_steps=4, duration=0.64)
+    kw = dict(original_audio_file_path=path, ddim_steps=4, duration=0.64,
+              n_candidate_gen_per_text=1)
     a = at.super_resolution_and_inpainting(t5_model, "a chirp", seed=3, **kw)
     assert a.shape == (1, 1, 1024) and a.dtype == np.float32
     assert np.isfinite(a).all() and np.abs(a).max() <= 1.0 and np.abs(a).max() > 0
@@ -291,25 +292,35 @@ def test_super_resolution_and_inpainting_api(t5_model, tmp_path):
             t5_model, "a chirp", seed=3, batchsize=2, sampler=sampler,
             **{**kw, "ddim_steps": 2 if sampler == "plms" else 4})
         assert b.shape == (2, 1, 1024) and np.isfinite(b).all()
-    with pytest.raises(NotImplementedError, match="CLAP"):
-        at.super_resolution_and_inpainting(t5_model, "a chirp", n_candidate_gen_per_text=3, **kw)
+    # no reranker in the tiny config: three candidates, the first one kept
+    with pytest.warns(UserWarning, match="CLAP reranker"):
+        c = at.super_resolution_and_inpainting(t5_model, "a chirp",
+                                               **{**kw, "n_candidate_gen_per_text": 3})
+    assert c.shape == (1, 1, 1024) and "rerank_s" in t5_model.last_timings
 
 
 def test_sr_and_plms_do_not_import_jax(tmp_path):
     """A CPU call of super_resolution_and_inpainting and of
-    text_to_audio(sampler="plms") on the tiny config leaves jax unimported."""
+    text_to_audio(sampler="plms") on the tiny config leaves jax and
+    audioldm2_tpu unimported. The tiny config reaches the subprocess as the
+    repr of the port's own config classes (tests/tiny.py imports the JAX
+    package's)."""
+    from audioldm2_torch.config import coerce
+
     path = _wav_file(str(tmp_path / "in.wav"), 1600, 0.5)
     code = (
-        "import sys; import audioldm2_torch as at; from tiny import tiny_t5_model_config; "
-        "m = at.build_model(config=tiny_t5_model_config(), device='cpu', seed=0); "
+        "import sys; import audioldm2_torch as at; from audioldm2_torch.config import *; "
+        f"m = at.build_model(config={repr(coerce(tiny_t5_model_config()))}, device='cpu', "
+        "seed=0); "
         f"w = at.super_resolution_and_inpainting(m, 'a chirp', original_audio_file_path={path!r}, "
-        "ddim_steps=2, duration=0.32); "
+        "ddim_steps=2, duration=0.32, n_candidate_gen_per_text=1); "
         "v = at.text_to_audio(m, 'rain', ddim_steps=2, duration=0.32, duration_bucket=None, "
-        "sampler='plms'); "
+        "sampler='plms', n_candidate_gen_per_text=1); "
         "assert w.shape == (1, 1, 512) and v.shape == (1, 1, 512); "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'audioldm2_tpu')); "
+        "assert not bad, bad"
     )
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
