@@ -34,8 +34,13 @@
 // Split-K: a small-M product (the UNet's 32 x 2 level gives M = 128 at CFG
 // batch 2, i.e. 20 blocks on 132 SMs) runs gridDim.z slices of K, each
 // writing an f32 partial tile to a workspace; splitk_reduce sums the slices
-// in a fixed order (deterministic) and applies bias and residual. There is
-// no cp.async/TMA pipelining or wgmma yet: that is later work.
+// in a fixed order (deterministic) and applies bias and residual.
+//
+// The core serves K1, K1q, K3q, K4, K4q and K5, and K3 in f32 or at shapes
+// its own kernel does not take. The two kernels redesigned around Hopper's
+// asynchronous copies, the bf16 K2 (attention.cu) and the bf16 K3 (lnmm.cu),
+// do not use it; they share the PTX helpers below (16-byte cp.async with
+// zero fill, ldmatrix, mma.sync m16n8k16 with f32 accumulation).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -94,6 +99,97 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// ---------------------------------------------------------------------------
+// PTX helpers of the pipelined bf16 kernels.
+//
+// Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row): a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
+//                     a2 = (row g, k 2t+8..), a3 = (row g+8, k 2t+8..)
+//   B (16 x 8, col):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
+//   C (16 x 8, f32):  c0, c1 = (row g, n 2t, 2t+1), c2, c3 = (row g+8, same n)
+// ldmatrix.x4 loads four 8 x 8 b16 matrices; lane i gives the address of
+// row i % 8 of matrix i / 8, and register j of lane (g, t) receives
+// elements (g, 2t..2t+1) of matrix j, or with .trans (2t..2t+1, g).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !pred (src is not
+// read then but must be a valid address). Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// The same for a run-time n; waiting for fewer than asked is always safe.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a . b for one 16 x 8 x 16 bf16 product, f32 accumulation.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 -> one register of two bf16 (lo in the low half), round to nearest
+// even: the rounding of from_f<bf16>.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The current device's SM count into *sms, read once per process. Returns
+// the CUDA error of a query that failed (and reads again at the next call).
+inline int sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, n = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaErrorInvalidDevice;
+    cached = n;
+  }
+  *sms = cached;
+  return (int)cudaSuccess;
 }
 
 template <typename V>

@@ -11,18 +11,63 @@
 // The gelu is the exact erf form (erff); the Pallas kernel's rational erf
 // exists only because Mosaic has no erf lowering.
 //
-// Both are the shared GEMM core (common.cuh) with a prologue: K3's block
-// first computes mean and rstd of its 64 rows (one warp per row, two-pass,
-// C <= 640 in the UNet) into shared memory, then normalizes each A element
-// as it loads; K4 forms a * gelu(g) from the two halves of each h row as
-// it loads. Neither the LN output nor the [M, F] gate product is written
-// to device memory.
+// Neither the LN output nor the [M, F] gate product is written to device
+// memory.
 //
-// Bounds on the H100: M = B*T <= 8192 rows, C in {256, 384, 640}, N up to
-// 8C (GEGLU proj_in), so these are small-to-medium GEMMs whose time at
-// CFG batch 2 is set by the weight read and by the prologue (K4 evaluates
-// erff once per A element for every 64-wide N tile), not by the tensor
-// cores; the small-M products of the deep levels split K (common.cuh).
+// Bounds on the H100: M = B*T from 128 to 6144 rows, C in {256, 384, 640},
+// N from C to 8C (GEGLU proj_in). At CFG batch 2 and in the deep levels
+// (M = 128 to 512) a call must read more weight bytes than it has
+// activation bytes and is bound by bytes and by latency (a few dozen
+// blocks); at CFG batch 6 on the T = 1024 level (M = 6144) it does up to
+// 6.4 GFLOP and is bound by the tensor cores.
+//
+// K3 in bf16 has a kernel of its own (ln_matmul_bf16_kernel below); the
+// launch plan (rows per block, N-tile width, strip length, stages) is
+// chosen in Python, ops/_build.py:ln_matmul_plan.
+//  - One block owns a row block (64 or 128 rows) and a strip of N tiles. It
+//    copies its rows of x to shared memory (cp.async, all rows in flight at
+//    once), computes the LN statistics once from that copy (one warp per
+//    row, four rows at a time, the row held in registers as f32; mean and
+//    two-pass variance in f32) and overwrites it with the normalized row rounded once to bf16:
+//    A[rows, C] sits in shared memory
+//    (64 x 640 x 2 = 80 KB, 128 rows 160 KB, dynamic) in the layout the
+//    products read, for the whole strip. The old path recomputed the
+//    statistics and normalized the rows again for every 64 output columns.
+//  - W tiles [64, BN] (BN 64 or 128) stream through a ring of 2 to 12 stages
+//    by 16-byte cp.async, zero-filled past C and N. The ring runs over the
+//    strip's (N tile, K tile) sequence without a break, so the next N
+//    tile's first loads are in flight during this one's last products and
+//    its epilogue; the first stages are started before the LN pass and land
+//    behind it. One __syncthreads() per W tile; where the ring holds the
+//    whole strip (small M: one N tile), one for all of them.
+//  - Products by mma.sync m16n8k16 with ldmatrix (.trans for W, which is
+//    [K, N] row-major), f32 accumulators in registers; 8 warps, each a
+//    [BM / warps_m, 32] slice of the output tile. Rows of A and W are
+//    padded by 16 bytes, which spreads the eight rows of an ldmatrix phase
+//    over eight bank groups (C and BN are multiples of 64).
+//  - Epilogue from registers: + bias in f32, one rounding, and a 4 x 4
+//    transpose inside each quad (four shuffles) so that every thread stores
+//    16 contiguous bytes. No staging tile in shared memory.
+//  - No split-K and no workspace: the whole K = C lies in the block's A.
+//    What fills the card is the strip length: short strips for small M.
+//    A strip recomputes the LN of its row block, [rows, C] read once per
+//    strip.
+//  - The LN scale and bias and the linear bias are read as they are stored,
+//    f32 or bf16 (the cast parameter tree's leaves; exact in f32 either
+//    way), so no conversion kernels run before the launch.
+//  - Ragged M and N are masked (zero rows, skipped stores); C and N must be
+//    multiples of 8, C at most 768 (the main path has 256, 384 and 640) and
+//    the pointers 16-byte aligned. Other shapes, and f32, go to the shared
+//    core, which still computes the same function.
+// The rounding points are those of the shared core's K3; only the order of
+// the f32 sums differs.
+//
+// K3 in f32, K3q, K4, K4q and K5 are the shared GEMM core (common.cuh) with
+// a prologue: K3's block first computes mean and rstd of its 64 rows (one
+// warp per row, two-pass) into shared memory, then normalizes each A
+// element as it loads; K4 forms a * gelu(g) from the two halves of each h
+// row as it loads (it evaluates erff once per A element for every 64-wide
+// N tile); small-M products split K (common.cuh).
 //
 // The int8 serving mode (ops/quant.py): K3q and K4q are the w_scale paths
 // of the same Pallas kernels (ln_matmul :83-91 and geglu_matmul :202-209
@@ -178,9 +223,374 @@ static int int8_impl(const void* x, const void* wq, const void* wscale, const vo
                                    M, N, K, k_split, vec, stream);
 }
 
+// ---------------------------------------------------------------------------
+// K3 in bf16: LN once per row block into shared memory, W through a
+// cp.async ring, mma.sync products, epilogue from registers
+// ---------------------------------------------------------------------------
+
+constexpr int LT_BK = 64;        // K rows per W tile
+constexpr int LT_THREADS = 256;  // 8 warps
+constexpr int LT_PAD = 8;        // elements (16 bytes) of padding per shared-memory row
+constexpr int LT_MAX_SMEM = 232448;
+constexpr int LT_LN_CH = 3;      // 16-byte chunks of a row a lane holds in registers
+constexpr int LT_MAX_C = 32 * LT_LN_CH * 8;  // 768: the widest row the kernel takes
+
+// Eight bf16 in one 16-byte register group, as f32 / their f32 sum.
+__device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+// Eight consecutive LN or bias parameters from index idx (a multiple of 8),
+// stored as f32 or, with p16, as bf16 (exact in f32 either way).
+__device__ __forceinline__ void load8_param(const void* p, int idx, bool p16, float v[8]) {
+  if (p16)
+    load8(static_cast<const bf16*>(p) + idx, v);
+  else
+    load8(static_cast<const float*>(p) + idx, v);
+}
+
+// 4 x 4 transpose inside a quad: thread t of the quad gives v[j] (its pair of
+// columns 2t, 2t+1 of n8 tile j) and ends with v[k] = thread k's pair of tile
+// t, i.e. the 8 contiguous columns of tile t. Two butterfly steps.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool odd = t & 1;
+  uint32_t s0 = odd ? v[0] : v[1], s1 = odd ? v[2] : v[3];
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  if (odd) {
+    v[0] = r0;
+    v[2] = r1;
+  } else {
+    v[1] = r0;
+    v[3] = r1;
+  }
+  const bool hi = t & 2;
+  s0 = hi ? v[0] : v[2];
+  s1 = hi ? v[1] : v[3];
+  r0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (hi) {
+    v[0] = r0;
+    v[1] = r1;
+  } else {
+    v[2] = r0;
+    v[3] = r1;
+  }
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(LT_THREADS)
+ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
+                      const void* __restrict__ beta, const bf16* __restrict__ w,
+                      const void* __restrict__ bias, bool p16, bf16* __restrict__ out, int M,
+                      int C, int N, float eps, int strip_tiles, int stages) {
+  constexpr int WARPS_N = BN / 32, WARPS_M = (LT_THREADS / 32) / WARPS_N;
+  constexpr int WM = BM / WARPS_M;  // rows per warp: 64, 32 or 16
+  constexpr int MT = WM / 16;       // m16 tiles per warp; its 32 columns are 4 n8 tiles
+  constexpr int B_LD = BN + LT_PAD;
+  constexpr int W_STAGE = LT_BK * B_LD;
+  constexpr int CPR = BN / 8;  // 16-byte chunks per W tile row
+
+  extern __shared__ __align__(128) unsigned char lt_smem[];
+  const int KT = (C + LT_BK - 1) / LT_BK;
+  const int Cp = KT * LT_BK;  // A's columns, zero past C
+  const int A_LD = Cp + LT_PAD;
+  bf16* As = reinterpret_cast<bf16*>(lt_smem);  // [BM][A_LD]
+  bf16* Ws = As + (size_t)BM * A_LD;            // stages x [LT_BK][B_LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int m0 = blockIdx.y * BM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tile0 = blockIdx.x * strip_tiles;
+  const int my_tiles = min(strip_tiles, n_tiles - tile0);
+  const int total = my_tiles * KT;  // W tiles of this strip, N tile by N tile
+
+  // The W tiles of the strip, N tile by N tile, K tile by K tile, go round the
+  // ring: load_next() starts the next one (or nothing past the last) and
+  // commits a group either way, so the group count stays uniform.
+  constexpr int W_ROWS = LT_THREADS / CPR;  // W tile rows one pass of the block copies
+  const int w_r = tid / CPR, w_c = (tid % CPR) * 8;
+  const bf16* w_src = w + (size_t)w_r * N + w_c;
+  bf16* w_dst = Ws + w_r * B_LD + w_c;
+  int ld_nt = 0, ld_kt = 0, ld_slot = 0;
+  auto load_next = [&]() {
+    if (ld_nt < my_tiles) {
+      const int n0 = (tile0 + ld_nt) * BN, k0 = ld_kt * LT_BK;
+      const bf16* src = w_src + (size_t)k0 * N + n0;
+      bf16* dst = w_dst + (size_t)ld_slot * W_STAGE;
+      const bool n_ok = n0 + w_c < N;
+#pragma unroll
+      for (int j = 0; j < LT_BK / W_ROWS; ++j) {
+        const bool ok = n_ok && k0 + j * W_ROWS + w_r < C;
+        cp_async16(dst + j * W_ROWS * B_LD, ok ? src + (size_t)j * W_ROWS * N : w, ok);
+      }
+      if (++ld_kt == KT) {
+        ld_kt = 0;
+        ++ld_nt;
+      }
+      if (++ld_slot == stages) ld_slot = 0;
+    }
+    cp_async_commit();
+  };
+
+  // group 0: the row block's x, as it is, into As (rows past M as zeros, whose
+  // LN is beta: finite, and never stored); then the first W tiles, which fly
+  // while the rows are normalized
+  const int chunks = C / 8;
+  for (int r = warp; r < BM; r += LT_THREADS / 32) {
+    const int m = m0 + r;
+    const bf16* xrow = x + (size_t)(m < M ? m : 0) * C;
+    for (int ch = lane; ch < chunks; ch += 32)
+      cp_async16(As + (size_t)r * A_LD + ch * 8, xrow + ch * 8, m < M);
+  }
+  cp_async_commit();
+  // Where the ring holds the whole strip (total <= stages: the small-M
+  // shapes, one N tile of at most twelve K tiles) every W tile is started now,
+  // and the products run through them behind one wait and one barrier.
+  const bool resident = total <= stages;
+  const int started = resident ? total : stages - 1;
+  for (int s = 0; s < started; ++s) load_next();
+  // gamma and beta of this lane's chunks, fetched while x is on its way
+  float gv[LT_LN_CH][8], bv[LT_LN_CH][8];
+#pragma unroll
+  for (int k = 0; k < LT_LN_CH; ++k) {
+    if (lane + 32 * k < chunks) {
+      load8_param(gamma, (lane + 32 * k) * 8, p16, gv[k]);
+      load8_param(beta, (lane + 32 * k) * 8, p16, bv[k]);
+    }
+  }
+  cp_async_wait_dyn(started);  // x, the oldest group, has landed
+  __syncthreads();
+
+  // LayerNorm in place, from shared memory: one warp per row, four rows at a
+  // time so that their reductions overlap. f32 statistics, two-pass variance,
+  // one rounding to bf16. A lane touches the same chunks in every pass, so it
+  // only reads back its own writes and the passes need no barrier. The row
+  // (C <= LT_MAX_C: at most LT_LN_CH chunks a lane) is read from shared
+  // memory once and held in registers as f32.
+  {
+    constexpr int RPW = BM / (LT_THREADS / 32);  // rows per warp: 8 or 16
+    const float inv_c = 1.f / (float)C;
+    for (int j0 = 0; j0 < RPW; j0 += 4) {
+      bf16* arow = As + (size_t)(warp * RPW + j0) * A_LD;
+      float mean[4], rstd[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mean[u] = rstd[u] = 0.f;
+      float v[4][LT_LN_CH][8];
+#pragma unroll
+      for (int k = 0; k < LT_LN_CH; ++k) {
+        const int ch = lane + 32 * k;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+          if (ch < chunks)
+            raw = *reinterpret_cast<const uint4*>(arow + (size_t)u * A_LD + ch * 8);
+          unpack8(raw, v[u][k]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) mean[u] += v[u][k][i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mean[u] = warp_sum(mean[u]) * inv_c;
+#pragma unroll
+      for (int k = 0; k < LT_LN_CH; ++k) {
+        if (lane + 32 * k < chunks) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float d = v[u][k][i] - mean[u];
+              rstd[u] = fmaf(d, d, rstd[u]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        rstd[u] = rsqrtf(warp_sum(rstd[u]) * inv_c + eps);
+        mean[u] = -mean[u] * rstd[u];  // (x - mean) * rstd = x * rstd + this
+      }
+#pragma unroll
+      for (int k = 0; k < LT_LN_CH; ++k) {
+        const int ch = lane + 32 * k;
+        if (ch < chunks) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float y[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              y[i] = fmaf(fmaf(v[u][k][i], rstd[u], mean[u]), gv[k][i], bv[k][i]);
+            store8(arow + (size_t)u * A_LD + ch * 8, y);
+          }
+        }
+      }
+      for (int ch = chunks + lane; ch < Cp / 8; ch += 32) {  // zero columns past C
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<uint4*>(arow + (size_t)u * A_LD + ch * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+
+  // per-lane offsets of the ldmatrix addresses: A rows of the warp's m16
+  // tiles, and W rows (k) by columns (n) of a k16 x n16 pair of n8 tiles
+  const int a_off = (wm * WM + (lane & 15)) * A_LD + (lane >> 4) * 8;
+  const int b_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
+
+  float acc[MT][4][4];
+  int kt = 0, nt = 0, slot = 0;
+  for (int i = 0; i < total; ++i) {
+    if (!resident) {
+      cp_async_wait_dyn(stages - 2);  // W tile i has landed (for this thread)
+      __syncthreads();  // ... for all, tile i-1's slot is free; at i = 0, As is written
+      load_next();                    // tile i + stages - 1 into the slot tile i - 1 left
+    } else if (i == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    if (kt == 0) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+    }
+    const bf16* Wt = Ws + (size_t)slot * W_STAGE + b_off;
+    if (++slot == stages) slot = 0;
+    const bf16* At = As + a_off + kt * LT_BK;
+    // two sets of fragments: the next k16 step's are fetched before this
+    // step's products start, so the tensor cores do not wait for ldmatrix
+    uint32_t af[2][MT][4], bf[2][2][4];
+    auto fetch = [&](int set, int kk) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) ldmatrix_x4(af[set][mi], At + mi * 16 * A_LD + kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) ldmatrix_x4_trans(bf[set][np], Wt + kk * B_LD + np * 16);
+    };
+    fetch(0, 0);
+#pragma unroll
+    for (int ks = 0; ks < LT_BK / 16; ++ks) {
+      if (ks + 1 < LT_BK / 16) fetch((ks + 1) & 1, (ks + 1) * 16);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16_16816(acc[mi][2 * np], af[ks & 1][mi], bf[ks & 1][np][0], bf[ks & 1][np][1]);
+          mma_bf16_16816(acc[mi][2 * np + 1], af[ks & 1][mi], bf[ks & 1][np][2],
+                         bf[ks & 1][np][3]);
+        }
+      }
+    }
+
+    if (++kt == KT) {  // this N tile is complete: + bias, one rounding, 16-byte stores
+      const int nb = (tile0 + nt) * BN + wn * 32;
+      float bv[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = nb + j * 8 + 2 * t;  // N is even, so col and col + 1 are in or out together
+        bv[j][0] = bv[j][1] = 0.f;
+        if (bias != nullptr && col < N) {
+          if (p16) {
+            const float2 b2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(bias) + col));
+            bv[j][0] = b2.x;
+            bv[j][1] = b2.y;
+          } else {
+            bv[j][0] = static_cast<const float*>(bias)[col];
+            bv[j][1] = static_cast<const float*>(bias)[col + 1];
+          }
+        }
+      }
+      const int col = nb + t * 8;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0], acc[mi][j][2 * half + 1] + bv[j][1]);
+          quad_transpose(v, t);
+          const int row = m0 + wm * WM + mi * 16 + half * 8 + g;
+          if (row < M && col < N)
+            *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      kt = 0;
+      ++nt;
+    }
+  }
+}
+
+template <int BM, int BN>
+static int ln_bf16_launch(const void* x, const void* gamma, const void* beta, const void* w,
+                          const void* bias, bool p16, void* out, int M, int C, int N, float eps,
+                          int strip_tiles, int stages, cudaStream_t stream) {
+  auto kern = ln_matmul_bf16_kernel<BM, BN>;
+  static bool configured = false;  // per instantiation: above 48 KB needs the attribute
+  if (!configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, LT_MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int kt = (C + LT_BK - 1) / LT_BK;
+  const size_t smem = ((size_t)BM * (kt * LT_BK + LT_PAD) +
+                       (size_t)stages * LT_BK * (BN + LT_PAD)) * sizeof(bf16);
+  if (smem > (size_t)LT_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (N + BN - 1) / BN;
+  dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles, (M + BM - 1) / BM);
+  kern<<<grid, LT_THREADS, smem, stream>>>(static_cast<const bf16*>(x), gamma, beta,
+                                           static_cast<const bf16*>(w), bias, p16,
+                                           static_cast<bf16*>(out), M, C, N, eps, strip_tiles,
+                                           stages);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace a2k
 
 extern "C" {
+
+// K3 in bf16 with its launch plan. x: bf16 [M, C]; gamma, beta: [C] and
+// bias: [N] or null, all three f32 (param_dtype 0) or all three bf16 (1: the
+// cast parameter tree's own leaves, read as they are); w: bf16 [C, N]; out:
+// bf16 [M, N]. C (at most 768) and N multiples of 8, all pointers 16-byte
+// aligned. (bm, bn) in {(128, 128), (64, 128), (64, 64)}: rows per block and
+// N-tile width; strip_tiles: N tiles per block;
+// stages: 2 to 12 W tiles in the ring, within 232448 bytes of shared memory.
+int a2k_ln_matmul_bf16(const void* x, const void* gamma, const void* beta, const void* w,
+                       const void* bias, int param_dtype, void* out, int M, int C, int N,
+                       float eps, int bm, int bn, int strip_tiles, int stages, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || C <= 0 || C > a2k::LT_MAX_C || N <= 0 || (C & 7) || (N & 7) ||
+      strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gamma) |
+       reinterpret_cast<uintptr_t>(beta) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (bm == 128 && bn == 128)
+    return a2k::ln_bf16_launch<128, 128>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
+                                         strip_tiles, stages, s);
+  if (bm == 64 && bn == 128)
+    return a2k::ln_bf16_launch<64, 128>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
+                                        strip_tiles, stages, s);
+  if (bm == 64 && bn == 64)
+    return a2k::ln_bf16_launch<64, 64>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
+                                       strip_tiles, stages, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // x: [M, C]; gamma, beta: f32 [C]; w: [C, N]; bias: f32 [N] or null; out: [M, N];
 // ws: null or the split-K workspace (f32, ceil(C / k_split) * M * N); vec: GEMM_VEC_* bits.

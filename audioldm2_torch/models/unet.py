@@ -369,10 +369,11 @@ def quantize_resblock_convs(params):
 
 
 def _layout(cfg: UNetConfig):
-    """(ResBlock (Cin, Cout) pairs, transformer-ladder widths) of one
-    forward, in the order init_unet builds them."""
+    """(ResBlock (Cin, Cout) pairs, transformer-ladder widths, each ladder's
+    downsampling factor) of one forward, in the order init_unet builds
+    them."""
     mc = cfg.model_channels
-    res, ladders = [], []
+    res, ladders, ladder_ds = [], [], []
     ch, ds, chans = mc, 1, [mc]
     for level, mult in enumerate(cfg.channel_mult):
         for _ in range(cfg.num_res_blocks):
@@ -380,21 +381,72 @@ def _layout(cfg: UNetConfig):
             ch = mult * mc
             if ds in cfg.attention_resolutions:
                 ladders.append(ch)
+                ladder_ds.append(ds)
             chans.append(ch)
         if level != len(cfg.channel_mult) - 1:
             chans.append(ch)
             ds *= 2
     res += [(ch, ch), (ch, ch)]
     ladders.append(ch)
+    ladder_ds.append(ds)
     for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
         for i in range(cfg.num_res_blocks + 1):
             res.append((ch + chans.pop(), mult * mc))
             ch = mult * mc
             if ds in cfg.attention_resolutions:
                 ladders.append(ch)
+                ladder_ds.append(ds)
             if level and i == cfg.num_res_blocks:
                 ds //= 2
-    return res, ladders
+    return res, ladders, ladder_ds
+
+
+def _ladder_slots(cfg: UNetConfig, c: int):
+    """Per transformer block of each slot of a ladder of width c: (attn2's
+    LN-fused projection width or None, self-attentions that reach K2). The
+    self-ST's attn2 is a fused QKV; a cross slot's is its q; a None slot's
+    attn2 is self-attention without the fused projection."""
+    return [(3 * c, 2)] + [(c, 1) if cd is not None else (None, 2) for cd in cfg.context_dims]
+
+
+def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(M, C, N): calls} of the K3 launches of one unquantized apply_unet
+    call on a [batch, latent_t, latent_f] latent: per transformer block the
+    fused QKV (N = 3C), attn2's LN-fused projection and the GEGLU proj_in
+    (N = 8C), with M = batch x the ladder's tokens. The calls sum to
+    kernel_launches_per_forward(cfg)["ln_matmul"]."""
+    shapes: dict = {}
+    _, ladders, ladder_ds = _layout(cfg)
+    for c, ds in zip(ladders, ladder_ds):
+        m = batch * (latent_t // ds) * (latent_f // ds)
+        for attn2_n, _ in _ladder_slots(cfg, c):
+            for n in (3 * c, attn2_n, 8 * c):
+                if n is not None:
+                    key = (m, c, n)
+                    shapes[key] = shapes.get(key, 0) + cfg.transformer_depth
+    return shapes
+
+
+def self_attention_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(B, T, H, D): (calls on the chunks of a fused QKV projection, calls
+    on three separate projections)} of the K2 launches of one apply_unet
+    call on a [batch, latent_t, latent_f] latent. Only a None slot's attn2
+    projects q, k and v separately. The calls sum to
+    kernel_launches_per_forward(cfg)["flash_self_attention"]."""
+    shapes: dict = {}
+    d = cfg.num_head_channels
+    if d not in (32, 64, 128):
+        return shapes
+    _, ladders, ladder_ds = _layout(cfg)
+    for c, ds in zip(ladders, ladder_ds):
+        key = (batch, (latent_t // ds) * (latent_f // ds), c // d, d)
+        fused, separate = shapes.get(key, (0, 0))
+        for attn2_n, self_attns in _ladder_slots(cfg, c):
+            own = 1 if attn2_n is None else 0
+            fused += (self_attns - own) * cfg.transformer_depth
+            separate += own * cfg.transformer_depth
+        shapes[key] = (fused, separate)
+    return shapes
 
 
 def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = None) -> dict:
@@ -413,7 +465,7 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
     q = weight_quant == "int8"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts["group_norm_silu"] = 1  # out_norm
-    res, ladders = _layout(cfg)
+    res, ladders, _ = _layout(cfg)
     for cin, cout in res:
         for a, b in ((cin, cout), (cout, cout)):
             counts["gn_silu_conv3x3_q" if q and _conv_quantizable(a, b) else "gn_silu_conv3x3"] += 1
@@ -427,11 +479,7 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
             counts[name] += blocks
 
     for c in ladders:
-        # per transformer block of each slot: (attn2's LN-fused width or None,
-        # self-attentions that reach K2)
-        slots = [(3 * c, 2)] + [(c, 1) if cd is not None else (None, 2)
-                                for cd in cfg.context_dims]
-        for attn2_n, self_attns in slots:
+        for attn2_n, self_attns in _ladder_slots(cfg, c):
             add("ln_matmul", c, 3 * c, depth)  # attn1's fused QKV
             if attn2_n is None:
                 add("linear", c, c, depth)  # the None slot's to_q

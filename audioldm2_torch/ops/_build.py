@@ -17,13 +17,14 @@ launch never runs and a later synchronize does not report it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +41,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # argtypes of every C entry point: c_void_p for each pointer and the stream,
 # so ctypes never narrows a 64-bit address to a 32-bit int.
@@ -47,8 +49,9 @@ SIGNATURES = {
     "a2k_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _P],
     "a2k_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _I, _P],
-    "a2k_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "a2k_flash_attention": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P],
     "a2k_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
+    "a2k_ln_matmul_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "a2k_geglu_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _I, _I, _P],
@@ -64,6 +67,31 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # GEMM core geometry (csrc/common.cuh) and its load-width flags
 GEMM_BM, GEMM_BN, GEMM_BK = 64, 64, 32
 GEMM_VEC_A, GEMM_VEC_B = 1, 2
+
+# The bf16 K3 kernel's geometry (csrc/lnmm.cu): W tiles of LNMM_BK rows, rows
+# padded by LNMM_PAD elements, (rows per block, N-tile width) pairs it is
+# built for, and the dynamic shared memory one block may use on sm_90.
+LNMM_BK, LNMM_PAD = 64, 8
+LNMM_MAX_C = 768  # the widest row a lane of the kernel holds in registers for the LayerNorm
+LNMM_TILES = ((128, 128), (64, 128), (64, 64))
+LNMM_MAX_SMEM = 232448
+LNMM_MAX_STAGES = 12
+# Cost model of ln_matmul_plan, in units of one multiply-add of a (128, 128)
+# tile (about 1.7e-3 clocks of one SM), fitted to the kernel's times on an
+# H100 over every (rows, tile width, strip) choice at the 18 shapes the t5
+# and large-1150k UNets give K3 (the plan's pick is then within 2% of the
+# best measured choice at each): a smaller tile reuses each operand less; to
+# fetch and normalize one element of the row block costs about 150; a block
+# costs a fixed amount to start; a W tile that goes round the ring costs a
+# wait and a barrier, which a strip that lies in the ring whole does not pay.
+_LNMM_TILE_COST = {(128, 128): 1.0, (64, 128): 1.8, (64, 64): 2.0}
+_LNMM_LN_COST = 150.0
+_LNMM_BLOCK_COST = 1.0e6
+_LNMM_RING_TILE_COST = 1.0e5
+# A plan may leave up to this share of the SMs it could fill idle, and only
+# for a grid of one wave: measured, one wave of long strips on 96 to 128 SMs
+# beats a second, ragged wave of short ones by 25 to 35%.
+LNMM_MIN_FILL = 0.7
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -171,6 +199,78 @@ def aligned16(*tensors) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+class LnMatmulPlan(NamedTuple):
+    """How the bf16 K3 kernel covers an [M, C] x [C, N] product: blocks of
+    ``bm`` rows, each walking a strip of ``strip_tiles`` N tiles of width
+    ``bn`` with its normalized rows in shared memory; W tiles of ``bk`` rows
+    through a ring of ``stages``; grid (strips, row blocks)."""
+    bm: int
+    bn: int
+    bk: int
+    k_tiles: int       # ceil(C / bk); the kernel zero-fills A and W past C
+    strip_tiles: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def ln_matmul_plan(m: int, c: int, n: int, sms: int) -> Optional[LnMatmulPlan]:
+    """The launch plan of the bf16 K3 kernel for x [m, c] . w [c, n] on a
+    card with ``sms`` SMs, or None for a shape it does not take (c or n not
+    a multiple of 8, whose rows 16-byte copies cannot address, or c above
+    LNMM_MAX_C); such shapes go to the shared GEMM core.
+
+    Every (bm, bn) the kernel is built for and every strip length is a
+    candidate if its grid fills the SMs the shape could fill, min(sms, row
+    blocks x N tiles), or at least LNMM_MIN_FILL of them in a single wave.
+    Among them the cheapest by a small model wins: a block costs its start,
+    the LayerNorm of its rows, its tiles' multiply-adds and a barrier per W
+    tile unless the ring holds its whole strip, and the grid runs in
+    ceil(blocks / sms) waves. Long strips amortize the LayerNorm,
+    short ones fill the card and even out the last wave. There is no
+    split-K: the whole K = c lies in the block's shared memory."""
+    if m < 1 or c < 8 or n < 8 or c % 8 or n % 8 or c > LNMM_MAX_C:
+        return None
+    k_tiles = -(-c // LNMM_BK)
+    cp = k_tiles * LNMM_BK
+    best, best_cost = None, None
+    for bm, bn in LNMM_TILES:
+        a_bytes = bm * (cp + LNMM_PAD) * 2
+        stage_bytes = LNMM_BK * (bn + LNMM_PAD) * 2
+        fit = (LNMM_MAX_SMEM - a_bytes) // stage_bytes
+        if fit < 2:
+            continue
+        row_blocks, n_tiles = -(-m // bm), -(-n // bn)
+        fill = min(sms, row_blocks * n_tiles)
+        tile_cost = bm * bn * cp * _LNMM_TILE_COST[(bm, bn)]
+        for strips in range(1, n_tiles + 1):
+            strip_tiles = -(-n_tiles // strips)
+            strips = -(-n_tiles // strip_tiles)  # no empty strip
+            blocks = row_blocks * strips
+            if blocks < fill and (blocks > sms or blocks < LNMM_MIN_FILL * fill):
+                continue
+            # the whole strip in the ring where it fits (the kernel then needs
+            # one barrier for all of it), else four stages
+            total = strip_tiles * k_tiles
+            resident = total <= min(fit, LNMM_MAX_STAGES)
+            stages = max(2, total if resident else min(fit, 4))
+            cost = -(-blocks // sms) * (
+                _LNMM_BLOCK_COST + bm * cp * _LNMM_LN_COST + strip_tiles * tile_cost
+                + (0 if resident else total * _LNMM_RING_TILE_COST))
+            if best_cost is None or cost < best_cost:
+                best_cost = cost
+                best = LnMatmulPlan(bm, bn, LNMM_BK, k_tiles, strip_tiles, stages,
+                                    (strips, row_blocks), a_bytes + stages * stage_bytes)
+    return best
+
+
 def gemm_launch_args(device, m: int, n: int, k: int, vec_a: bool, w: torch.Tensor):
     """(split-K workspace or None, k_split, vec flags) for the GEMM core.
 
@@ -184,7 +284,7 @@ def gemm_launch_args(device, m: int, n: int, k: int, vec_a: bool, w: torch.Tenso
     multiple of 8 and the weight pointer is aligned to those eight
     elements' load: 16 bytes for f32 (two float4) and bf16 (one uint4), 8
     bytes for int8 (one int2)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(torch.device(device).index or 0)
     tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
     ktiles = -(-k // GEMM_BK)
     splits = max(1, min(-(-2 * sms // tiles), ktiles // 4, 16))

@@ -3,7 +3,11 @@ variants K3q/K4q, and K5: int8-weight matmul.
 
 K3 and K4 replace ``audioldm2_tpu/ops/lnmm_pallas.py:ln_matmul`` and
 ``geglu_matmul`` with ``csrc/lnmm.cu``: the LN output and the gate product
-are computed as the GEMM loads its A tile and never reach device memory.
+never reach device memory. K3 in bf16 runs its own pipelined kernel under a
+launch plan (``_build.ln_matmul_plan``): each block normalizes its rows
+once into shared memory and walks a strip of N tiles. K4, and K3 in f32 or
+at a shape the plan does not take, compute their A tile as the shared GEMM
+core loads it.
 K3q and K4q are the same kernels on the Pallas functions' ``w_scale``
 path: an int8 weight tile converted to bf16 in shared memory, the A tile
 rounded to bf16 whatever x's dtype, and the per-column scale applied to
@@ -131,6 +135,40 @@ def _ln(name, x, ln_scale, ln_bias, w, ws, bias, eps):
     return out
 
 
+def _ln_params(dev, *params):
+    """The LN scale and bias and the linear bias (or None) as the bf16 K3
+    kernel reads them: as they are when all are contiguous bf16 on ``dev``
+    (the cast parameter tree's own leaves: no conversion kernels before the
+    launch), else as f32 copies. Returns (tensors, param dtype code)."""
+    given = [p for p in params if p is not None]
+    if all(p.dtype == BF16 and p.device == dev and p.is_contiguous() for p in given):
+        return params, 1
+    return tuple(_f32(p, dev) for p in params), 0
+
+
+def _ln_bf16(name, x, ln_scale, ln_bias, w, bias, eps):
+    """The bf16 K3 kernel under its launch plan, or None for a shape or an
+    alignment it does not take."""
+    x = x.contiguous()
+    c = x.shape[-1]
+    n = _weight(name, x, w, None, c)
+    m = x.numel() // c
+    dev = x.device
+    plan = _build.ln_matmul_plan(m, c, n, _build.sm_count(dev.index or 0)) if m else None
+    (gamma, beta, b), param_code = _ln_params(dev, ln_scale, ln_bias, bias)
+    if gamma.shape != (c,) or beta.shape != (c,) or (b is not None and b.shape != (n,)):
+        raise ValueError(f"{name}: LN parameters must be [{c}] and the bias [{n}]")
+    if plan is None or not _build.aligned16(x, w, gamma, beta, b):
+        return None
+    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
+    _build.check(_build.lib().a2k_ln_matmul_bf16(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), _ptr(b), param_code,
+        out.data_ptr(), m, c, n, float(eps), plan.bm, plan.bn, plan.strip_tiles, plan.stages,
+        _build.stream_of(x),
+    ), name)
+    return out
+
+
 def _geglu(name, h, w, ws, bias, residual):
     h = h.contiguous()
     residual = residual.contiguous()
@@ -163,7 +201,10 @@ def ln_matmul(x: torch.Tensor, ln_scale, ln_bias, w, bias: Optional[torch.Tensor
     """x: [..., C]; w: [C, N]; returns [..., N] in x.dtype."""
     if not x.is_cuda:
         return ln_matmul_plain(x, ln_scale, ln_bias, w, bias, eps)
-    out = _ln("ln_matmul", x, ln_scale, ln_bias, w.to(x.dtype).contiguous(), None, bias, eps)
+    w = w.to(x.dtype).contiguous()
+    out = _ln_bf16("ln_matmul", x, ln_scale, ln_bias, w, bias, eps) if x.dtype == BF16 else None
+    if out is None:  # f32, or C or N no multiple of 8, or unaligned: the shared core
+        out = _ln("ln_matmul", x, ln_scale, ln_bias, w, None, bias, eps)
     ln_matmul.launches += 1
     return out
 

@@ -22,6 +22,7 @@ import torch
 
 from audioldm2_torch.ops import attention_kernel, attention_variants_kernel as avk
 from audioldm2_torch.ops import nn
+from audioldm2_torch.tools.timing import cuda_ms
 
 SHAPES = [
     ("n3 ds2", 6, 1024, 8, 32),
@@ -46,19 +47,6 @@ def check_plain() -> None:
             print(f"{name:<4} ({b},{t},{h},{d}): max|d| = {err:.2e}")
             assert err < CHECK_TOL, (name, err)
     print("plain numerics OK")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of fn() over ``reps`` calls, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def sdpa(q, k, v, scale):

@@ -35,18 +35,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      UNet) and the large path's UNet at CFG batch 6, kernel against its
      plain PyTorch version, plus one shape per kernel in f32 and the VAE
      decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
-     cancellation); K7 and K8 at the A/B tool's four shapes (bf16), one f32
-     shape, the q, k, v of the large UNet's T = 1024 K2 calls, and inputs
-     whose logits clamp; times of both, the least time the card could take
-     (bound) and, for the attention kernels, scaled_dot_product_attention's;
+     cancellation); K2 and K3 in bf16 at ragged shapes (T, M and N no
+     multiples of their tiles) and K2 on strided q, k, v; K7 and K8 at the
+     A/B tool's four shapes (bf16), one f32 shape, the q, k, v of the large
+     UNet's T = 1024 K2 calls, and inputs whose logits clamp; times of both,
+     the least time the card could take (bound) and, for the attention
+     kernels, scaled_dot_product_attention's;
   4. one full-width UNet forward (all leaves non-zero), kernels against the
      all-plain path: the t5 UNet in bf16 and f32, the audioldm2-full UNet
      in int8 (bf16 activations), the large UNet at CFG batch 6 in bf16 and
      f32; one full-width f32 VAE encode, kernels against the all-plain
      path, and its time;
-  5. requests on each path: three at the reference defaults (10 s, 200
-     steps, guidance 3.5, or 2.5 for sr; batch 1; their median is the p50
-     latency) and one at batch 2, each with output checks (and, on the full
+  5. requests on each path at the reference defaults (10 s, 200 steps,
+     guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 and large
+     paths (their median is the p50 latency), one on the full, sr and full8
+     paths, and one at batch 2 on each, with output checks (and, on the full
      paths, the GPT-2 tokens finite and the CLAP text embedding of unit
      norm), no CUDA tensor reaching a plain version, and launch counts,
      reset to 0 just before the request, equal to the counts computed from
@@ -136,24 +139,11 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, target_ms: float = 20.0, max_reps: int = 50) -> float:
-    """Mean device time of fn() with CUDA events, after a warm-up."""
-    import torch
+    """Mean device time of fn() with CUDA events, the device held busy while
+    the host queues the timed launches: the package's one timer."""
+    from audioldm2_torch.tools.timing import cuda_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    fn()
-    e.record()
-    torch.cuda.synchronize()
-    once = max(s.elapsed_time(e), 1e-3)
-    reps = max(3, min(max_reps, int(target_ms / once)))
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
+    return timed(fn, target_ms=target_ms, max_reps=max_reps)
 
 
 def rel_err(got, want):
@@ -452,7 +442,10 @@ def add_call(st, name, args, n, d, r, k_ms, p_ms):
     lib = library_call(name, args)
     if lib is not None:
         with torch.inference_mode():
-            st["library_ms"] = (st["library_ms"] or 0.0) + n * cuda_ms(lib)
+            lib_ms = cuda_ms(lib)
+        st["library_ms"] = (st["library_ms"] or 0.0) + n * lib_ms
+        log(f"       sdpa {lib_ms:.4f} ms a call: the kernel takes {k_ms / lib_ms:.2f}x that; "
+            f"bound {max(b_ms, o_ms):.4f} ms")
     st["max_abs_err"] = max(st["max_abs_err"], d)
     st["max_rel_err"] = max(st["max_rel_err"], r)
     st["shapes"] += 1
@@ -680,6 +673,7 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
     names = sorted({sig[0] for sig in first}, key=list(KERNELS).index)
     stats = {k: new_stats() for k in names}
     failures = []
+    vae_ms = {}  # kernel ms of the VAE's calls (its norms have eps 1e-6), apart from the UNet's
 
     for sig, args in first.items():
         name = sig[0]
@@ -688,6 +682,8 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         res = check_kernel(name, args, BF16_TOL if bf16 else F32_TOL,
                            f"{'bf16' if bf16 else 'f32'} {describe(sig)} x{n}", failures)
         add_call(stats[name], name, args, n, *res)
+        if offset_check and sig[-1] == 1e-6:
+            vae_ms[name] = vae_ms.get(name, 0.0) + n * res[2]
 
     # one shape per kernel in f32 (the smallest recorded), TF32 off
     for name in names if f32_pass else ():
@@ -719,9 +715,67 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         log(f"  {name}: {st['shapes']} shapes, one forward: "
             f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
             f"{st['bound_ms']:.3f} ms{lib}")
+        if name in vae_ms:
+            log(f"    of which the UNet forward {st['ms'] - vae_ms[name]:.3f} ms and the VAE "
+                f"decode {vae_ms[name]:.3f} ms")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return stats
+
+
+def phase_ragged(stats, device):
+    """K2 and K3 in bf16 at shapes their tiles do not divide: T no multiple
+    of K2's 64-row q and K/V tiles (D = 32 and 64), K2 on the strided q, k,
+    v views of one fused [B, T, 3C] projection (what the UNet hands it), and
+    for K3 M no multiple of its row block with N no multiple of its N tile,
+    with and without a bias, and one shape (C, N no multiples of 8) that
+    goes to the shared core. Errors join the kernels' records; the times
+    are printed and belong to no forward."""
+    import torch
+
+    failures = []
+    g = torch.Generator(device=device).manual_seed(31)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, offset=0.0, dt=bf16):
+        return (torch.randn(shape, generator=g, device=device) * scale + offset).to(dt)
+
+    cases = []
+    for b, t, h, d in ((2, 200, 5, 32), (1, 100, 3, 64)):
+        cases.append(("flash_self_attention", f"ragged {(b, t, h, d)}",
+                      (rnd(b, t, h, d), rnd(b, t, h, d), rnd(b, t, h, d), d ** -0.5)))
+
+    def qkv_views(b, t, h, d):
+        qkv = rnd(b, t, 3 * h * d)
+        views = tuple(x.reshape(b, t, h, d) for x in torch.chunk(qkv, 3, dim=-1))
+        if any(v.is_contiguous() for v in views):
+            raise AssertionError("the fused projection's chunks should be strided views")
+        return views
+
+    cases.append(("flash_self_attention", "strided views of one [2, 200, 768]",
+                  (*qkv_views(2, 200, 8, 32), 32 ** -0.5)))
+    for m, c, n, with_bias in ((100, 384, 200, True), (100, 384, 200, False),
+                               (100, 100, 36, True)):
+        cases.append(("ln_matmul", f"ragged M, C, N = {(m, c, n)}, bias {with_bias}",
+                      (rnd(1, m, c, offset=3.0), rnd(c, dt=torch.float32),
+                       rnd(c, dt=torch.float32), rnd(c, n, scale=c ** -0.5),
+                       rnd(n, dt=torch.float32) if with_bias else None, 1e-5)))
+    for name, tag, args in cases:
+        d_abs, _, _, _ = check_kernel(name, args, BF16_TOL, f"bf16 {name} {tag}", failures)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], d_abs)
+    if failures:
+        raise AssertionError(f"kernel checks failed: {failures}")
+    # what reading the fused projection in place saves: K2 on the views
+    # against K2 after the three copies that made them contiguous
+    k2 = _wrappers()["flash_self_attention"][0]
+    shape = (6, 1024, 8, 32)
+    views = qkv_views(*shape)
+    scale = shape[-1] ** -0.5
+    with torch.inference_mode():
+        in_place = cuda_ms(lambda: k2(*views, scale))
+        copied = cuda_ms(lambda: k2(*(v.contiguous() for v in views), scale))
+    log(f"  K2 {shape} on the fused projection's views: in place {in_place:.4f} ms, "
+        f"after three copies {copied:.4f} ms")
 
 
 def phase_variants(large_first, device):
@@ -895,16 +949,20 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
 
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
            ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
+# the full, sr and full8 paths: one batch-1 and one batch-2 request, so that
+# the whole run keeps well inside its time on a slow host
+PROMPTS_SHORT = PROMPTS[2:]
 
 
-def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str):
+def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str,
+                   prompts=None):
     """A short warm-up request (allocator, cuDNN plans, lazy module state),
-    then three batch-1 requests and one batch-2 request through
-    ``request(prompt, batchsize, steps, duration)``; returns the launch counts
-    of the first request and the timings."""
+    then the batch-1 requests and the batch-2 request of ``prompts`` (PROMPTS
+    by default) through ``request(prompt, batchsize, steps, duration)``;
+    returns the launch counts of the first request and the timings."""
     request("warm up", 1, 10, 2.5)
     launches, walls = None, {1: [], 2: []}
-    for prompt, bsz in PROMPTS:
+    for prompt, bsz in prompts or PROMPTS:
         wall, counts = one_request(model, lambda b: request(prompt, b, steps, duration),
                                    expected, bsz, duration, f"{label}, {steps} steps")
         launches = launches or counts
@@ -979,7 +1037,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     model = build("full", full_cfg, device)
     launches["full"], e2e["full"] = phase_requests(
         "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5")
+        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
     log("== requests on path sr: the same model through super_resolution_and_inpainting")
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = write_wav(os.path.join(tmp, "in.wav"), full_cfg.preprocessing.sampling_rate,
@@ -992,13 +1050,13 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
 
         launches["sr"], e2e["sr"] = phase_requests(
             "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps, duration,
-            "super_resolution_and_inpainting, guidance 2.5")
+            "super_resolution_and_inpainting, guidance 2.5", PROMPTS_SHORT)
     del model
 
     model = build("full8", dataclasses.replace(full_cfg, weight_quant="int8"), device)
     launches["full8"], e2e["full8"] = phase_requests(
         "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5")
+        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
     del model
 
     model = build("large", large_cfg, device)
@@ -1049,6 +1107,8 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     stats = phase_kernels(*discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device),
                           offset_check=True)
     del vae_p
+    log("  -- K2 and K3 at ragged shapes and on strided q, k, v")
+    phase_ragged(stats, device)
     log("  -- sr path: K1 and K6 in f32 (one full-width VAE encode of a chirp's log-mel)")
     mel = encoder_mel(full_cfg, device, duration)
     enc_stats = phase_kernels(*discover_encode_calls(full_cfg, vae_f32, mel),

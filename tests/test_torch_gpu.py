@@ -70,13 +70,35 @@ def test_gn_silu_conv3x3_kernel(cuda, dt, B, T, F, c1, c2, cout, offset):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("B,T,H,D", [(2, 1024, 8, 32), (1, 100, 3, 64), (1, 65, 2, 128)])
+@pytest.mark.parametrize("B,T,H,D", [
+    (2, 1024, 8, 32), (1, 100, 3, 64), (1, 65, 2, 128),
+    (6, 1024, 8, 32),   # the large UNet's T = 1024 level at CFG batch 6: 128-row q tiles
+    (2, 64, 20, 32),    # the deepest level at CFG batch 2: one K/V tile, 40 blocks
+    (2, 256, 12, 32),
+])
 def test_flash_self_attention_kernel(cuda, dt, B, T, H, D):
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (_rand(g, (B, T, H, D), dt, cuda) for _ in range(3))
     args = (q, k, v, D ** -0.5)
     _check(attention_kernel.flash_self_attention(*args),
            attention_kernel.self_attention_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,T,H,D", [(2, 200, 8, 32), (6, 1024, 8, 32), (1, 65, 2, 128)])
+def test_flash_self_attention_kernel_on_fused_qkv_views(cuda, dt, B, T, H, D):
+    """q, k, v as the strided chunks of one fused [B, T, 3 * H * D] projection,
+    which the bf16 kernel reads in place (f32 copies them)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = _rand(g, (B, T, 3 * H * D), dt, cuda)
+    q, k, v = (nn.split_heads(x, H) for x in torch.chunk(qkv, 3, dim=-1))
+    assert not q.is_contiguous()
+    assert (attention_kernel._strides(q) is not None) == (dt == torch.bfloat16)
+    before = attention_kernel.flash_self_attention.launches
+    got = attention_kernel.flash_self_attention(q, k, v, D ** -0.5)
+    assert attention_kernel.flash_self_attention.launches == before + 1
+    assert got.is_contiguous()
+    _check(got, attention_kernel.self_attention_plain(q, k, v, D ** -0.5), dt)
 
 
 @pytest.mark.parametrize("variant", ["v6bd", "v7"])
@@ -110,14 +132,38 @@ def test_attention_variants_reject_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("C,N,with_bias", [(320, 200, True), (320, 200, False), (100, 36, True),
-                                           (640, 1920, False)])
-def test_ln_matmul_kernel(cuda, dt, C, N, with_bias):
+@pytest.mark.parametrize("M,C,N,with_bias", [
+    (128, 320, 200, True), (128, 320, 200, False),
+    (128, 100, 36, True),      # C, N no multiples of 8: the shared core in bf16 too
+    (128, 640, 1920, False),
+    (128, 640, 5120, True),    # the deepest level's GEGLU proj_in at CFG batch 2
+    (6144, 256, 768, True),    # the large UNet's fused QKV at CFG batch 6
+    (1536, 384, 384, False),
+    (100, 384, 200, True),     # ragged row block and N tile
+    (300, 648, 136, True),     # C no multiple of the 64-row K tile: zero-filled
+    (64, 1024, 256, True),     # rows wider than the bf16 kernel takes: the shared core
+])
+def test_ln_matmul_kernel(cuda, dt, M, C, N, with_bias):
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = _rand(g, (2, 64, C), dt, cuda, offset=3.0)
+    x = _rand(g, (2, M // 2, C), dt, cuda, offset=3.0)
     args = (x, _rand(g, (C,), torch.float32, cuda), _rand(g, (C,), torch.float32, cuda),
             _rand(g, (C, N), dt, cuda, scale=0.05),
             _rand(g, (N,), torch.float32, cuda) if with_bias else None, 1e-5)
+    _check(lnmm_kernel.ln_matmul(*args), lnmm_kernel.ln_matmul_plain(*args), dt)
+
+
+@pytest.mark.parametrize("M,C,N,with_bias", [(512, 384, 1152, True), (100, 384, 200, False),
+                                             (64, 1024, 256, True)])
+def test_ln_matmul_kernel_reads_bf16_parameters(cuda, M, C, N, with_bias):
+    """The LN scale and bias and the linear bias as bf16 leaves of the cast
+    parameter tree: the bf16 kernel reads them as they are (no conversion
+    kernels before the launch); the values are exact in f32 either way."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(9)
+    args = (_rand(g, (1, M, C), dt, cuda, offset=3.0), _rand(g, (C,), dt, cuda),
+            _rand(g, (C,), dt, cuda), _rand(g, (C, N), dt, cuda, scale=0.05),
+            _rand(g, (N,), dt, cuda) if with_bias else None, 1e-5)
+    assert lnmm_kernel._ln_params(args[0].device, args[1], args[2], args[4])[1] == 1
     _check(lnmm_kernel.ln_matmul(*args), lnmm_kernel.ln_matmul_plain(*args), dt)
 
 

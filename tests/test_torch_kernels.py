@@ -92,7 +92,9 @@ def test_gn_silu_conv3x3_tiled_plain_matches_pallas_kernel(rng):
     _close(got, want)
 
 
-@pytest.mark.parametrize("t,h,d", [(256, 4, 32), (128, 2, 64)])
+# (192, 4, 32): three of the CUDA kernel's 64-row K/V tiles and one and a
+# half of its 128-row q tiles
+@pytest.mark.parametrize("t,h,d", [(256, 4, 32), (128, 2, 64), (192, 4, 32)])
 def test_self_attention_plain_matches_pallas_kernel(rng, t, h, d):
     q, k, v = (rng.standard_normal((2, t, h, d)).astype(np.float32) for _ in range(3))
     scale = d ** -0.5
@@ -127,6 +129,36 @@ def test_ln_matmul_plain_matches_pallas_kernel(rng):
     )(x, s, b, w, jnp.ones((n,), jnp.float32), bias)
     got = lnmm_kernel.ln_matmul(_t(x)[None], _t(s), _t(b), _t(w), _t(bias), 1e-5)[0]
     _close(got, want)
+
+
+def test_ln_matmul_plain_matches_pallas_kernel_ragged(rng):
+    """M = 100, C = 384, N = 200: no multiple of the CUDA kernel's 64-row
+    blocks or of its 64- and 128-column N tiles, C six of its K tiles; without
+    a bias. float32, atol 1e-4 (summation order only)."""
+    m, c, n, bm = 100, 384, 200, 50
+    x = (rng.standard_normal((m, c)) + 3.0).astype(np.float32)
+    s = rng.standard_normal(c).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
+    w = (rng.standard_normal((c, n)) * c ** -0.5).astype(np.float32)
+    want = pl.pallas_call(
+        functools.partial(lp._ln_matmul_kernel, eps=1e-5),
+        out_shape=jax.ShapeDtypeStruct((m, n), jnp.float32),
+        grid=(m // bm,),
+        in_specs=[
+            pl.BlockSpec((bm, c), lambda i: (i, 0)),
+            pl.BlockSpec((c,), lambda i: (0,)),
+            pl.BlockSpec((c,), lambda i: (0,)),
+            pl.BlockSpec((c, n), lambda i: (0, 0)),
+            pl.BlockSpec((n,), lambda i: (0,)),
+            pl.BlockSpec((n,), lambda i: (0,)),
+        ],
+        out_specs=pl.BlockSpec((bm, n), lambda i: (i, 0)),
+        interpret=True,
+    )(x, s, b, w, jnp.ones((n,), jnp.float32), jnp.zeros((n,), jnp.float32))
+    got = lnmm_kernel.ln_matmul(_t(x)[None], _t(s), _t(b), _t(w), None, 1e-5)[0]
+    _close(got, want)
+    assert torch.equal(got, lnmm_kernel.ln_matmul_plain(_t(x)[None], _t(s), _t(b), _t(w), None,
+                                                       1e-5)[0])
 
 
 def test_geglu_matmul_plain_matches_pallas_kernel(rng):
