@@ -4,9 +4,11 @@ K7 replaces ``tools/ab_attn_variants.py:v6bd_attention`` (exact softmax,
 the whole row's max, the row sum over the unrounded f32 p) and K8
 replaces ``tools/ab_attn_variants.py:v7_attention`` (exp2 of the logits
 clamped to +-100 with no max, the row sum over the p rounded to v's
-dtype), both with ``csrc/attention_variants.cu``. Each wrapper takes its
-plain version for CPU tensors and the kernel for CUDA tensors; the plain
-versions round where the Pallas kernels round and are the oracles.
+dtype), both with ``csrc/attention_variants.cu``: in bf16 on K2's core
+(``csrc/flash_bf16.cuh``; K7 in two passes over K, the first for the row
+max), in f32 on the FMA units. Each wrapper takes its plain version for
+CPU tensors and the kernel for CUDA tensors; the plain versions round
+where the Pallas kernels round and are the oracles.
 
 The wrappers refuse what the Pallas kernels refuse: H * D not a multiple
 of 128, D not dividing 128, and a T with no q block under the Pallas

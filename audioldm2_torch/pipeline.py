@@ -15,7 +15,8 @@ CFG sampler (DDIM, PLMS or DDPM) -> VAE decode -> vocoder in
 
 No checkpoint is loaded yet: ``build_model`` draws random weights on the
 device from ``seed``, or takes an existing parameter tree (the JAX
-package's numpy tree or the port's own).
+package's numpy tree or the port's own). The public functions take the
+JAX package's parameters, in its order.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import random
 import sys
 import time
 import warnings
@@ -118,11 +120,27 @@ class AudioLDM2:
         return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
 
 
-def build_model(config=None, device="cuda", model_name: str = "audioldm_16k_crossattn_t5",
-                seed: int = 0, params=None, nonzero_init: bool = False,
-                weight_quant: Optional[str] = None) -> AudioLDM2:
-    """Build the model on ``device`` (default CUDA, which must be present).
+def seed_everything(seed: int, device="cuda") -> torch.Generator:
+    """Seed ``random``, numpy and torch with ``seed`` and return a
+    ``torch.Generator`` seeded with it on ``device`` (the card unless the
+    caller asks for the CPU). The port's counterpart of the JAX package's
+    ``seed_everything``, which returns a PRNG key: device randomness flows
+    from the returned generator."""
+    random.seed(seed)
+    np.random.seed(seed % 2 ** 32)
+    torch.manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(int(seed))
 
+
+def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
+                model_name: str = "audioldm2-full", weight_quant: Optional[str] = None, *,
+                seed: int = 0, params=None, nonzero_init: bool = False) -> AudioLDM2:
+    """Build the model on ``device`` (None: the card, which must be
+    present); the first five parameters are the JAX package's.
+
+    ``ckpt_path``: None draws random weights; a path that does not exist
+    warns and draws random weights, as the JAX package does; an existing
+    file raises ``NotImplementedError`` (checkpoint loading is not ported).
     ``params``: an existing tree (the JAX package's numpy tree or the
     port's); when None, weights are drawn on the device from ``seed``
     (on the ``"meta"`` device, shapes only, with no memory).
@@ -134,6 +152,12 @@ def build_model(config=None, device="cuda", model_name: str = "audioldm_16k_cros
     environment variable ``AUDIOLDM2_WEIGHT_QUANT=int8``) selects the int8
     serving mode: the UNet's transformer linears and ResBlock convs run
     int8 weights through the int8 kernels."""
+    if ckpt_path is not None and os.path.exists(ckpt_path):
+        raise NotImplementedError(
+            f"build_model({ckpt_path!r}): checkpoint loading is not ported to audioldm2_torch "
+            "yet (ROADMAP queue 1 item 17)")
+    if ckpt_path is not None:
+        print(f"WARNING: checkpoint {ckpt_path} not found; using random init")
     cfg = default_audioldm_config(model_name) if config is None else config_m.coerce(config)
     weight_quant = weight_quant or os.environ.get("AUDIOLDM2_WEIGHT_QUANT") or None
     if weight_quant:
@@ -147,9 +171,9 @@ def build_model(config=None, device="cuda", model_name: str = "audioldm_16k_cros
         )
     for spec in cfg.conditioners:
         conditioners.check_kind(spec)
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_model(device='cuda'): no CUDA device is available")
+        raise RuntimeError(f"build_model(device={str(device)!r}): no CUDA device is available")
     if params is None:
         gen = torch.Generator(device=device if device.type != "meta" else "cpu")
         params = params_m.init_params(cfg, gen.manual_seed(int(seed)), device,
@@ -173,8 +197,8 @@ def _check_request(transcription: str) -> None:
 def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
                   ddim_steps: int = 200, duration: float = 10, batchsize: int = 1,
                   guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 3,
-                  duration_bucket: Optional[float] = 2.5, sampler: str = "ddim",
-                  use_ema: bool = False):
+                  latent_t_per_second: float = 25.6, config=None, sampler: str = "ddim",
+                  duration_bucket: Optional[float] = 2.5, use_ema: bool = False):
     """Generate [batchsize, 1, N] float32 waveforms in [-1, 1] (numpy).
 
     ``sampler``: "ddim" (eta 1, as the JAX package's generate), "plms"
@@ -182,7 +206,9 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
     ``use_ema`` denoises with the EMA UNet weights (``params["unet_ema"]``).
     ``n_candidate_gen_per_text`` candidates are generated per prompt (CFG
     batch 2 * batchsize * n) and the CLAP reranker keeps the best of each
-    prompt's (:func:`rerank_and_select`)."""
+    prompt's (:func:`rerank_and_select`). ``latent_t_per_second`` and
+    ``config`` are accepted and ignored, as in the JAX package: the latent
+    length comes from ``model.cfg``."""
     _check_request(transcription)
     n = int(n_candidate_gen_per_text)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
@@ -251,7 +277,8 @@ def super_resolution_and_inpainting(
     duration: float = 10, batchsize: int = 1, guidance_scale: float = 2.5,
     n_candidate_gen_per_text: int = 3,
     time_mask_ratio_start_and_end: Tuple[float, float] = (0.40, 0.60),
-    freq_mask_ratio_start_and_end: Tuple[float, float] = (1.0, 1.0), sampler: str = "ddim",
+    freq_mask_ratio_start_and_end: Tuple[float, float] = (1.0, 1.0),
+    latent_t_per_second: float = 25.6, config=None, sampler: str = "ddim",
 ):
     """Regenerate the masked part of a recording: [batchsize, 1, N] float32
     waveforms in [-1, 1] (numpy).
@@ -261,7 +288,9 @@ def super_resolution_and_inpainting(
     generated with the latent mask (time span ``time_mask_ratio_start_and_end``
     and frequency span ``freq_mask_ratio_start_and_end`` regenerated, the
     rest blended from the q-sampled encoding at every step), with
-    ``n_candidate_gen_per_text`` candidates per prompt reranked by CLAP."""
+    ``n_candidate_gen_per_text`` candidates per prompt reranked by CLAP.
+    ``latent_t_per_second`` and ``config`` are accepted and ignored, as in
+    the JAX package: the mel length comes from ``model.cfg``."""
     _check_request(transcription)
     n = int(n_candidate_gen_per_text)
     cfg = model.cfg

@@ -11,11 +11,19 @@ CFG batches 2, 6 and 8, and T = 2048 for 20 s clips.
 Usage:
   python -m audioldm2_torch.tools.ab_attn_variants --check   # CPU: plain numerics
   python -m audioldm2_torch.tools.ab_attn_variants           # on the card
+  python -m audioldm2_torch.tools.ab_attn_variants --json OUT.json
+
+``--json`` writes the card, every time, K7's and K8's max|d| against K2
+and the SHA-256 of K2's output bytes per shape (fixed seed), so that two
+trees' runs can be diffed: K2's hashes are equal where its results are
+bit-identical.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import sys
 
 import torch
@@ -58,8 +66,8 @@ def sdpa(q, k, v, scale):
 
 def run(shapes=SHAPES, reps: int = 20, device="cuda", log=print):
     """Each shape in bf16 on the card: CUDA-event ms per call of every
-    variant, K7's and K8's max|d| against K2 and their achieved TFLOP/s.
-    Returns one dict per shape."""
+    variant, K7's and K8's max|d| against K2, their achieved TFLOP/s and
+    the SHA-256 of K2's output bytes. Returns one dict per shape."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the A/B timing runs on a CUDA device (use --check on the CPU)")
     rows = []
@@ -80,8 +88,10 @@ def run(shapes=SHAPES, reps: int = 20, device="cuda", log=print):
         }
         with torch.inference_mode():
             ms = {name: cuda_ms(fn, reps) for name, fn in fns.items()}
-            ref = fns["k2"]().float()
+            k2_out = fns["k2"]()
+            ref = k2_out.float()
             err = {n: (fns[n]().float() - ref).abs().max().item() for n in ("k7", "k8")}
+            k2_sha = hashlib.sha256(k2_out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
         torch.cuda.synchronize()
         flop = 4.0 * b * h * t * t * d
         tflops = {n: flop / (ms[n] * 1e-3) / 1e12 for n in ("k7", "k8")}
@@ -90,7 +100,7 @@ def run(shapes=SHAPES, reps: int = 20, device="cuda", log=print):
             f"{err['k7']:10.2e} {err['k8']:10.2e}   ({tflops['k7'] / H100_BF16_TFLOPS:.1%} / "
             f"{tflops['k8'] / H100_BF16_TFLOPS:.1%} of {H100_BF16_TFLOPS:g} TF/s)")
         rows.append({"label": label, "shape": (b, t, h, d), "ms": ms, "max_abs_err": err,
-                     "tflops": tflops})
+                     "tflops": tflops, "k2_sha256": k2_sha})
     return rows
 
 
@@ -98,11 +108,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true", help="CPU check of the plain versions")
     ap.add_argument("--reps", type=int, default=20, help="timed calls per variant and shape")
+    ap.add_argument("--json", metavar="OUT", help="also write the card and the rows to OUT")
     args = ap.parse_args(argv)
     if args.check:
         check_plain()
         return 0
-    run(reps=args.reps)
+    rows = run(reps=args.reps)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"device": torch.cuda.get_device_name(0), "rows": rows}, f, indent=1)
     return 0
 
 

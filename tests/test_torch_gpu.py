@@ -119,6 +119,53 @@ def test_attention_variant_kernels(cuda, variant, dt, B, T, H, D, q_scale):
            getattr(avk, f"{variant}_attention_plain")(*args), dt)
 
 
+@pytest.mark.parametrize("T", [100, 200])
+def test_v7_kernel_ragged_columns_give_zero_after_the_clamp(cuda, T):
+    """Every real logit below -100, so each real column's p is the clamp's
+    2^-100: a ragged K/V column that got the clamp too (and not p = 0) would
+    scale the output by T / T_padded. The kernel is held against the plain
+    version and against the same function on inputs padded to whole 64-row
+    tiles with the extra columns' p set to 0."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, H, D = 2, 4, 32
+    k = (torch.randn((B, T, H, D), generator=g, device=cuda).abs() + 0.5).bfloat16()
+    q = (-40.0 * (torch.randn((B, T, H, D), generator=g, device=cuda).abs() + 0.5)).bfloat16()
+    v = _rand(g, (B, T, H, D), torch.bfloat16, cuda)
+    scale = D ** -0.5
+    assert avk._logits(q, k, scale).max().item() < -100.0
+    got = avk.v7_attention(q, k, v, scale)
+    _check(got, avk.v7_attention_plain(q, k, v, scale), torch.bfloat16)
+
+    tp = -(-T // 64) * 64
+    pad = [0, 0, 0, 0, 0, tp - T]
+    qp, kp, vp = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    pb = torch.exp2(avk._logits(qp, kp, scale).clamp(-100.0, 100.0)).bfloat16()
+    pb[..., T:] = 0  # the extra columns masked
+    acc = avk._pv(pb, vp)
+    want = (acc / pb.float().sum(-1).permute(0, 2, 1)[..., None]).bfloat16()[:, :T]
+    _check(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1024, 200])
+def test_v6bd_kernel_takes_the_max_of_the_whole_row(cuda, T):
+    """One q row per (batch, head) whose max logit lies in the last K tile,
+    about 200 above the rest in log2 units: with the whole row's m the other
+    entries' p = exp2(l - m) underflow to 0, while a max taken from the
+    earlier tiles alone would overflow exp2 (f32 ends at 2^128)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, H, D = 2, 8, 32
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=cuda) for _ in range(3))
+    row, last = 5, T - 1
+    qn = q[:, row] / q[:, row].norm(dim=-1, keepdim=True)
+    k[:, last] = qn * 200.0 / (D ** -0.5 * avk.LOG2E)
+    q[:, row] = qn
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    args = (q, k, v, D ** -0.5)
+    lg = avk._logits(q, k, D ** -0.5)[:, :, row]  # [B, H, T]
+    assert (lg.argmax(-1) == last).all() and (lg.max(-1).values > 150.0).all()
+    _check(avk.v6bd_attention(*args), avk.v6bd_attention_plain(*args), torch.bfloat16)
+
+
 def test_attention_variants_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 64, 4, 32, device=cuda)
     for fn in (avk.v6bd_attention, avk.v7_attention):

@@ -124,3 +124,87 @@ def test_build_model_needs_a_card_for_cuda(monkeypatch):
 def test_round_up_duration_matches_jax():
     for d in (0.3, 2.5, 2.51, 7.4, 10.0, 10.2):
         assert at.round_up_duration(d) == jpipe.round_up_duration(d)
+
+
+def test_build_model_takes_the_jax_parameters_in_order():
+    """The port's first five parameters are the JAX package's, by name,
+    order and default (device aside: None means the card in the port);
+    its own (seed, params, nonzero_init) are keyword-only after them."""
+    import inspect
+
+    jp = inspect.signature(jpipe.build_model).parameters
+    tp = inspect.signature(at.build_model).parameters
+    assert list(tp)[:5] == list(jp) == ["ckpt_path", "config", "device", "model_name",
+                                        "weight_quant"]
+    assert all(tp[n].default == jp[n].default for n in jp)
+    assert tp["model_name"].default == "audioldm2-full"
+    assert [n for n, p in tp.items() if p.kind is p.KEYWORD_ONLY] == ["seed", "params",
+                                                                      "nonzero_init"]
+
+
+def test_build_model_defaults_to_audioldm2_full_on_the_card(monkeypatch):
+    """build_model() asks for audioldm2-full on the card: without CUDA it
+    raises, and the same call on the meta device builds audioldm2-full."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        at.build_model()
+    assert at.build_model(device="meta").cfg.name == "audioldm2-full"
+
+
+def test_build_model_ckpt_path(tmp_path, capsys):
+    """A missing checkpoint warns (the JAX package's words) and draws random
+    weights; an existing file is refused, never overwritten by random
+    weights."""
+    missing = str(tmp_path / "missing.pth")
+    model = at.build_model(missing, model_name="audioldm_16k_crossattn_t5", device="meta")
+    assert model.cfg.name == "audioldm_16k_crossattn_t5"
+    assert f"WARNING: checkpoint {missing} not found; using random init" in capsys.readouterr().out
+    present = tmp_path / "model.pth"
+    present.write_bytes(b"\0")
+    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+        at.build_model(str(present), device="meta")
+
+
+def test_pipelines_accept_and_ignore_the_jax_keywords(tmodel, tmp_path):
+    """latent_t_per_second and config, which the JAX package takes and
+    ignores, leave both entry points' waveforms unchanged."""
+    from scipy.io import wavfile
+
+    ignored = dict(latent_t_per_second=99.0, config=object())
+    kw = dict(seed=3, ddim_steps=4, duration=0.32, duration_bucket=None,
+              n_candidate_gen_per_text=1)
+    np.testing.assert_array_equal(at.text_to_audio(tmodel, "rain", **kw, **ignored),
+                                  at.text_to_audio(tmodel, "rain", **kw))
+    sr = tmodel.cfg.preprocessing.sampling_rate
+    path = str(tmp_path / "in.wav")
+    t = np.arange(int(0.64 * sr)) / sr
+    wavfile.write(path, sr, (0.5 * np.sin(2 * np.pi * 200 * t) * 32767).astype(np.int16))
+    kw = dict(original_audio_file_path=path, seed=3, ddim_steps=4, duration=0.64,
+              n_candidate_gen_per_text=1)
+    np.testing.assert_array_equal(
+        at.super_resolution_and_inpainting(tmodel, "rain", **kw, **ignored),
+        at.super_resolution_and_inpainting(tmodel, "rain", **kw))
+
+
+def test_seed_everything_seeds_and_returns_a_generator():
+    g = at.seed_everything(5, device="cpu")
+    assert isinstance(g, torch.Generator) and g.device.type == "cpu"
+    a, ta = np.random.rand(3), torch.rand(3)
+    assert torch.equal(torch.rand(3, generator=g),
+                       torch.rand(3, generator=torch.Generator().manual_seed(5)))
+    at.seed_everything(5, device="cpu")
+    np.testing.assert_array_equal(np.random.rand(3), a)
+    assert torch.equal(torch.rand(3), ta)
+
+
+@pytest.mark.parametrize("name", ["audioldm_16k_crossattn_t5", "audioldm2-full",
+                                  "audioldm2-music-665k", "audioldm2-full-large-1150k"])
+def test_build_model_builds_every_family_the_port_runs(name):
+    """Each family the port runs builds at full width on the meta device
+    (shapes only); audioldm2-music-665k has audioldm2-full's tree."""
+    model = at.build_model(model_name=name, device="meta")
+    assert model.cfg.name == name
+    shapes = _flatten(model.ldm.params)
+    assert 9e8 < sum(math.prod(s) for s in shapes.values()) < 2.1e9
+    if name == "audioldm2-music-665k":
+        assert shapes == _flatten(at.build_model(device="meta").ldm.params)
