@@ -36,11 +36,12 @@
 // writing an f32 partial tile to a workspace; splitk_reduce sums the slices
 // in a fixed order (deterministic) and applies bias and residual.
 //
-// The core serves K1, K1q, K3q, K4, K4q and K5, and K3 in f32 or at shapes
-// its own kernel does not take. The two kernels redesigned around Hopper's
-// asynchronous copies, the bf16 K2 (attention.cu) and the bf16 K3 (lnmm.cu),
-// do not use it; they share the PTX helpers below (16-byte cp.async with
-// zero fill, ldmatrix, mma.sync m16n8k16 with f32 accumulation).
+// The core serves K1q, K3q, K4q and K5, and K1, K3 and K4 in f32 or at
+// shapes their own bf16 kernels do not take. The kernels redesigned around
+// Hopper's asynchronous copies, the bf16 K2 (attention.cu), K3 and K4
+// (lnmm.cu) and K1 (gn_silu_conv.cu), do not use it; they share the PTX
+// helpers below (16-byte cp.async with zero fill, ldmatrix, mma.sync
+// m16n8k16 with f32 accumulation, the quad transpose of the epilogues).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -174,6 +175,53 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Eight bf16 in one 16-byte register group, as f32.
+__device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+// Eight consecutive LN or bias parameters from index idx (a multiple of 8),
+// stored as f32 or, with p16, as bf16 (exact in f32 either way).
+__device__ __forceinline__ void load8_param(const void* p, int idx, bool p16, float v[8]) {
+  if (p16)
+    load8(static_cast<const bf16*>(p) + idx, v);
+  else
+    load8(static_cast<const float*>(p) + idx, v);
+}
+
+// 4 x 4 transpose inside a quad: thread t of the quad gives v[j] (its pair of
+// columns 2t, 2t+1 of n8 tile j) and ends with v[k] = thread k's pair of tile
+// t, i.e. the 8 contiguous columns of tile t. Two butterfly steps.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool odd = t & 1;
+  uint32_t s0 = odd ? v[0] : v[1], s1 = odd ? v[2] : v[3];
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  if (odd) {
+    v[0] = r0;
+    v[2] = r1;
+  } else {
+    v[1] = r0;
+    v[3] = r1;
+  }
+  const bool hi = t & 2;
+  s0 = hi ? v[0] : v[2];
+  s1 = hi ? v[1] : v[3];
+  r0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (hi) {
+    v[0] = r0;
+    v[1] = r1;
+  } else {
+    v[2] = r0;
+    v[3] = r1;
+  }
 }
 
 // The current device's SM count into *sms, read once per process. Returns

@@ -6,20 +6,21 @@
 // over static channel slices per group because Mosaic cannot reshape the
 // lane dim. Here it is two launches:
 //
-//   1. a2k_gn_stats (gn_silu_conv.cu, K1's stats kernel with x2 = null):
-//      one block per (batch, group), two-pass mean and centred variance in
-//      double partial sums, folded into the per-(B, C) affine
+//   1. a2k_gn_stats (gn_silu_conv.cu, K1's statistics pass with x2 = null):
+//      a grid of row chunks per sample, per-chunk two-pass mean and centred
+//      sum of squares, combined in chunk order by Chan's formula in the last
+//      block of each sample, folded into the per-(B, C) affine
 //      a = rstd * gamma, c = beta - mean * a;
 //   2. a2k_gn_apply (this file): y = silu(x * a + c) (or x * a + c) in f32,
 //      rounded once to x's dtype, one thread per eight consecutive channels
 //      with 16-byte loads and stores where C is a multiple of 8 and the
 //      pointers are 16-byte aligned, else one thread per element.
 //
-// Bounds on the H100: both passes are memory-bound. The stats kernel reads
-// x twice (the group's slice is strided by C, so its loads are 4 or 8
-// channels wide per row); the apply pass reads x and writes y once, with the
-// (a, c) rows of one batch (C floats each) held in L1/L2. At batch 1 and 32
-// groups the stats pass has 32 blocks for 132 SMs, which is its limit.
+// Bounds on the H100: both passes are memory-bound. The statistics pass
+// reads x twice (whole rows, 16-byte loads; the second read mostly from
+// L1/L2) with about two blocks per SM at any batch; the apply pass reads x
+// and writes y once, with the (a, c) rows of one batch (C floats each) held
+// in L1/L2.
 #include "common.cuh"
 
 namespace a2k {

@@ -15,15 +15,18 @@
 // memory.
 //
 // Bounds on the H100: M = B*T from 128 to 6144 rows, C in {256, 384, 640},
-// N from C to 8C (GEGLU proj_in). At CFG batch 2 and in the deep levels
+// N from C to 8C (GEGLU proj_in); K4's K = F = 4C. At CFG batch 2 and in the deep levels
 // (M = 128 to 512) a call must read more weight bytes than it has
 // activation bytes and is bound by bytes and by latency (a few dozen
 // blocks); at CFG batch 6 on the T = 1024 level (M = 6144) it does up to
 // 6.4 GFLOP and is bound by the tensor cores.
 //
-// K3 in bf16 has a kernel of its own (ln_matmul_bf16_kernel below); the
-// launch plan (rows per block, N-tile width, strip length, stages) is
-// chosen in Python, ops/_build.py:ln_matmul_plan.
+// K3 and K4 in bf16 share one kernel (row_block_matmul_bf16_kernel below),
+// templated on the pass that fills the row block's A tile (RowPass::LN,
+// RowPass::GEGLU); everything a pass changes sits under if constexpr, so
+// K3's instantiations compile as they did before K4 joined them. The launch
+// plans (rows per block, N-tile width, strip length, stages) are chosen in
+// Python, ops/_build.py: ln_matmul_plan and geglu_matmul_plan.
 //  - One block owns a row block (64 or 128 rows) and a strip of N tiles. It
 //    copies its rows of x to shared memory (cp.async, all rows in flight at
 //    once), computes the LN statistics once from that copy (one warp per
@@ -56,18 +59,29 @@
 //    f32 or bf16 (the cast parameter tree's leaves; exact in f32 either
 //    way), so no conversion kernels run before the launch.
 //  - Ragged M and N are masked (zero rows, skipped stores); C and N must be
-//    multiples of 8, C at most 768 (the main path has 256, 384 and 640) and
-//    the pointers 16-byte aligned. Other shapes, and f32, go to the shared
-//    core, which still computes the same function.
+//    multiples of 8, C at most 768 for K3 (the main path has 256, 384 and
+//    640) and the pointers 16-byte aligned. Other shapes, and f32, go to the
+//    shared core, which still computes the same function.
 // The rounding points are those of the shared core's K3; only the order of
 // the f32 sums differs.
 //
-// K3 in f32, K3q, K4, K4q and K5 are the shared GEMM core (common.cuh) with
-// a prologue: K3's block first computes mean and rstd of its 64 rows (one
-// warp per row, two-pass) into shared memory, then normalizes each A
-// element as it loads; K4 forms a * gelu(g) from the two halves of each h
-// row as it loads (it evaluates erff once per A element for every 64-wide
-// N tile); small-M products split K (common.cuh).
+// K4 in bf16 on the same kernel (RowPass::GEGLU): the block forms
+// u = a * gelu(g) of its rows once, in f32 with erff and one rounding to
+// bf16, into the resident A tile [bm, F] (F = 1024, 1536, 2560; at 2560 a
+// block of 64 rows would need 329 KB, so the plan takes 32 or 16 rows
+// there, whose products need only four or two of the eight warps: the others
+// copy and form the gate product with them); the epilogue adds the bias (read as
+// stored) and the residual in f32 from registers and rounds once. No
+// split-K, no workspace, one launch. h's row block is not staged in shared
+// memory (it is twice A): each thread keeps four pairs of 16-byte loads in
+// flight (eight pairs a thread). It replaces the shared core's K4, which evaluated erff for every
+// A element once per 64-wide N tile and split K through a workspace.
+//
+// K3 in f32, K3q, K4 in f32, K4q and K5 are the shared GEMM core
+// (common.cuh) with a prologue: K3's block first computes mean and rstd of
+// its 64 rows (one warp per row, two-pass) into shared memory, then
+// normalizes each A element as it loads; K4 forms a * gelu(g) from the two
+// halves of each h row as it loads; small-M products split K (common.cuh).
 //
 // The int8 serving mode (ops/quant.py): K3q and K4q are the w_scale paths
 // of the same Pallas kernels (ln_matmul :83-91 and geglu_matmul :202-209
@@ -81,6 +95,8 @@
 // f32 input takes the FMA path with the exact int8 values). They halve the
 // weight bytes the GEMM streams, the larger share of these small-M
 // products; int8 tensor-core MMA is later work.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace a2k {
@@ -235,60 +251,22 @@ constexpr int LT_MAX_SMEM = 232448;
 constexpr int LT_LN_CH = 3;      // 16-byte chunks of a row a lane holds in registers
 constexpr int LT_MAX_C = 32 * LT_LN_CH * 8;  // 768: the widest row the kernel takes
 
-// Eight bf16 in one 16-byte register group, as f32 / their f32 sum.
-__device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-// Eight consecutive LN or bias parameters from index idx (a multiple of 8),
-// stored as f32 or, with p16, as bf16 (exact in f32 either way).
-__device__ __forceinline__ void load8_param(const void* p, int idx, bool p16, float v[8]) {
-  if (p16)
-    load8(static_cast<const bf16*>(p) + idx, v);
-  else
-    load8(static_cast<const float*>(p) + idx, v);
-}
+// The pass that fills a row block's A tile: K3's LayerNorm of x [M, C], or
+// K4's gate product u = a * gelu(g) of h = [a | g], [M, 2C] (C = F).
+enum class RowPass { LN, GEGLU };
 
-// 4 x 4 transpose inside a quad: thread t of the quad gives v[j] (its pair of
-// columns 2t, 2t+1 of n8 tile j) and ends with v[k] = thread k's pair of tile
-// t, i.e. the 8 contiguous columns of tile t. Two butterfly steps.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-  const bool odd = t & 1;
-  uint32_t s0 = odd ? v[0] : v[1], s1 = odd ? v[2] : v[3];
-  uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-  if (odd) {
-    v[0] = r0;
-    v[2] = r1;
-  } else {
-    v[1] = r0;
-    v[3] = r1;
-  }
-  const bool hi = t & 2;
-  s0 = hi ? v[0] : v[2];
-  s1 = hi ? v[1] : v[3];
-  r0 = __shfl_xor_sync(0xffffffffu, s0, 2);
-  r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
-  if (hi) {
-    v[0] = r0;
-    v[1] = r1;
-  } else {
-    v[2] = r0;
-    v[3] = r1;
-  }
-}
-
-template <int BM, int BN>
+template <RowPass PASS, int BM, int BN>
 __global__ void __launch_bounds__(LT_THREADS)
-ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
-                      const void* __restrict__ beta, const bf16* __restrict__ w,
-                      const void* __restrict__ bias, bool p16, bf16* __restrict__ out, int M,
-                      int C, int N, float eps, int strip_tiles, int stages) {
-  constexpr int WARPS_N = BN / 32, WARPS_M = (LT_THREADS / 32) / WARPS_N;
+row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
+                             const void* __restrict__ beta, const bf16* __restrict__ w,
+                             const void* __restrict__ bias, bool p16,
+                             const bf16* __restrict__ residual, bf16* __restrict__ out, int M,
+                             int C, int N, float eps, int strip_tiles, int stages) {
+  constexpr int THREADS = LT_THREADS;
+  // warps that run products: one per 16 x 32 slice of the tile, at most all;
+  // in a smaller tile the others only copy and form A
+  constexpr int MMA_WARPS = BM * BN / 512 < THREADS / 32 ? BM * BN / 512 : THREADS / 32;
+  constexpr int WARPS_N = BN / 32, WARPS_M = MMA_WARPS / WARPS_N;
   constexpr int WM = BM / WARPS_M;  // rows per warp: 64, 32 or 16
   constexpr int MT = WM / 16;       // m16 tiles per warp; its 32 columns are 4 n8 tiles
   constexpr int B_LD = BN + LT_PAD;
@@ -296,8 +274,18 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
   constexpr int CPR = BN / 8;  // 16-byte chunks per W tile row
 
   extern __shared__ __align__(128) unsigned char lt_smem[];
-  const int KT = (C + LT_BK - 1) / LT_BK;
-  const int Cp = KT * LT_BK;  // A's columns, zero past C
+  // K4 may split K over a thread-block cluster of gridDim.z blocks, one N tile
+  // each: block z takes the K tiles [z * kps, (z + 1) * kps), columns
+  // [k_lo, k_lo + k_len) of h's halves and rows of W. K3 takes all of K.
+  int k_lo = 0, k_len = C;
+  if constexpr (PASS == RowPass::GEGLU) {
+    const int kps = ((C + LT_BK - 1) / LT_BK + gridDim.z - 1) / gridDim.z;
+    k_lo = blockIdx.z * kps * LT_BK;
+    k_len = min(C - k_lo, kps * LT_BK);
+  }
+  const bool split = PASS == RowPass::GEGLU && gridDim.z > 1;
+  const int KT = (k_len + LT_BK - 1) / LT_BK;
+  const int Cp = KT * LT_BK;  // A's columns, zero past k_len
   const int A_LD = Cp + LT_PAD;
   bf16* As = reinterpret_cast<bf16*>(lt_smem);  // [BM][A_LD]
   bf16* Ws = As + (size_t)BM * A_LD;            // stages x [LT_BK][B_LD]
@@ -305,6 +293,7 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const bool mma_warp = MMA_WARPS == THREADS / 32 || warp < MMA_WARPS;
   const int m0 = blockIdx.y * BM;
   const int n_tiles = (N + BN - 1) / BN;
   const int tile0 = blockIdx.x * strip_tiles;
@@ -314,9 +303,9 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
   // The W tiles of the strip, N tile by N tile, K tile by K tile, go round the
   // ring: load_next() starts the next one (or nothing past the last) and
   // commits a group either way, so the group count stays uniform.
-  constexpr int W_ROWS = LT_THREADS / CPR;  // W tile rows one pass of the block copies
+  constexpr int W_ROWS = THREADS / CPR;  // W tile rows one pass of the block copies
   const int w_r = tid / CPR, w_c = (tid % CPR) * 8;
-  const bf16* w_src = w + (size_t)w_r * N + w_c;
+  const bf16* w_src = w + (size_t)(k_lo + w_r) * N + w_c;
   bf16* w_dst = Ws + w_r * B_LD + w_c;
   int ld_nt = 0, ld_kt = 0, ld_slot = 0;
   auto load_next = [&]() {
@@ -327,7 +316,7 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
       const bool n_ok = n0 + w_c < N;
 #pragma unroll
       for (int j = 0; j < LT_BK / W_ROWS; ++j) {
-        const bool ok = n_ok && k0 + j * W_ROWS + w_r < C;
+        const bool ok = n_ok && k0 + j * W_ROWS + w_r < k_len;
         cp_async16(dst + j * W_ROWS * B_LD, ok ? src + (size_t)j * W_ROWS * N : w, ok);
       }
       if (++ld_kt == KT) {
@@ -339,22 +328,59 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
     cp_async_commit();
   };
 
+  // Where the ring holds the whole strip (total <= stages: the small-M
+  // shapes, one N tile of at most twelve K tiles) every W tile is started now,
+  // and the products run through them behind one wait and one barrier.
+  const bool resident = total <= stages;
+  const int started = resident ? total : stages - 1;
+  const int chunks = k_len / 8;
+  if constexpr (PASS == RowPass::GEGLU) {
+    // The first W tiles fly while the block forms u = a * gelu(g) of its rows
+    // into As, once, in f32 with erff and one rounding to bf16 (rows past M
+    // and columns past k_len as zeros). h's row block is twice A, more than
+    // shared memory holds at F = 2560, so it is not staged there: each of
+    // the block's threads keeps eight 16-byte pairs of loads in flight in
+    // registers.
+    for (int s = 0; s < started; ++s) load_next();
+    const int kc = Cp / 8;  // 16-byte chunks of an A row
+    constexpr int ILP = 8;
+    for (int i0 = tid; i0 < BM * kc; i0 += ILP * THREADS) {
+      uint4 av[ILP], gv[ILP];
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) {
+        const int i = i0 + u * THREADS, r = i / kc, ch = i % kc, m = m0 + r;
+        av[u] = gv[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < BM * kc && m < M && ch < chunks) {
+          const bf16* hrow = x + (size_t)m * 2 * C + k_lo + ch * 8;
+          av[u] = *reinterpret_cast<const uint4*>(hrow);
+          gv[u] = *reinterpret_cast<const uint4*>(hrow + C);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i < BM * kc) {
+          float a[8], gt[8], y[8];
+          unpack8(av[u], a);
+          unpack8(gv[u], gt);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            y[e] = a[e] * (0.5f * gt[e] * (1.f + erff(gt[e] * 0.70710678118654752f)));
+          store8(As + (size_t)(i / kc) * A_LD + (i % kc) * 8, y);
+        }
+      }
+    }
+  } else {
   // group 0: the row block's x, as it is, into As (rows past M as zeros, whose
   // LN is beta: finite, and never stored); then the first W tiles, which fly
   // while the rows are normalized
-  const int chunks = C / 8;
-  for (int r = warp; r < BM; r += LT_THREADS / 32) {
+  for (int r = warp; r < BM; r += THREADS / 32) {
     const int m = m0 + r;
     const bf16* xrow = x + (size_t)(m < M ? m : 0) * C;
     for (int ch = lane; ch < chunks; ch += 32)
       cp_async16(As + (size_t)r * A_LD + ch * 8, xrow + ch * 8, m < M);
   }
   cp_async_commit();
-  // Where the ring holds the whole strip (total <= stages: the small-M
-  // shapes, one N tile of at most twelve K tiles) every W tile is started now,
-  // and the products run through them behind one wait and one barrier.
-  const bool resident = total <= stages;
-  const int started = resident ? total : stages - 1;
   for (int s = 0; s < started; ++s) load_next();
   // gamma and beta of this lane's chunks, fetched while x is on its way
   float gv[LT_LN_CH][8], bv[LT_LN_CH][8];
@@ -375,7 +401,7 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
   // (C <= LT_MAX_C: at most LT_LN_CH chunks a lane) is read from shared
   // memory once and held in registers as f32.
   {
-    constexpr int RPW = BM / (LT_THREADS / 32);  // rows per warp: 8 or 16
+    constexpr int RPW = BM / (THREADS / 32);  // rows per warp: 8 or 16
     const float inv_c = 1.f / (float)C;
     for (int j0 = 0; j0 < RPW; j0 += 4) {
       bf16* arow = As + (size_t)(warp * RPW + j0) * A_LD;
@@ -438,6 +464,8 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
     }
   }
 
+  }
+
   // per-lane offsets of the ldmatrix addresses: A rows of the warp's m16
   // tiles, and W rows (k) by columns (n) of a k16 x n16 pair of n8 tiles
   const int a_off = (wm * WM + (lane & 15)) * A_LD + (lane >> 4) * 8;
@@ -466,6 +494,7 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
     const bf16* Wt = Ws + (size_t)slot * W_STAGE + b_off;
     if (++slot == stages) slot = 0;
     const bf16* At = As + a_off + kt * LT_BK;
+    if (mma_warp) {
     // two sets of fragments: the next k16 step's are fetched before this
     // step's products start, so the tensor cores do not wait for ldmatrix
     uint32_t af[2][MT][4], bf[2][2][4];
@@ -489,8 +518,10 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
         }
       }
     }
+    }
 
     if (++kt == KT) {  // this N tile is complete: + bias, one rounding, 16-byte stores
+      if (mma_warp && !split) {
       const int nb = (tile0 + nt) * BN + wn * 32;
       float bv[4][2];
 #pragma unroll
@@ -515,27 +546,91 @@ ln_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           uint32_t v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0], acc[mi][j][2 * half + 1] + bv[j][1]);
-          quad_transpose(v, t);
           const int row = m0 + wm * WM + mi * 16 + half * 8 + g;
+          if constexpr (PASS == RowPass::GEGLU) {  // + bias + residual in f32, one rounding
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rc = nb + j * 8 + 2 * t;
+              float2 r2 = make_float2(0.f, 0.f);
+              if (row < M && rc < N)
+                r2 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(residual + (size_t)row * N + rc));
+              v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0] + r2.x,
+                               acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0], acc[mi][j][2 * half + 1] + bv[j][1]);
+          }
+          quad_transpose(v, t);
           if (row < M && col < N)
             *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
                 make_uint4(v[0], v[1], v[2], v[3]);
         }
       }
+      }
       kt = 0;
       ++nt;
     }
   }
+
+  if constexpr (PASS == RowPass::GEGLU) {
+    if (split) {
+      // Each block's f32 tile in its own shared memory; then every block sums
+      // its rows (r = rank mod splits) over the cluster's tiles in rank order,
+      // + bias + residual in f32, one rounding, 16-byte stores.
+      namespace cg = cooperative_groups;
+      cg::cluster_group cluster = cg::this_cluster();
+      constexpr int C_LD = BN + 4;
+      float* Cs = reinterpret_cast<float*>(lt_smem);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (mma_warp) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              *reinterpret_cast<float2*>(Cs + (wm * WM + mi * 16 + half * 8 + g) * C_LD +
+                                         wn * 32 + j * 8 + 2 * t) =
+                  make_float2(acc[mi][j][2 * half], acc[mi][j][2 * half + 1]);
+      }
+      cluster.sync();
+      const int splits = gridDim.z, rank = blockIdx.z;
+      const int my_rows = (BM - rank + splits - 1) / splits;
+      const int n0 = tile0 * BN;
+      for (int it = tid; it < my_rows * (BN / 8); it += THREADS) {
+        const int r = rank + (it / (BN / 8)) * splits, col = n0 + (it % (BN / 8)) * 8;
+        const int row = m0 + r;
+        if (row >= M || col >= N) continue;
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int q = 0; q < splits; ++q) {
+          const float* src = cluster.map_shared_rank(Cs, q) + r * C_LD + (col - n0);
+          const float4 lo = *reinterpret_cast<const float4*>(src);
+          const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        }
+        float bv[8], rv[8];
+        load8_param(bias, col, p16, bv);
+        load8(residual + (size_t)row * N + col, rv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = v[e] + bv[e] + rv[e];
+        store8(out + (size_t)row * N + col, v);
+      }
+      cluster.sync();  // no block leaves while another still reads its tile
+    }
+  }
 }
 
-template <int BM, int BN>
-static int ln_bf16_launch(const void* x, const void* gamma, const void* beta, const void* w,
-                          const void* bias, bool p16, void* out, int M, int C, int N, float eps,
-                          int strip_tiles, int stages, cudaStream_t stream) {
-  auto kern = ln_matmul_bf16_kernel<BM, BN>;
+template <RowPass PASS, int BM, int BN>
+static int row_block_launch(const void* x, const void* gamma, const void* beta, const void* w,
+                            const void* bias, bool p16, const void* residual, void* out, int M,
+                            int C, int N, float eps, int strip_tiles, int stages,
+                            cudaStream_t stream, int splits = 1) {
+  auto kern = row_block_matmul_bf16_kernel<PASS, BM, BN>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -543,16 +638,38 @@ static int ln_bf16_launch(const void* x, const void* gamma, const void* beta, co
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int kt = (C + LT_BK - 1) / LT_BK;
-  const size_t smem = ((size_t)BM * (kt * LT_BK + LT_PAD) +
-                       (size_t)stages * LT_BK * (BN + LT_PAD)) * sizeof(bf16);
+  const int kt_all = (C + LT_BK - 1) / LT_BK, kt = (kt_all + splits - 1) / splits;
+  if ((splits - 1) * kt >= kt_all) return (int)cudaErrorInvalidValue;  // an empty split
+  size_t smem = ((size_t)BM * (kt * LT_BK + LT_PAD) +
+                 (size_t)stages * LT_BK * (BN + LT_PAD)) * sizeof(bf16);
+  if (splits > 1 && smem < (size_t)BM * (BN + 4) * sizeof(float))
+    smem = (size_t)BM * (BN + 4) * sizeof(float);  // the split epilogue's f32 tile
   if (smem > (size_t)LT_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int n_tiles = (N + BN - 1) / BN;
-  dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles, (M + BM - 1) / BM);
-  kern<<<grid, LT_THREADS, smem, stream>>>(static_cast<const bf16*>(x), gamma, beta,
-                                           static_cast<const bf16*>(w), bias, p16,
-                                           static_cast<bf16*>(out), M, C, N, eps, strip_tiles,
-                                           stages);
+  dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles, (M + BM - 1) / BM, splits);
+  const bf16 *px = static_cast<const bf16*>(x), *pw = static_cast<const bf16*>(w),
+             *pr = static_cast<const bf16*>(residual);
+  bf16* po = static_cast<bf16*>(out);
+  if (splits == 1) {
+    kern<<<grid, LT_THREADS, smem, stream>>>(px, gamma, beta, pw, bias, p16, pr, po, M, C, N,
+                                             eps, strip_tiles, stages);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(LT_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = splits;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px, gamma, beta, pw, bias, p16, pr, po, M,
+                                         C, N, eps, strip_tiles, stages);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -580,15 +697,66 @@ int a2k_ln_matmul_bf16(const void* x, const void* gamma, const void* beta, const
        reinterpret_cast<uintptr_t>(beta) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
+  using a2k::RowPass;
   if (bm == 128 && bn == 128)
-    return a2k::ln_bf16_launch<128, 128>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
-                                         strip_tiles, stages, s);
+    return a2k::row_block_launch<RowPass::LN, 128, 128>(x, gamma, beta, w, bias, p16, nullptr,
+                                                        out, M, C, N, eps, strip_tiles, stages,
+                                                        s);
   if (bm == 64 && bn == 128)
-    return a2k::ln_bf16_launch<64, 128>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
-                                        strip_tiles, stages, s);
+    return a2k::row_block_launch<RowPass::LN, 64, 128>(x, gamma, beta, w, bias, p16, nullptr,
+                                                       out, M, C, N, eps, strip_tiles, stages, s);
   if (bm == 64 && bn == 64)
-    return a2k::ln_bf16_launch<64, 64>(x, gamma, beta, w, bias, p16, out, M, C, N, eps,
-                                       strip_tiles, stages, s);
+    return a2k::row_block_launch<RowPass::LN, 64, 64>(x, gamma, beta, w, bias, p16, nullptr,
+                                                      out, M, C, N, eps, strip_tiles, stages, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4 in bf16 with its launch plan: out = residual + (a * gelu(g)) . w + bias
+// for h = [a | g]. h: bf16 [M, 2F]; w: bf16 [F, N]; bias: [N], f32
+// (param_dtype 0) or bf16 (1), read as stored; residual, out: bf16 [M, N]. F
+// and N multiples of 8, all pointers 16-byte aligned. (bm, bn) in {(64, 128),
+// (64, 64), (32, 128), (32, 64), (16, 128), (16, 64)}, 256 threads each (the
+// smaller tiles run their products on 4 or 2 warps; all eight copy and form
+// the gate product); strip_tiles and stages as for K3; splits 1 to 8: K split
+// over a thread-block cluster (strip_tiles 1 then).
+int a2k_geglu_matmul_bf16(const void* h, const void* w, const void* bias, int param_dtype,
+                          const void* residual, void* out, int M, int F, int N, int bm, int bn,
+                          int strip_tiles, int stages, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 7) || strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1) || bias == nullptr ||
+      residual == nullptr || splits < 1 || splits > 8 || (splits > 1 && strip_tiles != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(residual) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  using a2k::RowPass;
+  if (bm == 64 && bn == 128)
+    return a2k::row_block_launch<RowPass::GEGLU, 64, 128>(h, nullptr, nullptr, w, bias, p16,
+                                                          residual, out, M, F, N, 0.f,
+                                                          strip_tiles, stages, s, splits);
+  if (bm == 64 && bn == 64)
+    return a2k::row_block_launch<RowPass::GEGLU, 64, 64>(h, nullptr, nullptr, w, bias, p16,
+                                                         residual, out, M, F, N, 0.f,
+                                                         strip_tiles, stages, s, splits);
+  if (bm == 32 && bn == 128)
+    return a2k::row_block_launch<RowPass::GEGLU, 32, 128>(h, nullptr, nullptr, w, bias, p16,
+                                                          residual, out, M, F, N, 0.f,
+                                                          strip_tiles, stages, s, splits);
+  if (bm == 32 && bn == 64)
+    return a2k::row_block_launch<RowPass::GEGLU, 32, 64>(h, nullptr, nullptr, w, bias, p16,
+                                                         residual, out, M, F, N, 0.f,
+                                                         strip_tiles, stages, s, splits);
+  if (bm == 16 && bn == 128)
+    return a2k::row_block_launch<RowPass::GEGLU, 16, 128>(h, nullptr, nullptr, w, bias, p16,
+                                                          residual, out, M, F, N, 0.f,
+                                                          strip_tiles, stages, s, splits);
+  if (bm == 16 && bn == 64)
+    return a2k::row_block_launch<RowPass::GEGLU, 16, 64>(h, nullptr, nullptr, w, bias, p16,
+                                                         residual, out, M, F, N, 0.f,
+                                                         strip_tiles, stages, s, splits);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -369,15 +369,16 @@ def quantize_resblock_convs(params):
 
 
 def _layout(cfg: UNetConfig):
-    """(ResBlock (Cin, Cout) pairs, transformer-ladder widths, each ladder's
-    downsampling factor) of one forward, in the order init_unet builds
-    them."""
+    """(ResBlocks as (C1, C2, Cout, downsampling factor), C2 the skip
+    channels of a decoder block's virtual concat or 0; transformer-ladder
+    widths; each ladder's downsampling factor) of one forward, in the order
+    init_unet builds them."""
     mc = cfg.model_channels
     res, ladders, ladder_ds = [], [], []
     ch, ds, chans = mc, 1, [mc]
     for level, mult in enumerate(cfg.channel_mult):
         for _ in range(cfg.num_res_blocks):
-            res.append((ch, mult * mc))
+            res.append((ch, 0, mult * mc, ds))
             ch = mult * mc
             if ds in cfg.attention_resolutions:
                 ladders.append(ch)
@@ -386,12 +387,12 @@ def _layout(cfg: UNetConfig):
         if level != len(cfg.channel_mult) - 1:
             chans.append(ch)
             ds *= 2
-    res += [(ch, ch), (ch, ch)]
+    res += [(ch, 0, ch, ds), (ch, 0, ch, ds)]
     ladders.append(ch)
     ladder_ds.append(ds)
     for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
         for i in range(cfg.num_res_blocks + 1):
-            res.append((ch + chans.pop(), mult * mc))
+            res.append((ch, chans.pop(), mult * mc, ds))
             ch = mult * mc
             if ds in cfg.attention_resolutions:
                 ladders.append(ch)
@@ -424,6 +425,36 @@ def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) 
                 if n is not None:
                     key = (m, c, n)
                     shapes[key] = shapes.get(key, 0) + cfg.transformer_depth
+    return shapes
+
+
+def conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(B, T, F, C1, C2, Cout): calls} of the K1 launches of one
+    unquantized apply_unet call on a [batch, latent_t, latent_f] latent:
+    per ResBlock the in_conv over [x1 ; x2] (C2 > 0 in the decoder, whose
+    skip tensor is the second part) and the out_conv, at the block's level
+    (a stride-2 SAME downsample gives ceil(n / 2)). The calls sum to
+    kernel_launches_per_forward(cfg)["gn_silu_conv3x3"]."""
+    shapes: dict = {}
+    res, _, _ = _layout(cfg)
+    for c1, c2, cout, ds in res:
+        t, f = -(-latent_t // ds), -(-latent_f // ds)
+        for key in ((batch, t, f, c1, c2, cout), (batch, t, f, cout, 0, cout)):
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def geglu_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(M, F, N): calls} of the K4 launches of one unquantized apply_unet
+    call: per transformer block the GEGLU proj_out, h [M, 2F] with F = 4C,
+    onto N = C, M = batch x the ladder's tokens. The calls sum to
+    kernel_launches_per_forward(cfg)["geglu_matmul"]."""
+    shapes: dict = {}
+    _, ladders, ladder_ds = _layout(cfg)
+    for c, ds in zip(ladders, ladder_ds):
+        key = (batch * (latent_t // ds) * (latent_f // ds), 4 * c, c)
+        calls = len(_ladder_slots(cfg, c)) * cfg.transformer_depth
+        shapes[key] = shapes.get(key, 0) + calls
     return shapes
 
 
@@ -466,8 +497,8 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts["group_norm_silu"] = 1  # out_norm
     res, ladders, _ = _layout(cfg)
-    for cin, cout in res:
-        for a, b in ((cin, cout), (cout, cout)):
+    for c1, c2, cout, _ in res:
+        for a, b in ((c1 + c2, cout), (cout, cout)):
             counts["gn_silu_conv3x3_q" if q and _conv_quantizable(a, b) else "gn_silu_conv3x3"] += 1
     kernel_heads = cfg.num_head_channels in (32, 64, 128)
     depth = cfg.transformer_depth

@@ -195,6 +195,33 @@ def decode(p, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     return apply_decoder(p["decoder"], cfg, z)
 
 
+def decode_conv_shapes(cfg: VAEConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(B, T, F, C1, 0, Cout): calls} of the K1 launches of one decode of a
+    [batch, latent_t, latent_f] latent, in the (B, T, F, C1, C2, Cout) form
+    of unet.conv_shapes: conv1 and conv2 of every ResBlock at its level (x2
+    in T and F per upsample, x4 in T for a time-stride-4 one). The calls
+    sum to kernel_launches_per_decode(cfg)["gn_silu_conv3x3"]."""
+    shapes: dict = {}
+    block_in = cfg.ch * cfg.ch_mult[-1]
+    t, f = latent_t, latent_f
+
+    def add(cin, cout):
+        for key in ((batch, t, f, cin, 0, cout), (batch, t, f, cout, 0, cout)):
+            shapes[key] = shapes.get(key, 0) + 1
+
+    add(block_in, block_in)  # mid block_1
+    add(block_in, block_in)  # mid block_2
+    for i in reversed(range(len(cfg.ch_mult))):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        for _ in range(cfg.num_res_blocks + 1):
+            add(block_in, block_out)
+            block_in = block_out
+        if i != 0:
+            t *= 4 if (i - 1) in cfg.downsample_time_stride4_levels else 2
+            f *= 2
+    return shapes
+
+
 def _launches(cfg: VAEConfig, n_res: int) -> dict:
     """Two K1 per ResBlock, one K6 (norm_out); the single-head mid attention
     takes K2 only if its width is a kernel head_dim (it is 512 in every

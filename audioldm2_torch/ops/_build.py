@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -46,13 +47,16 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point: c_void_p for each pointer and the stream,
 # so ctypes never narrows a 64-bit address to a 32-bit int.
 SIGNATURES = {
-    "a2k_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _P],
+    "a2k_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P],
+    "a2k_gn_silu_conv3x3_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _I, _P],
     "a2k_flash_attention": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P],
     "a2k_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "a2k_ln_matmul_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "a2k_geglu_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "a2k_geglu_matmul_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _I, _I, _P],
     "a2k_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
@@ -68,14 +72,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GEMM_BM, GEMM_BN, GEMM_BK = 64, 64, 32
 GEMM_VEC_A, GEMM_VEC_B = 1, 2
 
-# The bf16 K3 kernel's geometry (csrc/lnmm.cu): W tiles of LNMM_BK rows, rows
-# padded by LNMM_PAD elements, (rows per block, N-tile width) pairs it is
-# built for, and the dynamic shared memory one block may use on sm_90.
+# The bf16 row-block kernel's geometry (csrc/lnmm.cu, K3 and K4): W tiles of
+# LNMM_BK rows, rows padded by LNMM_PAD elements, the (rows per block,
+# N-tile width) pairs it is built for, and the dynamic shared memory one
+# block may use on sm_90.
 LNMM_BK, LNMM_PAD = 64, 8
 LNMM_MAX_C = 768  # the widest row a lane of the kernel holds in registers for the LayerNorm
-LNMM_TILES = ((128, 128), (64, 128), (64, 64))
 LNMM_MAX_SMEM = 232448
 LNMM_MAX_STAGES = 12
+GEGLU_STAGES = 6  # K4's ring where it does not hold the whole strip
+GEGLU_MAX_SPLITS = 8  # K4's K split over a portable thread-block cluster
 # Cost model of ln_matmul_plan, in units of one multiply-add of a (128, 128)
 # tile (about 1.7e-3 clocks of one SM), fitted to the kernel's times on an
 # H100 over every (rows, tile width, strip) choice at the 18 shapes the t5
@@ -85,7 +91,38 @@ LNMM_MAX_STAGES = 12
 # costs a fixed amount to start; a W tile that goes round the ring costs a
 # wait and a barrier, which a strip that lies in the ring whole does not pay.
 _LNMM_TILE_COST = {(128, 128): 1.0, (64, 128): 1.8, (64, 64): 2.0}
+LNMM_TILES = tuple(_LNMM_TILE_COST)  # (rows per block, N-tile width) K3 is built for
 _LNMM_LN_COST = 150.0
+# K4's plan: the same model over its own tiles, with the gate product's cost
+# (two loads and an erff an element) in place of the LayerNorm's; fitted
+# to tools/tune_k1_k4.py's sweep on an H100 (see PERF.md).
+_GEGLU_TILE_COST = {(64, 128): 1.8, (64, 64): 2.2, (32, 128): 4.0, (32, 64): 5.0,
+                    (16, 128): 11.0, (16, 64): 5.5}
+GEGLU_TILES = tuple(_GEGLU_TILE_COST)  # ... K4 is built for
+_GEGLU_COST = 380.0
+_GEGLU_RED_COST = 500.0  # one f32 element of a tile summed over the cluster
+_GEGLU_RING_COST = 5.0e5  # a W tile's wait, shared by the stages in flight
+_GEGLU_SM_SHARE = 0.85
+# K4's and K1's plans count the blocks an SM holds at once (shared memory,
+# and registers from ptxas of their kernels at 256 threads): a wave of
+# `occ` co-resident blocks takes (1 + (occ - 1) * share) times one block's
+# cost, since they overlap each other's waits but share the units.
+SM_SMEM = 233472  # shared memory of one SM; each block also reserves 1 KB
+_GEGLU_REGS = {(64, 128): 120, (64, 64): 120, (32, 128): 120, (32, 64): 121, (16, 128): 121,
+               (16, 64): 121}
+_CONV_REGS = {(256, 64): 152, (128, 128): 152, (64, 128): 100, (64, 64): 80}
+
+
+def blocks_per_sm(smem: int, regs: int, threads: int = 256) -> int:
+    """Blocks of ``threads`` one SM holds at once, by shared memory and
+    registers (at least one)."""
+    return max(1, min(SM_SMEM // (smem + 1024), 65536 // (threads * regs), 2048 // threads))
+
+
+def _waves_cost(blocks: int, sms: int, occ: int, block_cost: float, share: float) -> float:
+    """A grid of ``blocks`` in waves of sms x occ, each wave as one block
+    slowed by each co-resident other by ``share`` of its cost."""
+    return -(-blocks // (sms * occ)) * block_cost * (1 + (occ - 1) * share)
 _LNMM_BLOCK_COST = 1.0e6
 _LNMM_RING_TILE_COST = 1.0e5
 # A plan may leave up to this share of the SMs it could fill idle, and only
@@ -216,8 +253,9 @@ class LnMatmulPlan(NamedTuple):
     k_tiles: int       # ceil(C / bk); the kernel zero-fills A and W past C
     strip_tiles: int
     stages: int
-    grid: Tuple[int, int]
+    grid: Tuple[int, int]  # (strips, row blocks); times ``splits`` in z
     smem_bytes: int
+    splits: int = 1    # K4: K split over a cluster of this many blocks
 
 
 @functools.lru_cache(maxsize=1024)
@@ -236,39 +274,243 @@ def ln_matmul_plan(m: int, c: int, n: int, sms: int) -> Optional[LnMatmulPlan]:
     ceil(blocks / sms) waves. Long strips amortize the LayerNorm,
     short ones fill the card and even out the last wave. There is no
     split-K: the whole K = c lies in the block's shared memory."""
-    if m < 1 or c < 8 or n < 8 or c % 8 or n % 8 or c > LNMM_MAX_C:
+    if c > LNMM_MAX_C:
+        return None
+    return _row_block_plan(m, c, n, sms, _LNMM_TILE_COST, _LNMM_LN_COST)
+
+
+@functools.lru_cache(maxsize=1024)
+def geglu_matmul_plan(m: int, f: int, n: int, sms: int,
+                      dtype: str = "bf16") -> Optional[LnMatmulPlan]:
+    """The launch plan of the bf16 K4 kernel for h [m, 2f] -> u [m, f],
+    u . w [f, n], on K3's row-block kernel: the block forms its rows' gate
+    product once into shared memory ([bm, f] bf16, which at f = 2560 leaves
+    room for 32 rows or fewer) and walks a strip of N tiles; or, split over
+    a cluster of up to GEGLU_MAX_SPLITS blocks, each forms and multiplies
+    its share of K for one N tile and the cluster sums the shares through
+    distributed shared memory (no workspace, no second launch). The same
+    candidates, fill rule (counting the splits) and model as ln_matmul_plan,
+    with the blocks an SM holds at once, over GEGLU_TILES (rows per block
+    64, 32 or 16)
+    with the gate product's cost in place of the LayerNorm's. None for what
+    the kernel does not take: f32, f or n not a multiple of 8, or a row
+    block that leaves no room for two W tiles."""
+    if dtype != "bf16":
+        return None
+    return _row_block_plan(m, f, n, sms, _GEGLU_TILE_COST, _GEGLU_COST, _GEGLU_REGS,
+                           GEGLU_STAGES, GEGLU_MAX_SPLITS)
+
+
+def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=4,
+                    max_splits=1) -> Optional[LnMatmulPlan]:
+    """The candidates and model of ln_matmul_plan (regs None: one block per
+    SM, four ring stages, no split) and of geglu_matmul_plan (regs:
+    blocks_per_sm, up to ``ring_stages``, K split over a cluster of up to
+    ``max_splits`` blocks, each holding only its share of A); ``tile_costs``
+    maps each (bm, bn) the kernel is built for to its cost per multiply-add."""
+    if m < 1 or c < 8 or n < 8 or c % 8 or n % 8:
         return None
     k_tiles = -(-c // LNMM_BK)
-    cp = k_tiles * LNMM_BK
     best, best_cost = None, None
-    for bm, bn in LNMM_TILES:
-        a_bytes = bm * (cp + LNMM_PAD) * 2
-        stage_bytes = LNMM_BK * (bn + LNMM_PAD) * 2
-        fit = (LNMM_MAX_SMEM - a_bytes) // stage_bytes
-        if fit < 2:
-            continue
+    for bm, bn in tile_costs:
         row_blocks, n_tiles = -(-m // bm), -(-n // bn)
-        fill = min(sms, row_blocks * n_tiles)
-        tile_cost = bm * bn * cp * _LNMM_TILE_COST[(bm, bn)]
-        for strips in range(1, n_tiles + 1):
-            strip_tiles = -(-n_tiles // strips)
-            strips = -(-n_tiles // strip_tiles)  # no empty strip
-            blocks = row_blocks * strips
-            if blocks < fill and (blocks > sms or blocks < LNMM_MIN_FILL * fill):
+        fill = min(sms, row_blocks * n_tiles * min(max_splits, k_tiles))
+        for want in range(1, min(max_splits, k_tiles) + 1):
+            kps = -(-k_tiles // want)  # K tiles a block takes
+            splits = -(-k_tiles // kps)  # no empty split
+            if splits != want:
                 continue
-            # the whole strip in the ring where it fits (the kernel then needs
-            # one barrier for all of it), else four stages
-            total = strip_tiles * k_tiles
-            resident = total <= min(fit, LNMM_MAX_STAGES)
-            stages = max(2, total if resident else min(fit, 4))
-            cost = -(-blocks // sms) * (
-                _LNMM_BLOCK_COST + bm * cp * _LNMM_LN_COST + strip_tiles * tile_cost
-                + (0 if resident else total * _LNMM_RING_TILE_COST))
-            if best_cost is None or cost < best_cost:
-                best_cost = cost
-                best = LnMatmulPlan(bm, bn, LNMM_BK, k_tiles, strip_tiles, stages,
-                                    (strips, row_blocks), a_bytes + stages * stage_bytes)
+            cp = kps * LNMM_BK
+            a_bytes = bm * (cp + LNMM_PAD) * 2
+            stage_bytes = LNMM_BK * (bn + LNMM_PAD) * 2
+            fit = (LNMM_MAX_SMEM - a_bytes) // stage_bytes
+            if fit < 2:
+                continue
+            tile_cost = bm * bn * cp * tile_costs[(bm, bn)]
+            for strips in range(1, n_tiles + 1) if splits == 1 else (n_tiles,):
+                strip_tiles = -(-n_tiles // strips)
+                strips = -(-n_tiles // strip_tiles)  # no empty strip
+                blocks = row_blocks * strips * splits
+                if blocks < fill and (blocks > sms or blocks < LNMM_MIN_FILL * fill):
+                    continue
+                # the whole strip in the ring where it fits (the kernel then needs
+                # one barrier for all of it), else four stages (K3) or, for K4,
+                # two, three or ring_stages (fewer stages let more blocks share
+                # an SM)
+                total = strip_tiles * kps
+                resident = total <= min(fit, LNMM_MAX_STAGES)
+                if resident:
+                    depths = (max(2, total),)
+                elif regs is None:
+                    depths = (min(fit, ring_stages),)
+                else:
+                    depths = sorted({2, min(fit, 3), min(fit, ring_stages)})
+                for stages in depths:
+                    smem = max(a_bytes + stages * stage_bytes,
+                               bm * (bn + 4) * 4 if splits > 1 else 0)
+                    if regs is None:
+                        block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
+                                      + strip_tiles * tile_cost
+                                      + (0 if resident else total * _LNMM_RING_TILE_COST))
+                        cost = -(-blocks // sms) * block_cost
+                    else:
+                        block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
+                                      + strip_tiles * tile_cost
+                                      + (0 if resident else
+                                         total * _GEGLU_RING_COST / (stages - 1))
+                                      + (bm * bn * splits * _GEGLU_RED_COST if splits > 1
+                                         else 0))
+                        occ = blocks_per_sm(smem, regs[(bm, bn)])
+                        cost = _waves_cost(blocks, sms, occ, block_cost, _GEGLU_SM_SHARE)
+                    if best_cost is None or cost < best_cost:
+                        best_cost = cost
+                        best = LnMatmulPlan(bm, bn, LNMM_BK, k_tiles, strip_tiles, stages,
+                                            (strips, row_blocks), smem, splits)
     return best
+
+
+# The bf16 K1 kernel's geometry (csrc/gn_silu_conv.cu): chunks of CONV_CK
+# input channels (one tap's W tile is [CONV_CK, BN]), patch rows of CONV_LD
+# elements, W rows padded by CONV_PAD, the (rows per block, N-tile width)
+# pairs it is built for, the deepest ring (a chunk's patch buffer is reused
+# two chunks later) and the widest split (a portable thread-block cluster).
+CONV_CK, CONV_LD, CONV_PAD = 64, 72, 8
+CONV_STAGES, CONV_MAX_STAGES, CONV_MAX_SPLITS = (2, 3, 4, 6, 8), 8, 8
+# K1's plan, the same model: a chunk costs its patch's activation, its nine
+# tiles' multiply-adds and ring waits; a split costs the cluster's sum.
+# Fitted to tools/tune_k1_k4.py's sweep on an H100 (see PERF.md).
+_CONV_TILE_COST = {(256, 64): 1.05, (128, 128): 1.0, (64, 128): 5.0, (64, 64): 1.25}
+CONV_TILES = tuple(_CONV_TILE_COST)  # ... K1 is built for
+_CONV_BLOCK_COST = 4.5e6
+_CONV_ACT_COST = 1100.0  # one element of the patch activated
+_CONV_RED_COST = 200.0   # one f32 element of a tile summed over the cluster
+_CONV_RING_COST = 2.5e6  # a W tile's wait, shared by the stages in flight
+_CONV_SM_SHARE = 0.16
+
+
+class ConvPlan(NamedTuple):
+    """How the bf16 K1 kernel covers a [B, T, F, Cin] -> Cout conv: blocks
+    of tt x ft output positions of one sample (at most ``bm`` rows of the
+    product), each walking a strip of ``strip_tiles`` Cout tiles of width
+    ``bn``, the input channels in ``k_chunks`` chunks of ``ck``, each
+    chunk's nine taps' W tiles through a ring of ``stages``; with
+    ``splits`` > 1 the chunks are split over a cluster of that many blocks.
+    Grid (strips, B x T tiles x F tiles, splits)."""
+    bm: int
+    bn: int
+    tt: int
+    ft: int
+    ck: int
+    k_chunks: int
+    strip_tiles: int
+    stages: int
+    splits: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+
+
+def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int) -> int:
+    """Two patch buffers, the chunk's a and c (two buffers) and the W ring;
+    the split epilogue's f32 tile [bm, bn + 4] reuses the same memory."""
+    main = (2 * (tt + 2) * (ft + 2) * CONV_LD * 2 + 4 * CONV_CK * 4
+            + stages * CONV_CK * (bn + CONV_PAD) * 2)
+    return max(main, bm * (bn + 4) * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
+                      dtype: str = "bf16") -> Optional[ConvPlan]:
+    """The launch plan of the bf16 K1 kernel, or None for what it does not
+    take (f32, Cin or Cout not a multiple of 8); the wrapper sends those,
+    and unaligned pointers or concat parts no multiple of 8, to the shared
+    GEMM core.
+
+    A block's tile is ft = min(F, bm) positions wide in F and as many rows
+    of T as fit in bm (at most T). Candidates: each (bm, bn), each split of
+    the chunks over a cluster of up to CONV_MAX_SPLITS blocks, and without a
+    split each strip length; kept if the grid fills the SMs the shape could
+    fill, min(sms, tiles x min(CONV_MAX_SPLITS, chunks)), or at least
+    LNMM_MIN_FILL of them in one wave. The cheapest by K3's model wins: a
+    block costs its start, per chunk of its strip the patch's activation,
+    nine tiles' multiply-adds and nine ring waits, and with a split the
+    cluster's reduction; the grid runs in waves of the blocks the SMs hold
+    at once (_waves_cost)."""
+    if (dtype != "bf16" or min(b, t, f) < 1 or cin < 8 or cout < 8 or cin % 8
+            or cout % 8):
+        return None
+    k_chunks = -(-cin // CONV_CK)
+    best, best_cost = None, None
+    for (bm, bn), stages in itertools.product(CONV_TILES, CONV_STAGES):
+        ft = min(f, bm)
+        tt = min(bm // ft, t)
+        smem = conv_smem_bytes(bm, bn, tt, ft, stages)
+        if smem > LNMM_MAX_SMEM:
+            continue
+        m_tiles = b * -(-t // tt) * -(-f // ft)
+        n_tiles = -(-cout // bn)
+        occ = blocks_per_sm(smem, _CONV_REGS[(bm, bn)])
+        fill = min(sms, m_tiles * n_tiles * min(CONV_MAX_SPLITS, k_chunks))
+        chunk_cost = ((tt + 2) * (ft + 2) * CONV_CK * _CONV_ACT_COST
+                      + 9 * bm * bn * CONV_CK * _CONV_TILE_COST[(bm, bn)]
+                      + 9 * _CONV_RING_COST / (stages - 1))
+        for want in range(1, min(CONV_MAX_SPLITS, k_chunks) + 1):
+            cps = -(-k_chunks // want)
+            splits = -(-k_chunks // cps)  # no empty split
+            for strips in range(1, n_tiles + 1) if splits == 1 else (n_tiles,):
+                strip_tiles = -(-n_tiles // strips)
+                strips = -(-n_tiles // strip_tiles)
+                blocks = m_tiles * strips * splits
+                if blocks < fill and (blocks > sms or blocks < LNMM_MIN_FILL * fill):
+                    continue
+                block_cost = (_CONV_BLOCK_COST + strip_tiles * cps * chunk_cost
+                              + (bm * bn * splits * _CONV_RED_COST if splits > 1 else 0))
+                cost = _waves_cost(blocks, sms, occ, block_cost, _CONV_SM_SHARE)
+                if best_cost is None or cost < best_cost:
+                    best_cost = cost
+                    best = ConvPlan(bm, bn, tt, ft, CONV_CK, k_chunks, strip_tiles, stages,
+                                    splits, (strips, m_tiles, splits), smem)
+    return best
+
+
+GN_STATS_THREADS = 256
+GN_STATS_ROWS_PER_THREAD = 8  # rows each thread of a statistics block holds (ST_ROWS)
+
+
+def gn_stats_chunks(s: int, cin: int) -> int:
+    """Row chunks per sample of the GroupNorm statistics pass: a block's
+    threads cover its rows in row lanes of eight channels each (as many
+    lanes as fit a row into GN_STATS_THREADS), and every thread holds
+    GN_STATS_ROWS_PER_THREAD rows in registers; so more chunks where the
+    rows are narrow or many (512 for the VAE's 65,536 rows of 128 channels),
+    few where they are few; the grid is chunks x batch. The last block of
+    a sample combines them."""
+    lanes = max(1, GN_STATS_THREADS // -(-cin // 8))
+    rows = max(1, min(s, GN_STATS_ROWS_PER_THREAD * lanes))
+    return -(-s // rows)
+
+
+GN_COUNTER_SLOTS = 1 << 16  # samples one statistics launch can take
+
+
+@functools.lru_cache(maxsize=None)
+def gn_counter(device_index: int) -> torch.Tensor:
+    """The statistics pass's per-sample arrival counters on one device:
+    allocated and zeroed once, left zeroed by every launch (the last block
+    of each sample resets its own). Launches on one stream at a time."""
+    return torch.zeros(GN_COUNTER_SLOTS, dtype=torch.int32,
+                       device=torch.device("cuda", device_index))
+
+
+def params_as_stored(dev, *params):
+    """Parameters (None allowed) as a kernel that reads f32 or bf16 takes
+    them: as they are when all are contiguous bf16 on ``dev`` (the cast
+    parameter tree's own leaves: no conversion kernels before the launch),
+    else as f32 copies. Returns (tensors, param dtype code: 1 bf16, 0 f32)."""
+    given = [p for p in params if p is not None]
+    if all(p.dtype == torch.bfloat16 and p.device == dev and p.is_contiguous() for p in given):
+        return params, 1
+    return tuple(None if p is None else p.to(dev, torch.float32).contiguous()
+                 for p in params), 0
 
 
 def gemm_launch_args(device, m: int, n: int, k: int, vec_a: bool, w: torch.Tensor):

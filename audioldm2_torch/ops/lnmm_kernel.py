@@ -3,11 +3,12 @@ variants K3q/K4q, and K5: int8-weight matmul.
 
 K3 and K4 replace ``audioldm2_tpu/ops/lnmm_pallas.py:ln_matmul`` and
 ``geglu_matmul`` with ``csrc/lnmm.cu``: the LN output and the gate product
-never reach device memory. K3 in bf16 runs its own pipelined kernel under a
-launch plan (``_build.ln_matmul_plan``): each block normalizes its rows
-once into shared memory and walks a strip of N tiles. K4, and K3 in f32 or
-at a shape the plan does not take, compute their A tile as the shared GEMM
-core loads it.
+never reach device memory. In bf16 both run one pipelined row-block kernel
+under a launch plan (``_build.ln_matmul_plan``, ``_build.geglu_matmul_plan``):
+each block forms its rows' A tile once in shared memory (K3 the LayerNorm,
+K4 the gate product a * gelu(g)) and walks a strip of N tiles; parameters
+are read as stored. In f32, or at a shape a plan does not take, they
+compute their A tile as the shared GEMM core loads it.
 K3q and K4q are the same kernels on the Pallas functions' ``w_scale``
 path: an int8 weight tile converted to bf16 in shared memory, the A tile
 rounded to bf16 whatever x's dtype, and the per-column scale applied to
@@ -135,15 +136,9 @@ def _ln(name, x, ln_scale, ln_bias, w, ws, bias, eps):
     return out
 
 
-def _ln_params(dev, *params):
-    """The LN scale and bias and the linear bias (or None) as the bf16 K3
-    kernel reads them: as they are when all are contiguous bf16 on ``dev``
-    (the cast parameter tree's own leaves: no conversion kernels before the
-    launch), else as f32 copies. Returns (tensors, param dtype code)."""
-    given = [p for p in params if p is not None]
-    if all(p.dtype == BF16 and p.device == dev and p.is_contiguous() for p in given):
-        return params, 1
-    return tuple(_f32(p, dev) for p in params), 0
+# The LN scale and bias and the linear bias (or None) as the bf16 K3 kernel
+# reads them: (tensors, param dtype code).
+_ln_params = _build.params_as_stored
 
 
 def _ln_bf16(name, x, ln_scale, ln_bias, w, bias, eps):
@@ -181,8 +176,21 @@ def _geglu(name, h, w, ws, bias, residual):
     m = h.numel() // f2
     if residual.shape != (*h.shape[:-1], n):
         raise ValueError(f"{name}: residual {tuple(residual.shape)} is not [..., {n}]")
-    b = _f32(bias, h.device)
+    if bias.shape != (n,):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
     out = torch.empty_like(residual)
+    if ws is None and h.dtype == BF16 and m:
+        plan = _build.geglu_matmul_plan(m, f, n, _build.sm_count(h.device.index or 0))
+        (b,), param_code = _build.params_as_stored(h.device, bias)
+        if plan is not None and _build.aligned16(h, w, b, residual, out):
+            _build.check(_build.lib().a2k_geglu_matmul_bf16(
+                h.data_ptr(), w.data_ptr(), b.data_ptr(), param_code, residual.data_ptr(),
+                out.data_ptr(), m, f, n, plan.bm, plan.bn, plan.strip_tiles, plan.stages,
+                plan.splits, _build.stream_of(h),
+            ), name)
+            return out
+    # the shared core: f32, K4q, and the bf16 shapes the plan declines
+    b = _f32(bias, h.device)
     vec_a = f % 8 == 0 and _build.aligned16(h)
     work, k_split, vec = _build.gemm_launch_args(h.device, m, n, f, vec_a, w)
     lib = _build.lib()

@@ -1,13 +1,20 @@
 """K1 and K1q: fused GroupNorm + SiLU + 3x3 SAME conv (the ResBlock body).
 
 K1 replaces ``audioldm2_tpu/ops/resblock_pallas.py`` (gn_silu_conv3x3,
-_cat, _tiled, _cat_tiled) with one CUDA design in ``csrc/gn_silu_conv.cu``:
-a two-pass GroupNorm stats kernel that folds the norm into a per-(B, C)
-affine, then an implicit-GEMM conv that applies silu(x*a + c) as it loads
-and zero-pads after the activation. ``x2`` is the decoder's skip tensor,
-read in place of a materialized channel concat. K1q replaces
-``gn_silu_conv3x3_q`` (the int8 serving mode): the same design with an
-int8 weight [3, 3, Cin, Cout] and a per-output-channel f32 scale.
+_cat, _tiled, _cat_tiled) with two launches of ``csrc/gn_silu_conv.cu``: a
+split GroupNorm statistics pass (:func:`gn_stats`) that folds the norm into a
+per-(B, C) affine, then the conv, which applies silu(x*a + c) to each input
+patch once and zero-pads after the activation. In bf16 the conv is its own
+kernel under a launch plan (``_build.gn_silu_conv_plan``: a halo'd patch in
+shared memory, nine shifted views of it, a cp.async ring of weight tiles,
+mma.sync, a thread-block cluster splitting the input channels at small M);
+in f32, and at the shapes the plan declines, it runs on the shared GEMM
+core. ``x2`` is the decoder's skip tensor, read in place of a materialized
+channel concat. K1q replaces ``gn_silu_conv3x3_q`` (the int8 serving mode):
+the same statistics, then the shared core with an int8 weight
+[3, 3, Cin, Cout] and a per-output-channel f32 scale. The GroupNorm scale
+and bias (and K1's bf16 conv bias) are read as stored: no conversion kernel
+runs before a bf16 K1 launch.
 
 :func:`gn_silu_conv3x3` and :func:`gn_silu_conv3x3_q` take their plain
 versions for CPU tensors and the kernels for CUDA tensors; the ``*_plain``
@@ -53,9 +60,62 @@ def gn_silu_conv3x3_q_plain(x1, x2, gn_scale, gn_bias, wq, ws, b, groups: int = 
     return (acc * ws.float() + b.float()).to(x1.dtype)
 
 
+def gn_stats(x1, x2, gn_scale, gn_bias, groups: int = 32, eps: float = 1e-5):
+    """The GroupNorm statistics pass of K1, K1q and K6 (``a2k_gn_stats``) on
+    CUDA tensors: the per-(B, C) affine (a, c), f32 [B, C1+C2], that folds
+    GroupNorm over [x1 ; x2] with scale and bias, y = x * a + c. The scale
+    and bias are read as stored (bf16 or f32)."""
+    name = "gn_stats"
+    parts = (x1,) if x2 is None else (x1, x2)
+    _build.require_cuda(name, *parts)
+    bsz, c1 = x1.shape[0], x1.shape[-1]
+    c2 = 0 if x2 is None else x2.shape[-1]
+    cin = c1 + c2
+    if cin % groups:
+        raise ValueError(f"{name}: {cin} channels do not split into {groups} groups")
+    s = x1.numel() // (bsz * c1) if x1.numel() else 0
+    dev = x1.device
+    (gamma, beta), param_code = _build.params_as_stored(dev, gn_scale, gn_bias)
+    if gamma.shape != (cin,) or beta.shape != (cin,):
+        raise ValueError(f"{name}: scale and bias must be [{cin}]")
+    chunks = _build.gn_stats_chunks(s, cin) if s else 1
+    if bsz > _build.GN_COUNTER_SLOTS:
+        raise ValueError(f"{name}: batch {bsz} above {_build.GN_COUNTER_SLOTS}")
+    ac = torch.empty((2, bsz, cin), device=dev, dtype=torch.float32)
+    part = torch.empty((bsz, chunks, groups, 2), device=dev, dtype=torch.float32)
+    _build.check(_build.lib().a2k_gn_stats(
+        x1.data_ptr(), None if x2 is None else x2.data_ptr(), bsz, s, c1, c2, groups,
+        float(eps), gamma.data_ptr(), beta.data_ptr(), param_code, ac[0].data_ptr(),
+        ac[1].data_ptr(), part.data_ptr(), chunks, _build.gn_counter(dev.index or 0).data_ptr(),
+        _build.dtype_code(x1), _build.stream_of(x1),
+    ), "a2k_gn_stats")
+    return ac[0], ac[1]
+
+
+def _conv_bf16(x1, x2, a, c, w, b, out):
+    """The bf16 K1 kernel under its launch plan; False (nothing launched)
+    for a shape or an alignment it does not take."""
+    bsz, t, f, c1 = x1.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    cout = w.shape[-1]
+    dev = x1.device
+    plan = _build.gn_silu_conv_plan(bsz, t, f, c1 + c2, cout, _build.sm_count(dev.index or 0))
+    (bias,), param_code = _build.params_as_stored(dev, b)
+    if plan is None or c1 % 8 or c2 % 8 or not _build.aligned16(x1, x2, a, c, w, bias, out):
+        return False
+    _build.check(_build.lib().a2k_gn_silu_conv3x3_bf16(
+        x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(), c.data_ptr(),
+        w.data_ptr(), bias.data_ptr(), param_code, out.data_ptr(), bsz, t, f, c1, c2, cout,
+        plan.bm, plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages, plan.splits,
+        _build.stream_of(x1),
+    ), "gn_silu_conv3x3")
+    return True
+
+
 def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
-    """The GroupNorm stats kernel, then the conv: K1 (ws None, w in
-    x1.dtype) or K1q (w int8, ws its f32 scale)."""
+    """The GroupNorm statistics pass, then the conv: K1 (ws None, w in
+    x1.dtype) on its bf16 kernel where the plan takes the shape, else K1 or
+    K1q (w int8, ws its f32 scale) on the shared GEMM core."""
     parts = (x1,) if x2 is None else (x1, x2)
     _build.require_cuda(name, *parts)
     if ws is None:
@@ -72,21 +132,19 @@ def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
     if cin % groups:
         raise ValueError(f"{name}: {cin} channels do not split into {groups} groups")
     cout = w.shape[-1]
+    if b.shape != (cout,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} is not [{cout}]")
     dev = x1.device
-    gamma = gn_scale.to(dev, torch.float32).contiguous()
-    beta = gn_bias.to(dev, torch.float32).contiguous()
-    bias = b.to(dev, torch.float32).contiguous()
-    a = torch.empty((bsz, cin), device=dev, dtype=torch.float32)
-    c = torch.empty((bsz, cin), device=dev, dtype=torch.float32)
+    a, c = gn_stats(x1, x2, gn_scale, gn_bias, groups, eps)
     out = torch.empty((bsz, t, f, cout), device=dev, dtype=x1.dtype)
+    if ws is None and x1.dtype == BF16 and _conv_bf16(x1, x2, a, c, w, b, out):
+        return out
+    # the shared core: f32, K1q, and the bf16 shapes the plan declines
+    bias = b.to(dev, torch.float32).contiguous()
     lib = _build.lib()
     dt = _build.dtype_code(x1)
     stream = _build.stream_of(x1)
     x2_ptr = None if x2 is None else x2.data_ptr()
-    _build.check(lib.a2k_gn_stats(
-        x1.data_ptr(), x2_ptr, bsz, t * f, c1, c2, groups, float(eps),
-        gamma.data_ptr(), beta.data_ptr(), a.data_ptr(), c.data_ptr(), dt, stream,
-    ), "a2k_gn_stats")
     vec_a = c1 % 8 == 0 and c2 % 8 == 0 and _build.aligned16(x1, x2)
     work, k_split, vec = _build.gemm_launch_args(dev, bsz * t * f, cout, 9 * cin, vec_a, w)
     work_ptr = None if work is None else work.data_ptr()

@@ -1,23 +1,36 @@
-"""Time K2 (flash self-attention) and K3 (LayerNorm + matmul) on the card at
-every shape one UNet forward gives them, call by call and summed per
-forward, so that two trees of the package can be compared under one timer.
+"""Time K1 (GroupNorm + SiLU + 3x3 conv), K2 (flash self-attention), K3
+(LayerNorm + matmul) and K4 (GEGLU + matmul) on the card at every shape one
+forward gives them, call by call and summed per forward, so that two trees
+of the package can be compared under one timer.
 
-For the t5 UNet at CFG batch 2 and the large-1150k UNet at CFG batch 6
-(``unet.self_attention_shapes`` and ``unet.ln_matmul_shapes`` on the 10 s
-latent), in bf16, through the public wrappers:
+Forwards: the t5 UNet at CFG batch 2 and the large-1150k UNet at CFG batch 6
+(``unet.self_attention_shapes``, ``unet.ln_matmul_shapes``,
+``unet.conv_shapes``, ``unet.geglu_matmul_shapes`` on the 10 s latent), and
+for K1 also the t5 VAE decode at batch 1 (``vae.decode_conv_shapes``). All
+in bf16, through the public wrappers, with the parameters in bf16 as the
+cast parameter tree holds them:
+  K1  the whole call, and its GroupNorm statistics pass alone; "conv" is
+      the whole call less the statistics (in a tree that converts the
+      parameters first, those conversions are part of it). Beside it, as a
+      yardstick of the product alone, cuDNN's channels-last bf16 conv on
+      the activation already materialised;
   K2  on contiguous q, k, v and on the strided chunks of one fused
       [B, T, 3 * H * D] projection, which is what the UNet hands it at most
       calls (a tree whose wrapper copies them pays for the copies here);
-  K3  with bf16 LN parameters, as the cast parameter tree holds them, and a
-      bias where the UNet has one (the GEGLU proj_in, N = 8C).
-Each call is checked against its plain version first, then timed twice with
+  K3  with a bias where the UNet has one (the GEGLU proj_in, N = 8C), and
+      the SHA-256 of its output, to show that two trees give the same bytes;
+  K4  the whole call, and as a yardstick torch.matmul(u, W) on the gate
+      product already materialised.
+Each call is checked against its plain version first, then timed with
 ``timing.cuda_ms``: with the device held while the host queues the calls
 (device time) and without the hold (a call shorter than its launch then
-reads as the host's launch rate).
+reads as the host's launch rate). The yardsticks are held only.
 
 To time an earlier tree at the same shapes, copy this file and ``timing.py``
 into that tree's ``audioldm2_torch/tools/`` and pass this tree's JSON with
-``--shapes-from`` (an earlier tree may lack the two shape functions).
+``--shapes-from`` (an earlier tree may lack the shape functions). A tree
+without ``resblock_kernel.gn_stats`` has its statistics pass timed through
+its C entry point ``a2k_gn_stats`` with f32 parameters.
 
 Usage (on a machine with an NVIDIA GPU):
   python -m audioldm2_torch.tools.time_k2_k3 --json OUT.json
@@ -27,35 +40,48 @@ Usage (on a machine with an NVIDIA GPU):
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
-from audioldm2_torch.ops import attention_kernel, lnmm_kernel
+from audioldm2_torch.ops import _build, attention_kernel, lnmm_kernel, resblock_kernel
 from audioldm2_torch.tools.timing import cuda_ms
 
 FORWARDS = (("t5", "audioldm_16k_crossattn_t5", 2), ("large", "audioldm2-full-large-1150k", 6))
+VAE_FORWARD = ("t5_vae", "audioldm_16k_crossattn_t5", 1)
 BF16_TOL = 2e-2
+BF16 = torch.bfloat16
 
 
 def main_path_shapes() -> dict:
-    """{"k2": [[shape, {forward: [fused calls, separate calls]}]],
-    "k3": [[shape, {forward: calls}]]} from this tree's configs."""
+    """{"k1": [[(B, T, F, C1, C2, Cout), {forward: calls}]], "k2": [[shape,
+    {forward: [fused calls, separate calls]}]], "k3": [[(M, C, N), {forward:
+    calls}]], "k4": [[(M, F, N), {forward: calls}]]} from this tree's
+    configs; K1's forwards include the t5 VAE decode at batch 1."""
     import audioldm2_torch as at
-    from audioldm2_torch.models import unet
+    from audioldm2_torch.models import unet, vae
 
-    k2, k3 = {}, {}
+    k1, k2, k3, k4 = {}, {}, {}, {}
     for tag, name, batch in FORWARDS:
         cfg = at.default_audioldm_config(name)
         size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
         for shape, calls in unet.self_attention_shapes(*size).items():
             k2.setdefault(shape, {})[tag] = list(calls)
-        for shape, calls in unet.ln_matmul_shapes(*size).items():
-            k3.setdefault(shape, {})[tag] = calls
-    return {"k2": [[list(s), c] for s, c in sorted(k2.items(), reverse=True)],
-            "k3": [[list(s), c] for s, c in sorted(k3.items(), reverse=True)]}
+        for table, fn in ((k1, unet.conv_shapes), (k3, unet.ln_matmul_shapes),
+                          (k4, unet.geglu_matmul_shapes)):
+            for shape, calls in fn(*size).items():
+                table.setdefault(shape, {})[tag] = calls
+    tag, name, batch = VAE_FORWARD
+    cfg = at.default_audioldm_config(name)
+    for shape, calls in vae.decode_conv_shapes(cfg.vae, batch, cfg.latent_t_size,
+                                               cfg.latent_f_size).items():
+        k1.setdefault(shape, {})[tag] = calls
+    return {key: [[list(s), c] for s, c in sorted(table.items(), reverse=True)]
+            for key, table in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4))}
 
 
 def _checked(got, want, what):
@@ -68,10 +94,58 @@ def _both(fn) -> dict:
     return {"held_us": cuda_ms(fn) * 1e3, "unheld_us": cuda_ms(fn, hold=False) * 1e3}
 
 
+def _rnd(g, device, *dims, scale=1.0, offset=0.0):
+    return (torch.randn(dims, generator=g, device=device) * scale + offset).to(BF16)
+
+
+def _stats_call(x1, x2, gamma, beta, groups, eps):
+    """K1's statistics pass alone, in this tree's or in an earlier one's form."""
+    if hasattr(resblock_kernel, "gn_stats"):
+        return lambda: resblock_kernel.gn_stats(x1, x2, gamma, beta, groups, eps)
+    bsz, t, f, c1 = x1.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    g32, b32 = gamma.float(), beta.float()
+    a = torch.empty((bsz, c1 + c2), device=x1.device)
+    c = torch.empty_like(a)
+    lib = _build.lib()
+
+    def call():
+        _build.check(lib.a2k_gn_stats(
+            x1.data_ptr(), None if x2 is None else x2.data_ptr(), bsz, t * f, c1, c2, groups,
+            float(eps), g32.data_ptr(), b32.data_ptr(), a.data_ptr(), c.data_ptr(), 1,
+            _build.stream_of(x1)), "a2k_gn_stats")
+    return call
+
+
+def time_k1(shape, device) -> dict:
+    bsz, t, f, c1, c2, cout = shape
+    cin = c1 + c2
+    g = torch.Generator(device=device).manual_seed(0)
+    x1 = _rnd(g, device, bsz, t, f, c1, offset=1.0)
+    x2 = _rnd(g, device, bsz, t, f, c2) if c2 else None
+    args = (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin),
+            _rnd(g, device, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, device, cout),
+            32, 1e-5)
+    got = resblock_kernel.gn_silu_conv3x3(*args)
+    _checked(got, resblock_kernel.gn_silu_conv3x3_plain(*args), f"K1 {shape}")
+    whole = _both(lambda: resblock_kernel.gn_silu_conv3x3(*args))
+    stats = _both(_stats_call(x1, x2, args[2], args[3], 32, 1e-5))
+    # the yardstick: cuDNN's conv alone, channels-last, on the activation
+    x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
+    h = F.silu(F.group_norm(x.float().permute(0, 3, 1, 2), 32, args[2].float(),
+                            args[3].float(), 1e-5)).to(BF16).contiguous(
+                                memory_format=torch.channels_last)
+    w = args[4].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    yard = cuda_ms(lambda: F.conv2d(h, w, args[5], padding=1)) * 1e3
+    return {"whole": whole, "stats": stats,
+            "conv": {k: whole[k] - stats[k] for k in whole}, "yardstick_held_us": yard,
+            "sha256": sha256(got)}
+
+
 def time_k2(shape, device) -> dict:
     b, t, h, d = shape
     g = torch.Generator(device=device).manual_seed(0)
-    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=device).to(torch.bfloat16)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=device).to(BF16)
     views = tuple(x.reshape(b, t, h, d) for x in torch.chunk(qkv, 3, dim=-1))
     dense = tuple(v.contiguous() for v in views)
     scale = d ** -0.5
@@ -83,34 +157,74 @@ def time_k2(shape, device) -> dict:
     return out
 
 
-def time_k3(shape, device) -> dict:
+def k3_args(shape, device):
+    """ln_matmul's arguments at (M, C, N), drawn from seed 0 on ``device``
+    (bf16 LN parameters, a bias where the UNet has one): the inputs whose
+    output hashes two trees compare."""
     m, c, n = shape
     g = torch.Generator(device=device).manual_seed(0)
-
-    def rnd(*dims, scale=1.0, offset=0.0):
-        return (torch.randn(dims, generator=g, device=device) * scale + offset).to(torch.bfloat16)
-
-    args = (rnd(1, m, c, offset=3.0), rnd(c), rnd(c), rnd(c, n, scale=c ** -0.5),
-            rnd(n) if n == 8 * c else None, 1e-5)
-    _checked(lnmm_kernel.ln_matmul(*args), lnmm_kernel.ln_matmul_plain(*args), f"K3 {shape}")
-    return _both(lambda: lnmm_kernel.ln_matmul(*args))
+    return (_rnd(g, device, 1, m, c, offset=3.0), _rnd(g, device, c), _rnd(g, device, c),
+            _rnd(g, device, c, n, scale=c ** -0.5), _rnd(g, device, n) if n == 8 * c else None,
+            1e-5)
 
 
-def per_forward(rows_k2, rows_k3) -> dict:
-    """ms per UNet forward: K3, K2 as the UNet calls it (fused calls on the
-    views, the rest on contiguous tensors) and K2 on contiguous tensors
-    throughout, each with and without the hold."""
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def time_k3(shape, device) -> dict:
+    args = k3_args(shape, device)
+    got = lnmm_kernel.ln_matmul(*args)
+    _checked(got, lnmm_kernel.ln_matmul_plain(*args), f"K3 {shape}")
+    return {**_both(lambda: lnmm_kernel.ln_matmul(*args)), "sha256": sha256(got)}
+
+
+def time_k4(shape, device) -> dict:
+    m, f, n = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    args = (_rnd(g, device, m, 2 * f), _rnd(g, device, f, n, scale=f ** -0.5),
+            _rnd(g, device, n), _rnd(g, device, m, n))
+    got = lnmm_kernel.geglu_matmul(*args)
+    _checked(got, lnmm_kernel.geglu_matmul_plain(*args), f"K4 {shape}")
+    a, gate = torch.chunk(args[0].float(), 2, dim=-1)
+    u = (a * F.gelu(gate)).to(BF16)
+    yard = cuda_ms(lambda: torch.matmul(u, args[1])) * 1e3
+    return {**_both(lambda: lnmm_kernel.geglu_matmul(*args)), "yardstick_held_us": yard,
+            "sha256": sha256(got)}
+
+
+def _sum(rows, tag, value) -> float:
+    """ms of one forward: each shape's us weighed by its calls in ``tag``."""
+    return sum(r["calls"].get(tag, 0) * value(r) for r in rows) * 1e-3
+
+
+def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=()) -> dict:
+    """ms per forward: K1 (whole, stats, conv, yardstick), K3, K4 (whole,
+    yardstick), K2 as the UNet calls it (fused calls on the views, the rest
+    on contiguous tensors) and K2 on contiguous tensors throughout, each
+    with and without the hold (the yardsticks held only)."""
     out = {}
-    for tag, _, _ in FORWARDS:
+    for tag in [f[0] for f in FORWARDS] + [VAE_FORWARD[0]]:
         row = {}
         for key in ("held_us", "unheld_us"):
-            row[f"k3_{key[:-3]}_ms"] = sum(
-                r["calls"].get(tag, 0) * r[key] for r in rows_k3) * 1e-3
-            row[f"k2_as_called_{key[:-3]}_ms"] = sum(
+            k = key[:-3]
+            if rows_k1:
+                for part in ("whole", "stats", "conv"):
+                    row[f"k1_{part}_{k}_ms"] = _sum(rows_k1, tag, lambda r: r[part][key])
+            if tag == VAE_FORWARD[0]:
+                continue
+            row[f"k3_{k}_ms"] = _sum(rows_k3, tag, lambda r: r[key])
+            if rows_k4:
+                row[f"k4_{k}_ms"] = _sum(rows_k4, tag, lambda r: r[key])
+            row[f"k2_as_called_{k}_ms"] = sum(
                 r["calls"].get(tag, (0, 0))[0] * r["views"][key]
                 + r["calls"].get(tag, (0, 0))[1] * r["contiguous"][key] for r in rows_k2) * 1e-3
-            row[f"k2_contiguous_{key[:-3]}_ms"] = sum(
+            row[f"k2_contiguous_{k}_ms"] = sum(
                 sum(r["calls"].get(tag, (0, 0))) * r["contiguous"][key] for r in rows_k2) * 1e-3
+        for name, rows in (("k1", rows_k1), ("k4", rows_k4)):
+            if rows and (name == "k1" or tag != VAE_FORWARD[0]):
+                row[f"{name}_yardstick_held_ms"] = _sum(rows, tag,
+                                                        lambda r: r["yardstick_held_us"])
         out[tag] = row
     return out
 
@@ -131,27 +245,37 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device: {card}")
-    rows_k2, rows_k3 = [], []
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {"k1": [], "k2": [], "k3": [], "k4": []}
+    timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4}
     with torch.inference_mode():
-        for shape, calls in shapes["k2"]:
-            row = {"shape": shape, "calls": calls, **time_k2(tuple(shape), "cuda")}
-            rows_k2.append(row)
-            print(f"K2 {tuple(shape)} calls {calls}: contiguous "
-                  f"{row['contiguous']['held_us']:.1f} us held, "
-                  f"{row['contiguous']['unheld_us']:.1f} unheld; views "
-                  f"{row['views']['held_us']:.1f} held, {row['views']['unheld_us']:.1f} unheld")
-        for shape, calls in shapes["k3"]:
-            row = {"shape": shape, "calls": calls, **time_k3(tuple(shape), "cuda")}
-            rows_k3.append(row)
-            print(f"K3 {tuple(shape)} calls {calls}: {row['held_us']:.1f} us held, "
-                  f"{row['unheld_us']:.1f} unheld")
-    sums = per_forward(rows_k2, rows_k3)
+        for key, timer in timers.items():
+            for shape, calls in shapes.get(key, []):
+                row = {"shape": shape, "calls": calls, **timer(tuple(shape), "cuda")}
+                rows[key].append(row)
+                if key == "k2":
+                    times = (f"contiguous {row['contiguous']['held_us']:.1f} us held, "
+                             f"{row['contiguous']['unheld_us']:.1f} unheld; views "
+                             f"{row['views']['held_us']:.1f} held, "
+                             f"{row['views']['unheld_us']:.1f} unheld")
+                elif key == "k1":
+                    times = ", ".join(f"{part} {row[part]['held_us']:.1f} us held, "
+                                      f"{row[part]['unheld_us']:.1f} unheld"
+                                      for part in ("whole", "stats", "conv"))
+                    times += f"; cuDNN conv alone {row['yardstick_held_us']:.1f} us held"
+                else:
+                    times = f"{row['held_us']:.1f} us held, {row['unheld_us']:.1f} unheld"
+                    if "yardstick_held_us" in row:
+                        times += f"; matmul alone {row['yardstick_held_us']:.1f} us held"
+                print(f"{key.upper()} {tuple(shape)} calls {calls}: {times}", flush=True)
+    sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"])
     for tag, row in sums.items():
-        print(f"{tag} UNet forward, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()))
+        print(f"{tag} forward, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()))
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": card, "shapes": shapes, "k2": rows_k2, "k3": rows_k3,
-                       "per_forward": sums}, f, indent=1)
+            json.dump({"device": card, "shapes": shapes, **rows, "per_forward": sums}, f,
+                      indent=1)
     return 0
 
 

@@ -1,0 +1,181 @@
+"""Sweep the launch parameters of the bf16 K1 conv (GroupNorm + SiLU + 3x3
+conv) and the bf16 K4 kernel (GEGLU + matmul) on the card, beside the
+plans' own picks.
+
+For every shape one forward gives them (``unet.conv_shapes`` and
+``unet.geglu_matmul_shapes`` of the t5 UNet at CFG batch 2 and the
+large-1150k UNet at CFG batch 6, and ``vae.decode_conv_shapes`` of the t5
+VAE decoder at batch 1): device time of one call through the C entry point
+for every tile the kernel is built for and a range of splits (K1), strip
+lengths and ring depths, each checked against the plain version first. K1
+is timed without its statistics pass, which the choice does not touch.
+Printed per shape: the plan's pick (``_build.gn_silu_conv_plan``,
+``_build.geglu_matmul_plan``) with its time and the fastest choices. The
+plans' cost constants (``_build._CONV_*``, ``_GEGLU_COST`` and the tile
+costs) are set against this table.
+
+Usage (on a machine with an NVIDIA GPU):
+  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+import audioldm2_torch as at
+from audioldm2_torch.models import unet, vae
+from audioldm2_torch.ops import _build, lnmm_kernel, resblock_kernel
+from audioldm2_torch.tools.timing import cuda_ms
+
+FORWARDS = (("audioldm_16k_crossattn_t5", 2), ("audioldm2-full-large-1150k", 6))
+STAGES = (2, 3, 4, 6)    # K4's ring depths; K1's are _build.CONV_STAGES
+STRIPS = (1, 2, 3, 4, 6)
+BF16_TOL = 2e-2
+BF16 = torch.bfloat16
+
+
+def main_path_shapes():
+    """(K1 shapes (B, T, F, C1, C2, Cout), K4 shapes (M, F, N)), largest first."""
+    k1, k4 = set(), set()
+    for name, batch in FORWARDS:
+        cfg = at.default_audioldm_config(name)
+        size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+        k1 |= set(unet.conv_shapes(*size))
+        k4 |= set(unet.geglu_matmul_shapes(*size))
+    cfg = at.default_audioldm_config(FORWARDS[0][0])
+    k1 |= set(vae.decode_conv_shapes(cfg.vae, 1, cfg.latent_t_size, cfg.latent_f_size))
+    return sorted(k1, reverse=True), sorted(k4, reverse=True)
+
+
+def _rnd(g, *dims, scale=1.0, offset=0.0):
+    return (torch.randn(dims, generator=g, device="cuda") * scale + offset).to(BF16)
+
+
+def _timed(call, out, want, what, reps):
+    call()
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item() / want.abs().max().item()
+    if err > BF16_TOL:
+        raise AssertionError(f"{what}: rel {err:.3e}")
+    return cuda_ms(call, reps)
+
+
+def sweep_k1(shape, reps):
+    """[(us, choice)] sorted by time and the plan's pick, for one K1 shape;
+    choice = (bm, bn, strip, stages, splits)."""
+    b, t, f, c1, c2, cout = shape
+    cin = c1 + c2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x1 = _rnd(g, b, t, f, c1, offset=1.0)
+    x2 = _rnd(g, b, t, f, c2) if c2 else None
+    gamma, beta = _rnd(g, cin, offset=1.0), _rnd(g, cin)
+    w, bias = _rnd(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, cout)
+    want = resblock_kernel.gn_silu_conv3x3_plain(x1, x2, gamma, beta, w, bias).float()
+    a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta)
+    out = torch.empty((b, t, f, cout), device="cuda", dtype=BF16)
+    lib, sms = _build.lib(), _build.sm_count(0)
+    k_chunks = -(-cin // _build.CONV_CK)
+    p = _build.gn_silu_conv_plan(b, t, f, cin, cout, sms)
+    pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
+    choices = {pick}
+    for bm, bn in _build.CONV_TILES:
+        ft = min(f, bm)
+        tt = min(bm // ft, t)
+        n_tiles = -(-cout // bn)
+        for asked in range(1, min(_build.CONV_MAX_SPLITS, k_chunks) + 1):
+            splits = -(-k_chunks // -(-k_chunks // asked))
+            for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles} if splits == 1 else (1,):
+                for stages in _build.CONV_STAGES:
+                    if _build.conv_smem_bytes(bm, bn, tt, ft, stages) <= _build.LNMM_MAX_SMEM:
+                        choices.add((bm, bn, strip, stages, splits))
+    rows = []
+    for bm, bn, strip, stages, splits in choices:
+        ft = min(f, bm)
+        tt = min(bm // ft, t)
+
+        def call(bm=bm, bn=bn, tt=tt, ft=ft, strip=strip, stages=stages, splits=splits):
+            _build.check(lib.a2k_gn_silu_conv3x3_bf16(
+                x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(), c.data_ptr(),
+                w.data_ptr(), bias.data_ptr(), 1, out.data_ptr(), b, t, f, c1, c2, cout, bm, bn,
+                tt, ft, strip, stages, splits, _build.stream_of(x1)), "gn_silu_conv3x3")
+
+        choice = (bm, bn, strip, stages, splits)
+        rows.append((_timed(call, out, want, f"K1 {shape} {choice}", reps) * 1e3, choice))
+    rows.sort()
+    return rows, pick
+
+
+def sweep_k4(shape, reps):
+    """[(us, choice)] sorted by time and the plan's pick, for one K4 shape;
+    choice = (bm, bn, strip, stages, splits)."""
+    m, f, n = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, w = _rnd(g, m, 2 * f), _rnd(g, f, n, scale=f ** -0.5)
+    bias, res = _rnd(g, n), _rnd(g, m, n)
+    want = lnmm_kernel.geglu_matmul_plain(h, w, bias, res).float()
+    out = torch.empty((m, n), device="cuda", dtype=BF16)
+    lib, sms = _build.lib(), _build.sm_count(0)
+    k_tiles = -(-f // _build.LNMM_BK)
+    p = _build.geglu_matmul_plan(m, f, n, sms)
+    pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
+    choices = {pick}
+    for bm, bn in _build.GEGLU_TILES:
+        n_tiles = -(-n // bn)
+        for asked in range(1, min(_build.GEGLU_MAX_SPLITS, k_tiles) + 1):
+            kps = -(-k_tiles // asked)
+            splits = -(-k_tiles // kps)
+            a_bytes = bm * (kps * _build.LNMM_BK + _build.LNMM_PAD) * 2
+            for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles} if splits == 1 else (1,):
+                for stages in STAGES:
+                    if a_bytes + stages * _build.LNMM_BK * (bn + _build.LNMM_PAD) * 2 <= \
+                            _build.LNMM_MAX_SMEM:
+                        choices.add((bm, bn, strip, stages, splits))
+    rows = []
+    for bm, bn, strip, stages, splits in choices:
+        def call(bm=bm, bn=bn, strip=strip, stages=stages, splits=splits):
+            _build.check(lib.a2k_geglu_matmul_bf16(
+                h.data_ptr(), w.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
+                m, f, n, bm, bn, strip, stages, splits, _build.stream_of(h)), "geglu_matmul")
+
+        choice = (bm, bn, strip, stages, splits)
+        rows.append((_timed(call, out, want, f"K4 {shape} {choice}", reps) * 1e3, choice))
+    rows.sort()
+    return rows, pick
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=10, help="timed calls per choice")
+    ap.add_argument("--json", help="write every row of every shape to this file")
+    ap.add_argument("--only", choices=("k1", "k4"), help="sweep one kernel only")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tune_k1_k4: no CUDA device", file=sys.stderr)
+        return 2
+    print(f"device: {torch.cuda.get_device_name(0)}, {_build.sm_count(0)} SMs")
+    k1, k4 = main_path_shapes()
+    table = {}
+    with torch.inference_mode():
+        for key, shapes, sweep in (("k1", k1, sweep_k1), ("k4", k4, sweep_k4)):
+            if args.only not in (None, key):
+                continue
+            for shape in shapes:
+                rows, pick = sweep(shape, args.reps)
+                pick_us = next(us for us, choice in rows if choice == pick)
+                table[f"{key} {shape}"] = {"pick": pick, "rows": rows}
+                print(f"{key.upper()} {shape}: plan {pick} {pick_us:.1f} us, fastest "
+                      f"{rows[0][0]:.1f} us {rows[0][1]} (plan / fastest "
+                      f"{pick_us / rows[0][0]:.2f}); next {rows[1][0]:.1f} {rows[1][1]}, "
+                      f"{rows[2][0]:.1f} {rows[2][1]}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(table, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

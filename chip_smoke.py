@@ -35,8 +35,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      UNet) and the large path's UNet at CFG batch 6, kernel against its
      plain PyTorch version, plus one shape per kernel in f32 and the VAE
      decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
-     cancellation); K2 and K3 in bf16 at ragged shapes (T, M and N no
-     multiples of their tiles) and K2 on strided q, k, v; K7 and K8 at the
+     cancellation); K1's statistics pass and conv timed apart, and beside
+     K1 and K4 the product alone on the materialised activation (cuDNN's
+     conv, cuBLAS's matmul: yardsticks, never library_ms); K1-K4 in bf16 at
+     ragged shapes (T, M, N, F and Cout no multiples of their tiles; K1 at
+     T = 1, F = 1, 2, 3 and with a group straddling the concat split) and K2
+     on strided q, k, v; K7 and K8 at the
      A/B tool's four shapes (bf16), one f32 shape, the q, k, v of the large
      UNet's T = 1024 K2 calls, and inputs whose logits clamp; times of both,
      the least time the card could take (bound) and, for the attention
@@ -51,7 +55,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      paths (their median is the p50 latency), one on the full, sr and full8
      paths, and one at batch 2 on each, with output checks (and, on the full
      paths, the GPT-2 tokens finite and the CLAP text embedding of unit
-     norm), no CUDA tensor reaching a plain version, and launch counts,
+     norm), no CUDA tensor reaching a plain version, no bf16 K1 or K4 call
+     reaching the shared GEMM core instead of its own kernel, and launch counts,
      reset to 0 just before the request, equal to the counts computed from
      the config (the sr path's VAE encode included); the PLMS and DDPM
      requests likewise, once each at batch 1; on the large path also the
@@ -272,6 +277,36 @@ def plain_versions_forbidden():
 
 
 @contextlib.contextmanager
+def shared_core_bf16_counted(out):
+    """Count in ``out`` the bf16 K1 and K4 calls that reach the shared GEMM
+    core's entry points (a shape or an alignment their own kernels'
+    plans decline) instead of the bf16 kernels."""
+    import torch
+    from audioldm2_torch.ops import _build
+
+    if not torch.cuda.is_available():  # a rehearsal on the CPU: no kernel launches
+        yield
+        return
+    lib = _build.lib()
+    bf16 = _build.DTYPE_CODES[torch.bfloat16]
+    saved = {}
+    for name in ("a2k_gn_silu_conv3x3", "a2k_geglu_matmul"):
+        saved[name] = getattr(lib, name)
+
+        def counting(*args, _fn=saved[name], _name=name):
+            if args[-2] == bf16:  # (..., dtype, stream)
+                out[_name] = out.get(_name, 0) + 1
+            return _fn(*args)
+
+        setattr(lib, name, counting)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+
+
+@contextlib.contextmanager
 def conditioning_recorded(out):
     """Record the GPT-2 tokens, the CLAP text and audio embeddings a request
     makes, and each rerank's candidates, batch size and kept waveforms."""
@@ -400,10 +435,43 @@ def library_call(name, args):
     return lambda: sdpa(*args[:4])
 
 
+def side_times(name, args):
+    """K1's GroupNorm statistics pass alone, and the yardsticks of the
+    product alone on the same inputs with the activation already
+    materialised: cuDNN's channels-last conv for K1, cuBLAS's matmul for K4
+    (ms a call). Neither yardstick computes the kernel's function, so
+    neither is its library_ms."""
+    import torch
+    import torch.nn.functional as F
+    from audioldm2_torch.ops import resblock_kernel
+
+    out = {}
+    if not args[0].is_cuda:  # a rehearsal on the CPU: no kernel to time
+        return out
+    with torch.inference_mode():
+        if name == "gn_silu_conv3x3":
+            x1, x2, gamma, beta, w, b, groups, eps = args
+            out["stats_ms"] = cuda_ms(lambda: resblock_kernel.gn_stats(x1, x2, gamma, beta,
+                                                                       groups, eps))
+            x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
+            h = F.silu(F.group_norm(x.float().permute(0, 3, 1, 2), groups, gamma.float(),
+                                    beta.float(), eps)).to(x1.dtype)
+            h = h.contiguous(memory_format=torch.channels_last)
+            wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bt = b.to(x1.dtype)
+            out["yardstick_ms"] = cuda_ms(lambda: F.conv2d(h, wt, bt, padding=1))
+        elif name == "geglu_matmul":
+            h, w = args[0], args[1]
+            a, gate = torch.chunk(h.float(), 2, dim=-1)
+            u = (a * F.gelu(gate)).to(h.dtype)
+            out["yardstick_ms"] = cuda_ms(lambda: torch.matmul(u, w))
+    return out
+
+
 def new_stats():
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
             "library_ms": None, "max_abs_err": 0.0, "max_rel_err": 0.0, "f32_rel_err": 0.0,
-            "shapes": 0}
+            "shapes": 0, "stats_ms": 0.0, "yardstick_ms": 0.0}
 
 
 def check_kernel(name, args, tol, tag, failures):
@@ -682,6 +750,17 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         res = check_kernel(name, args, BF16_TOL if bf16 else F32_TOL,
                            f"{'bf16' if bf16 else 'f32'} {describe(sig)} x{n}", failures)
         add_call(stats[name], name, args, n, *res)
+        side = side_times(name, args)
+        for key, ms in side.items():
+            stats[name][key] += n * ms
+        if side:
+            parts = []
+            if "stats_ms" in side:
+                parts.append(f"stats pass {side['stats_ms']:.4f} ms, conv "
+                             f"{res[2] - side['stats_ms']:.4f} ms (kernel less stats)")
+            tool = "cuDNN conv" if name == "gn_silu_conv3x3" else "cuBLAS matmul"
+            parts.append(f"yardstick, the product alone ({tool}): {side['yardstick_ms']:.4f} ms")
+            log("       " + "; ".join(parts))
         if offset_check and sig[-1] == 1e-6:
             vae_ms[name] = vae_ms.get(name, 0.0) + n * res[2]
 
@@ -712,9 +791,15 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
 
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f", sdpa {st['library_ms']:.3f} ms"
+        side = ""
+        if st["stats_ms"]:
+            side += (f"; stats pass {st['stats_ms']:.3f} ms, conv "
+                     f"{st['ms'] - st['stats_ms']:.3f} ms")
+        if st["yardstick_ms"]:
+            side += f"; yardstick (product alone) {st['yardstick_ms']:.3f} ms"
         log(f"  {name}: {st['shapes']} shapes, one forward: "
             f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
-            f"{st['bound_ms']:.3f} ms{lib}")
+            f"{st['bound_ms']:.3f} ms{lib}{side}")
         if name in vae_ms:
             log(f"    of which the UNet forward {st['ms'] - vae_ms[name]:.3f} ms and the VAE "
                 f"decode {vae_ms[name]:.3f} ms")
@@ -729,8 +814,11 @@ def phase_ragged(stats, device):
     v views of one fused [B, T, 3C] projection (what the UNet hands it), and
     for K3 M no multiple of its row block with N no multiple of its N tile,
     with and without a bias, and one shape (C, N no multiples of 8) that
-    goes to the shared core. Errors join the kernels' records; the times
-    are printed and belong to no forward."""
+    goes to the shared core; K1 at the halo edges (T = 1, F = 1, 2, 3),
+    with a GroupNorm group straddling the concat split and with Cout no
+    multiple of its N tile; K4 with F no multiple of its 64-deep K tile and
+    M and N no multiples of its tiles. Errors join the kernels' records; the
+    times are printed and belong to no forward."""
     import torch
 
     failures = []
@@ -760,6 +848,20 @@ def phase_ragged(stats, device):
                       (rnd(1, m, c, offset=3.0), rnd(c, dt=torch.float32),
                        rnd(c, dt=torch.float32), rnd(c, n, scale=c ** -0.5),
                        rnd(n, dt=torch.float32) if with_bias else None, 1e-5)))
+    for b, t, f, c1, c2, cout, tag in ((1, 1, 24, 64, 0, 64, "T = 1"),
+                                       (2, 40, 1, 64, 0, 128, "F = 1"),
+                                       (1, 96, 2, 128, 0, 128, "F = 2"),
+                                       (1, 50, 3, 64, 32, 96, "F = 3, a group straddling the "
+                                                               "concat split"),
+                                       (1, 33, 7, 256, 0, 200, "Cout no multiple of its tile")):
+        cin = c1 + c2
+        cases.append(("gn_silu_conv3x3", f"{tag}: {(b, t, f, c1, c2, cout)}",
+                      (rnd(b, t, f, c1, offset=1.0), rnd(b, t, f, c2) if c2 else None,
+                       rnd(cin, offset=1.0), rnd(cin), rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                       rnd(cout), 32, 1e-5)))
+    for m, f, n in ((130, 200, 96), (100, 1032, 136)):
+        cases.append(("geglu_matmul", f"ragged M, F, N = {(m, f, n)}",
+                      (rnd(m, 2 * f), rnd(f, n, scale=f ** -0.5), rnd(n), rnd(m, n))))
     for name, tag, args in cases:
         d_abs, _, _, _ = check_kernel(name, args, BF16_TOL, f"bf16 {name} {tag}", failures)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], d_abs)
@@ -891,12 +993,12 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
     import torch
     from audioldm2_torch import ops
 
-    cond = {}
+    cond, on_core = {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with plain_versions_forbidden(), conditioning_recorded(cond):
+    with plain_versions_forbidden(), conditioning_recorded(cond), shared_core_bf16_counted(on_core):
         wav = call(bsz)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -906,6 +1008,9 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
         f"{duration * bsz / wall:.3f}x, peak memory {peak:.2f} GiB, timings "
         f"{json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
     log(f"    launches {counts}")
+    if on_core:
+        raise AssertionError(f"bf16 K1/K4 calls on the shared core instead of their kernels: "
+                             f"{on_core}")
     want_shape = (bsz, 1, int(duration * model.cfg.preprocessing.sampling_rate))
     if wav.shape != want_shape:
         raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")
@@ -1107,7 +1212,7 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     stats = phase_kernels(*discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device),
                           offset_check=True)
     del vae_p
-    log("  -- K2 and K3 at ragged shapes and on strided q, k, v")
+    log("  -- K1-K4 at ragged and halo shapes, K2 on strided q, k, v")
     phase_ragged(stats, device)
     log("  -- sr path: K1 and K6 in f32 (one full-width VAE encode of a chirp's log-mel)")
     mel = encoder_mel(full_cfg, device, duration)

@@ -57,6 +57,14 @@ def _check(got, want, dt):
     (1, 5, 3, 60, 36, 96, 0.0),     # channels not a multiple of 8: scalar loads
     (1, 33, 7, 256, 0, 70, 0.0),    # ragged M and N tiles
     (1, 64, 64, 128, 0, 128, 10.0),  # offset input: GroupNorm cancellation
+    (1, 1, 24, 64, 0, 64, 0.0),     # halo edges of the bf16 kernel: T = 1,
+    (2, 40, 1, 64, 0, 128, 0.0),    # F = 1,
+    (1, 96, 2, 128, 0, 128, 0.0),   # F = 2,
+    (1, 50, 3, 64, 32, 96, 0.0),    # F = 3, with a group straddling the concat split
+    (1, 33, 7, 256, 0, 200, 0.0),   # Cout no multiple of the bf16 kernel's N tile
+    (1, 1024, 64, 128, 0, 128, 0.0),   # the VAE decoder's full 1024 x 64 level
+    (1, 1024, 64, 128, 0, 128, 10.0),  # ... offset: cancellation at S = 65536
+    (2, 32, 2, 640, 640, 640, 0.0),    # the deep level at CFG batch 2: split over a cluster
 ])
 def test_gn_silu_conv3x3_kernel(cuda, dt, B, T, F, c1, c2, cout, offset):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -67,6 +75,48 @@ def test_gn_silu_conv3x3_kernel(cuda, dt, B, T, F, c1, c2, cout, offset):
             _rand(g, (3, 3, cin, cout), dt, cuda, scale=cin ** -0.5 / 3),
             _rand(g, (cout,), torch.float32, cuda), 32, 1e-6)
     _check(resblock_kernel.gn_silu_conv3x3(*args), resblock_kernel.gn_silu_conv3x3_plain(*args), dt)
+
+
+@pytest.mark.parametrize("B,T,F,c1,c2,cout", [(2, 64, 4, 384, 256, 384), (1, 256, 16, 512, 0, 512),
+                                              (6, 32, 2, 640, 384, 640)])
+def test_gn_silu_conv3x3_kernel_reads_bf16_parameters(cuda, B, T, F, c1, c2, cout):
+    """GroupNorm scale and bias and the conv bias as bf16 leaves of the cast
+    parameter tree: read as stored by the statistics pass and the bf16 conv."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cin = c1 + c2
+    args = (_rand(g, (B, T, F, c1), dt, cuda, offset=1.0),
+            _rand(g, (B, T, F, c2), dt, cuda) if c2 else None,
+            _rand(g, (cin,), dt, cuda, offset=1.0), _rand(g, (cin,), dt, cuda),
+            _rand(g, (3, 3, cin, cout), dt, cuda, scale=(9 * cin) ** -0.5),
+            _rand(g, (cout,), dt, cuda), 32, 1e-5)
+    _check(resblock_kernel.gn_silu_conv3x3(*args), resblock_kernel.gn_silu_conv3x3_plain(*args), dt)
+
+
+def test_k1_and_k4_give_the_same_bits_twice(cuda):
+    """Fixed-order sums and no atomics in a sum: the statistics pass (split
+    over row chunks), K1 (also split over a cluster) and K4 give bitwise
+    equal outputs on the same inputs."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for B, T, F, c1, c2, cout in ((1, 1024, 64, 128, 0, 128), (2, 32, 2, 640, 640, 640)):
+        cin = c1 + c2
+        args = (_rand(g, (B, T, F, c1), dt, cuda), _rand(g, (B, T, F, c2), dt, cuda) if c2 else None,
+                _rand(g, (cin,), dt, cuda), _rand(g, (cin,), dt, cuda),
+                _rand(g, (3, 3, cin, cout), dt, cuda, scale=(9 * cin) ** -0.5),
+                _rand(g, (cout,), dt, cuda), 32, 1e-5)
+        first = resblock_kernel.gn_silu_conv3x3(*args)
+        for _ in range(3):
+            assert torch.equal(resblock_kernel.gn_silu_conv3x3(*args), first)
+        a, c = resblock_kernel.gn_stats(*args[:4], 32, 1e-5)
+        for _ in range(3):
+            a2, c2_ = resblock_kernel.gn_stats(*args[:4], 32, 1e-5)
+            assert torch.equal(a2, a) and torch.equal(c2_, c)
+    args = (_rand(g, (6144, 2048), dt, cuda), _rand(g, (1024, 256), dt, cuda, scale=1 / 32),
+            _rand(g, (256,), dt, cuda), _rand(g, (6144, 256), dt, cuda))
+    first = lnmm_kernel.geglu_matmul(*args)
+    for _ in range(3):
+        assert torch.equal(lnmm_kernel.geglu_matmul(*args), first)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -215,11 +265,25 @@ def test_ln_matmul_kernel_reads_bf16_parameters(cuda, M, C, N, with_bias):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("M,F,N", [(130, 160, 96), (128, 2560, 640), (50, 20, 12)])
+@pytest.mark.parametrize("M,F,N", [
+    (130, 160, 96), (128, 2560, 640), (50, 20, 12),
+    (100, 1032, 136),   # F no multiple of the 64-deep K tile, ragged M and N
+    (6144, 1024, 256),  # the large UNet's T = 1024 level at CFG batch 6
+    (1536, 1536, 384),
+])
 def test_geglu_matmul_kernel(cuda, dt, M, F, N):
     g = torch.Generator(device=cuda).manual_seed(3)
     args = (_rand(g, (M, 2 * F), dt, cuda), _rand(g, (F, N), dt, cuda, scale=F ** -0.5),
             _rand(g, (N,), torch.float32, cuda), _rand(g, (M, N), dt, cuda))
+    _check(lnmm_kernel.geglu_matmul(*args), lnmm_kernel.geglu_matmul_plain(*args), dt)
+
+
+@pytest.mark.parametrize("M,F,N", [(2048, 1024, 256), (384, 2560, 640)])
+def test_geglu_matmul_kernel_reads_bf16_parameters(cuda, M, F, N):
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(10)
+    args = (_rand(g, (M, 2 * F), dt, cuda), _rand(g, (F, N), dt, cuda, scale=F ** -0.5),
+            _rand(g, (N,), dt, cuda), _rand(g, (M, N), dt, cuda))
     _check(lnmm_kernel.geglu_matmul(*args), lnmm_kernel.geglu_matmul_plain(*args), dt)
 
 
@@ -425,3 +489,41 @@ def test_tiny_slice_on_the_card_matches_cpu(cuda):
                                     x_T=x_T.to(dev))
         mels.append(mel)
     assert float(np.abs(mels[0] - mels[1]).mean()) < 1e-3
+
+
+# SHA-256 of the bf16 K3 output at the 18 (M, C, N) the t5 and large-1150k
+# UNets give it, on time_k2_k3.k3_args's inputs, from the tree before K3 and
+# K4 shared one kernel (NVIDIA H100 80GB HBM3).
+K3_SHA256_BEFORE_K4_JOINED = {
+    (6144, 256, 2048): "21b7073707dcf2efafc72980a2a815131a04481f3c2553b53c9a24da9a936b88",
+    (6144, 256, 768): "46cd13de6047e335d4ad1296cc345033862f724ef4305c00cbfdf4676d42ea6c",
+    (6144, 256, 256): "53bdc24c6b020b57d65716d6090ecf280552a2cdfbe3d543641b6d6edb32eb0b",
+    (2048, 256, 2048): "125bb58b5dc9a6496328626e1b61338a8753a45be3de68270b9a8a3b5875bfe2",
+    (2048, 256, 768): "5c7fde3d9d42a01a14985f509b76c0269e7078766eec21e9b69e1fcb72ca79ed",
+    (2048, 256, 256): "b7f9f0459c165f123349db5ac22ca546d0b61bde5bcc572e399852bcb0d7cf40",
+    (1536, 384, 3072): "92aeb28ee842ac0822fa82f508c3a2f392a41acc3aaa39d2d70af2f693c0750f",
+    (1536, 384, 1152): "1202d2986275ae944d0d3556a1802c388eaba5fe82f891478ea0550ee827c514",
+    (1536, 384, 384): "116818b24fa55deff898281d5c211d5bfe3803b5aa5bd87998372a1ee6606998",
+    (512, 384, 3072): "fec70f7dfb633a2ddd9950996d5c2de3633de0f23a6d6fb6a638339e05042310",
+    (512, 384, 1152): "accfa93d162b62fbad8a0638310b76c328f9281a866be15657c332a1986b2d26",
+    (512, 384, 384): "67748e4faa66f29acf8aa948a8749cfff79b56b7be9d26a52cf6593881a50d4f",
+    (384, 640, 5120): "fbeb750402d0b0266f660192eaa7bb4bfe686dc8a906f4a6b0ab617c565a6c88",
+    (384, 640, 1920): "e783a30d291353f5647b725e11ff6f711de11dc3bc519ccac29afb35b1dd48dd",
+    (384, 640, 640): "4482c7fb4ca4ac1ab043e140419ded3c1ebe6a4eb75eef52c03f6bd13801be7c",
+    (128, 640, 5120): "c864d4bcdf6908a4ec95760d5528ac395cb5c8fb6215a73c95728cf7818c1264",
+    (128, 640, 1920): "0466c7405ba1aa72bc25798dfd7e4ed3949d854244824a3194bdaca0807429d6",
+    (128, 640, 640): "e49175629fe524b2c16b72a0e0df7d045bdcab716341270fd8209fe1e36904f2",
+}
+
+
+def test_k3_gives_the_bits_it_gave_before_k4_shared_its_kernel(cuda):
+    """K3 and K4 are one template on the row-block pass; K3's instantiations
+    must give the same bytes as K3's own kernel did."""
+    from audioldm2_torch.tools import time_k2_k3
+
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the recorded hashes are an sm_90 card's")
+    with torch.inference_mode():
+        for shape, want in K3_SHA256_BEFORE_K4_JOINED.items():
+            got = lnmm_kernel.ln_matmul(*time_k2_k3.k3_args(shape, cuda))
+            assert time_k2_k3.sha256(got) == want, shape

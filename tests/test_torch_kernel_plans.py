@@ -13,6 +13,7 @@ fill, or at least ``LNMM_MIN_FILL`` of them in one wave.
 import math
 
 import pytest
+import torch
 
 import audioldm2_torch as at
 from audioldm2_torch.models import unet
@@ -183,8 +184,8 @@ def test_self_attention_shapes_add_up_to_the_launch_count(name, batch, calls):
 
 
 def test_timing_tool_sums_each_forward_from_its_calls():
-    """tools.time_k2_k3: the shapes it times are the two forwards' own, and
-    a forward's sum weighs every shape by its calls (fused K2 calls on the
+    """tools.time_k2_k3: the shapes it times are the forwards' own, and a
+    forward's sum weighs every shape by its calls (fused K2 calls on the
     views, separate ones on contiguous tensors)."""
     from audioldm2_torch.tools import time_k2_k3 as tool
 
@@ -202,3 +203,245 @@ def test_timing_tool_sums_each_forward_from_its_calls():
     assert sums["t5"]["k2_as_called_held_ms"] == pytest.approx(48 * 30.0e-3)
     assert sums["large"]["k2_as_called_held_ms"] == pytest.approx((160 * 30.0 + 32 * 10.0) * 1e-3)
     assert sums["large"]["k2_contiguous_unheld_ms"] == pytest.approx(192 * 20.0e-3)
+    # K1 on three forwards (the t5 VAE decode's 22 calls apart), K4 on two,
+    # each with its yardstick
+    assert len(shapes["k4"]) == 6 and len(shapes["k1"]) == 39
+    for tag, calls in (("t5", 44), ("large", 44), ("t5_vae", 22)):
+        assert sum(c.get(tag, 0) for _, c in shapes["k1"]) == calls
+    assert sum(c.get("large", 0) for _, c in shapes["k4"]) == 128
+    part = {"held_us": 4.0, "unheld_us": 8.0}
+    k1 = [{"calls": c, "whole": {"held_us": 10.0, "unheld_us": 12.0}, "stats": part,
+           "conv": {"held_us": 6.0, "unheld_us": 4.0}, "yardstick_held_us": 2.0}
+          for _, c in shapes["k1"]]
+    k4 = [{"calls": c, "held_us": 7.0, "unheld_us": 9.0, "yardstick_held_us": 1.0}
+          for _, c in shapes["k4"]]
+    sums = tool.per_forward(k2, k3, k1, k4)
+    assert sums["t5_vae"]["k1_stats_held_ms"] == pytest.approx(22 * 4.0e-3)
+    assert sums["t5_vae"]["k1_yardstick_held_ms"] == pytest.approx(22 * 2.0e-3)
+    assert "k4_held_ms" not in sums["t5_vae"] and "k3_held_ms" not in sums["t5_vae"]
+    assert sums["large"]["k1_conv_unheld_ms"] == pytest.approx(44 * 4.0e-3)
+    assert sums["large"]["k4_held_ms"] == pytest.approx(128 * 7.0e-3)
+    assert sums["t5"]["k4_yardstick_held_ms"] == pytest.approx(32 * 1.0e-3)
+
+
+# ---------------------------------------------------------------------------
+# K1 (GroupNorm + SiLU + 3x3 conv) and K4 (GEGLU + matmul): shapes and plans
+# ---------------------------------------------------------------------------
+
+FORWARDS = [("audioldm_16k_crossattn_t5", 2), ("audioldm_16k_crossattn_t5", 6),
+            ("audioldm2-full-large-1150k", 6)]
+PLAN_SMS = [132, 108, 78]
+
+
+@pytest.mark.parametrize("name,batch", FORWARDS)
+def test_conv_and_geglu_shapes_add_up_to_the_launch_count(name, batch):
+    """K1's (B, T, F, C1, C2, Cout) and K4's (M, F, N) per UNet forward: the
+    ResBlocks' convs at the four levels of the 10 s latent (C2 > 0 on the
+    decoder's concat), the GEGLU proj_out of every transformer block."""
+    cfg = at.default_audioldm_config(name)
+    size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+    launches = unet.kernel_launches_per_forward(cfg.unet)
+    convs = unet.conv_shapes(*size)
+    assert sum(convs.values()) == launches["gn_silu_conv3x3"] == 44
+    assert {(t, f) for _, t, f, _, _, _ in convs} == {(256, 16), (128, 8), (64, 4), (32, 2)}
+    assert all(b == batch for b, *_ in convs) and any(c2 for *_, c2, _ in convs)
+    geglu = unet.geglu_matmul_shapes(*size)
+    assert sum(geglu.values()) == launches["geglu_matmul"]
+    assert set(geglu) == {(batch * 1024 // 4 ** k, 4 * c, c)
+                          for k, c in enumerate((256, 384, 640))}
+
+
+def test_vae_decode_conv_shapes_add_up_to_the_launch_count():
+    """The t5 VAE decoder at batch 1: 22 K1 calls from 16 x 256 to 64 x 1024."""
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config("audioldm_16k_crossattn_t5")
+    got = vae.decode_conv_shapes(cfg.vae, 1, cfg.latent_t_size, cfg.latent_f_size)
+    assert sum(got.values()) == vae.kernel_launches_per_decode(cfg.vae)["gn_silu_conv3x3"] == 22
+    assert got[(1, 1024, 64, 128, 0, 128)] == 5
+    assert max(t * f for _, t, f, *_ in got) == 65536
+
+
+def _conv_main_path_shapes():
+    from audioldm2_torch.models import vae
+
+    shapes = set()
+    for name in CONFIGS:
+        cfg = at.default_audioldm_config(name)
+        for batch in (2, 6):
+            shapes |= set(unet.conv_shapes(cfg.unet, batch, cfg.latent_t_size,
+                                           cfg.latent_f_size))
+        shapes |= set(vae.decode_conv_shapes(cfg.vae, 1, cfg.latent_t_size, cfg.latent_f_size))
+    return sorted(shapes)
+
+
+CONV_HALO = [(1, 1, 24, 64, 0, 64), (2, 40, 1, 64, 0, 128), (1, 96, 2, 128, 0, 128),
+             (1, 50, 3, 64, 32, 96), (1, 33, 7, 256, 0, 200), (2, 8, 4, 128, 0, 128)]
+CONV_SHAPES = sorted(set(_conv_main_path_shapes()) | set(CONV_HALO))
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("b,t,f,c1,c2,cout", CONV_SHAPES)
+def test_gn_silu_conv_plan(b, t, f, c1, c2, cout, sms):
+    plan = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, sms)
+    assert plan is not None
+    assert (plan.bm, plan.bn) in _build.CONV_TILES and plan.ck == _build.CONV_CK
+    # positions: a block's tile is tt rows of T by ft of F, within bm rows of
+    # the product; the tiles cover every sample's T x F exactly
+    assert 1 <= plan.tt <= t and 1 <= plan.ft <= f and plan.tt * plan.ft <= plan.bm
+    strips, m_tiles, splits = plan.grid
+    assert m_tiles == b * math.ceil(t / plan.tt) * math.ceil(f / plan.ft)
+    # channels: whole chunks cover Cin; the split gives every block a chunk
+    assert plan.k_chunks == math.ceil((c1 + c2) / plan.ck)
+    cps = math.ceil(plan.k_chunks / splits)
+    assert 1 <= splits <= _build.CONV_MAX_SPLITS and (splits - 1) * cps < plan.k_chunks
+    # Cout: the strips cover the N tiles once; a split block owns one N tile
+    n_tiles = math.ceil(cout / plan.bn)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert splits == 1 or plan.strip_tiles == 1
+    # shared memory: two halo'd patches, a and c, the W ring; the split's f32 tile fits in it
+    patch = 2 * (plan.tt + 2) * (plan.ft + 2) * _build.CONV_LD * 2
+    main = patch + 4 * plan.ck * 4 + plan.stages * plan.ck * (plan.bn + _build.CONV_PAD) * 2
+    assert plan.smem_bytes == max(main, plan.bm * (plan.bn + 4) * 4) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= _build.CONV_MAX_STAGES
+    # the grid fills the SMs the shape could fill, or LNMM_MIN_FILL of them in one wave
+    blocks = strips * m_tiles * splits
+    fill = min(sms, m_tiles * n_tiles * min(_build.CONV_MAX_SPLITS, plan.k_chunks))
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+def _geglu_main_path_shapes():
+    shapes = set()
+    for name in CONFIGS:
+        cfg = at.default_audioldm_config(name)
+        for batch in (2, 6):
+            shapes |= set(unet.geglu_matmul_shapes(cfg.unet, batch, cfg.latent_t_size,
+                                                   cfg.latent_f_size))
+    return sorted(shapes)
+
+
+GEGLU_SHAPES = sorted(set(_geglu_main_path_shapes())
+                      | {(130, 200, 96), (100, 1032, 136), (50, 24, 16), (1, 64, 64)})
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("m,f,n", GEGLU_SHAPES)
+def test_geglu_matmul_plan(m, f, n, sms):
+    plan = _build.geglu_matmul_plan(m, f, n, sms)
+    assert plan is not None
+    assert (plan.bm, plan.bn) in _build.GEGLU_TILES
+    strips, row_blocks = plan.grid
+    n_tiles = math.ceil(n / plan.bn)
+    assert row_blocks == math.ceil(m / plan.bm)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert plan.k_tiles * plan.bk >= f > (plan.k_tiles - 1) * plan.bk
+    # K split over a cluster: every block has K tiles, a split block one N tile
+    kps = math.ceil(plan.k_tiles / plan.splits)
+    assert 1 <= plan.splits <= _build.GEGLU_MAX_SPLITS and (plan.splits - 1) * kps < plan.k_tiles
+    assert plan.splits == 1 or plan.strip_tiles == 1
+    # its share of the gate product [bm, kps * bk] stays in shared memory beside a
+    # ring of >= 2 W tiles (the split's f32 tile [bm, bn + 4] fits in the same)
+    a_bytes = plan.bm * (kps * plan.bk + _build.LNMM_PAD) * 2
+    ring = plan.stages * plan.bk * (plan.bn + _build.LNMM_PAD) * 2
+    assert plan.smem_bytes == max(a_bytes + ring, plan.bm * (plan.bn + 4) * 4 * (plan.splits > 1))
+    assert plan.smem_bytes <= SMEM_LIMIT and plan.stages >= 2
+    blocks = strips * row_blocks * plan.splits
+    fill = min(sms, row_blocks * n_tiles * min(_build.GEGLU_MAX_SPLITS, plan.k_tiles))
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+def test_plans_decline_what_the_kernels_do_not_take():
+    """f32, channels no multiple of 8, and K4 rows wider than a row block
+    of the smallest tile holds beside two W tiles; those calls go to the
+    shared GEMM core (never to a plain version on the card)."""
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS) is not None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS, dtype="f32") is None
+    assert _build.gn_silu_conv_plan(1, 5, 3, 96, 70, SMS) is None
+    assert _build.gn_silu_conv_plan(1, 5, 3, 100, 64, SMS) is None
+    assert _build.geglu_matmul_plan(128, 2560, 640, SMS) is not None
+    assert _build.geglu_matmul_plan(128, 2560, 640, SMS, dtype="f32") is None
+    assert _build.geglu_matmul_plan(50, 20, 12, SMS) is None
+    assert _build.geglu_matmul_plan(130, 164, 96, SMS) is None
+    # a block holds a 1/GEGLU_MAX_SPLITS share of K of the fewest rows beside two
+    # of the narrowest W tiles
+    bm, bn = min(_build.GEGLU_TILES)
+    widest = (SMEM_LIMIT - 2 * _build.LNMM_BK * (bn + _build.LNMM_PAD) * 2) // (bm * 2)
+    widest = (widest - _build.LNMM_PAD) // _build.LNMM_BK * _build.LNMM_BK
+    widest *= _build.GEGLU_MAX_SPLITS
+    assert _build.geglu_matmul_plan(2048, widest, 640, SMS) is not None
+    assert _build.geglu_matmul_plan(2048, widest + _build.LNMM_BK, 640, SMS) is None
+
+
+class _Recorder:
+    """A stand-in for the kernel library: records each entry point's arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.fixture
+def recorded_lib(monkeypatch):
+    lib = _Recorder()
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: None)
+    monkeypatch.setattr(_build, "gn_counter", lambda index: torch.zeros(8, dtype=torch.int32))
+    return lib
+
+
+def test_k1_and_k4_parameters_go_to_the_kernels_as_they_are_stored(recorded_lib):
+    """bf16 GroupNorm scale and bias, conv bias and GEGLU bias (the cast
+    parameter tree's leaves) reach the statistics pass, the bf16 K1 conv and
+    the bf16 K4 kernel unconverted (code 1): no conversion kernel runs
+    before them; f32 ones go as f32 (code 0)."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+    from audioldm2_torch.ops import resblock_kernel as rk
+
+    bf16 = torch.bfloat16
+    x1, x2 = torch.zeros(2, 8, 4, 64, dtype=bf16), torch.zeros(2, 8, 4, 64, dtype=bf16)
+    gamma, beta, bias = (torch.ones(n, dtype=bf16) for n in (128, 128, 96))
+    a, c = rk.gn_stats(x1, x2, gamma, beta, 32, 1e-5)
+    args = recorded_lib.calls["a2k_gn_stats"]
+    assert args[8:11] == (gamma.data_ptr(), beta.data_ptr(), 1)
+    assert a.dtype == c.dtype == torch.float32 and a.shape == (2, 128)
+    rk.gn_stats(x1, x2, gamma.float(), beta.float(), 32, 1e-5)
+    assert recorded_lib.calls["a2k_gn_stats"][10] == 0
+
+    w = torch.zeros(3, 3, 128, 96, dtype=bf16)
+    out = torch.empty(2, 8, 4, 96, dtype=bf16)
+    assert rk._conv_bf16(x1, x2, a, c, w, bias, out)
+    args = recorded_lib.calls["a2k_gn_silu_conv3x3_bf16"]
+    assert args[5:8] == (bias.data_ptr(), 1, out.data_ptr())
+
+    h, wk = torch.zeros(130, 2 * 160, dtype=bf16), torch.zeros(160, 96, dtype=bf16)
+    res = torch.zeros(130, 96, dtype=bf16)
+    out = lk._geglu("geglu_matmul", h, wk, None, bias, res)
+    args = recorded_lib.calls["a2k_geglu_matmul_bf16"]
+    assert args[:6] == (h.data_ptr(), wk.data_ptr(), bias.data_ptr(), 1, res.data_ptr(),
+                        out.data_ptr())
+    lk._geglu("geglu_matmul", h, wk, None, bias.float(), res)
+    assert recorded_lib.calls["a2k_geglu_matmul_bf16"][3] == 0
+
+
+@pytest.mark.parametrize("s,cin", [(65536, 128), (65536, 256), (16384, 512), (4096, 128),
+                                   (64, 1280), (64, 1024), (1, 128), (100, 96), (1000, 2056)])
+def test_gn_stats_chunks_cover_every_row_once(s, cin):
+    """The statistics pass's row chunks: none empty, together the sample's
+    rows, and GN_STATS_ROWS_PER_THREAD rows for each thread of a block
+    whose row lanes of eight channels fill it (so 512 chunks for the VAE's
+    65,536 rows of 128 channels)."""
+    chunks = _build.gn_stats_chunks(s, cin)
+    rows = math.ceil(s / chunks)
+    assert (chunks - 1) * rows < s <= chunks * rows
+    lanes = max(1, _build.GN_STATS_THREADS // math.ceil(cin / 8))
+    assert rows <= _build.GN_STATS_ROWS_PER_THREAD * lanes
+    assert rows == s or rows >= _build.GN_STATS_ROWS_PER_THREAD * lanes - chunks
+    if (s, cin) == (65536, 128):
+        assert chunks == 512
