@@ -187,6 +187,27 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
     v[2 * i + 1] = f.y;
   }
 }
+// Sixteen int8 (one 16-byte register group) to sixteen bf16 (two), exactly
+// (|q| <= 128 is a bf16 value): each byte, offset to unsigned, becomes the
+// low mantissa byte of the f32 2^23, the offset is subtracted in f32, and
+// the upper half of the exact f32 is the bf16. No conversion instruction.
+__device__ __forceinline__ void int8x16_to_bf16(const uint4& q, uint4& lo, uint4& hi) {
+  const uint32_t in[4] = {q.x, q.y, q.z, q.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t u = in[w] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
+    o[2 * w] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    o[2 * w + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
 // Eight consecutive LN or bias parameters from index idx (a multiple of 8),
 // stored as f32 or, with p16, as bf16 (exact in f32 either way).
 __device__ __forceinline__ void load8_param(const void* p, int idx, bool p16, float v[8]) {

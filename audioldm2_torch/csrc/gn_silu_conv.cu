@@ -61,10 +61,22 @@
 // N tile, 1.2 to 1.6 times the tile's positions, where the shared core
 // (below) evaluated it for every tap and every 64-wide N tile.
 //
-// The shared GEMM core (common.cuh) keeps K1 in f32 (the sr path's VAE
-// encode, on the FMA units), K1q, and the bf16 shapes the plan declines
-// (channels no multiple of 8, unaligned pointers): its A prologue computes
-// silu(x * a + c) of a shifted tap as the tile loads.
+// K1q in bf16 runs the same statistics pass and the same conv kernel with
+// TW = int8_t: the weight [9 Cin, Cout] streams as int8 [64, BN] tiles (half
+// K1's bytes: the stream every block re-reads), each converted once, a step
+// ahead of its products, into one of two bf16 staging tiles that the
+// unchanged ldmatrix.trans path reads (exact: |q| <= 127). A slot is free
+// once its tile is converted, so the ring keeps one tile more in flight; the
+// staging tiles need no barrier beyond the ring's one a tile. The epilogue
+// (or, split over a cluster, the cluster sum) forms acc * wscale + bias in
+// f32 and rounds once, the rounding points of _kernel_q. It replaces the
+// shared core's K1q, which evaluated silu(x * a + c) of a shifted tap for
+// every tap and every 64-wide N tile and split K through a workspace.
+//
+// The shared GEMM core (common.cuh) keeps K1 and K1q in f32 (the sr path's
+// VAE encode, on the FMA units), and the shapes the plans decline (channels
+// no multiple of 8, K1q's Cout no multiple of 16, unaligned pointers): its A
+// prologue computes silu(x * a + c) of a shifted tap as the tile loads.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -302,28 +314,41 @@ constexpr int CV_MAX_SPLITS = 8;  // the portable cluster size
 constexpr int CV_MAX_SMEM = 232448;
 
 // Shared memory of one block: two patch buffers, the chunk's a and c (two
-// buffers), the W ring; the split epilogue's f32 tile reuses it.
-__host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int tt, int ft, int stages) {
+// buffers), the W ring (K1q: two bf16 staging tiles and an int8 ring of rows
+// padded by 16 bytes); the split epilogue's f32 tile reuses it.
+__host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int tt, int ft, int stages,
+                                                  int w_bytes = 2) {
+  const size_t ring = w_bytes == 1
+                          ? (size_t)2 * CV_CK * (BN + CV_PAD) * sizeof(bf16) +
+                                (size_t)stages * CV_CK * (BN + 16)
+                          : (size_t)stages * CV_CK * (BN + CV_PAD) * sizeof(bf16);
   const size_t main = (size_t)2 * (tt + 2) * (ft + 2) * CV_LD * sizeof(bf16) +
-                      (size_t)4 * CV_CK * sizeof(float) +
-                      (size_t)stages * CV_CK * (BN + CV_PAD) * sizeof(bf16);
+                      (size_t)4 * CV_CK * sizeof(float) + ring;
   const size_t epi = (size_t)BM * (BN + 4) * sizeof(float);
   return main > epi ? main : epi;
 }
 
-template <int BM, int BN>
+// TW: the weight's type, bf16 (K1) or int8 (K1q: the ring holds int8 tiles,
+// each converted once into one of two bf16 staging tiles that the products
+// read, and the per-output-channel scale wscale multiplies the f32 sums in
+// the epilogue).
+template <int BM, int BN, typename TW = bf16>
 __global__ void __launch_bounds__(CV_THREADS)
 gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                          const float* __restrict__ a, const float* __restrict__ c,
-                         const bf16* __restrict__ w, const void* __restrict__ bias, bool p16,
+                         const TW* __restrict__ w, const float* __restrict__ wscale,
+                         const void* __restrict__ bias, bool p16,
                          bf16* __restrict__ out, int T, int F, int C1, int C2, int Cout, int tt,
                          int ft, int strip_tiles, int stages, int chunks_per_split) {
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
   constexpr int WARPS_N = BN / 32, WARPS_M = (CV_THREADS / 32) / WARPS_N;
   constexpr int WM = BM / WARPS_M;  // rows per warp: 64, 32 or 16
   constexpr int MT = WM / 16;       // m16 tiles per warp; its 32 columns are 4 n8 tiles
   constexpr int B_LD = BN + CV_PAD;
   constexpr int W_STAGE = CV_CK * B_LD;
-  constexpr int CPR = BN / 8;                  // 16-byte chunks per W tile row
+  constexpr int R_LD = Q ? BN + 16 : B_LD;  // a ring row, in TW elements (int8: 16 bytes of pad)
+  constexpr int R_STAGE = CV_CK * R_LD;
+  constexpr int CPR = BN * (int)sizeof(TW) / 16;  // 16-byte chunks per W tile row
   constexpr int W_ROWS = CV_THREADS / CPR;     // W tile rows one pass of the block copies
 
   extern __shared__ __align__(128) unsigned char cv_smem[];
@@ -343,7 +368,13 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
 
   bf16* patch = reinterpret_cast<bf16*>(cv_smem);               // [2][P][CV_LD]
   float* ac = reinterpret_cast<float*>(patch + 2 * P * CV_LD);  // [2][a, c][CV_CK]
-  bf16* Ws = reinterpret_cast<bf16*>(ac + 4 * CV_CK);           // stages x [CV_CK][B_LD]
+  // the ring, stages x [CV_CK][B_LD]; K1q: two staging tiles, then the ring
+  bf16* Ws = reinterpret_cast<bf16*>(ac + 4 * CV_CK);
+  TW* Wr;  // the ring: stages x [CV_CK][R_LD]
+  if constexpr (Q)
+    Wr = reinterpret_cast<TW*>(Ws + 2 * W_STAGE);
+  else
+    Wr = Ws;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -376,19 +407,19 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   // The strip's W tiles, N tile by N tile, chunk by chunk, tap by tap, go
   // round the ring; load_next() starts the next one (or nothing past the
   // last) and commits a group either way.
-  const int w_r = tid / CPR, w_c = (tid % CPR) * 8;
+  const int w_r = tid / CPR, w_c = (tid % CPR) * (16 / (int)sizeof(TW));
   int ld = 0, ld_nt = 0, ld_kc = 0, ld_tap = 0, ld_slot = 0;
   auto load_next = [&]() {
     if (ld < total) {
       const int ch0 = (kc0 + ld_kc) * CV_CK;
       const int n0 = (tile0 + ld_nt) * BN;
       const bool n_ok = n0 + w_c < Cout;
-      const bf16* src = w + ((size_t)ld_tap * Cin + ch0 + w_r) * Cout + n0 + w_c;
-      bf16* dst = Ws + (size_t)ld_slot * W_STAGE + w_r * B_LD + w_c;
+      const TW* src = w + ((size_t)ld_tap * Cin + ch0 + w_r) * Cout + n0 + w_c;
+      TW* dst = Wr + (size_t)ld_slot * R_STAGE + w_r * R_LD + w_c;
 #pragma unroll
       for (int j = 0; j < CV_CK / W_ROWS; ++j) {
         const bool ok = n_ok && ch0 + j * W_ROWS + w_r < Cin;
-        cp_async16(dst + j * W_ROWS * B_LD, ok ? src + (size_t)j * W_ROWS * Cout : w, ok);
+        cp_async16(dst + j * W_ROWS * R_LD, ok ? src + (size_t)j * W_ROWS * Cout : w, ok);
       }
       if (++ld_tap == 9) {
         ld_tap = 0;
@@ -443,17 +474,42 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   }
   const int b_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
 
+  // K1q: the int8 W tile in ring slot `rs` into bf16 staging tile `sb`, 16
+  // values a thread a step (zero-filled rows and columns stay zero)
+  auto convert = [&](int rs, int sb) {
+    const TW* src = Wr + (size_t)rs * R_STAGE;
+    bf16* dst = Ws + (size_t)sb * W_STAGE;
+#pragma unroll
+    for (int u = 0; u < CV_CK * (BN / 16) / CV_THREADS; ++u) {
+      const int q = tid + u * CV_THREADS, r = q / (BN / 16), col = (q % (BN / 16)) * 16;
+      uint4 lo, hi;
+      int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo, hi);
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo;
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi;
+    }
+  };
+
   load_patch(0);
   cp_async_commit();
-  for (int s = 0; s < stages - 1; ++s) load_next();
+  // K1q's ring keeps one tile more in flight: a slot is free once its tile
+  // is converted, a step ahead of its products
+  for (int s = 0; s < stages - (Q ? 0 : 1); ++s) load_next();
+  if constexpr (Q) {  // W tile 0 into staging tile 0
+    cp_async_wait_dyn(stages - 1);  // patch 0 and W tile 0 have landed
+    __syncthreads();
+    convert(0, 0);
+  }
 
   float acc[MT][4][4];
   int kt = 0, nt = 0, slot = 0, tap = 0, seq = 0;
   for (int i = 0; i < total; ++i) {
-    cp_async_wait_dyn(stages - 2);  // W tile i, and every patch up to its chunk's, has landed
-    __syncthreads();  // ... for all; tile i - 1's slot, and at tap 0 the last chunk's buffer, free
+    // W tile i (K1q: i + 1), and every patch up to its chunk's, has landed
+    cp_async_wait_dyn(stages - 2);
+    // ... for all; tile i - 1's slot (K1q: tile i's, and staging tile i + 1's), and at tap 0 the
+    // last chunk's buffer, free
+    __syncthreads();
     if (tap == 0 && seq + 1 < my_tiles * nk) load_patch(seq + 1);
-    load_next();  // tile i + stages - 1 (with the next chunk's patch, at tap 0)
+    load_next();  // tile i + stages - 1 (K1q: i + stages; with the next chunk's patch, at tap 0)
     if (tap == 0) {  // this chunk's patch has landed: activate it, whole
       activate(seq);
       __syncthreads();
@@ -466,7 +522,7 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
     }
-    const bf16* Wt = Ws + (size_t)slot * W_STAGE + b_off;
+    const bf16* Wt = Ws + (size_t)(Q ? i & 1 : slot) * W_STAGE + b_off;
     if (++slot == stages) slot = 0;
     const bf16* At = patch + (size_t)(seq & 1) * P * CV_LD + ((tap / 3) * PW + tap % 3) * CV_LD;
     uint32_t af[2][MT][4], bfr[2][2][4];
@@ -491,6 +547,11 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
         }
       }
     }
+    // K1q: tile i + 1 into the other staging tile, behind this tile's
+    // products, whose tensor-core work its loads and integer work overlap
+    if constexpr (Q) {
+      if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
+    }
     if (++tap == 9) {
       tap = 0;
       ++seq;
@@ -512,6 +573,21 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
           } else {
             bv[j][0] = static_cast<const float*>(bias)[col];
             bv[j][1] = static_cast<const float*>(bias)[col + 1];
+          }
+        }
+      }
+      if constexpr (Q) {  // * wscale + bias in f32, one rounding
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sc = nb + j * 8 + 2 * t;
+          const float2 s2 = sc < Cout ? *reinterpret_cast<const float2*>(wscale + sc)
+                                      : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            acc[mi][j][0] *= s2.x;
+            acc[mi][j][1] *= s2.y;
+            acc[mi][j][2] *= s2.x;
+            acc[mi][j][3] *= s2.y;
           }
         }
       }
@@ -576,6 +652,12 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
       }
       float bv[8];
       load8_param(bias, col, p16, bv);
+      if constexpr (Q) {  // * wscale after the cluster sum
+        float sv[8];
+        load8(wscale + col, sv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] *= sv[e];
+      }
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] += bv[e];
       store8(out + (((size_t)b * T + tq) * F + fq) * Cout + col, v);
@@ -584,12 +666,13 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   }
 }
 
-template <int BM, int BN>
+template <int BM, int BN, typename TW = bf16>
 static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const void* c,
                             const void* w, const void* bias, bool p16, void* out, int B, int T,
                             int F, int C1, int C2, int Cout, int tt, int ft, int strip_tiles,
-                            int stages, int splits, cudaStream_t stream) {
-  auto kern = gn_silu_conv_bf16_kernel<BM, BN>;
+                            int stages, int splits, cudaStream_t stream,
+                            const void* wscale = nullptr) {
+  auto kern = gn_silu_conv_bf16_kernel<BM, BN, TW>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -597,7 +680,7 @@ static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const size_t smem = conv_smem_bytes(BM, BN, tt, ft, stages);
+  const size_t smem = conv_smem_bytes(BM, BN, tt, ft, stages, (int)sizeof(TW));
   if (smem > (size_t)CV_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int n_chunks = (C1 + C2 + CV_CK - 1) / CV_CK;
   const int cps = (n_chunks + splits - 1) / splits;
@@ -605,13 +688,14 @@ static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const
   const int n_tiles = (Cout + BN - 1) / BN;
   dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles,
             B * ((T + tt - 1) / tt) * ((F + ft - 1) / ft), splits);
-  const bf16 *px1 = static_cast<const bf16*>(x1), *px2 = static_cast<const bf16*>(x2),
-             *pw = static_cast<const bf16*>(w);
-  const float *pa = static_cast<const float*>(a), *pc = static_cast<const float*>(c);
+  const bf16 *px1 = static_cast<const bf16*>(x1), *px2 = static_cast<const bf16*>(x2);
+  const TW* pw = static_cast<const TW*>(w);
+  const float *pa = static_cast<const float*>(a), *pc = static_cast<const float*>(c),
+              *ps = static_cast<const float*>(wscale);
   bf16* po = static_cast<bf16*>(out);
   if (splits == 1) {
-    kern<<<grid, CV_THREADS, smem, stream>>>(px1, px2, pa, pc, pw, bias, p16, po, T, F, C1, C2,
-                                             Cout, tt, ft, strip_tiles, stages, cps);
+    kern<<<grid, CV_THREADS, smem, stream>>>(px1, px2, pa, pc, pw, ps, bias, p16, po, T, F, C1,
+                                             C2, Cout, tt, ft, strip_tiles, stages, cps);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
@@ -625,8 +709,8 @@ static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const
     attr[0].val.clusterDim.z = splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px1, px2, pa, pc, pw, bias, p16, po, T, F,
-                                         C1, C2, Cout, tt, ft, strip_tiles, stages, cps);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px1, px2, pa, pc, pw, ps, bias, p16, po, T,
+                                         F, C1, C2, Cout, tt, ft, strip_tiles, stages, cps);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -776,6 +860,47 @@ int a2k_gn_silu_conv3x3_bf16(const void* x1, const void* x2, const void* a, cons
   if (bm == 64 && bn == 64)
     return a2k::conv_bf16_launch<64, 64>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
                                          tt, ft, strip_tiles, stages, splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1q in bf16 with its launch plan: as a2k_gn_silu_conv3x3_bf16 with wq:
+// int8 [3, 3, C1+C2, Cout] (Cout a multiple of 16) and wscale: f32 [Cout],
+// out = conv(silu(x * a + c), wq) * wscale + bias; stages: 2 to 8 int8 W
+// tiles in the ring (besides two bf16 staging tiles).
+int a2k_gn_silu_conv3x3_q_bf16(const void* x1, const void* x2, const void* a, const void* c,
+                               const void* wq, const void* wscale, const void* bias,
+                               int param_dtype, void* out, int B, int T, int F, int C1, int C2,
+                               int Cout, int bm, int bn, int tt, int ft, int strip_tiles,
+                               int stages, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || F <= 0 || C1 <= 0 || C2 < 0 || Cout <= 0 || (C1 & 7) || (C2 & 7) ||
+      (Cout & 15) || (C2 > 0 && x2 == nullptr) || tt < 1 || ft < 1 || tt * ft > bm ||
+      strip_tiles < 1 || stages < 2 || stages > a2k::CV_MAX_STAGES || splits < 1 ||
+      splits > a2k::CV_MAX_SPLITS || (splits > 1 && strip_tiles != 1) ||
+      (param_dtype != 0 && param_dtype != 1) || bias == nullptr || wscale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x1) | reinterpret_cast<uintptr_t>(x2) |
+       reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(c) |
+       reinterpret_cast<uintptr_t>(wq) | reinterpret_cast<uintptr_t>(wscale) |
+       reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (bm == 256 && bn == 64)
+    return a2k::conv_bf16_launch<256, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+                                                  C2, Cout, tt, ft, strip_tiles, stages, splits,
+                                                  s, wscale);
+  if (bm == 128 && bn == 128)
+    return a2k::conv_bf16_launch<128, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+                                                   C2, Cout, tt, ft, strip_tiles, stages, splits,
+                                                   s, wscale);
+  if (bm == 64 && bn == 128)
+    return a2k::conv_bf16_launch<64, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+                                                  C2, Cout, tt, ft, strip_tiles, stages, splits,
+                                                  s, wscale);
+  if (bm == 64 && bn == 64)
+    return a2k::conv_bf16_launch<64, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+                                                 C2, Cout, tt, ft, strip_tiles, stages, splits,
+                                                 s, wscale);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -77,17 +77,31 @@
 // flight (eight pairs a thread). It replaces the shared core's K4, which evaluated erff for every
 // A element once per 64-wide N tile and split K through a workspace.
 //
-// K3 in f32, K3q, K4 in f32, K4q and K5 are the shared GEMM core
-// (common.cuh) with a prologue: K3's block first computes mean and rstd of
-// its 64 rows (one warp per row, two-pass) into shared memory, then
-// normalizes each A element as it loads; K4 forms a * gelu(g) from the two
-// halves of each h row as it loads; small-M products split K (common.cuh).
+// K3q in bf16 on the same kernel (TW = int8_t, RowPass::LN): the ring
+// streams int8 [64, BN] tiles (half K3's bytes, so up to twelve fit where
+// K3 holds fewer), each converted once, a step ahead of its products, into
+// one of two bf16 staging tiles that the unchanged ldmatrix.trans path reads
+// (exact: |q| <= 127; a byte-permute trick, no conversion instruction). A
+// slot is free once its tile is converted, so the ring keeps one tile more
+// in flight than K3's; the staging tiles cost one barrier a W tile. The
+// epilogue forms acc * wscale + bias in f32 after the whole K is summed and
+// rounds once. No split-K (the plan fills the card without one at every
+// main-path shape), no workspace, one launch. It replaces the shared core's
+// K3q, which normalized the rows again for every 64 output columns and split
+// K through a workspace and a second launch.
+//
+// K3 in f32, K3q in f32 (and at shapes its plan declines), K4 in f32, K4q
+// and K5 are the shared GEMM core (common.cuh) with a prologue: K3's block
+// first computes mean and rstd of its 64 rows (one warp per row, two-pass)
+// into shared memory, then normalizes each A element as it loads; K4 forms
+// a * gelu(g) from the two halves of each h row as it loads; small-M
+// products split K (common.cuh).
 //
 // The int8 serving mode (ops/quant.py): K3q and K4q are the w_scale paths
 // of the same Pallas kernels (ln_matmul :83-91 and geglu_matmul :202-209
 // with an int8 weight): the LN output or the gate product is rounded to
 // bf16 whatever the input dtype, the int8 weight tile is converted to bf16
-// as it is stored to shared memory (exact for |q| <= 127), and the
+// before the products (exact for |q| <= 127), and the
 // per-column scale multiplies the f32 accumulator. K5 replaces
 // lnmm_pallas.py: int8_matmul (:143, kernel _matmul_kernel :132), the
 // attention to_out projections: the same GEMM core with the input as its
@@ -255,13 +269,20 @@ constexpr int LT_MAX_C = 32 * LT_LN_CH * 8;  // 768: the widest row the kernel t
 // K4's gate product u = a * gelu(g) of h = [a | g], [M, 2C] (C = F).
 enum class RowPass { LN, GEGLU };
 
-template <RowPass PASS, int BM, int BN>
+// TW: the weight's type. bf16 (K3, K4), or int8 (K3q: RowPass::LN only):
+// then the ring holds int8 tiles, each converted once into one of two bf16
+// staging tiles that the products read, and the per-column scale wscale
+// multiplies the f32 sums in the epilogue.
+template <RowPass PASS, int BM, int BN, typename TW = bf16>
 __global__ void __launch_bounds__(LT_THREADS)
 row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
-                             const void* __restrict__ beta, const bf16* __restrict__ w,
+                             const void* __restrict__ beta, const TW* __restrict__ w,
+                             const float* __restrict__ wscale,
                              const void* __restrict__ bias, bool p16,
                              const bf16* __restrict__ residual, bf16* __restrict__ out, int M,
                              int C, int N, float eps, int strip_tiles, int stages) {
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
+  static_assert(!Q || PASS == RowPass::LN, "the int8 weight is K3q's");
   constexpr int THREADS = LT_THREADS;
   // warps that run products: one per 16 x 32 slice of the tile, at most all;
   // in a smaller tile the others only copy and form A
@@ -271,7 +292,9 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   constexpr int MT = WM / 16;       // m16 tiles per warp; its 32 columns are 4 n8 tiles
   constexpr int B_LD = BN + LT_PAD;
   constexpr int W_STAGE = LT_BK * B_LD;
-  constexpr int CPR = BN / 8;  // 16-byte chunks per W tile row
+  constexpr int R_LD = Q ? BN + 16 : B_LD;  // a ring row, in TW elements (int8: 16 bytes of pad)
+  constexpr int R_STAGE = LT_BK * R_LD;
+  constexpr int CPR = BN * (int)sizeof(TW) / 16;  // 16-byte chunks per W tile row
 
   extern __shared__ __align__(128) unsigned char lt_smem[];
   // K4 may split K over a thread-block cluster of gridDim.z blocks, one N tile
@@ -288,7 +311,12 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   const int Cp = KT * LT_BK;  // A's columns, zero past k_len
   const int A_LD = Cp + LT_PAD;
   bf16* As = reinterpret_cast<bf16*>(lt_smem);  // [BM][A_LD]
-  bf16* Ws = As + (size_t)BM * A_LD;            // stages x [LT_BK][B_LD]
+  bf16* Ws = As + (size_t)BM * A_LD;  // stages x [LT_BK][B_LD]; K3q: the two staging tiles
+  TW* Wr;                             // the ring: stages x [LT_BK][R_LD]
+  if constexpr (Q)
+    Wr = reinterpret_cast<TW*>(Ws + 2 * W_STAGE);
+  else
+    Wr = Ws;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -304,20 +332,20 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   // ring: load_next() starts the next one (or nothing past the last) and
   // commits a group either way, so the group count stays uniform.
   constexpr int W_ROWS = THREADS / CPR;  // W tile rows one pass of the block copies
-  const int w_r = tid / CPR, w_c = (tid % CPR) * 8;
-  const bf16* w_src = w + (size_t)(k_lo + w_r) * N + w_c;
-  bf16* w_dst = Ws + w_r * B_LD + w_c;
+  const int w_r = tid / CPR, w_c = (tid % CPR) * (16 / (int)sizeof(TW));
+  const TW* w_src = w + (size_t)(k_lo + w_r) * N + w_c;
+  TW* w_dst = Wr + w_r * R_LD + w_c;
   int ld_nt = 0, ld_kt = 0, ld_slot = 0;
   auto load_next = [&]() {
     if (ld_nt < my_tiles) {
       const int n0 = (tile0 + ld_nt) * BN, k0 = ld_kt * LT_BK;
-      const bf16* src = w_src + (size_t)k0 * N + n0;
-      bf16* dst = w_dst + (size_t)ld_slot * W_STAGE;
+      const TW* src = w_src + (size_t)k0 * N + n0;
+      TW* dst = w_dst + (size_t)ld_slot * R_STAGE;
       const bool n_ok = n0 + w_c < N;
 #pragma unroll
       for (int j = 0; j < LT_BK / W_ROWS; ++j) {
         const bool ok = n_ok && k0 + j * W_ROWS + w_r < k_len;
-        cp_async16(dst + j * W_ROWS * B_LD, ok ? src + (size_t)j * W_ROWS * N : w, ok);
+        cp_async16(dst + j * W_ROWS * R_LD, ok ? src + (size_t)j * W_ROWS * N : w, ok);
       }
       if (++ld_kt == KT) {
         ld_kt = 0;
@@ -330,9 +358,11 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
 
   // Where the ring holds the whole strip (total <= stages: the small-M
   // shapes, one N tile of at most twelve K tiles) every W tile is started now,
-  // and the products run through them behind one wait and one barrier.
+  // and the products run through them behind one wait and one barrier (K3q:
+  // one barrier a tile, for its staging tiles). K3q's ring keeps one tile
+  // more in flight: a slot is free once its tile is converted, a step ahead.
   const bool resident = total <= stages;
-  const int started = resident ? total : stages - 1;
+  const int started = resident ? total : stages - (Q ? 0 : 1);
   const int chunks = k_len / 8;
   if constexpr (PASS == RowPass::GEGLU) {
     // The first W tiles fly while the block forms u = a * gelu(g) of its rows
@@ -471,10 +501,40 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   const int a_off = (wm * WM + (lane & 15)) * A_LD + (lane >> 4) * 8;
   const int b_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
 
+  // K3q: the int8 W tile in ring slot `rs` into bf16 staging tile `sb`, 16
+  // values a thread a step (zero-filled rows and columns stay zero)
+  auto convert = [&](int rs, int sb) {
+    const TW* src = Wr + (size_t)rs * R_STAGE;
+    bf16* dst = Ws + (size_t)sb * W_STAGE;
+#pragma unroll
+    for (int u = 0; u < LT_BK * (BN / 16) / THREADS; ++u) {
+      const int c = tid + u * THREADS, r = c / (BN / 16), col = (c % (BN / 16)) * 16;
+      uint4 lo, hi;
+      int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo, hi);
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo;
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi;
+    }
+  };
+  if constexpr (Q) {  // W tile 0 into staging tile 0 (As is written by now, for this thread)
+    if (resident)
+      cp_async_wait<0>();
+    else
+      cp_async_wait_dyn(started - 1);  // x and W tile 0 have landed
+    __syncthreads();
+    convert(0, 0);
+  }
+
   float acc[MT][4][4];
   int kt = 0, nt = 0, slot = 0;
   for (int i = 0; i < total; ++i) {
-    if (!resident) {
+    if constexpr (Q) {
+      // W tile i + 1 has landed (for this thread) ... for all; staging tile
+      // i & 1 (converted a step ago) is written, the other and tile i's ring
+      // slot are free; at i = 0, As is written
+      if (!resident) cp_async_wait_dyn(stages - 2);
+      __syncthreads();
+      if (!resident) load_next();  // tile i + stages into tile i's slot
+    } else if (!resident) {
       cp_async_wait_dyn(stages - 2);  // W tile i has landed (for this thread)
       __syncthreads();  // ... for all, tile i-1's slot is free; at i = 0, As is written
       load_next();                    // tile i + stages - 1 into the slot tile i - 1 left
@@ -491,7 +551,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
     }
-    const bf16* Wt = Ws + (size_t)slot * W_STAGE + b_off;
+    const bf16* Wt = Ws + (size_t)(Q ? i & 1 : slot) * W_STAGE + b_off;
     if (++slot == stages) slot = 0;
     const bf16* At = As + a_off + kt * LT_BK;
     if (mma_warp) {
@@ -519,6 +579,11 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
       }
     }
     }
+    // K3q: tile i + 1 into the other staging tile, behind this tile's
+    // products, whose tensor-core work its loads and integer work overlap
+    if constexpr (Q) {
+      if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
+    }
 
     if (++kt == KT) {  // this N tile is complete: + bias, one rounding, 16-byte stores
       if (mma_warp && !split) {
@@ -540,6 +605,17 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
           }
         }
       }
+      float sv[4][2];  // K3q: the columns' scales
+      if constexpr (Q) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sc = nb + j * 8 + 2 * t;
+          const float2 s2 = sc < N ? *reinterpret_cast<const float2*>(wscale + sc)
+                                   : make_float2(0.f, 0.f);
+          sv[j][0] = s2.x;
+          sv[j][1] = s2.y;
+        }
+      }
       const int col = nb + t * 8;
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
@@ -558,6 +634,11 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
               v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0] + r2.x,
                                acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
             }
+          } else if constexpr (Q) {  // * wscale + bias in f32, one rounding
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = pack_bf16(fmaf(acc[mi][j][2 * half], sv[j][0], bv[j][0]),
+                               fmaf(acc[mi][j][2 * half + 1], sv[j][1], bv[j][1]));
           } else {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
@@ -625,12 +706,13 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   }
 }
 
-template <RowPass PASS, int BM, int BN>
+template <RowPass PASS, int BM, int BN, typename TW = bf16>
 static int row_block_launch(const void* x, const void* gamma, const void* beta, const void* w,
                             const void* bias, bool p16, const void* residual, void* out, int M,
                             int C, int N, float eps, int strip_tiles, int stages,
-                            cudaStream_t stream, int splits = 1) {
-  auto kern = row_block_matmul_bf16_kernel<PASS, BM, BN>;
+                            cudaStream_t stream, int splits = 1, const void* wscale = nullptr) {
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
+  auto kern = row_block_matmul_bf16_kernel<PASS, BM, BN, TW>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -640,19 +722,24 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
   }
   const int kt_all = (C + LT_BK - 1) / LT_BK, kt = (kt_all + splits - 1) / splits;
   if ((splits - 1) * kt >= kt_all) return (int)cudaErrorInvalidValue;  // an empty split
+  // A, then the ring (K3q: two bf16 staging tiles and an int8 ring)
   size_t smem = ((size_t)BM * (kt * LT_BK + LT_PAD) +
                  (size_t)stages * LT_BK * (BN + LT_PAD)) * sizeof(bf16);
+  if (Q)
+    smem = ((size_t)BM * (kt * LT_BK + LT_PAD) + (size_t)2 * LT_BK * (BN + LT_PAD)) *
+               sizeof(bf16) + (size_t)stages * LT_BK * (BN + 16);
   if (splits > 1 && smem < (size_t)BM * (BN + 4) * sizeof(float))
     smem = (size_t)BM * (BN + 4) * sizeof(float);  // the split epilogue's f32 tile
   if (smem > (size_t)LT_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int n_tiles = (N + BN - 1) / BN;
   dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles, (M + BM - 1) / BM, splits);
-  const bf16 *px = static_cast<const bf16*>(x), *pw = static_cast<const bf16*>(w),
-             *pr = static_cast<const bf16*>(residual);
+  const bf16 *px = static_cast<const bf16*>(x), *pr = static_cast<const bf16*>(residual);
+  const TW* pw = static_cast<const TW*>(w);
+  const float* ps = static_cast<const float*>(wscale);
   bf16* po = static_cast<bf16*>(out);
   if (splits == 1) {
-    kern<<<grid, LT_THREADS, smem, stream>>>(px, gamma, beta, pw, bias, p16, pr, po, M, C, N,
-                                             eps, strip_tiles, stages);
+    kern<<<grid, LT_THREADS, smem, stream>>>(px, gamma, beta, pw, ps, bias, p16, pr, po, M, C,
+                                             N, eps, strip_tiles, stages);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
@@ -666,8 +753,8 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
     attr[0].val.clusterDim.z = splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px, gamma, beta, pw, bias, p16, pr, po, M,
-                                         C, N, eps, strip_tiles, stages);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px, gamma, beta, pw, ps, bias, p16, pr, po,
+                                         M, C, N, eps, strip_tiles, stages);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -708,6 +795,41 @@ int a2k_ln_matmul_bf16(const void* x, const void* gamma, const void* beta, const
   if (bm == 64 && bn == 64)
     return a2k::row_block_launch<RowPass::LN, 64, 64>(x, gamma, beta, w, bias, p16, nullptr,
                                                       out, M, C, N, eps, strip_tiles, stages, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3q in bf16 with its launch plan: as a2k_ln_matmul_bf16 with wq: int8
+// [C, N] (N a multiple of 16) and wscale: f32 [N], out = LN(x) . wq * wscale
+// + bias; stages: 2 to 12 int8 W tiles in the ring (besides two bf16 staging
+// tiles).
+int a2k_ln_matmul_q_bf16(const void* x, const void* gamma, const void* beta, const void* wq,
+                         const void* wscale, const void* bias, int param_dtype, void* out, int M,
+                         int C, int N, float eps, int bm, int bn, int strip_tiles, int stages,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || C <= 0 || C > a2k::LT_MAX_C || N <= 0 || (C & 7) || (N & 15) ||
+      strip_tiles < 1 || stages < 2 || stages > 12 || (param_dtype != 0 && param_dtype != 1) ||
+      wscale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gamma) |
+       reinterpret_cast<uintptr_t>(beta) | reinterpret_cast<uintptr_t>(wq) |
+       reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  using a2k::RowPass;
+  if (bm == 128 && bn == 128)
+    return a2k::row_block_launch<RowPass::LN, 128, 128, int8_t>(
+        x, gamma, beta, wq, bias, p16, nullptr, out, M, C, N, eps, strip_tiles, stages, s, 1,
+        wscale);
+  if (bm == 64 && bn == 128)
+    return a2k::row_block_launch<RowPass::LN, 64, 128, int8_t>(
+        x, gamma, beta, wq, bias, p16, nullptr, out, M, C, N, eps, strip_tiles, stages, s, 1,
+        wscale);
+  if (bm == 64 && bn == 64)
+    return a2k::row_block_launch<RowPass::LN, 64, 64, int8_t>(
+        x, gamma, beta, wq, bias, p16, nullptr, out, M, C, N, eps, strip_tiles, stages, s, 1,
+        wscale);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -410,37 +410,46 @@ def _ladder_slots(cfg: UNetConfig, c: int):
     return [(3 * c, 2)] + [(c, 1) if cd is not None else (None, 2) for cd in cfg.context_dims]
 
 
-def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
+                     weight_quant: Optional[str] = None) -> dict:
     """{(M, C, N): calls} of the K3 launches of one unquantized apply_unet
     call on a [batch, latent_t, latent_f] latent: per transformer block the
     fused QKV (N = 3C), attn2's LN-fused projection and the GEGLU proj_in
     (N = 8C), with M = batch x the ladder's tokens. The calls sum to
-    kernel_launches_per_forward(cfg)["ln_matmul"]."""
+    kernel_launches_per_forward(cfg)["ln_matmul"]. With weight_quant
+    "int8": those of the K3q launches of a quantized forward, which sum to
+    kernel_launches_per_forward(cfg, "int8")["ln_matmul_q"]."""
+    q = weight_quant == "int8"
     shapes: dict = {}
     _, ladders, ladder_ds = _layout(cfg)
     for c, ds in zip(ladders, ladder_ds):
         m = batch * (latent_t // ds) * (latent_f // ds)
         for attn2_n, _ in _ladder_slots(cfg, c):
             for n in (3 * c, attn2_n, 8 * c):
-                if n is not None:
+                if n is not None and (not q or _st_linear_quantizable(c, n)):
                     key = (m, c, n)
                     shapes[key] = shapes.get(key, 0) + cfg.transformer_depth
     return shapes
 
 
-def conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+def conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
+                weight_quant: Optional[str] = None) -> dict:
     """{(B, T, F, C1, C2, Cout): calls} of the K1 launches of one
     unquantized apply_unet call on a [batch, latent_t, latent_f] latent:
     per ResBlock the in_conv over [x1 ; x2] (C2 > 0 in the decoder, whose
     skip tensor is the second part) and the out_conv, at the block's level
     (a stride-2 SAME downsample gives ceil(n / 2)). The calls sum to
-    kernel_launches_per_forward(cfg)["gn_silu_conv3x3"]."""
+    kernel_launches_per_forward(cfg)["gn_silu_conv3x3"]. With weight_quant
+    "int8": those of the K1q launches of a quantized forward, which sum to
+    kernel_launches_per_forward(cfg, "int8")["gn_silu_conv3x3_q"]."""
+    q = weight_quant == "int8"
     shapes: dict = {}
     res, _, _ = _layout(cfg)
     for c1, c2, cout, ds in res:
         t, f = -(-latent_t // ds), -(-latent_f // ds)
         for key in ((batch, t, f, c1, c2, cout), (batch, t, f, cout, 0, cout)):
-            shapes[key] = shapes.get(key, 0) + 1
+            if not q or _conv_quantizable(key[3] + key[4], cout):
+                shapes[key] = shapes.get(key, 0) + 1
     return shapes
 
 

@@ -50,11 +50,15 @@ SIGNATURES = {
     "a2k_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P],
     "a2k_gn_silu_conv3x3_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_gn_silu_conv3x3_q_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _I, _P],
     "a2k_flash_attention": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P],
     "a2k_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "a2k_ln_matmul_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "a2k_ln_matmul_q_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                             _P],
     "a2k_geglu_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_geglu_matmul_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -111,6 +115,7 @@ SM_SMEM = 233472  # shared memory of one SM; each block also reserves 1 KB
 _GEGLU_REGS = {(64, 128): 120, (64, 64): 120, (32, 128): 120, (32, 64): 121, (16, 128): 121,
                (16, 64): 121}
 _CONV_REGS = {(256, 64): 152, (128, 128): 152, (64, 128): 100, (64, 64): 80}
+_CONV_Q_REGS = {(256, 64): 159, (128, 128): 162, (64, 128): 118, (64, 64): 74}  # K1q's
 
 
 def blocks_per_sm(smem: int, regs: int, threads: int = 256) -> int:
@@ -125,6 +130,17 @@ def _waves_cost(blocks: int, sms: int, occ: int, block_cost: float, share: float
     return -(-blocks // (sms * occ)) * block_cost * (1 + (occ - 1) * share)
 _LNMM_BLOCK_COST = 1.0e6
 _LNMM_RING_TILE_COST = 1.0e5
+# K3q and K1q (int8 weights on the same kernels): a ring row of an int8 W
+# tile is padded by LNMM_Q_PAD bytes and two bf16 staging tiles sit beside
+# the ring. K3q's plan: converting one int8 W element into a staging tile
+# costs _Q_CVT_COST, with the barrier each tile then needs even in a resident
+# ring; the ring runs LNMMQ_RING_STAGES deep where it does not hold the
+# strip. It is within 1% of the fastest choice tools/tune_k1_k4.py --only
+# k3q measured, over a full8 forward's calls (see PERF.md).
+LNMM_Q_PAD = 16
+LNMMQ_RING_STAGES = 6
+_Q_CVT_COST = 10.0
+_Q_TILE_BARRIER_COST = 1.0e5
 # A plan may leave up to this share of the SMs it could fill idle, and only
 # for a grid of one wave: measured, one wave of long strips on 96 to 128 SMs
 # beats a second, ragged wave of short ones by 25 to 35%.
@@ -259,11 +275,17 @@ class LnMatmulPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def ln_matmul_plan(m: int, c: int, n: int, sms: int) -> Optional[LnMatmulPlan]:
+def ln_matmul_plan(m: int, c: int, n: int, sms: int, w_bytes: int = 2) -> Optional[LnMatmulPlan]:
     """The launch plan of the bf16 K3 kernel for x [m, c] . w [c, n] on a
     card with ``sms`` SMs, or None for a shape it does not take (c or n not
     a multiple of 8, whose rows 16-byte copies cannot address, or c above
     LNMM_MAX_C); such shapes go to the shared GEMM core.
+
+    ``w_bytes`` 1: K3q's plan, an int8 w on the same kernel (n a multiple of
+    16): the ring's tiles take half the bytes beside two bf16 staging tiles
+    (``row_block_smem``), a ring that does not hold the strip runs
+    LNMMQ_RING_STAGES deep, and every W tile costs its conversion and a
+    barrier.
 
     Every (bm, bn) the kernel is built for and every strip length is a
     candidate if its grid fills the SMs the shape could fill, min(sms, row
@@ -276,7 +298,26 @@ def ln_matmul_plan(m: int, c: int, n: int, sms: int) -> Optional[LnMatmulPlan]:
     split-K: the whole K = c lies in the block's shared memory."""
     if c > LNMM_MAX_C:
         return None
+    if w_bytes == 1:
+        if n % 16:
+            return None
+        return _row_block_plan(m, c, n, sms, _LNMM_TILE_COST, _LNMM_LN_COST,
+                               ring_stages=LNMMQ_RING_STAGES, w_bytes=1)
     return _row_block_plan(m, c, n, sms, _LNMM_TILE_COST, _LNMM_LN_COST)
+
+
+def row_block_smem(bm: int, bn: int, a_cols: int, stages: int, w_bytes: int = 2,
+                   splits: int = 1) -> int:
+    """Shared memory of one block of the row-block kernel: the A tile [bm,
+    a_cols] in bf16 and the ring of ``stages`` W tiles (int8, K3q: two bf16
+    staging tiles beside a ring of int8 tiles); a split's f32 tile [bm,
+    bn + 4] reuses the same memory."""
+    a_bytes = bm * (a_cols + LNMM_PAD) * 2
+    if w_bytes == 1:
+        ring = 2 * LNMM_BK * (bn + LNMM_PAD) * 2 + stages * LNMM_BK * (bn + LNMM_Q_PAD)
+    else:
+        ring = stages * LNMM_BK * (bn + LNMM_PAD) * 2
+    return max(a_bytes + ring, bm * (bn + 4) * 4 if splits > 1 else 0)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -302,15 +343,17 @@ def geglu_matmul_plan(m: int, f: int, n: int, sms: int,
 
 
 def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=4,
-                    max_splits=1) -> Optional[LnMatmulPlan]:
+                    max_splits=1, w_bytes=2) -> Optional[LnMatmulPlan]:
     """The candidates and model of ln_matmul_plan (regs None: one block per
-    SM, four ring stages, no split) and of geglu_matmul_plan (regs:
-    blocks_per_sm, up to ``ring_stages``, K split over a cluster of up to
-    ``max_splits`` blocks, each holding only its share of A); ``tile_costs``
-    maps each (bm, bn) the kernel is built for to its cost per multiply-add."""
+    SM, four ring stages, no split; w_bytes 1, K3q: int8 W tiles converted
+    into staging tiles) and of geglu_matmul_plan (regs: blocks_per_sm, up to
+    ``ring_stages``, K split over a cluster of up to ``max_splits`` blocks,
+    each holding only its share of A); ``tile_costs`` maps each (bm, bn) the
+    kernel is built for to its cost per multiply-add."""
     if m < 1 or c < 8 or n < 8 or c % 8 or n % 8:
         return None
     k_tiles = -(-c // LNMM_BK)
+    q = w_bytes == 1
     best, best_cost = None, None
     for bm, bn in tile_costs:
         row_blocks, n_tiles = -(-m // bm), -(-n // bn)
@@ -321,8 +364,8 @@ def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=
             if splits != want:
                 continue
             cp = kps * LNMM_BK
-            a_bytes = bm * (cp + LNMM_PAD) * 2
-            stage_bytes = LNMM_BK * (bn + LNMM_PAD) * 2
+            a_bytes = row_block_smem(bm, bn, cp, 0, w_bytes)
+            stage_bytes = row_block_smem(bm, bn, cp, 1, w_bytes) - a_bytes
             fit = (LNMM_MAX_SMEM - a_bytes) // stage_bytes
             if fit < 2:
                 continue
@@ -346,12 +389,14 @@ def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=
                 else:
                     depths = sorted({2, min(fit, 3), min(fit, ring_stages)})
                 for stages in depths:
-                    smem = max(a_bytes + stages * stage_bytes,
-                               bm * (bn + 4) * 4 if splits > 1 else 0)
+                    smem = row_block_smem(bm, bn, cp, stages, w_bytes, splits)
                     if regs is None:
                         block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
                                       + strip_tiles * tile_cost
                                       + (0 if resident else total * _LNMM_RING_TILE_COST))
+                        if q:
+                            block_cost += total * (LNMM_BK * bn * _Q_CVT_COST
+                                                   + _Q_TILE_BARRIER_COST)
                         cost = -(-blocks // sms) * block_cost
                     else:
                         block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
@@ -388,6 +433,28 @@ _CONV_RING_COST = 2.5e6  # a W tile's wait, shared by the stages in flight
 _CONV_SM_SHARE = 0.16
 
 
+class _ConvModel(NamedTuple):
+    tile_cost: Dict[Tuple[int, int], float]
+    block: float
+    act: float
+    ring: float
+    red: float
+    share: float
+    regs: Dict[Tuple[int, int], int]
+
+
+_CONV_MODEL = _ConvModel(_CONV_TILE_COST, _CONV_BLOCK_COST, _CONV_ACT_COST, _CONV_RING_COST,
+                         _CONV_RED_COST, _CONV_SM_SHARE, _CONV_REGS)
+# K1q's model: the same terms on the same tiles, fitted apart to
+# tools/tune_k1_k4.py --only k1q on an H100 (see PERF.md): a deeper int8 ring
+# buys nothing measurable (its slots free a step early), co-resident blocks
+# overlap each other more, and the tiles' costs per multiply-add (with the
+# conversion pass) differ
+_CONV_Q_MODEL = _ConvModel({(256, 64): 1.05, (128, 128): 0.8, (64, 128): 1.3, (64, 64): 1.6},
+                           _CONV_BLOCK_COST, _CONV_ACT_COST, 0.0, _CONV_RED_COST, 0.5,
+                           _CONV_Q_REGS)
+
+
 class ConvPlan(NamedTuple):
     """How the bf16 K1 kernel covers a [B, T, F, Cin] -> Cout conv: blocks
     of tt x ft output positions of one sample (at most ``bm`` rows of the
@@ -409,21 +476,29 @@ class ConvPlan(NamedTuple):
     smem_bytes: int
 
 
-def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int) -> int:
-    """Two patch buffers, the chunk's a and c (two buffers) and the W ring;
-    the split epilogue's f32 tile [bm, bn + 4] reuses the same memory."""
-    main = (2 * (tt + 2) * (ft + 2) * CONV_LD * 2 + 4 * CONV_CK * 4
-            + stages * CONV_CK * (bn + CONV_PAD) * 2)
+def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int, w_bytes: int = 2) -> int:
+    """Two patch buffers, the chunk's a and c (two buffers) and the W ring
+    (``w_bytes`` 1, K1q: two bf16 staging tiles and a ring of int8 tiles
+    whose rows are padded by LNMM_Q_PAD bytes); the split epilogue's f32
+    tile [bm, bn + 4] reuses the same memory."""
+    if w_bytes == 1:
+        ring = 2 * CONV_CK * (bn + CONV_PAD) * 2 + stages * CONV_CK * (bn + LNMM_Q_PAD)
+    else:
+        ring = stages * CONV_CK * (bn + CONV_PAD) * 2
+    main = 2 * (tt + 2) * (ft + 2) * CONV_LD * 2 + 4 * CONV_CK * 4 + ring
     return max(main, bm * (bn + 4) * 4)
 
 
 @functools.lru_cache(maxsize=1024)
 def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
-                      dtype: str = "bf16") -> Optional[ConvPlan]:
+                      dtype: str = "bf16", w_bytes: int = 2) -> Optional[ConvPlan]:
     """The launch plan of the bf16 K1 kernel, or None for what it does not
     take (f32, Cin or Cout not a multiple of 8); the wrapper sends those,
     and unaligned pointers or concat parts no multiple of 8, to the shared
-    GEMM core.
+    GEMM core. ``w_bytes`` 1: K1q's plan, an int8 weight on the same kernel
+    (Cout a multiple of 16), its ring's tiles half the bytes beside two bf16
+    staging tiles (``conv_smem_bytes``), under its own constants
+    (``_CONV_Q_MODEL``).
 
     A block's tile is ft = min(F, bm) positions wide in F and as many rows
     of T as fit in bm (at most T). Candidates: each (bm, bn), each split of
@@ -436,23 +511,24 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
     cluster's reduction; the grid runs in waves of the blocks the SMs hold
     at once (_waves_cost)."""
     if (dtype != "bf16" or min(b, t, f) < 1 or cin < 8 or cout < 8 or cin % 8
-            or cout % 8):
+            or cout % (16 if w_bytes == 1 else 8)):
         return None
     k_chunks = -(-cin // CONV_CK)
+    model = _CONV_Q_MODEL if w_bytes == 1 else _CONV_MODEL
     best, best_cost = None, None
     for (bm, bn), stages in itertools.product(CONV_TILES, CONV_STAGES):
         ft = min(f, bm)
         tt = min(bm // ft, t)
-        smem = conv_smem_bytes(bm, bn, tt, ft, stages)
+        smem = conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes)
         if smem > LNMM_MAX_SMEM:
             continue
         m_tiles = b * -(-t // tt) * -(-f // ft)
         n_tiles = -(-cout // bn)
-        occ = blocks_per_sm(smem, _CONV_REGS[(bm, bn)])
+        occ = blocks_per_sm(smem, model.regs[(bm, bn)])
         fill = min(sms, m_tiles * n_tiles * min(CONV_MAX_SPLITS, k_chunks))
-        chunk_cost = ((tt + 2) * (ft + 2) * CONV_CK * _CONV_ACT_COST
-                      + 9 * bm * bn * CONV_CK * _CONV_TILE_COST[(bm, bn)]
-                      + 9 * _CONV_RING_COST / (stages - 1))
+        chunk_cost = ((tt + 2) * (ft + 2) * CONV_CK * model.act
+                      + 9 * bm * bn * CONV_CK * model.tile_cost[(bm, bn)]
+                      + 9 * model.ring / (stages - 1))
         for want in range(1, min(CONV_MAX_SPLITS, k_chunks) + 1):
             cps = -(-k_chunks // want)
             splits = -(-k_chunks // cps)  # no empty split
@@ -462,9 +538,9 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
                 blocks = m_tiles * strips * splits
                 if blocks < fill and (blocks > sms or blocks < LNMM_MIN_FILL * fill):
                     continue
-                block_cost = (_CONV_BLOCK_COST + strip_tiles * cps * chunk_cost
-                              + (bm * bn * splits * _CONV_RED_COST if splits > 1 else 0))
-                cost = _waves_cost(blocks, sms, occ, block_cost, _CONV_SM_SHARE)
+                block_cost = (model.block + strip_tiles * cps * chunk_cost
+                              + (bm * bn * splits * model.red if splits > 1 else 0))
+                cost = _waves_cost(blocks, sms, occ, block_cost, model.share)
                 if best_cost is None or cost < best_cost:
                     best_cost = cost
                     best = ConvPlan(bm, bn, tt, ft, CONV_CK, k_chunks, strip_tiles, stages,

@@ -9,11 +9,14 @@ each block forms its rows' A tile once in shared memory (K3 the LayerNorm,
 K4 the gate product a * gelu(g)) and walks a strip of N tiles; parameters
 are read as stored. In f32, or at a shape a plan does not take, they
 compute their A tile as the shared GEMM core loads it.
-K3q and K4q are the same kernels on the Pallas functions' ``w_scale``
-path: an int8 weight tile converted to bf16 in shared memory, the A tile
-rounded to bf16 whatever x's dtype, and the per-column scale applied to
-the f32 accumulator. K5 replaces ``lnmm_pallas.int8_matmul``: a plain
-GEMM with the int8 weight, whose activation stays in x's dtype.
+K3q and K4q are the Pallas functions' ``w_scale`` path: an int8 weight
+tile converted to bf16 in shared memory, the A tile rounded to bf16
+whatever x's dtype, and the per-column scale applied to the f32
+accumulator. K3q in bf16 runs K3's row-block kernel with an int8 ring
+(``_build.ln_matmul_plan(..., w_bytes=1)``); K3q in f32, and K4q, run the
+shared GEMM core. K5 replaces
+``lnmm_pallas.int8_matmul``: a plain GEMM with the int8 weight, whose
+activation stays in x's dtype.
 
 Each wrapper takes the plain version for CPU tensors and the kernel for
 CUDA tensors; the ``*_plain`` functions are the oracles.
@@ -141,26 +144,33 @@ def _ln(name, x, ln_scale, ln_bias, w, ws, bias, eps):
 _ln_params = _build.params_as_stored
 
 
-def _ln_bf16(name, x, ln_scale, ln_bias, w, bias, eps):
-    """The bf16 K3 kernel under its launch plan, or None for a shape or an
-    alignment it does not take."""
+def _ln_bf16(name, x, ln_scale, ln_bias, w, bias, eps, ws=None):
+    """The bf16 K3 kernel (ws None) or K3q (w int8, ws its f32 scale) under
+    its launch plan, or None for a shape or an alignment it does not take.
+    The parameters, wq and ws are read as stored."""
     x = x.contiguous()
     c = x.shape[-1]
-    n = _weight(name, x, w, None, c)
+    n = _weight(name, x, w, ws, c)
     m = x.numel() // c
     dev = x.device
-    plan = _build.ln_matmul_plan(m, c, n, _build.sm_count(dev.index or 0)) if m else None
+    w_bytes = 2 if ws is None else 1
+    plan = (_build.ln_matmul_plan(m, c, n, _build.sm_count(dev.index or 0), w_bytes)
+            if m else None)
     (gamma, beta, b), param_code = _ln_params(dev, ln_scale, ln_bias, bias)
     if gamma.shape != (c,) or beta.shape != (c,) or (b is not None and b.shape != (n,)):
         raise ValueError(f"{name}: LN parameters must be [{c}] and the bias [{n}]")
-    if plan is None or not _build.aligned16(x, w, gamma, beta, b):
+    if plan is None or not _build.aligned16(x, w, ws, gamma, beta, b):
         return None
     out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
-    _build.check(_build.lib().a2k_ln_matmul_bf16(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), _ptr(b), param_code,
-        out.data_ptr(), m, c, n, float(eps), plan.bm, plan.bn, plan.strip_tiles, plan.stages,
-        _build.stream_of(x),
-    ), name)
+    lib = _build.lib()
+    head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr())
+    tail = (_ptr(b), param_code, out.data_ptr(), m, c, n, float(eps), plan.bm, plan.bn,
+            plan.strip_tiles, plan.stages)
+    if ws is None:
+        rc = lib.a2k_ln_matmul_bf16(*head, *tail, _build.stream_of(x))
+    else:
+        rc = lib.a2k_ln_matmul_q_bf16(*head, ws.data_ptr(), *tail, _build.stream_of(x))
+    _build.check(rc, name)
     return out
 
 
@@ -232,7 +242,11 @@ def ln_matmul_q(x: torch.Tensor, ln_scale, ln_bias, wq, ws,
     """x: [..., C]; wq: int8 [C, N]; ws: f32 [N]; returns [..., N] in x.dtype."""
     if not x.is_cuda:
         return ln_matmul_q_plain(x, ln_scale, ln_bias, wq, ws, bias, eps)
-    out = _ln("ln_matmul_q", x, ln_scale, ln_bias, wq, _f32(ws, x.device), bias, eps)
+    ws = _f32(ws, x.device)
+    out = (_ln_bf16("ln_matmul_q", x, ln_scale, ln_bias, wq, bias, eps, ws)
+           if x.dtype == BF16 else None)
+    if out is None:  # f32, or a shape or an alignment the plan declines: the shared core
+        out = _ln("ln_matmul_q", x, ln_scale, ln_bias, wq, ws, bias, eps)
     ln_matmul_q.launches += 1
     return out
 

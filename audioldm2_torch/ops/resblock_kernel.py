@@ -11,10 +11,13 @@ mma.sync, a thread-block cluster splitting the input channels at small M);
 in f32, and at the shapes the plan declines, it runs on the shared GEMM
 core. ``x2`` is the decoder's skip tensor, read in place of a materialized
 channel concat. K1q replaces ``gn_silu_conv3x3_q`` (the int8 serving mode):
-the same statistics, then the shared core with an int8 weight
-[3, 3, Cin, Cout] and a per-output-channel f32 scale. The GroupNorm scale
-and bias (and K1's bf16 conv bias) are read as stored: no conversion kernel
-runs before a bf16 K1 launch.
+the same statistics, then, in bf16, the same conv kernel with an int8
+weight [3, 3, Cin, Cout] streamed as int8 tiles and converted in shared
+memory, and a per-output-channel f32 scale applied to the f32 sums
+(``_build.gn_silu_conv_plan(..., w_bytes=1)``); in f32, and at the shapes
+the plan declines, the shared core. The GroupNorm scale and bias, the conv
+bias, and K1q's int8 weight and f32 scale are read as stored: no
+conversion kernel runs before a bf16 K1 or K1q launch.
 
 :func:`gn_silu_conv3x3` and :func:`gn_silu_conv3x3_q` take their plain
 versions for CPU tensors and the kernels for CUDA tensors; the ``*_plain``
@@ -92,30 +95,65 @@ def gn_stats(x1, x2, gn_scale, gn_bias, groups: int = 32, eps: float = 1e-5):
     return ac[0], ac[1]
 
 
-def _conv_bf16(x1, x2, a, c, w, b, out):
-    """The bf16 K1 kernel under its launch plan; False (nothing launched)
-    for a shape or an alignment it does not take."""
+def _conv_bf16(x1, x2, a, c, w, b, out, ws=None):
+    """The bf16 K1 kernel (ws None) or K1q (w int8, ws its f32 scale) under
+    its launch plan; False (nothing launched) for a shape or an alignment it
+    does not take."""
     bsz, t, f, c1 = x1.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     cout = w.shape[-1]
     dev = x1.device
-    plan = _build.gn_silu_conv_plan(bsz, t, f, c1 + c2, cout, _build.sm_count(dev.index or 0))
+    plan = _build.gn_silu_conv_plan(bsz, t, f, c1 + c2, cout, _build.sm_count(dev.index or 0),
+                                    w_bytes=2 if ws is None else 1)
     (bias,), param_code = _build.params_as_stored(dev, b)
-    if plan is None or c1 % 8 or c2 % 8 or not _build.aligned16(x1, x2, a, c, w, bias, out):
+    if plan is None or c1 % 8 or c2 % 8 or not _build.aligned16(x1, x2, a, c, w, ws, bias, out):
         return False
-    _build.check(_build.lib().a2k_gn_silu_conv3x3_bf16(
-        x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(), c.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), param_code, out.data_ptr(), bsz, t, f, c1, c2, cout,
-        plan.bm, plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages, plan.splits,
-        _build.stream_of(x1),
-    ), "gn_silu_conv3x3")
+    head = (x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(), c.data_ptr(),
+            w.data_ptr())
+    tail = (bias.data_ptr(), param_code, out.data_ptr(), bsz, t, f, c1, c2, cout, plan.bm,
+            plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages, plan.splits,
+            _build.stream_of(x1))
+    lib = _build.lib()
+    if ws is None:
+        rc = lib.a2k_gn_silu_conv3x3_bf16(*head, *tail)
+    else:
+        rc = lib.a2k_gn_silu_conv3x3_q_bf16(*head, ws.data_ptr(), *tail)
+    _build.check(rc, "gn_silu_conv3x3" if ws is None else "gn_silu_conv3x3_q")
     return True
+
+
+def _conv_shared_core(name, x1, x2, a, c, w, ws, b, out):
+    """The conv on the shared GEMM core: K1 (ws None, w in x1.dtype) or K1q
+    (w int8, ws its f32 scale), any dtype and alignment; a split-K
+    workspace where M is small."""
+    bsz, t, f, c1 = x1.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    cout = w.shape[-1]
+    dev = x1.device
+    bias = b.to(dev, torch.float32).contiguous()
+    lib = _build.lib()
+    dt = _build.dtype_code(x1)
+    stream = _build.stream_of(x1)
+    x2_ptr = None if x2 is None else x2.data_ptr()
+    vec_a = c1 % 8 == 0 and c2 % 8 == 0 and _build.aligned16(x1, x2)
+    work, k_split, vec = _build.gemm_launch_args(dev, bsz * t * f, cout, 9 * (c1 + c2), vec_a, w)
+    work_ptr = None if work is None else work.data_ptr()
+    if ws is None:
+        rc = lib.a2k_gn_silu_conv3x3(
+            x1.data_ptr(), x2_ptr, a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), bsz, t, f, c1, c2, cout, work_ptr, k_split, vec, dt, stream)
+    else:
+        rc = lib.a2k_gn_silu_conv3x3_q(
+            x1.data_ptr(), x2_ptr, a.data_ptr(), c.data_ptr(), w.data_ptr(), ws.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), bsz, t, f, c1, c2, cout, work_ptr, k_split, vec,
+            dt, stream)
+    _build.check(rc, name)
 
 
 def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
     """The GroupNorm statistics pass, then the conv: K1 (ws None, w in
-    x1.dtype) on its bf16 kernel where the plan takes the shape, else K1 or
-    K1q (w int8, ws its f32 scale) on the shared GEMM core."""
+    x1.dtype) or K1q (w int8, ws its f32 scale) on the bf16 kernel where x1
+    is bf16 and the plan takes the shape, else on the shared GEMM core."""
     parts = (x1,) if x2 is None else (x1, x2)
     _build.require_cuda(name, *parts)
     if ws is None:
@@ -137,27 +175,9 @@ def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
     dev = x1.device
     a, c = gn_stats(x1, x2, gn_scale, gn_bias, groups, eps)
     out = torch.empty((bsz, t, f, cout), device=dev, dtype=x1.dtype)
-    if ws is None and x1.dtype == BF16 and _conv_bf16(x1, x2, a, c, w, b, out):
-        return out
-    # the shared core: f32, K1q, and the bf16 shapes the plan declines
-    bias = b.to(dev, torch.float32).contiguous()
-    lib = _build.lib()
-    dt = _build.dtype_code(x1)
-    stream = _build.stream_of(x1)
-    x2_ptr = None if x2 is None else x2.data_ptr()
-    vec_a = c1 % 8 == 0 and c2 % 8 == 0 and _build.aligned16(x1, x2)
-    work, k_split, vec = _build.gemm_launch_args(dev, bsz * t * f, cout, 9 * cin, vec_a, w)
-    work_ptr = None if work is None else work.data_ptr()
-    if ws is None:
-        rc = lib.a2k_gn_silu_conv3x3(
-            x1.data_ptr(), x2_ptr, a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), bsz, t, f, c1, c2, cout, work_ptr, k_split, vec, dt, stream)
-    else:
-        rc = lib.a2k_gn_silu_conv3x3_q(
-            x1.data_ptr(), x2_ptr, a.data_ptr(), c.data_ptr(), w.data_ptr(), ws.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), bsz, t, f, c1, c2, cout, work_ptr, k_split, vec,
-            dt, stream)
-    _build.check(rc, name)
+    if x1.dtype != BF16 or not _conv_bf16(x1, x2, a, c, w, b, out, ws):
+        # f32, and the bf16 shapes the plan declines
+        _conv_shared_core(name, x1, x2, a, c, w, ws, b, out)
     return out
 
 

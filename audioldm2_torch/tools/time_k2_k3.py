@@ -1,7 +1,7 @@
 """Time K1 (GroupNorm + SiLU + 3x3 conv), K2 (flash self-attention), K3
-(LayerNorm + matmul) and K4 (GEGLU + matmul) on the card at every shape one
-forward gives them, call by call and summed per forward, so that two trees
-of the package can be compared under one timer.
+(LayerNorm + matmul), K4 (GEGLU + matmul) and the int8 K1q and K3q on the
+card at every shape one forward gives them, call by call and summed per
+forward, so that two trees of the package can be compared under one timer.
 
 Forwards: the t5 UNet at CFG batch 2 and the large-1150k UNet at CFG batch 6
 (``unet.self_attention_shapes``, ``unet.ln_matmul_shapes``,
@@ -20,7 +20,14 @@ cast parameter tree holds them:
   K3  with a bias where the UNet has one (the GEGLU proj_in, N = 8C), and
       the SHA-256 of its output, to show that two trees give the same bytes;
   K4  the whole call, and as a yardstick torch.matmul(u, W) on the gate
-      product already materialised.
+      product already materialised;
+  K1q and K3q on the audioldm2-full UNet in the int8 serving mode at CFG
+      batch 2 ("full8": ``weight_quant="int8"`` of the shape functions),
+      K1q whole, its statistics pass and its conv apart, each with int8
+      weights and f32 scales as the quantized tree holds them, and beside
+      each the bf16 K1 or K3 at the same shape on the dequantized weight
+      rounded to bf16 (int8 should cost no more), with the SHA-256 of K1q's
+      and K3q's outputs (two runs of one tree give the same bytes).
 Each call is checked against its plain version first, then timed with
 ``timing.cuda_ms``: with the device held while the host queues the calls
 (device time) and without the hold (a call shorter than its launch then
@@ -31,6 +38,10 @@ into that tree's ``audioldm2_torch/tools/`` and pass this tree's JSON with
 ``--shapes-from`` (an earlier tree may lack the shape functions). A tree
 without ``resblock_kernel.gn_stats`` has its statistics pass timed through
 its C entry point ``a2k_gn_stats`` with f32 parameters.
+
+``--no-check`` skips the comparison with the plain versions, to time an
+ablation: a copy of the tree built with a part of a kernel compiled out,
+whose output is then wrong by design.
 
 Usage (on a machine with an NVIDIA GPU):
   python -m audioldm2_torch.tools.time_k2_k3 --json OUT.json
@@ -53,15 +64,18 @@ from audioldm2_torch.tools.timing import cuda_ms
 
 FORWARDS = (("t5", "audioldm_16k_crossattn_t5", 2), ("large", "audioldm2-full-large-1150k", 6))
 VAE_FORWARD = ("t5_vae", "audioldm_16k_crossattn_t5", 1)
+INT8_FORWARD = ("full8", "audioldm2-full", 2)
 BF16_TOL = 2e-2
 BF16 = torch.bfloat16
+CHECK_PLAIN = True  # --no-check clears it
 
 
 def main_path_shapes() -> dict:
     """{"k1": [[(B, T, F, C1, C2, Cout), {forward: calls}]], "k2": [[shape,
     {forward: [fused calls, separate calls]}]], "k3": [[(M, C, N), {forward:
-    calls}]], "k4": [[(M, F, N), {forward: calls}]]} from this tree's
-    configs; K1's forwards include the t5 VAE decode at batch 1."""
+    calls}]], "k4": [[(M, F, N), {forward: calls}]], "k1q", "k3q": as K1 and
+    K3 on the full8 forward} from this tree's configs; K1's forwards include
+    the t5 VAE decode at batch 1."""
     import audioldm2_torch as at
     from audioldm2_torch.models import unet, vae
 
@@ -80,11 +94,19 @@ def main_path_shapes() -> dict:
     for shape, calls in vae.decode_conv_shapes(cfg.vae, batch, cfg.latent_t_size,
                                                cfg.latent_f_size).items():
         k1.setdefault(shape, {})[tag] = calls
+    tag, name, batch = INT8_FORWARD
+    cfg = at.default_audioldm_config(name)
+    size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+    k1q = {s: {tag: c} for s, c in unet.conv_shapes(*size, weight_quant="int8").items()}
+    k3q = {s: {tag: c} for s, c in unet.ln_matmul_shapes(*size, weight_quant="int8").items()}
     return {key: [[list(s), c] for s, c in sorted(table.items(), reverse=True)]
-            for key, table in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4))}
+            for key, table in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4), ("k1q", k1q),
+                               ("k3q", k3q))}
 
 
 def _checked(got, want, what):
+    if not CHECK_PLAIN:
+        return
     err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
     if not err <= BF16_TOL:
         raise AssertionError(f"{what}: rel {err:.3e} > {BF16_TOL}")
@@ -193,17 +215,78 @@ def time_k4(shape, device) -> dict:
             "sha256": sha256(got)}
 
 
+def _int8(g, device, *dims):
+    """An int8 weight and its f32 per-column scale, as ops.quant makes them."""
+    wq = torch.randint(-127, 128, dims, generator=g, device=device).to(torch.int8)
+    return wq, torch.rand(dims[-1], generator=g, device=device) * 0.01 + 1e-3
+
+
+def time_k1q(shape, device) -> dict:
+    bsz, t, f, c1, c2, cout = shape
+    cin = c1 + c2
+    g = torch.Generator(device=device).manual_seed(0)
+    x1 = _rnd(g, device, bsz, t, f, c1, offset=1.0)
+    x2 = _rnd(g, device, bsz, t, f, c2) if c2 else None
+    wq, ws = _int8(g, device, 3, 3, cin, cout)
+    args = (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin), wq, ws,
+            _rnd(g, device, cout), 32, 1e-5)
+    got = resblock_kernel.gn_silu_conv3x3_q(*args)
+    _checked(got, resblock_kernel.gn_silu_conv3x3_q_plain(*args), f"K1q {shape}")
+    whole = _both(lambda: resblock_kernel.gn_silu_conv3x3_q(*args))
+    stats = _both(_stats_call(x1, x2, args[2], args[3], 32, 1e-5))
+    w16 = (wq.float() * ws).to(BF16)
+    sibling = cuda_ms(lambda: resblock_kernel.gn_silu_conv3x3(x1, x2, args[2], args[3], w16,
+                                                              args[6], 32, 1e-5)) * 1e3
+    return {"whole": whole, "stats": stats,
+            "conv": {k: whole[k] - stats[k] for k in whole}, "sibling_held_us": sibling,
+            "sibling_conv_held_us": sibling - stats["held_us"], "sha256": sha256(got)}
+
+
+def time_k3q(shape, device) -> dict:
+    m, c, n = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    x = _rnd(g, device, 1, m, c, offset=3.0)
+    wq, ws = _int8(g, device, c, n)
+    args = (x, _rnd(g, device, c), _rnd(g, device, c), wq, ws,
+            _rnd(g, device, n) if n == 8 * c else None, 1e-5)
+    got = lnmm_kernel.ln_matmul_q(*args)
+    _checked(got, lnmm_kernel.ln_matmul_q_plain(*args), f"K3q {shape}")
+    w16 = (wq.float() * ws).to(BF16)
+    sibling = cuda_ms(lambda: lnmm_kernel.ln_matmul(x, args[1], args[2], w16, args[5],
+                                                    1e-5)) * 1e3
+    return {**_both(lambda: lnmm_kernel.ln_matmul_q(*args)), "sibling_held_us": sibling,
+            "sha256": sha256(got)}
+
+
 def _sum(rows, tag, value) -> float:
     """ms of one forward: each shape's us weighed by its calls in ``tag``."""
     return sum(r["calls"].get(tag, 0) * value(r) for r in rows) * 1e-3
 
 
-def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=()) -> dict:
+def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=()) -> dict:
     """ms per forward: K1 (whole, stats, conv, yardstick), K3, K4 (whole,
     yardstick), K2 as the UNet calls it (fused calls on the views, the rest
     on contiguous tensors) and K2 on contiguous tensors throughout, each
-    with and without the hold (the yardsticks held only)."""
+    with and without the hold (the yardsticks held only); on the full8
+    forward K1q (whole, stats, conv) and K3q, and their bf16 siblings held."""
     out = {}
+    tag = INT8_FORWARD[0]
+    if rows_k1q or rows_k3q:
+        row = {}
+        for key in ("held_us", "unheld_us"):
+            k = key[:-3]
+            for part in ("whole", "stats", "conv") if rows_k1q else ():
+                row[f"k1q_{part}_{k}_ms"] = _sum(rows_k1q, tag, lambda r: r[part][key])
+            if rows_k3q:
+                row[f"k3q_{k}_ms"] = _sum(rows_k3q, tag, lambda r: r[key])
+        for name, rows in (("k1q", rows_k1q), ("k3q", rows_k3q)):
+            if rows and "sibling_held_us" in rows[0]:
+                row[f"{name}_bf16_sibling_held_ms"] = _sum(rows, tag,
+                                                           lambda r: r["sibling_held_us"])
+        if rows_k1q and "sibling_conv_held_us" in rows_k1q[0]:
+            row["k1q_bf16_sibling_conv_held_ms"] = _sum(rows_k1q, tag,
+                                                        lambda r: r["sibling_conv_held_us"])
+        out[tag] = row
     for tag in [f[0] for f in FORWARDS] + [VAE_FORWARD[0]]:
         row = {}
         for key in ("held_us", "unheld_us"):
@@ -233,7 +316,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="write the shapes and every time to this file")
     ap.add_argument("--shapes-from", help="take the shapes from this JSON of an earlier run")
+    ap.add_argument("--no-check", action="store_true",
+                    help="skip the comparison with the plain versions (an ablation's timing)")
     args = ap.parse_args(argv)
+    global CHECK_PLAIN
+    CHECK_PLAIN = not args.no_check
     if not torch.cuda.is_available():
         print("time_k2_k3: no CUDA device", file=sys.stderr)
         return 2
@@ -247,8 +334,9 @@ def main(argv=None) -> int:
     print(f"device: {card}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"k1": [], "k2": [], "k3": [], "k4": []}
-    timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4}
+    rows = {"k1": [], "k2": [], "k3": [], "k4": [], "k1q": [], "k3q": []}
+    timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4, "k1q": time_k1q,
+              "k3q": time_k3q}
     with torch.inference_mode():
         for key, timer in timers.items():
             for shape, calls in shapes.get(key, []):
@@ -259,17 +347,21 @@ def main(argv=None) -> int:
                              f"{row['contiguous']['unheld_us']:.1f} unheld; views "
                              f"{row['views']['held_us']:.1f} held, "
                              f"{row['views']['unheld_us']:.1f} unheld")
-                elif key == "k1":
+                elif key in ("k1", "k1q"):
                     times = ", ".join(f"{part} {row[part]['held_us']:.1f} us held, "
                                       f"{row[part]['unheld_us']:.1f} unheld"
                                       for part in ("whole", "stats", "conv"))
-                    times += f"; cuDNN conv alone {row['yardstick_held_us']:.1f} us held"
+                    if key == "k1":
+                        times += f"; cuDNN conv alone {row['yardstick_held_us']:.1f} us held"
                 else:
                     times = f"{row['held_us']:.1f} us held, {row['unheld_us']:.1f} unheld"
                     if "yardstick_held_us" in row:
                         times += f"; matmul alone {row['yardstick_held_us']:.1f} us held"
+                if "sibling_held_us" in row:
+                    times += (f"; bf16 {key[:2].upper()} at this shape "
+                              f"{row['sibling_held_us']:.1f} us held")
                 print(f"{key.upper()} {tuple(shape)} calls {calls}: {times}", flush=True)
-    sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"])
+    sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"], rows["k1q"], rows["k3q"])
     for tag, row in sums.items():
         print(f"{tag} forward, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()))
     if args.json:

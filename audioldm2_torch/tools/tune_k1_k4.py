@@ -1,6 +1,6 @@
 """Sweep the launch parameters of the bf16 K1 conv (GroupNorm + SiLU + 3x3
-conv) and the bf16 K4 kernel (GEGLU + matmul) on the card, beside the
-plans' own picks.
+conv), the bf16 K4 kernel (GEGLU + matmul) and the int8-weight K1q and K3q
+on the same kernels on the card, beside the plans' own picks.
 
 For every shape one forward gives them (``unet.conv_shapes`` and
 ``unet.geglu_matmul_shapes`` of the t5 UNet at CFG batch 2 and the
@@ -14,8 +14,16 @@ Printed per shape: the plan's pick (``_build.gn_silu_conv_plan``,
 plans' cost constants (``_build._CONV_*``, ``_GEGLU_COST`` and the tile
 costs) are set against this table.
 
+K1q and K3q (``--only k1q|k3q``): every shape of the audioldm2-full UNet
+in the int8 serving mode at CFG batch 2 (``weight_quant="int8"`` of the
+shape functions), through ``a2k_gn_silu_conv3x3_q_bf16`` (tile, split,
+strip, ring depth) and ``a2k_ln_matmul_q_bf16`` (rows per block, N tile,
+strip, ring depth), beside the plans' picks with ``w_bytes=1``; their
+constants (``_CONV_Q_MODEL``, ``_Q_CVT_COST``, ``_Q_TILE_BARRIER_COST``,
+``LNMMQ_RING_STAGES``) are set against this table.
+
 Usage (on a machine with an NVIDIA GPU):
-  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4]
+  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4|k1q|k3q]
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from audioldm2_torch.ops import _build, lnmm_kernel, resblock_kernel
 from audioldm2_torch.tools.timing import cuda_ms
 
 FORWARDS = (("audioldm_16k_crossattn_t5", 2), ("audioldm2-full-large-1150k", 6))
+INT8_FORWARD = ("audioldm2-full", 2)
+Q_STAGES = (2, 3, 4, 6, 8, 12)  # K3q's ring depths where the ring does not hold the strip
 STAGES = (2, 3, 4, 6)    # K4's ring depths; K1's are _build.CONV_STAGES
 STRIPS = (1, 2, 3, 4, 6)
 BF16_TOL = 2e-2
@@ -51,6 +61,20 @@ def main_path_shapes():
     return sorted(k1, reverse=True), sorted(k4, reverse=True)
 
 
+def int8_shapes():
+    """(K1q shapes, K3q shapes (M, C, N)) of the full8 forward, largest first."""
+    name, batch = INT8_FORWARD
+    cfg = at.default_audioldm_config(name)
+    size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+    return (sorted(unet.conv_shapes(*size, weight_quant="int8"), reverse=True),
+            sorted(unet.ln_matmul_shapes(*size, weight_quant="int8"), reverse=True))
+
+
+def _int8(g, *dims):
+    wq = torch.randint(-127, 128, dims, generator=g, device="cuda").to(torch.int8)
+    return wq, torch.rand(dims[-1], generator=g, device="cuda") * 0.01 + 1e-3
+
+
 def _rnd(g, *dims, scale=1.0, offset=0.0):
     return (torch.randn(dims, generator=g, device="cuda") * scale + offset).to(BF16)
 
@@ -64,22 +88,27 @@ def _timed(call, out, want, what, reps):
     return cuda_ms(call, reps)
 
 
-def sweep_k1(shape, reps):
-    """[(us, choice)] sorted by time and the plan's pick, for one K1 shape;
-    choice = (bm, bn, strip, stages, splits)."""
+def sweep_k1(shape, reps, int8=False):
+    """[(us, choice)] sorted by time and the plan's pick, for one K1 (or,
+    with int8, K1q) shape; choice = (bm, bn, strip, stages, splits)."""
     b, t, f, c1, c2, cout = shape
     cin = c1 + c2
+    w_bytes = 1 if int8 else 2
     g = torch.Generator(device="cuda").manual_seed(0)
     x1 = _rnd(g, b, t, f, c1, offset=1.0)
     x2 = _rnd(g, b, t, f, c2) if c2 else None
     gamma, beta = _rnd(g, cin, offset=1.0), _rnd(g, cin)
-    w, bias = _rnd(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, cout)
-    want = resblock_kernel.gn_silu_conv3x3_plain(x1, x2, gamma, beta, w, bias).float()
+    if int8:
+        (w, ws), bias = _int8(g, 3, 3, cin, cout), _rnd(g, cout)
+        want = resblock_kernel.gn_silu_conv3x3_q_plain(x1, x2, gamma, beta, w, ws, bias).float()
+    else:
+        w, bias = _rnd(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, cout)
+        want = resblock_kernel.gn_silu_conv3x3_plain(x1, x2, gamma, beta, w, bias).float()
     a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta)
     out = torch.empty((b, t, f, cout), device="cuda", dtype=BF16)
     lib, sms = _build.lib(), _build.sm_count(0)
     k_chunks = -(-cin // _build.CONV_CK)
-    p = _build.gn_silu_conv_plan(b, t, f, cin, cout, sms)
+    p = _build.gn_silu_conv_plan(b, t, f, cin, cout, sms, w_bytes=w_bytes)
     pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
     choices = {pick}
     for bm, bn in _build.CONV_TILES:
@@ -90,7 +119,8 @@ def sweep_k1(shape, reps):
             splits = -(-k_chunks // -(-k_chunks // asked))
             for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles} if splits == 1 else (1,):
                 for stages in _build.CONV_STAGES:
-                    if _build.conv_smem_bytes(bm, bn, tt, ft, stages) <= _build.LNMM_MAX_SMEM:
+                    if _build.conv_smem_bytes(bm, bn, tt, ft, stages,
+                                              w_bytes) <= _build.LNMM_MAX_SMEM:
                         choices.add((bm, bn, strip, stages, splits))
     rows = []
     for bm, bn, strip, stages, splits in choices:
@@ -98,13 +128,19 @@ def sweep_k1(shape, reps):
         tt = min(bm // ft, t)
 
         def call(bm=bm, bn=bn, tt=tt, ft=ft, strip=strip, stages=stages, splits=splits):
-            _build.check(lib.a2k_gn_silu_conv3x3_bf16(
-                x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(), c.data_ptr(),
-                w.data_ptr(), bias.data_ptr(), 1, out.data_ptr(), b, t, f, c1, c2, cout, bm, bn,
-                tt, ft, strip, stages, splits, _build.stream_of(x1)), "gn_silu_conv3x3")
+            head = (x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(),
+                    c.data_ptr(), w.data_ptr())
+            tail = (bias.data_ptr(), 1, out.data_ptr(), b, t, f, c1, c2, cout, bm, bn, tt, ft,
+                    strip, stages, splits, _build.stream_of(x1))
+            if int8:
+                rc = lib.a2k_gn_silu_conv3x3_q_bf16(*head, ws.data_ptr(), *tail)
+            else:
+                rc = lib.a2k_gn_silu_conv3x3_bf16(*head, *tail)
+            _build.check(rc, "gn_silu_conv3x3")
 
         choice = (bm, bn, strip, stages, splits)
-        rows.append((_timed(call, out, want, f"K1 {shape} {choice}", reps) * 1e3, choice))
+        what = f"K1{'q' if int8 else ''} {shape} {choice}"
+        rows.append((_timed(call, out, want, what, reps) * 1e3, choice))
     rows.sort()
     return rows, pick
 
@@ -147,20 +183,60 @@ def sweep_k4(shape, reps):
     return rows, pick
 
 
+def sweep_k3q(shape, reps):
+    """[(us, choice)] sorted by time and the plan's pick, for one K3q shape;
+    choice = (bm, bn, strip, stages)."""
+    m, c, n = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, gamma, beta = _rnd(g, m, c, offset=3.0), _rnd(g, c), _rnd(g, c)
+    (wq, ws), bias = _int8(g, c, n), _rnd(g, n)
+    want = lnmm_kernel.ln_matmul_q_plain(x, gamma, beta, wq, ws, bias).float()
+    out = torch.empty((m, n), device="cuda", dtype=BF16)
+    lib, sms = _build.lib(), _build.sm_count(0)
+    k_tiles = -(-c // _build.LNMM_BK)
+    p = _build.ln_matmul_plan(m, c, n, sms, 1)
+    pick = (p.bm, p.bn, p.strip_tiles, p.stages)
+    choices = {pick}
+    for bm, bn in _build.LNMM_TILES:
+        n_tiles = -(-n // bn)
+        for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles}:
+            total = strip * k_tiles
+            for stages in {min(total, 12), *(s for s in Q_STAGES if s < total)}:
+                stages = max(2, stages)
+                if _build.row_block_smem(bm, bn, k_tiles * _build.LNMM_BK, stages,
+                                         1) <= _build.LNMM_MAX_SMEM:
+                    choices.add((bm, bn, strip, stages))
+    rows = []
+    for bm, bn, strip, stages in choices:
+        def call(bm=bm, bn=bn, strip=strip, stages=stages):
+            _build.check(lib.a2k_ln_matmul_q_bf16(
+                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                bias.data_ptr(), 1, out.data_ptr(), m, c, n, 1e-5, bm, bn, strip, stages,
+                _build.stream_of(x)), "ln_matmul_q")
+
+        choice = (bm, bn, strip, stages)
+        rows.append((_timed(call, out, want, f"K3q {shape} {choice}", reps) * 1e3, choice))
+    rows.sort()
+    return rows, pick
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10, help="timed calls per choice")
     ap.add_argument("--json", help="write every row of every shape to this file")
-    ap.add_argument("--only", choices=("k1", "k4"), help="sweep one kernel only")
+    ap.add_argument("--only", choices=("k1", "k4", "k1q", "k3q"), help="sweep one kernel only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_k1_k4: no CUDA device", file=sys.stderr)
         return 2
     print(f"device: {torch.cuda.get_device_name(0)}, {_build.sm_count(0)} SMs")
     k1, k4 = main_path_shapes()
+    k1q, k3q = int8_shapes()
     table = {}
     with torch.inference_mode():
-        for key, shapes, sweep in (("k1", k1, sweep_k1), ("k4", k4, sweep_k4)):
+        for key, shapes, sweep in (("k1", k1, sweep_k1), ("k4", k4, sweep_k4),
+                                   ("k1q", k1q, lambda s, r: sweep_k1(s, r, int8=True)),
+                                   ("k3q", k3q, sweep_k3q)):
             if args.only not in (None, key):
                 continue
             for shape in shapes:

@@ -35,9 +35,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      UNet) and the large path's UNet at CFG batch 6, kernel against its
      plain PyTorch version, plus one shape per kernel in f32 and the VAE
      decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
-     cancellation); K1's statistics pass and conv timed apart, and beside
-     K1 and K4 the product alone on the materialised activation (cuDNN's
-     conv, cuBLAS's matmul: yardsticks, never library_ms); K1-K4 in bf16 at
+     cancellation); K1's and K1q's statistics pass and conv timed apart,
+     beside K1 and K4 the product alone on the materialised activation
+     (cuDNN's conv, cuBLAS's matmul: yardsticks, never library_ms), beside
+     each bf16 K1q and K3q shape its bound, the bf16 K1 or K3 at the same
+     shape and the same call on the shared GEMM core (the design before
+     their bf16 kernels); K1-K4 in bf16 at
      ragged shapes (T, M, N, F and Cout no multiples of their tiles; K1 at
      T = 1, F = 1, 2, 3 and with a group straddling the concat split) and K2
      on strided q, k, v; K7 and K8 at the
@@ -55,8 +58,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      paths (their median is the p50 latency), one on the full, sr and full8
      paths, and one at batch 2 on each, with output checks (and, on the full
      paths, the GPT-2 tokens finite and the CLAP text embedding of unit
-     norm), no CUDA tensor reaching a plain version, no bf16 K1 or K4 call
-     reaching the shared GEMM core instead of its own kernel, and launch counts,
+     norm), no CUDA tensor reaching a plain version, no bf16 K1, K4, K1q or
+     K3q call reaching the shared GEMM core instead of its own kernel, and
+     launch counts,
      reset to 0 just before the request, equal to the counts computed from
      the config (the sr path's VAE encode included); the PLMS and DDPM
      requests likewise, once each at batch 1; on the large path also the
@@ -276,11 +280,17 @@ def plain_versions_forbidden():
             setattr(mod, name, fn)
 
 
+# The shared GEMM core's entry points that a bf16 call must not reach on a
+# main path: K1, K4, K1q and K3q have bf16 kernels of their own.
+SHARED_CORE_ENTRIES = ("a2k_gn_silu_conv3x3", "a2k_geglu_matmul", "a2k_gn_silu_conv3x3_q",
+                       "a2k_ln_matmul_q")
+
+
 @contextlib.contextmanager
 def shared_core_bf16_counted(out):
-    """Count in ``out`` the bf16 K1 and K4 calls that reach the shared GEMM
-    core's entry points (a shape or an alignment their own kernels'
-    plans decline) instead of the bf16 kernels."""
+    """Count in ``out`` the bf16 K1, K4, K1q and K3q calls that reach the
+    shared GEMM core's entry points (a shape or an alignment their own
+    kernels' plans decline) instead of the bf16 kernels."""
     import torch
     from audioldm2_torch.ops import _build
 
@@ -290,7 +300,7 @@ def shared_core_bf16_counted(out):
     lib = _build.lib()
     bf16 = _build.DTYPE_CODES[torch.bfloat16]
     saved = {}
-    for name in ("a2k_gn_silu_conv3x3", "a2k_geglu_matmul"):
+    for name in SHARED_CORE_ENTRIES:
         saved[name] = getattr(lib, name)
 
         def counting(*args, _fn=saved[name], _name=name):
@@ -436,19 +446,44 @@ def library_call(name, args):
 
 
 def side_times(name, args):
-    """K1's GroupNorm statistics pass alone, and the yardsticks of the
-    product alone on the same inputs with the activation already
+    """K1's and K1q's GroupNorm statistics pass alone, and the yardsticks of
+    the product alone on the same inputs with the activation already
     materialised: cuDNN's channels-last conv for K1, cuBLAS's matmul for K4
     (ms a call). Neither yardstick computes the kernel's function, so
-    neither is its library_ms."""
+    neither is its library_ms. For bf16 K1q and K3q: the bf16 sibling (K1 or
+    K3 at the same shape, on the dequantized weight rounded to bf16), and
+    the parent design, the same call on the shared GEMM core."""
     import torch
     import torch.nn.functional as F
-    from audioldm2_torch.ops import resblock_kernel
+    from audioldm2_torch.ops import lnmm_kernel, resblock_kernel
 
     out = {}
     if not args[0].is_cuda:  # a rehearsal on the CPU: no kernel to time
         return out
     with torch.inference_mode():
+        if name in ("gn_silu_conv3x3_q", "ln_matmul_q") and args[0].dtype == torch.bfloat16:
+            if name == "gn_silu_conv3x3_q":
+                x1, x2, gamma, beta, wq, ws, b, groups, eps = args
+                w16 = (wq.float() * ws).to(torch.bfloat16)
+                out["stats_ms"] = cuda_ms(lambda: resblock_kernel.gn_stats(x1, x2, gamma, beta,
+                                                                           groups, eps))
+                out["sibling_ms"] = cuda_ms(lambda: resblock_kernel.gn_silu_conv3x3(
+                    x1, x2, gamma, beta, w16, b, groups, eps))
+                def on_shared_core():
+                    a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta, groups, eps)
+                    out = torch.empty((*x1.shape[:3], wq.shape[-1]), device=x1.device,
+                                      dtype=x1.dtype)
+                    resblock_kernel._conv_shared_core(name, x1, x2, a, c, wq, ws, b, out)
+
+                out["parent_ms"] = cuda_ms(on_shared_core)
+            else:
+                x, gamma, beta, wq, ws, b, eps = args
+                w16 = (wq.float() * ws).to(torch.bfloat16)
+                out["sibling_ms"] = cuda_ms(lambda: lnmm_kernel.ln_matmul(x, gamma, beta, w16,
+                                                                          b, eps))
+                out["parent_ms"] = cuda_ms(lambda: lnmm_kernel._ln(name, x, gamma, beta, wq, ws,
+                                                                   b, eps))
+            return out
         if name == "gn_silu_conv3x3":
             x1, x2, gamma, beta, w, b, groups, eps = args
             out["stats_ms"] = cuda_ms(lambda: resblock_kernel.gn_stats(x1, x2, gamma, beta,
@@ -471,7 +506,8 @@ def side_times(name, args):
 def new_stats():
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
             "library_ms": None, "max_abs_err": 0.0, "max_rel_err": 0.0, "f32_rel_err": 0.0,
-            "shapes": 0, "stats_ms": 0.0, "yardstick_ms": 0.0}
+            "shapes": 0, "stats_ms": 0.0, "yardstick_ms": 0.0, "sibling_ms": 0.0,
+            "parent_ms": 0.0}
 
 
 def check_kernel(name, args, tol, tag, failures):
@@ -758,8 +794,18 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
             if "stats_ms" in side:
                 parts.append(f"stats pass {side['stats_ms']:.4f} ms, conv "
                              f"{res[2] - side['stats_ms']:.4f} ms (kernel less stats)")
-            tool = "cuDNN conv" if name == "gn_silu_conv3x3" else "cuBLAS matmul"
-            parts.append(f"yardstick, the product alone ({tool}): {side['yardstick_ms']:.4f} ms")
+            if "yardstick_ms" in side:
+                tool = "cuDNN conv" if name == "gn_silu_conv3x3" else "cuBLAS matmul"
+                parts.append(f"yardstick, the product alone ({tool}): "
+                             f"{side['yardstick_ms']:.4f} ms")
+            if "sibling_ms" in side:
+                b_ms, o_ms = bound_times(name, args)
+                parts.append(f"bound {max(b_ms, o_ms):.4f} ms; bf16 "
+                             f"{'K1' if name == 'gn_silu_conv3x3_q' else 'K3'} at this shape "
+                             f"{side['sibling_ms']:.4f} ms (this kernel "
+                             f"{res[2] / side['sibling_ms']:.2f}x it); the shared core (the "
+                             f"parent design) {side['parent_ms']:.4f} ms "
+                             f"({side['parent_ms'] / res[2]:.2f}x this kernel)")
             log("       " + "; ".join(parts))
         if offset_check and sig[-1] == 1e-6:
             vae_ms[name] = vae_ms.get(name, 0.0) + n * res[2]
@@ -797,6 +843,9 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
                      f"{st['ms'] - st['stats_ms']:.3f} ms")
         if st["yardstick_ms"]:
             side += f"; yardstick (product alone) {st['yardstick_ms']:.3f} ms"
+        if st["sibling_ms"]:
+            side += (f"; bf16 sibling at the same shapes {st['sibling_ms']:.3f} ms, shared core "
+                     f"(parent design) {st['parent_ms']:.3f} ms")
         log(f"  {name}: {st['shapes']} shapes, one forward: "
             f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
             f"{st['bound_ms']:.3f} ms{lib}{side}")
@@ -1009,8 +1058,8 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
         f"{json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
     log(f"    launches {counts}")
     if on_core:
-        raise AssertionError(f"bf16 K1/K4 calls on the shared core instead of their kernels: "
-                             f"{on_core}")
+        raise AssertionError(f"bf16 K1/K4/K1q/K3q calls on the shared core instead of their "
+                             f"kernels: {on_core}")
     want_shape = (bsz, 1, int(duration * model.cfg.preprocessing.sampling_rate))
     if wav.shape != want_shape:
         raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")

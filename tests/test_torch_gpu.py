@@ -13,6 +13,8 @@ K3q and K4q round their activation to bf16 even in f32; their f32 inputs
 come from chip_smoke.exact_f32_args, which keeps that activation off the
 bf16 rounding boundaries."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -326,6 +328,114 @@ def test_ln_matmul_q_kernel(cuda, dt, M, C, N, with_bias):
     if dt == torch.float32:
         args = exact_f32_args("ln_matmul_q", args)
     _check(lnmm_kernel.ln_matmul_q(*args), lnmm_kernel.ln_matmul_q_plain(*args), dt)
+
+
+# K1q and K3q in bf16 on their own kernels: every (B, T, F, C1, C2, Cout)
+# and (M, C, N) one audioldm2-full int8 UNet forward gives them at CFG batch
+# 2 (unet.conv_shapes / ln_matmul_shapes with weight_quant="int8"), then
+# ragged M, K1q's halo edges, a concat, and the cluster splits.
+FULL8_K1Q = [(2, 32, 2, 384, 0, 640), (2, 32, 2, 640, 0, 640), (2, 32, 2, 640, 384, 640),
+             (2, 32, 2, 640, 640, 640), (2, 64, 4, 256, 0, 384), (2, 64, 4, 384, 0, 384),
+             (2, 64, 4, 384, 256, 384), (2, 64, 4, 384, 384, 384), (2, 64, 4, 640, 384, 384),
+             (2, 128, 8, 128, 0, 256), (2, 128, 8, 256, 0, 256), (2, 128, 8, 256, 128, 256),
+             (2, 128, 8, 256, 256, 256), (2, 128, 8, 384, 256, 256), (2, 256, 16, 128, 0, 128),
+             (2, 256, 16, 128, 128, 128), (2, 256, 16, 256, 128, 128)]
+K1Q_EDGES = [(1, 1, 24, 64, 0, 64), (2, 40, 1, 64, 0, 128), (1, 96, 2, 128, 0, 128),
+             (1, 50, 3, 64, 32, 96), (1, 33, 7, 256, 0, 208), (6, 32, 2, 640, 384, 640)]
+FULL8_K3Q = [(2048, 256, 256), (2048, 256, 768), (2048, 256, 2048), (512, 384, 384),
+             (512, 384, 1152), (512, 384, 3072), (128, 640, 640), (128, 640, 1920),
+             (128, 640, 5120)]
+K3Q_EDGES = [(100, 384, 208), (130, 640, 640), (1, 256, 256), (2000, 256, 784), (70, 768, 96)]
+
+
+def _int8_spread(g, shape, device):
+    """int8 weights reaching +-127 in every output column, scales spread
+    over 2^-8 .. 2^8 across the columns."""
+    wq = torch.randint(-127, 128, shape, generator=g, device=device).to(torch.int8)
+    flat = wq.view(-1, shape[-1])
+    flat[0], flat[-1] = 127, -127
+    ws = 2.0 ** torch.linspace(-8.0, 8.0, shape[-1], device=device)
+    return wq, ws[torch.randperm(shape[-1], generator=g, device=device)]
+
+
+@contextlib.contextmanager
+def _entries_counted():
+    """Count the C entry points the wrappers reach."""
+    from audioldm2_torch.ops import _build
+
+    lib, calls, saved = _build.lib(), {}, {}
+    for name in _build.SIGNATURES:
+        saved[name] = getattr(lib, name)
+
+        def counting(*args, _fn=saved[name], _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+
+        setattr(lib, name, counting)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+
+
+@pytest.mark.parametrize("B,T,F,c1,c2,cout", FULL8_K1Q + K1Q_EDGES)
+def test_gn_silu_conv3x3_q_bf16_kernel(cuda, B, T, F, c1, c2, cout):
+    """bf16 K1q on its own kernel (never the shared core) against its plain
+    version, with bf16 GroupNorm parameters and conv bias as the cast tree
+    holds them."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(14)
+    cin = c1 + c2
+    wq, ws = _int8_spread(g, (3, 3, cin, cout), cuda)
+    args = (_rand(g, (B, T, F, c1), dt, cuda, offset=1.0),
+            _rand(g, (B, T, F, c2), dt, cuda) if c2 else None,
+            _rand(g, (cin,), dt, cuda, offset=1.0), _rand(g, (cin,), dt, cuda), wq, ws,
+            _rand(g, (cout,), dt, cuda, scale=100.0), 32, 1e-5)
+    with _entries_counted() as calls:
+        got = resblock_kernel.gn_silu_conv3x3_q(*args)
+    assert calls.get("a2k_gn_silu_conv3x3_q_bf16") == 1 and "a2k_gn_silu_conv3x3_q" not in calls
+    _check(got, resblock_kernel.gn_silu_conv3x3_q_plain(*args), dt)
+
+
+@pytest.mark.parametrize("M,C,N", FULL8_K3Q + K3Q_EDGES)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_ln_matmul_q_bf16_kernel(cuda, M, C, N, with_bias):
+    """bf16 K3q on K3's row-block kernel (never the shared core) against its
+    plain version, with bf16 LN parameters and bias as the cast tree holds
+    them."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(15)
+    wq, ws = _int8_spread(g, (C, N), cuda)
+    args = (_rand(g, (1, M, C), dt, cuda, offset=2.0), _rand(g, (C,), dt, cuda, offset=1.0),
+            _rand(g, (C,), dt, cuda), wq, ws,
+            _rand(g, (N,), dt, cuda, scale=100.0) if with_bias else None, 1e-5)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.ln_matmul_q(*args)
+    assert calls.get("a2k_ln_matmul_q_bf16") == 1 and "a2k_ln_matmul_q" not in calls
+    _check(got, lnmm_kernel.ln_matmul_q_plain(*args), dt)
+
+
+def test_k1q_and_k3q_give_the_same_bits_twice(cuda):
+    """Fixed-order sums, also over a cluster: bitwise equal outputs."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(16)
+    for B, T, F, c1, c2, cout in ((2, 32, 2, 640, 640, 640), (2, 256, 16, 128, 128, 128)):
+        cin = c1 + c2
+        wq, ws = _int8_spread(g, (3, 3, cin, cout), cuda)
+        args = (_rand(g, (B, T, F, c1), dt, cuda), _rand(g, (B, T, F, c2), dt, cuda),
+                _rand(g, (cin,), dt, cuda), _rand(g, (cin,), dt, cuda), wq, ws,
+                _rand(g, (cout,), dt, cuda), 32, 1e-5)
+        first = resblock_kernel.gn_silu_conv3x3_q(*args)
+        for _ in range(3):
+            assert torch.equal(resblock_kernel.gn_silu_conv3x3_q(*args), first)
+    for M, C, N in ((128, 640, 640), (2048, 256, 768)):
+        wq, ws = _int8_spread(g, (C, N), cuda)
+        args = (_rand(g, (M, C), dt, cuda), _rand(g, (C,), dt, cuda), _rand(g, (C,), dt, cuda),
+                wq, ws, _rand(g, (N,), dt, cuda), 1e-5)
+        first = lnmm_kernel.ln_matmul_q(*args)
+        for _ in range(3):
+            assert torch.equal(lnmm_kernel.ln_matmul_q(*args), first)
 
 
 @pytest.mark.parametrize("dt", DTYPES)

@@ -445,3 +445,178 @@ def test_gn_stats_chunks_cover_every_row_once(s, cin):
     assert rows == s or rows >= _build.GN_STATS_ROWS_PER_THREAD * lanes - chunks
     if (s, cin) == (65536, 128):
         assert chunks == 512
+
+
+# ---------------------------------------------------------------------------
+# K3q and K1q (int8 weights) on the K3 and K1 kernels: shapes and plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,batch,k3q,k1q", [("audioldm2-full", 2, 144, 44),
+                                                ("audioldm2-full-large-1150k", 6, 352, 44),
+                                                ("audioldm_16k_crossattn_t5", 2, 96, 44)])
+def test_int8_shapes_add_up_to_the_launch_count(name, batch, k3q, k1q):
+    """A quantized forward's K3q and K1q shapes (weight_quant="int8"): their
+    calls sum to the int8 launch counts, and every one is a shape of the
+    unquantized forward's K3 or K1 (the predicates keep K and N multiples
+    of 128)."""
+    cfg = at.default_audioldm_config(name)
+    size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+    launches = unet.kernel_launches_per_forward(cfg.unet, "int8")
+    got_k3q = unet.ln_matmul_shapes(*size, weight_quant="int8")
+    got_k1q = unet.conv_shapes(*size, weight_quant="int8")
+    assert sum(got_k3q.values()) == launches["ln_matmul_q"] == k3q
+    assert sum(got_k1q.values()) == launches["gn_silu_conv3x3_q"] == k1q
+    assert launches["ln_matmul"] == launches["gn_silu_conv3x3"] == 0
+    assert set(got_k3q) <= set(unet.ln_matmul_shapes(*size))
+    assert set(got_k1q) <= set(unet.conv_shapes(*size))
+
+
+def _full8_shapes():
+    cfg = at.default_audioldm_config("audioldm2-full")
+    size = (cfg.unet, 2, cfg.latent_t_size, cfg.latent_f_size)
+    return (sorted(unet.ln_matmul_shapes(*size, weight_quant="int8")),
+            sorted(unet.conv_shapes(*size, weight_quant="int8")))
+
+
+FULL8_K3Q, FULL8_K1Q = _full8_shapes()
+
+
+def test_full8_shapes_are_nine_and_seventeen():
+    assert len(FULL8_K3Q) == 9 and len(FULL8_K1Q) == 17
+    assert {(m, c) for m, c, _ in FULL8_K3Q} == {(2048, 256), (512, 384), (128, 640)}
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("m,c,n", FULL8_K3Q)
+def test_ln_matmul_q_plan(m, c, n, sms):
+    """K3q's plan on K3's kernel: its tiles cover M, N and K (no split), its
+    A beside two bf16 staging tiles and an int8 ring within the shared
+    memory a block may use; the int8 ring holds at least as many of the
+    strip's tiles as the bf16 plan's ring at the same shape, and at the bf16
+    plan's geometry the int8 ring of the bf16 plan's depth fits."""
+    plan = _build.ln_matmul_plan(m, c, n, sms, w_bytes=1)
+    bf16 = _build.ln_matmul_plan(m, c, n, sms)
+    assert plan is not None and (plan.bm, plan.bn) in _build.LNMM_TILES
+    strips, row_blocks = plan.grid
+    n_tiles = math.ceil(n / plan.bn)
+    assert row_blocks == math.ceil(m / plan.bm)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert plan.k_tiles * plan.bk >= c > (plan.k_tiles - 1) * plan.bk
+    assert plan.splits == 1
+    a_bytes = plan.bm * (plan.k_tiles * plan.bk + _build.LNMM_PAD) * 2
+    staging = 2 * plan.bk * (plan.bn + _build.LNMM_PAD) * 2
+    ring = plan.stages * plan.bk * (plan.bn + _build.LNMM_Q_PAD)
+    assert plan.smem_bytes == a_bytes + staging + ring <= SMEM_LIMIT == _build.LNMM_MAX_SMEM
+    assert 2 <= plan.stages <= _build.LNMM_MAX_STAGES
+    assert plan.stages >= min(bf16.stages, plan.strip_tiles * plan.k_tiles)
+    assert _build.row_block_smem(bf16.bm, bf16.bn, bf16.k_tiles * bf16.bk, bf16.stages,
+                                 w_bytes=1) <= _build.LNMM_MAX_SMEM
+    blocks = strips * row_blocks
+    fill = min(sms, row_blocks * n_tiles)
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("b,t,f,c1,c2,cout", FULL8_K1Q)
+def test_gn_silu_conv_q_plan(b, t, f, c1, c2, cout, sms):
+    """K1q's plan on K1's kernel: the same coverage as K1's, two patch
+    buffers beside two bf16 staging tiles and an int8 ring within the shared
+    memory a block may use; at the bf16 plan's geometry the int8 ring of
+    the bf16 plan's depth fits. (Where the int8 plan picks a shallower ring,
+    its model, fitted to tools/tune_k1_k4.py --only k1q, found it faster.)"""
+    plan = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, sms, w_bytes=1)
+    bf16 = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, sms)
+    assert plan is not None and (plan.bm, plan.bn) in _build.CONV_TILES
+    assert 1 <= plan.tt <= t and 1 <= plan.ft <= f and plan.tt * plan.ft <= plan.bm
+    strips, m_tiles, splits = plan.grid
+    assert m_tiles == b * math.ceil(t / plan.tt) * math.ceil(f / plan.ft)
+    assert plan.k_chunks == math.ceil((c1 + c2) / plan.ck)
+    cps = math.ceil(plan.k_chunks / splits)
+    assert 1 <= splits <= _build.CONV_MAX_SPLITS and (splits - 1) * cps < plan.k_chunks
+    n_tiles = math.ceil(cout / plan.bn)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    patch = 2 * (plan.tt + 2) * (plan.ft + 2) * _build.CONV_LD * 2 + 4 * plan.ck * 4
+    ring = (2 * plan.ck * (plan.bn + _build.CONV_PAD) * 2
+            + plan.stages * plan.ck * (plan.bn + _build.LNMM_Q_PAD))
+    assert plan.smem_bytes == max(patch + ring, plan.bm * (plan.bn + 4) * 4) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= _build.CONV_MAX_STAGES
+    assert _build.conv_smem_bytes(bf16.bm, bf16.bn, bf16.tt, bf16.ft, bf16.stages,
+                                  w_bytes=1) <= SMEM_LIMIT
+    blocks = strips * m_tiles * splits
+    fill = min(sms, m_tiles * n_tiles * min(_build.CONV_MAX_SPLITS, plan.k_chunks))
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+def test_int8_plans_decline_what_the_int8_rings_do_not_take():
+    """An int8 row is copied 16 bytes at a time: N (K3q) or Cout (K1q) no
+    multiple of 16 goes to the shared core; the bf16 plans still take them."""
+    assert _build.ln_matmul_plan(128, 640, 648, SMS, w_bytes=1) is None
+    assert _build.ln_matmul_plan(128, 640, 648, SMS) is not None
+    assert _build.ln_matmul_plan(128, 776, 640, SMS, w_bytes=1) is None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 648, SMS, w_bytes=1) is None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 648, SMS) is not None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 656, SMS, w_bytes=1) is not None
+
+
+@pytest.fixture
+def as_if_on_the_card(recorded_lib, monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors: every tensor reports
+    is_cuda, so the public wrappers route as they do on the card, into the
+    recording stand-in."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    return recorded_lib
+
+
+def test_k3q_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card):
+    """A bf16 ln_matmul_q call reaches a2k_ln_matmul_q_bf16 with the plan's
+    launch arguments, the int8 weight and the f32 scale as stored (the same
+    storage: nothing converted before the launch) and bf16 LN parameters
+    and bias read as stored; f32 inputs reach the shared core."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    m, c, n = 128, 640, 640
+    x = torch.zeros(2, m // 2, c, dtype=bf16)
+    gamma, beta, bias = (torch.ones(k, dtype=bf16) for k in (c, c, n))
+    wq, ws = torch.zeros(c, n, dtype=torch.int8), torch.ones(n)
+    out = lk.ln_matmul_q(x, gamma, beta, wq, ws, bias)
+    args = lib.calls.pop("a2k_ln_matmul_q_bf16")
+    plan = _build.ln_matmul_plan(m, c, n, SMS, w_bytes=1)
+    assert args[:8] == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq.data_ptr(),
+                        ws.data_ptr(), bias.data_ptr(), 1, out.data_ptr())
+    assert args[8:11] == (m, c, n)
+    assert args[12:16] == (plan.bm, plan.bn, plan.strip_tiles, plan.stages)
+    assert out.shape == (2, m // 2, n) and out.dtype == bf16
+    assert not lib.calls  # no other launch: no conversion, no statistics, no shared core
+    lk.ln_matmul_q(x.float(), gamma, beta, wq, ws, bias)
+    assert set(lib.calls) == {"a2k_ln_matmul_q"}
+    assert lib.calls["a2k_ln_matmul_q"][3:5] == (wq.data_ptr(), ws.data_ptr())
+
+
+def test_k1q_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card):
+    """A bf16 gn_silu_conv3x3_q call runs the statistics pass and then
+    a2k_gn_silu_conv3x3_q_bf16 with the plan's launch arguments, the int8
+    taps and the f32 scale as stored and the bf16 conv bias read as stored;
+    f32 inputs reach the shared core."""
+    from audioldm2_torch.ops import resblock_kernel as rk
+
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    b, t, f, c1, c2, cout = 2, 32, 2, 640, 384, 640
+    x1, x2 = torch.zeros(b, t, f, c1, dtype=bf16), torch.zeros(b, t, f, c2, dtype=bf16)
+    gamma, beta, bias = (torch.ones(k, dtype=bf16) for k in (c1 + c2, c1 + c2, cout))
+    wq, ws = torch.zeros(3, 3, c1 + c2, cout, dtype=torch.int8), torch.ones(cout)
+    out = rk.gn_silu_conv3x3_q(x1, x2, gamma, beta, wq, ws, bias)
+    assert set(lib.calls) == {"a2k_gn_stats", "a2k_gn_silu_conv3x3_q_bf16"}
+    args = lib.calls.pop("a2k_gn_silu_conv3x3_q_bf16")
+    plan = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, SMS, w_bytes=1)
+    assert args[4:9] == (wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), 1, out.data_ptr())
+    assert args[9:15] == (b, t, f, c1, c2, cout)
+    assert args[15:22] == (plan.bm, plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages,
+                           plan.splits)
+    assert lib.calls.pop("a2k_gn_stats")[10] == 1
+    rk.gn_silu_conv3x3_q(x1.float(), x2.float(), gamma, beta, wq, ws, bias)
+    assert set(lib.calls) == {"a2k_gn_stats", "a2k_gn_silu_conv3x3_q"}
+    assert lib.calls["a2k_gn_silu_conv3x3_q"][4:6] == (wq.data_ptr(), ws.data_ptr())
