@@ -90,12 +90,26 @@
 // K3q, which normalized the rows again for every 64 output columns and split
 // K through a workspace and a second launch.
 //
-// K3 in f32, K3q in f32 (and at shapes its plan declines), K4 in f32, K4q
-// and K5 are the shared GEMM core (common.cuh) with a prologue: K3's block
+// K4q and K5 in bf16 on the same kernel with K3q's int8 ring and staging
+// tiles: K4q is RowPass::GEGLU with TW = int8_t (the gate product rounded
+// once to bf16 into A, as the Pallas kernel does whatever h's dtype); K5 is
+// RowPass::COPY: the block copies its rows of x into A by cp.async as they
+// are (no statistics, no rounding) and the products start once they land.
+// Both take K4's tiles, down to 16 rows, and its K split over a cluster; the
+// epilogue forms acc * wscale + bias (+ residual) in f32 after the whole K
+// (split: after the cluster sum) and rounds once. On the (32, 64) tile the
+// four warps without products convert the next int8 tile beside the
+// products instead of every warp after them (4-10% faster there, measured;
+// not on the 16-row tiles, where it was 1-5% slower). No workspace, one
+// launch. They replace the shared core's K4q and K5, which
+// split K through a workspace and a second launch.
+//
+// K3 in f32, K3q, K4q and K5 in f32 (and at shapes their plans decline), and
+// K4 in f32 are the shared GEMM core (common.cuh) with a prologue: K3's block
 // first computes mean and rstd of its 64 rows (one warp per row, two-pass)
 // into shared memory, then normalizes each A element as it loads; K4 forms
-// a * gelu(g) from the two halves of each h row as it loads; small-M
-// products split K (common.cuh).
+// a * gelu(g) from the two halves of each h row as it loads; K5 loads x as
+// it is; small-M products split K (common.cuh).
 //
 // The int8 serving mode (ops/quant.py): K3q and K4q are the w_scale paths
 // of the same Pallas kernels (ln_matmul :83-91 and geglu_matmul :202-209
@@ -106,9 +120,10 @@
 // lnmm_pallas.py: int8_matmul (:143, kernel _matmul_kernel :132), the
 // attention to_out projections: the same GEMM core with the input as its
 // own prologue, which is NOT rounded (the Pallas dot runs in x's dtype; an
-// f32 input takes the FMA path with the exact int8 values). They halve the
-// weight bytes the GEMM streams, the larger share of these small-M
-// products; int8 tensor-core MMA is later work.
+// f32 input takes the FMA path with the exact int8 values, a bf16 one the
+// row-block kernel above). They halve the weight bytes the GEMM streams,
+// the larger share of these small-M products; int8 tensor-core MMA is later
+// work.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -265,14 +280,15 @@ constexpr int LT_MAX_SMEM = 232448;
 constexpr int LT_LN_CH = 3;      // 16-byte chunks of a row a lane holds in registers
 constexpr int LT_MAX_C = 32 * LT_LN_CH * 8;  // 768: the widest row the kernel takes
 
-// The pass that fills a row block's A tile: K3's LayerNorm of x [M, C], or
-// K4's gate product u = a * gelu(g) of h = [a | g], [M, 2C] (C = F).
-enum class RowPass { LN, GEGLU };
+// The pass that fills a row block's A tile: K3's LayerNorm of x [M, C],
+// K4's gate product u = a * gelu(g) of h = [a | g], [M, 2C] (C = F), or K5's
+// copy of x [M, C] as it is (C = K).
+enum class RowPass { LN, GEGLU, COPY };
 
-// TW: the weight's type. bf16 (K3, K4), or int8 (K3q: RowPass::LN only):
-// then the ring holds int8 tiles, each converted once into one of two bf16
-// staging tiles that the products read, and the per-column scale wscale
-// multiplies the f32 sums in the epilogue.
+// TW: the weight's type. bf16 (K3, K4), or int8 (K3q, K4q, K5; COPY takes
+// only int8): then the ring holds int8 tiles, each converted once into one
+// of two bf16 staging tiles that the products read, and the per-column
+// scale wscale multiplies the f32 sums in the epilogue.
 template <RowPass PASS, int BM, int BN, typename TW = bf16>
 __global__ void __launch_bounds__(LT_THREADS)
 row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
@@ -282,7 +298,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
                              const bf16* __restrict__ residual, bf16* __restrict__ out, int M,
                              int C, int N, float eps, int strip_tiles, int stages) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
-  static_assert(!Q || PASS == RowPass::LN, "the int8 weight is K3q's");
+  static_assert(Q || PASS != RowPass::COPY, "the copy pass is K5's, whose weight is int8");
   constexpr int THREADS = LT_THREADS;
   // warps that run products: one per 16 x 32 slice of the tile, at most all;
   // in a smaller tile the others only copy and form A
@@ -295,23 +311,34 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   constexpr int R_LD = Q ? BN + 16 : B_LD;  // a ring row, in TW elements (int8: 16 bytes of pad)
   constexpr int R_STAGE = LT_BK * R_LD;
   constexpr int CPR = BN * (int)sizeof(TW) / 16;  // 16-byte chunks per W tile row
+  // int8: where the tile leaves warps without products and they take the
+  // next W tile in one or two even steps a thread (the (32, 64) tile), those
+  // warps alone convert it while the others multiply this one; else every
+  // thread converts, after its products (measured faster on the 16-row
+  // tiles, whose idle warps would each convert more than the products last)
+  constexpr int IDLE_THREADS = THREADS - MMA_WARPS * 32;
+  constexpr int W_CHUNKS = LT_BK * (BN / 16);  // 16-byte int8 chunks of a W tile
+  constexpr bool CVT_IDLE = Q && IDLE_THREADS > 0 && W_CHUNKS % IDLE_THREADS == 0 &&
+                            W_CHUNKS <= 2 * IDLE_THREADS;
+  constexpr int CVT_T0 = CVT_IDLE ? MMA_WARPS * 32 : 0;  // the first converting thread
 
   extern __shared__ __align__(128) unsigned char lt_smem[];
-  // K4 may split K over a thread-block cluster of gridDim.z blocks, one N tile
-  // each: block z takes the K tiles [z * kps, (z + 1) * kps), columns
-  // [k_lo, k_lo + k_len) of h's halves and rows of W. K3 takes all of K.
+  // K4, K4q and K5 may split K over a thread-block cluster of gridDim.z
+  // blocks, one N tile each: block z takes the K tiles [z * kps, (z + 1) *
+  // kps), columns [k_lo, k_lo + k_len) of x (h's halves) and rows of W. K3
+  // takes all of K.
   int k_lo = 0, k_len = C;
-  if constexpr (PASS == RowPass::GEGLU) {
+  if constexpr (PASS != RowPass::LN) {
     const int kps = ((C + LT_BK - 1) / LT_BK + gridDim.z - 1) / gridDim.z;
     k_lo = blockIdx.z * kps * LT_BK;
     k_len = min(C - k_lo, kps * LT_BK);
   }
-  const bool split = PASS == RowPass::GEGLU && gridDim.z > 1;
+  const bool split = PASS != RowPass::LN && gridDim.z > 1;
   const int KT = (k_len + LT_BK - 1) / LT_BK;
   const int Cp = KT * LT_BK;  // A's columns, zero past k_len
   const int A_LD = Cp + LT_PAD;
   bf16* As = reinterpret_cast<bf16*>(lt_smem);  // [BM][A_LD]
-  bf16* Ws = As + (size_t)BM * A_LD;  // stages x [LT_BK][B_LD]; K3q: the two staging tiles
+  bf16* Ws = As + (size_t)BM * A_LD;  // stages x [LT_BK][B_LD]; int8: the two staging tiles
   TW* Wr;                             // the ring: stages x [LT_BK][R_LD]
   if constexpr (Q)
     Wr = reinterpret_cast<TW*>(Ws + 2 * W_STAGE);
@@ -358,8 +385,8 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
 
   // Where the ring holds the whole strip (total <= stages: the small-M
   // shapes, one N tile of at most twelve K tiles) every W tile is started now,
-  // and the products run through them behind one wait and one barrier (K3q:
-  // one barrier a tile, for its staging tiles). K3q's ring keeps one tile
+  // and the products run through them behind one wait and one barrier (int8:
+  // one barrier a tile, for its staging tiles). The int8 ring keeps one tile
   // more in flight: a slot is free once its tile is converted, a step ahead.
   const bool resident = total <= stages;
   const int started = resident ? total : stages - (Q ? 0 : 1);
@@ -400,6 +427,18 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
         }
       }
     }
+  } else if constexpr (PASS == RowPass::COPY) {
+    // group 0: the row block's x as it is (the Pallas dot runs in x's dtype,
+    // so nothing is rounded), rows past M and columns past k_len as zeros;
+    // then the first W tiles. No pass: the products wait only for the copies.
+    const int kc = Cp / 8;  // 16-byte chunks of an A row
+    for (int i = tid; i < BM * kc; i += THREADS) {
+      const int r = i / kc, ch = i % kc, m = m0 + r;
+      const bool ok = m < M && ch < chunks;
+      cp_async16(As + (size_t)r * A_LD + ch * 8, ok ? x + (size_t)m * C + k_lo + ch * 8 : x, ok);
+    }
+    cp_async_commit();
+    for (int s = 0; s < started; ++s) load_next();
   } else {
   // group 0: the row block's x, as it is, into As (rows past M as zeros, whose
   // LN is beta: finite, and never stored); then the first W tiles, which fly
@@ -501,18 +540,23 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   const int a_off = (wm * WM + (lane & 15)) * A_LD + (lane >> 4) * 8;
   const int b_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
 
-  // K3q: the int8 W tile in ring slot `rs` into bf16 staging tile `sb`, 16
-  // values a thread a step (zero-filled rows and columns stay zero)
+  // int8: the W tile in ring slot `rs` into bf16 staging tile `sb`, 16
+  // values a thread a step (zero-filled rows and columns stay zero); called
+  // by the threads from CVT_T0 on
+  constexpr int CVT_THREADS = THREADS - CVT_T0;
+  const bool converts = !CVT_IDLE || !mma_warp;
   auto convert = [&](int rs, int sb) {
     const TW* src = Wr + (size_t)rs * R_STAGE;
     bf16* dst = Ws + (size_t)sb * W_STAGE;
 #pragma unroll
-    for (int u = 0; u < LT_BK * (BN / 16) / THREADS; ++u) {
-      const int c = tid + u * THREADS, r = c / (BN / 16), col = (c % (BN / 16)) * 16;
-      uint4 lo, hi;
-      int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo, hi);
-      *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo;
-      *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi;
+    for (int u = 0; u < (W_CHUNKS + CVT_THREADS - 1) / CVT_THREADS; ++u) {
+      const int c = tid - CVT_T0 + u * CVT_THREADS, r = c / (BN / 16), col = (c % (BN / 16)) * 16;
+      if (W_CHUNKS % CVT_THREADS == 0 || c < W_CHUNKS) {
+        uint4 lo, hi;
+        int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo, hi);
+        *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo;
+        *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi;
+      }
     }
   };
   if constexpr (Q) {  // W tile 0 into staging tile 0 (As is written by now, for this thread)
@@ -521,7 +565,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
     else
       cp_async_wait_dyn(started - 1);  // x and W tile 0 have landed
     __syncthreads();
-    convert(0, 0);
+    if (converts) convert(0, 0);
   }
 
   float acc[MT][4][4];
@@ -579,10 +623,11 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
       }
     }
     }
-    // K3q: tile i + 1 into the other staging tile, behind this tile's
+    // int8: tile i + 1 into the other staging tile, behind this tile's
     // products, whose tensor-core work its loads and integer work overlap
+    // (CVT_IDLE: by the warps without products, beside them)
     if constexpr (Q) {
-      if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
+      if (i + 1 < total && converts) convert((i + 1) % stages, (i + 1) & 1);
     }
 
     if (++kt == KT) {  // this N tile is complete: + bias, one rounding, 16-byte stores
@@ -605,7 +650,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
           }
         }
       }
-      float sv[4][2];  // K3q: the columns' scales
+      float sv[4][2];  // int8: the columns' scales
       if constexpr (Q) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -623,7 +668,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
         for (int half = 0; half < 2; ++half) {
           uint32_t v[4];
           const int row = m0 + wm * WM + mi * 16 + half * 8 + g;
-          if constexpr (PASS == RowPass::GEGLU) {  // + bias + residual in f32, one rounding
+          if constexpr (PASS == RowPass::GEGLU) {  // (* wscale) + bias + residual in f32, one rounding
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const int rc = nb + j * 8 + 2 * t;
@@ -631,10 +676,14 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
               if (row < M && rc < N)
                 r2 = __bfloat1622float2(
                     *reinterpret_cast<const __nv_bfloat162*>(residual + (size_t)row * N + rc));
-              v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0] + r2.x,
-                               acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
+              if constexpr (Q)
+                v[j] = pack_bf16(fmaf(acc[mi][j][2 * half], sv[j][0], bv[j][0]) + r2.x,
+                                 fmaf(acc[mi][j][2 * half + 1], sv[j][1], bv[j][1]) + r2.y);
+              else
+                v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0] + r2.x,
+                                 acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
             }
-          } else if constexpr (Q) {  // * wscale + bias in f32, one rounding
+          } else if constexpr (Q) {  // K3q, K5: * wscale + bias in f32, one rounding
 #pragma unroll
             for (int j = 0; j < 4; ++j)
               v[j] = pack_bf16(fmaf(acc[mi][j][2 * half], sv[j][0], bv[j][0]),
@@ -656,11 +705,12 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
     }
   }
 
-  if constexpr (PASS == RowPass::GEGLU) {
+  if constexpr (PASS != RowPass::LN) {
     if (split) {
       // Each block's f32 tile in its own shared memory; then every block sums
       // its rows (r = rank mod splits) over the cluster's tiles in rank order,
-      // + bias + residual in f32, one rounding, 16-byte stores.
+      // (* wscale, after the sum) + bias (+ residual) in f32, one rounding,
+      // 16-byte stores.
       namespace cg = cooperative_groups;
       cg::cluster_group cluster = cg::this_cluster();
       constexpr int C_LD = BN + 4;
@@ -695,10 +745,28 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
           v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
         }
         float bv[8], rv[8];
-        load8_param(bias, col, p16, bv);
-        load8(residual + (size_t)row * N + col, rv);
+        if constexpr (PASS == RowPass::GEGLU) {
+          load8_param(bias, col, p16, bv);
+          load8(residual + (size_t)row * N + col, rv);
+        } else {  // K5: no residual, and the bias may be null
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = v[e] + bv[e] + rv[e];
+          for (int e = 0; e < 8; ++e) bv[e] = 0.f;
+          if (bias != nullptr) load8_param(bias, col, p16, bv);
+        }
+        if constexpr (Q) {
+          float sv[8];
+          load8(wscale + col, sv);
+          if constexpr (PASS == RowPass::GEGLU) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaf(v[e], sv[e], bv[e]) + rv[e];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaf(v[e], sv[e], bv[e]);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = v[e] + bv[e] + rv[e];
+        }
         store8(out + (size_t)row * N + col, v);
       }
       cluster.sync();  // no block leaves while another still reads its tile
@@ -722,7 +790,7 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
   }
   const int kt_all = (C + LT_BK - 1) / LT_BK, kt = (kt_all + splits - 1) / splits;
   if ((splits - 1) * kt >= kt_all) return (int)cudaErrorInvalidValue;  // an empty split
-  // A, then the ring (K3q: two bf16 staging tiles and an int8 ring)
+  // A, then the ring (int8: two bf16 staging tiles and an int8 ring)
   size_t smem = ((size_t)BM * (kt * LT_BK + LT_PAD) +
                  (size_t)stages * LT_BK * (BN + LT_PAD)) * sizeof(bf16);
   if (Q)
@@ -758,6 +826,29 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// K4's, K4q's and K5's (bm, bn): (64, 128), (64, 64), (32, 128), (32, 64),
+// (16, 128), (16, 64), 256 threads each (the smaller tiles run their products
+// on 4 or 2 warps).
+template <RowPass PASS, typename TW>
+static int thin_tile_launch(int bm, int bn, const void* x, const void* w, const void* bias,
+                            bool p16, const void* residual, void* out, int M, int C, int N,
+                            int strip_tiles, int stages, cudaStream_t s, int splits,
+                            const void* wscale) {
+#define A2K_THIN(BM_, BN_)                                                                     \
+  if (bm == BM_ && bn == BN_)                                                                  \
+    return row_block_launch<PASS, BM_, BN_, TW>(x, nullptr, nullptr, w, bias, p16, residual, \
+                                                out, M, C, N, 0.f, strip_tiles, stages, s,     \
+                                                splits, wscale);
+  A2K_THIN(64, 128)
+  A2K_THIN(64, 64)
+  A2K_THIN(32, 128)
+  A2K_THIN(32, 64)
+  A2K_THIN(16, 128)
+  A2K_THIN(16, 64)
+#undef A2K_THIN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace a2k
@@ -854,32 +945,54 @@ int a2k_geglu_matmul_bf16(const void* h, const void* w, const void* bias, int pa
        reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(residual) |
        reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
-  using a2k::RowPass;
-  if (bm == 64 && bn == 128)
-    return a2k::row_block_launch<RowPass::GEGLU, 64, 128>(h, nullptr, nullptr, w, bias, p16,
-                                                          residual, out, M, F, N, 0.f,
-                                                          strip_tiles, stages, s, splits);
-  if (bm == 64 && bn == 64)
-    return a2k::row_block_launch<RowPass::GEGLU, 64, 64>(h, nullptr, nullptr, w, bias, p16,
-                                                         residual, out, M, F, N, 0.f,
-                                                         strip_tiles, stages, s, splits);
-  if (bm == 32 && bn == 128)
-    return a2k::row_block_launch<RowPass::GEGLU, 32, 128>(h, nullptr, nullptr, w, bias, p16,
-                                                          residual, out, M, F, N, 0.f,
-                                                          strip_tiles, stages, s, splits);
-  if (bm == 32 && bn == 64)
-    return a2k::row_block_launch<RowPass::GEGLU, 32, 64>(h, nullptr, nullptr, w, bias, p16,
-                                                         residual, out, M, F, N, 0.f,
-                                                         strip_tiles, stages, s, splits);
-  if (bm == 16 && bn == 128)
-    return a2k::row_block_launch<RowPass::GEGLU, 16, 128>(h, nullptr, nullptr, w, bias, p16,
-                                                          residual, out, M, F, N, 0.f,
-                                                          strip_tiles, stages, s, splits);
-  if (bm == 16 && bn == 64)
-    return a2k::row_block_launch<RowPass::GEGLU, 16, 64>(h, nullptr, nullptr, w, bias, p16,
-                                                         residual, out, M, F, N, 0.f,
-                                                         strip_tiles, stages, s, splits);
-  return (int)cudaErrorInvalidValue;
+  return a2k::thin_tile_launch<a2k::RowPass::GEGLU, a2k::bf16>(
+      bm, bn, h, w, bias, p16, residual, out, M, F, N, strip_tiles, stages, s, splits, nullptr);
+}
+
+// K4q in bf16 with its launch plan: as a2k_geglu_matmul_bf16 with wq: int8
+// [F, N] (N a multiple of 16) and wscale: f32 [N], out = residual + (a *
+// gelu(g)) . wq * wscale + bias; stages: 2 to 12 int8 W tiles in the ring
+// (besides two bf16 staging tiles).
+int a2k_geglu_matmul_q_bf16(const void* h, const void* wq, const void* wscale, const void* bias,
+                            int param_dtype, const void* residual, void* out, int M, int F, int N,
+                            int bm, int bn, int strip_tiles, int stages, int splits,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 15) || strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1) || wscale == nullptr ||
+      bias == nullptr || residual == nullptr || splits < 1 || splits > 8 ||
+      (splits > 1 && strip_tiles != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(wq) |
+       reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(residual) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return a2k::thin_tile_launch<a2k::RowPass::GEGLU, int8_t>(
+      bm, bn, h, wq, bias, p16, residual, out, M, F, N, strip_tiles, stages, s, splits, wscale);
+}
+
+// K5 in bf16 with its launch plan: out = x . wq * wscale + bias, x: bf16
+// [M, K] as it is (K a multiple of 8); wq: int8 [K, N] (N a multiple of 16);
+// wscale: f32 [N]; bias: [N], f32 (param_dtype 0) or bf16 (1), or null;
+// out: bf16 [M, N]; all pointers 16-byte aligned. bm, bn, strip_tiles,
+// stages (int8 tiles) and splits as for K4q; K is bounded only by the shared
+// memory its row block takes.
+int a2k_int8_matmul_bf16(const void* x, const void* wq, const void* wscale, const void* bias,
+                         int param_dtype, void* out, int M, int K, int N, int bm, int bn,
+                         int strip_tiles, int stages, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0 || N <= 0 || (K & 7) || (N & 15) || strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1) || wscale == nullptr ||
+      splits < 1 || splits > 8 || (splits > 1 && strip_tiles != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
+       reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return a2k::thin_tile_launch<a2k::RowPass::COPY, int8_t>(
+      bm, bn, x, wq, bias, p16, nullptr, out, M, K, N, strip_tiles, stages, s, splits, wscale);
 }
 
 // x: [M, C]; gamma, beta: f32 [C]; w: [C, N]; bias: f32 [N] or null; out: [M, N];

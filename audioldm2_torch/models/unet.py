@@ -453,17 +453,41 @@ def conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
     return shapes
 
 
-def geglu_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+def geglu_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
+                        weight_quant: Optional[str] = None) -> dict:
     """{(M, F, N): calls} of the K4 launches of one unquantized apply_unet
     call: per transformer block the GEGLU proj_out, h [M, 2F] with F = 4C,
     onto N = C, M = batch x the ladder's tokens. The calls sum to
-    kernel_launches_per_forward(cfg)["geglu_matmul"]."""
+    kernel_launches_per_forward(cfg)["geglu_matmul"]. With weight_quant
+    "int8": those of the K4q launches of a quantized forward, which sum to
+    kernel_launches_per_forward(cfg, "int8")["geglu_matmul_q"]."""
+    q = weight_quant == "int8"
     shapes: dict = {}
     _, ladders, ladder_ds = _layout(cfg)
     for c, ds in zip(ladders, ladder_ds):
+        if q and not _st_linear_quantizable(4 * c, c):
+            continue
         key = (batch * (latent_t // ds) * (latent_f // ds), 4 * c, c)
         calls = len(_ladder_slots(cfg, c)) * cfg.transformer_depth
         shapes[key] = shapes.get(key, 0) + calls
+    return shapes
+
+
+def int8_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(M, K, N): calls} of the K5 launches of one quantized apply_unet
+    call (weight_quant "int8"): per transformer block the attn1 and attn2
+    to_out projections, and a None slot's to_q, all [M, C] onto C where the
+    quantization predicate takes C, M = batch x the ladder's tokens. The
+    calls sum to kernel_launches_per_forward(cfg, "int8")["int8_matmul"]."""
+    shapes: dict = {}
+    _, ladders, ladder_ds = _layout(cfg)
+    for c, ds in zip(ladders, ladder_ds):
+        if not _st_linear_quantizable(c, c):
+            continue
+        key = (batch * (latent_t // ds) * (latent_f // ds), c, c)
+        for attn2_n, _ in _ladder_slots(cfg, c):
+            calls = (2 + (attn2_n is None)) * cfg.transformer_depth
+            shapes[key] = shapes.get(key, 0) + calls
     return shapes
 
 

@@ -61,6 +61,8 @@ SIGNATURES = {
                              _P],
     "a2k_geglu_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_geglu_matmul_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_geglu_matmul_q_bf16": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_int8_matmul_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _I, _I, _P],
     "a2k_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
@@ -141,6 +143,21 @@ LNMM_Q_PAD = 16
 LNMMQ_RING_STAGES = 6
 _Q_CVT_COST = 10.0
 _Q_TILE_BARRIER_COST = 1.0e5
+# K4q and K5 (int8 weights on K4's tiles, K5 with a copy for its pass):
+# K4's model with K3q's conversion and barrier cost a W tile, on tile costs
+# of their own; registers from ptxas of their instantiations. The tile
+# costs were fitted offline to tools/tune_k1_k4.py --only k5|k4q on an H100
+# (each kernel's forward weighted by its calls): the plans then pick the
+# fastest measured choice at five of the six full8 shapes and one 4% off it
+# at the sixth (see PERF.md).
+_GEGLU_Q_REGS = {(64, 128): 118, (64, 64): 116, (32, 128): 119, (32, 64): 117, (16, 128): 117,
+                 (16, 64): 121}
+_K5_REGS = {(64, 128): 96, (64, 64): 60, (32, 128): 48, (32, 64): 75, (16, 128): 63,
+            (16, 64): 64}
+_K5_TILE_COST = {(64, 128): 1.8, (64, 64): 0.22, (32, 128): 4.0, (32, 64): 0.6, (16, 128): 11.0,
+                 (16, 64): 5.5}
+_GEGLU_Q_TILE_COST = {(64, 128): 0.18, (64, 64): 2.2, (32, 128): 4.0, (32, 64): 5.0,
+                      (16, 128): 11.0, (16, 64): 5.5}
 # A plan may leave up to this share of the SMs it could fill idle, and only
 # for a grid of one wave: measured, one wave of long strips on 96 to 128 SMs
 # beats a second, ragged wave of short ones by 25 to 35%.
@@ -321,8 +338,8 @@ def row_block_smem(bm: int, bn: int, a_cols: int, stages: int, w_bytes: int = 2,
 
 
 @functools.lru_cache(maxsize=1024)
-def geglu_matmul_plan(m: int, f: int, n: int, sms: int,
-                      dtype: str = "bf16") -> Optional[LnMatmulPlan]:
+def geglu_matmul_plan(m: int, f: int, n: int, sms: int, dtype: str = "bf16",
+                      w_bytes: int = 2) -> Optional[LnMatmulPlan]:
     """The launch plan of the bf16 K4 kernel for h [m, 2f] -> u [m, f],
     u . w [f, n], on K3's row-block kernel: the block forms its rows' gate
     product once into shared memory ([bm, f] bf16, which at f = 2560 leaves
@@ -335,21 +352,48 @@ def geglu_matmul_plan(m: int, f: int, n: int, sms: int,
     64, 32 or 16)
     with the gate product's cost in place of the LayerNorm's. None for what
     the kernel does not take: f32, f or n not a multiple of 8, or a row
-    block that leaves no room for two W tiles."""
+    block that leaves no room for two W tiles.
+
+    ``w_bytes`` 1: K4q's plan, an int8 w on the same kernel (n a multiple of
+    16): two bf16 staging tiles beside an int8 ring (``row_block_smem``) and
+    each W tile's conversion and barrier counted, as in K3q's plan."""
     if dtype != "bf16":
         return None
+    if w_bytes == 1:
+        if n % 16:
+            return None
+        return _row_block_plan(m, f, n, sms, _GEGLU_Q_TILE_COST, _GEGLU_COST, _GEGLU_Q_REGS,
+                               LNMMQ_RING_STAGES, GEGLU_MAX_SPLITS, w_bytes=1)
     return _row_block_plan(m, f, n, sms, _GEGLU_TILE_COST, _GEGLU_COST, _GEGLU_REGS,
                            GEGLU_STAGES, GEGLU_MAX_SPLITS)
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_matmul_plan(m: int, k: int, n: int, sms: int,
+                     dtype: str = "bf16") -> Optional[LnMatmulPlan]:
+    """The launch plan of the bf16 K5 kernel for x [m, k] . wq [k, n], an
+    int8 weight, on the row-block kernel with K4q's tiles, int8 ring and
+    cluster split: the block copies its rows of x (its share of k) into
+    shared memory as they are, with no pass to pay for. The same
+    candidates, fill rule and model as geglu_matmul_plan(..., w_bytes=1).
+    None for what the kernel does not take: f32, k not a multiple of 8, n
+    not a multiple of 16, or a row block that leaves no room for two W
+    tiles; the wrapper sends those to the shared GEMM core."""
+    if dtype != "bf16" or n % 16:
+        return None
+    return _row_block_plan(m, k, n, sms, _K5_TILE_COST, 0.0, _K5_REGS, LNMMQ_RING_STAGES,
+                           GEGLU_MAX_SPLITS, w_bytes=1)
 
 
 def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=4,
                     max_splits=1, w_bytes=2) -> Optional[LnMatmulPlan]:
     """The candidates and model of ln_matmul_plan (regs None: one block per
     SM, four ring stages, no split; w_bytes 1, K3q: int8 W tiles converted
-    into staging tiles) and of geglu_matmul_plan (regs: blocks_per_sm, up to
-    ``ring_stages``, K split over a cluster of up to ``max_splits`` blocks,
-    each holding only its share of A); ``tile_costs`` maps each (bm, bn) the
-    kernel is built for to its cost per multiply-add."""
+    into staging tiles) and of geglu_matmul_plan and int8_matmul_plan (regs:
+    blocks_per_sm, up to ``ring_stages``, K split over a cluster of up to
+    ``max_splits`` blocks, each holding only its share of A; w_bytes 1, K4q
+    and K5); ``tile_costs`` maps each (bm, bn) the kernel is built for to
+    its cost per multiply-add."""
     if m < 1 or c < 8 or n < 8 or c % 8 or n % 8:
         return None
     k_tiles = -(-c // LNMM_BK)
@@ -388,19 +432,18 @@ def _row_block_plan(m, c, n, sms, tile_costs, pass_cost, regs=None, ring_stages=
                     depths = (min(fit, ring_stages),)
                 else:
                     depths = sorted({2, min(fit, 3), min(fit, ring_stages)})
+                # int8: each W tile's conversion and the barrier its staging needs
+                cvt = total * (LNMM_BK * bn * _Q_CVT_COST + _Q_TILE_BARRIER_COST) if q else 0
                 for stages in depths:
                     smem = row_block_smem(bm, bn, cp, stages, w_bytes, splits)
                     if regs is None:
                         block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
-                                      + strip_tiles * tile_cost
+                                      + strip_tiles * tile_cost + cvt
                                       + (0 if resident else total * _LNMM_RING_TILE_COST))
-                        if q:
-                            block_cost += total * (LNMM_BK * bn * _Q_CVT_COST
-                                                   + _Q_TILE_BARRIER_COST)
                         cost = -(-blocks // sms) * block_cost
                     else:
                         block_cost = (_LNMM_BLOCK_COST + bm * cp * pass_cost
-                                      + strip_tiles * tile_cost
+                                      + strip_tiles * tile_cost + cvt
                                       + (0 if resident else
                                          total * _GEGLU_RING_COST / (stages - 1))
                                       + (bm * bn * splits * _GEGLU_RED_COST if splits > 1

@@ -12,11 +12,12 @@ compute their A tile as the shared GEMM core loads it.
 K3q and K4q are the Pallas functions' ``w_scale`` path: an int8 weight
 tile converted to bf16 in shared memory, the A tile rounded to bf16
 whatever x's dtype, and the per-column scale applied to the f32
-accumulator. K3q in bf16 runs K3's row-block kernel with an int8 ring
-(``_build.ln_matmul_plan(..., w_bytes=1)``); K3q in f32, and K4q, run the
-shared GEMM core. K5 replaces
-``lnmm_pallas.int8_matmul``: a plain GEMM with the int8 weight, whose
-activation stays in x's dtype.
+accumulator. K5 replaces ``lnmm_pallas.int8_matmul``: a plain GEMM with
+the int8 weight, whose activation stays in x's dtype. In bf16 all three run
+the row-block kernel with an int8 ring (``_build.ln_matmul_plan(...,
+w_bytes=1)``, ``geglu_matmul_plan(..., w_bytes=1)``, ``int8_matmul_plan``;
+K5's pass only copies x's rows); in f32, or at a shape or an alignment a
+plan does not take, the shared GEMM core.
 
 Each wrapper takes the plain version for CPU tensors and the kernel for
 CUDA tensors; the ``*_plain`` functions are the oracles.
@@ -189,17 +190,28 @@ def _geglu(name, h, w, ws, bias, residual):
     if bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
     out = torch.empty_like(residual)
-    if ws is None and h.dtype == BF16 and m:
-        plan = _build.geglu_matmul_plan(m, f, n, _build.sm_count(h.device.index or 0))
+    if h.dtype == BF16 and m:
+        plan = _build.geglu_matmul_plan(m, f, n, _build.sm_count(h.device.index or 0),
+                                        w_bytes=2 if ws is None else 1)
         (b,), param_code = _build.params_as_stored(h.device, bias)
-        if plan is not None and _build.aligned16(h, w, b, residual, out):
-            _build.check(_build.lib().a2k_geglu_matmul_bf16(
-                h.data_ptr(), w.data_ptr(), b.data_ptr(), param_code, residual.data_ptr(),
-                out.data_ptr(), m, f, n, plan.bm, plan.bn, plan.strip_tiles, plan.stages,
-                plan.splits, _build.stream_of(h),
-            ), name)
+        if plan is not None and _build.aligned16(h, w, ws, b, residual, out):
+            tail = (b.data_ptr(), param_code, residual.data_ptr(), out.data_ptr(), m, f, n,
+                    plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits,
+                    _build.stream_of(h))
+            lib = _build.lib()
+            if ws is None:
+                rc = lib.a2k_geglu_matmul_bf16(h.data_ptr(), w.data_ptr(), *tail)
+            else:
+                rc = lib.a2k_geglu_matmul_q_bf16(h.data_ptr(), w.data_ptr(), ws.data_ptr(), *tail)
+            _build.check(rc, name)
             return out
-    # the shared core: f32, K4q, and the bf16 shapes the plan declines
+    return _geglu_shared_core(name, h, w, ws, bias, residual, out)
+
+
+def _geglu_shared_core(name, h, w, ws, bias, residual, out):
+    """K4 or K4q on the shared GEMM core: f32, and the bf16 shapes or
+    alignments the plans decline."""
+    m, f, n = h.numel() // h.shape[-1], h.shape[-1] // 2, out.shape[-1]
     b = _f32(bias, h.device)
     vec_a = f % 8 == 0 and _build.aligned16(h)
     work, k_split, vec = _build.gemm_launch_args(h.device, m, n, f, vec_a, w)
@@ -273,15 +285,37 @@ def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None) ->
     ws = _f32(ws, x.device)
     n = _weight(name, x, wq, ws, k)
     m = x.numel() // k
+    dev = x.device
+    if bias is not None and bias.shape != (n,):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
+    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
+    plan = (_build.int8_matmul_plan(m, k, n, _build.sm_count(dev.index or 0))
+            if x.dtype == BF16 and m else None)
+    (b,), param_code = _build.params_as_stored(dev, bias)
+    if plan is not None and _build.aligned16(x, wq, ws, b, out):
+        _build.check(_build.lib().a2k_int8_matmul_bf16(
+            x.data_ptr(), wq.data_ptr(), ws.data_ptr(), _ptr(b), param_code, out.data_ptr(),
+            m, k, n, plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits,
+            _build.stream_of(x),
+        ), name)
+    else:  # f32, or a shape or an alignment the plan declines
+        _int8_shared_core(name, x, wq, ws, bias, out)
+    int8_matmul.launches += 1
+    return out
+
+
+def _int8_shared_core(name, x, wq, ws, bias, out):
+    """K5 on the shared GEMM core (f32, and the bf16 shapes or alignments
+    the plan declines) into ``out``."""
+    k, n = x.shape[-1], out.shape[-1]
+    m = x.numel() // k
     b = _f32(bias, x.device)
-    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
     vec_a = k % 8 == 0 and _build.aligned16(x)
     work, k_split, vec = _build.gemm_launch_args(x.device, m, n, k, vec_a, wq)
     _build.check(_build.lib().a2k_int8_matmul(
         x.data_ptr(), wq.data_ptr(), ws.data_ptr(), _ptr(b), out.data_ptr(), m, k, n,
         _ptr(work), k_split, vec, _build.dtype_code(x), _build.stream_of(x),
     ), name)
-    int8_matmul.launches += 1
     return out
 
 

@@ -1,6 +1,6 @@
 """Time K1 (GroupNorm + SiLU + 3x3 conv), K2 (flash self-attention), K3
-(LayerNorm + matmul), K4 (GEGLU + matmul) and the int8 K1q and K3q on the
-card at every shape one forward gives them, call by call and summed per
+(LayerNorm + matmul), K4 (GEGLU + matmul) and the int8 K1q, K3q, K5 and K4q
+on the card at every shape one forward gives them, call by call and summed per
 forward, so that two trees of the package can be compared under one timer.
 
 Forwards: the t5 UNet at CFG batch 2 and the large-1150k UNet at CFG batch 6
@@ -27,7 +27,14 @@ cast parameter tree holds them:
       weights and f32 scales as the quantized tree holds them, and beside
       each the bf16 K1 or K3 at the same shape on the dequantized weight
       rounded to bf16 (int8 should cost no more), with the SHA-256 of K1q's
-      and K3q's outputs (two runs of one tree give the same bytes).
+      and K3q's outputs (two runs of one tree give the same bytes);
+  K5 and K4q on the same full8 forward (``unet.int8_matmul_shapes``,
+      ``unet.geglu_matmul_shapes(..., weight_quant="int8")``), each beside
+      its bf16 sibling (K5: the bf16 mode's own call at those sites,
+      ``nn.linear`` on the dequantized weight, cuBLAS; K4q: bf16 K4 on it)
+      and the parent design, the same call on the shared GEMM core (in a
+      tree without the ``_*_shared_core`` functions, its wrapper, which is
+      that core), with the SHA-256 of their outputs.
 Each call is checked against its plain version first, then timed with
 ``timing.cuda_ms``: with the device held while the host queues the calls
 (device time) and without the hold (a call shorter than its launch then
@@ -46,6 +53,7 @@ whose output is then wrong by design.
 Usage (on a machine with an NVIDIA GPU):
   python -m audioldm2_torch.tools.time_k2_k3 --json OUT.json
   python -m audioldm2_torch.tools.time_k2_k3 --shapes-from OUT.json --json OLD.json
+  python -m audioldm2_torch.tools.time_k2_k3 --only k5,k4q --json OUT.json
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from audioldm2_torch.ops import _build, attention_kernel, lnmm_kernel, resblock_kernel
+from audioldm2_torch.ops import _build, attention_kernel, lnmm_kernel, nn, resblock_kernel
 from audioldm2_torch.tools.timing import cuda_ms
 
 FORWARDS = (("t5", "audioldm_16k_crossattn_t5", 2), ("large", "audioldm2-full-large-1150k", 6))
@@ -73,9 +81,10 @@ CHECK_PLAIN = True  # --no-check clears it
 def main_path_shapes() -> dict:
     """{"k1": [[(B, T, F, C1, C2, Cout), {forward: calls}]], "k2": [[shape,
     {forward: [fused calls, separate calls]}]], "k3": [[(M, C, N), {forward:
-    calls}]], "k4": [[(M, F, N), {forward: calls}]], "k1q", "k3q": as K1 and
-    K3 on the full8 forward} from this tree's configs; K1's forwards include
-    the t5 VAE decode at batch 1."""
+    calls}]], "k4": [[(M, F, N), {forward: calls}]], "k1q", "k3q", "k4q": as
+    K1, K3 and K4 on the full8 forward, "k5": [[(M, K, N), {"full8":
+    calls}]]} from this tree's configs; K1's forwards include the t5 VAE
+    decode at batch 1."""
     import audioldm2_torch as at
     from audioldm2_torch.models import unet, vae
 
@@ -99,9 +108,11 @@ def main_path_shapes() -> dict:
     size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
     k1q = {s: {tag: c} for s, c in unet.conv_shapes(*size, weight_quant="int8").items()}
     k3q = {s: {tag: c} for s, c in unet.ln_matmul_shapes(*size, weight_quant="int8").items()}
+    k5 = {s: {tag: c} for s, c in unet.int8_matmul_shapes(*size).items()}
+    k4q = {s: {tag: c} for s, c in unet.geglu_matmul_shapes(*size, weight_quant="int8").items()}
     return {key: [[list(s), c] for s, c in sorted(table.items(), reverse=True)]
             for key, table in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4), ("k1q", k1q),
-                               ("k3q", k3q))}
+                               ("k3q", k3q), ("k5", k5), ("k4q", k4q))}
 
 
 def _checked(got, want, what):
@@ -258,31 +269,77 @@ def time_k3q(shape, device) -> dict:
             "sha256": sha256(got)}
 
 
+def time_k5(shape, device) -> dict:
+    m, k, n = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    x = _rnd(g, device, 1, m, k)
+    wq, ws = _int8(g, device, k, n)
+    args = (x, wq, ws, _rnd(g, device, n))
+    got = lnmm_kernel.int8_matmul(*args)
+    _checked(got, lnmm_kernel.int8_matmul_plain(*args), f"K5 {shape}")
+    p16 = {"w": (wq.float() * ws).to(BF16), "b": args[3]}
+    sibling = cuda_ms(lambda: nn.linear(p16, x)) * 1e3
+    if hasattr(lnmm_kernel, "_int8_shared_core"):
+        y = torch.empty_like(got)
+        parent = cuda_ms(lambda: lnmm_kernel._int8_shared_core("int8_matmul", *args, y)) * 1e3
+    else:  # a tree whose wrapper is the shared core
+        parent = cuda_ms(lambda: lnmm_kernel.int8_matmul(*args)) * 1e3
+    return {**_both(lambda: lnmm_kernel.int8_matmul(*args)), "sibling_held_us": sibling,
+            "shared_core_held_us": parent, "sha256": sha256(got)}
+
+
+def time_k4q(shape, device) -> dict:
+    m, f, n = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    h = _rnd(g, device, m, 2 * f)
+    wq, ws = _int8(g, device, f, n)
+    args = (h, wq, ws, _rnd(g, device, n), _rnd(g, device, m, n))
+    got = lnmm_kernel.geglu_matmul_q(*args)
+    _checked(got, lnmm_kernel.geglu_matmul_q_plain(*args), f"K4q {shape}")
+    w16 = (wq.float() * ws).to(BF16)
+    sibling = cuda_ms(lambda: lnmm_kernel.geglu_matmul(h, w16, args[3], args[4])) * 1e3
+    if hasattr(lnmm_kernel, "_geglu_shared_core"):
+        y = torch.empty_like(got)
+        parent = cuda_ms(lambda: lnmm_kernel._geglu_shared_core("geglu_matmul_q", *args,
+                                                                y)) * 1e3
+    else:  # a tree whose wrapper is the shared core
+        parent = cuda_ms(lambda: lnmm_kernel.geglu_matmul_q(*args)) * 1e3
+    return {**_both(lambda: lnmm_kernel.geglu_matmul_q(*args)), "sibling_held_us": sibling,
+            "shared_core_held_us": parent, "sha256": sha256(got)}
+
+
 def _sum(rows, tag, value) -> float:
     """ms of one forward: each shape's us weighed by its calls in ``tag``."""
     return sum(r["calls"].get(tag, 0) * value(r) for r in rows) * 1e-3
 
 
-def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=()) -> dict:
+def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=(),
+                rows_k5=(), rows_k4q=()) -> dict:
     """ms per forward: K1 (whole, stats, conv, yardstick), K3, K4 (whole,
     yardstick), K2 as the UNet calls it (fused calls on the views, the rest
     on contiguous tensors) and K2 on contiguous tensors throughout, each
     with and without the hold (the yardsticks held only); on the full8
-    forward K1q (whole, stats, conv) and K3q, and their bf16 siblings held."""
+    forward K1q (whole, stats, conv), K3q, K5 and K4q, their bf16 siblings
+    held and K5's and K4q's shared-core design held."""
     out = {}
     tag = INT8_FORWARD[0]
-    if rows_k1q or rows_k3q:
+    if rows_k1q or rows_k3q or rows_k5 or rows_k4q:
         row = {}
         for key in ("held_us", "unheld_us"):
             k = key[:-3]
             for part in ("whole", "stats", "conv") if rows_k1q else ():
                 row[f"k1q_{part}_{k}_ms"] = _sum(rows_k1q, tag, lambda r: r[part][key])
-            if rows_k3q:
-                row[f"k3q_{k}_ms"] = _sum(rows_k3q, tag, lambda r: r[key])
-        for name, rows in (("k1q", rows_k1q), ("k3q", rows_k3q)):
+            for name, rows in (("k3q", rows_k3q), ("k5", rows_k5), ("k4q", rows_k4q)):
+                if rows:
+                    row[f"{name}_{k}_ms"] = _sum(rows, tag, lambda r: r[key])
+        for name, rows in (("k1q", rows_k1q), ("k3q", rows_k3q), ("k5", rows_k5),
+                           ("k4q", rows_k4q)):
             if rows and "sibling_held_us" in rows[0]:
                 row[f"{name}_bf16_sibling_held_ms"] = _sum(rows, tag,
                                                            lambda r: r["sibling_held_us"])
+            if rows and "shared_core_held_us" in rows[0]:
+                row[f"{name}_shared_core_held_ms"] = _sum(rows, tag,
+                                                          lambda r: r["shared_core_held_us"])
         if rows_k1q and "sibling_conv_held_us" in rows_k1q[0]:
             row["k1q_bf16_sibling_conv_held_ms"] = _sum(rows_k1q, tag,
                                                         lambda r: r["sibling_conv_held_us"])
@@ -318,6 +375,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes-from", help="take the shapes from this JSON of an earlier run")
     ap.add_argument("--no-check", action="store_true",
                     help="skip the comparison with the plain versions (an ablation's timing)")
+    ap.add_argument("--only", help="time these kernels only, comma-separated (e.g. k5,k4q)")
     args = ap.parse_args(argv)
     global CHECK_PLAIN
     CHECK_PLAIN = not args.no_check
@@ -334,9 +392,11 @@ def main(argv=None) -> int:
     print(f"device: {card}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"k1": [], "k2": [], "k3": [], "k4": [], "k1q": [], "k3q": []}
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4, "k1q": time_k1q,
-              "k3q": time_k3q}
+              "k3q": time_k3q, "k5": time_k5, "k4q": time_k4q}
+    if args.only:
+        timers = {k: v for k, v in timers.items() if k in args.only.split(",")}
+    rows = {key: [] for key in ("k1", "k2", "k3", "k4", "k1q", "k3q", "k5", "k4q")}
     with torch.inference_mode():
         for key, timer in timers.items():
             for shape, calls in shapes.get(key, []):
@@ -358,10 +418,14 @@ def main(argv=None) -> int:
                     if "yardstick_held_us" in row:
                         times += f"; matmul alone {row['yardstick_held_us']:.1f} us held"
                 if "sibling_held_us" in row:
-                    times += (f"; bf16 {key[:2].upper()} at this shape "
+                    sibling = "cuBLAS linear" if key == "k5" else key[:2].upper()
+                    times += (f"; bf16 {sibling} at this shape "
                               f"{row['sibling_held_us']:.1f} us held")
+                if "shared_core_held_us" in row:
+                    times += f"; shared core {row['shared_core_held_us']:.1f} us held"
                 print(f"{key.upper()} {tuple(shape)} calls {calls}: {times}", flush=True)
-    sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"], rows["k1q"], rows["k3q"])
+    sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"], rows["k1q"], rows["k3q"],
+                       rows["k5"], rows["k4q"])
     for tag, row in sums.items():
         print(f"{tag} forward, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()))
     if args.json:

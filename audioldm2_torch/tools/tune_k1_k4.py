@@ -1,6 +1,6 @@
 """Sweep the launch parameters of the bf16 K1 conv (GroupNorm + SiLU + 3x3
-conv), the bf16 K4 kernel (GEGLU + matmul) and the int8-weight K1q and K3q
-on the same kernels on the card, beside the plans' own picks.
+conv), the bf16 K4 kernel (GEGLU + matmul) and the int8-weight K1q, K3q,
+K5 and K4q on the same kernels on the card, beside the plans' own picks.
 
 For every shape one forward gives them (``unet.conv_shapes`` and
 ``unet.geglu_matmul_shapes`` of the t5 UNet at CFG batch 2 and the
@@ -22,8 +22,16 @@ strip, ring depth), beside the plans' picks with ``w_bytes=1``; their
 constants (``_CONV_Q_MODEL``, ``_Q_CVT_COST``, ``_Q_TILE_BARRIER_COST``,
 ``LNMMQ_RING_STAGES``) are set against this table.
 
+K5 and K4q (``--only k5|k4q``): the same full8 forward's shapes
+(``unet.int8_matmul_shapes``, ``unet.geglu_matmul_shapes(...,
+weight_quant="int8")``) through ``a2k_int8_matmul_bf16`` and
+``a2k_geglu_matmul_q_bf16`` over K4's tiles, cluster splits, strips and
+int8 ring depths, beside ``_build.int8_matmul_plan`` and
+``geglu_matmul_plan(..., w_bytes=1)``; their tile costs (``_K5_TILE_COST``,
+``_GEGLU_Q_TILE_COST``) are set against this table.
+
 Usage (on a machine with an NVIDIA GPU):
-  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4|k1q|k3q]
+  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4|k1q|k3q|k5|k4q]
 """
 
 from __future__ import annotations
@@ -62,12 +70,15 @@ def main_path_shapes():
 
 
 def int8_shapes():
-    """(K1q shapes, K3q shapes (M, C, N)) of the full8 forward, largest first."""
+    """(K1q shapes, K3q shapes (M, C, N), K5 shapes (M, K, N), K4q shapes
+    (M, F, N)) of the full8 forward, largest first."""
     name, batch = INT8_FORWARD
     cfg = at.default_audioldm_config(name)
     size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
     return (sorted(unet.conv_shapes(*size, weight_quant="int8"), reverse=True),
-            sorted(unet.ln_matmul_shapes(*size, weight_quant="int8"), reverse=True))
+            sorted(unet.ln_matmul_shapes(*size, weight_quant="int8"), reverse=True),
+            sorted(unet.int8_matmul_shapes(*size), reverse=True),
+            sorted(unet.geglu_matmul_shapes(*size, weight_quant="int8"), reverse=True))
 
 
 def _int8(g, *dims):
@@ -145,40 +156,88 @@ def sweep_k1(shape, reps, int8=False):
     return rows, pick
 
 
-def sweep_k4(shape, reps):
-    """[(us, choice)] sorted by time and the plan's pick, for one K4 shape;
-    choice = (bm, bn, strip, stages, splits)."""
-    m, f, n = shape
-    g = torch.Generator(device="cuda").manual_seed(0)
-    h, w = _rnd(g, m, 2 * f), _rnd(g, f, n, scale=f ** -0.5)
-    bias, res = _rnd(g, n), _rnd(g, m, n)
-    want = lnmm_kernel.geglu_matmul_plain(h, w, bias, res).float()
-    out = torch.empty((m, n), device="cuda", dtype=BF16)
-    lib, sms = _build.lib(), _build.sm_count(0)
-    k_tiles = -(-f // _build.LNMM_BK)
-    p = _build.geglu_matmul_plan(m, f, n, sms)
-    pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
+def _thin_choices(pick, k, n, w_bytes, stage_choices):
+    """Every (bm, bn, strip, stages, splits) of K4's tiles whose block fits."""
+    k_tiles = -(-k // _build.LNMM_BK)
     choices = {pick}
     for bm, bn in _build.GEGLU_TILES:
         n_tiles = -(-n // bn)
         for asked in range(1, min(_build.GEGLU_MAX_SPLITS, k_tiles) + 1):
             kps = -(-k_tiles // asked)
             splits = -(-k_tiles // kps)
-            a_bytes = bm * (kps * _build.LNMM_BK + _build.LNMM_PAD) * 2
             for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles} if splits == 1 else (1,):
-                for stages in STAGES:
-                    if a_bytes + stages * _build.LNMM_BK * (bn + _build.LNMM_PAD) * 2 <= \
-                            _build.LNMM_MAX_SMEM:
+                for stages in stage_choices(strip * kps):
+                    if _build.row_block_smem(bm, bn, kps * _build.LNMM_BK, stages, w_bytes,
+                                             splits) <= _build.LNMM_MAX_SMEM:
                         choices.add((bm, bn, strip, stages, splits))
+    return choices
+
+
+def _q_stages(total):
+    """int8 ring depths: the whole strip where it fits, else the sweep's."""
+    return {max(2, min(total, 12)), *(s for s in Q_STAGES if s < total)}
+
+
+def sweep_k4(shape, reps, int8=False):
+    """[(us, choice)] sorted by time and the plan's pick, for one K4 (or,
+    with int8, K4q) shape; choice = (bm, bn, strip, stages, splits)."""
+    m, f, n = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h = _rnd(g, m, 2 * f)
+    if int8:
+        w, ws = _int8(g, f, n)
+    else:
+        w = _rnd(g, f, n, scale=f ** -0.5)
+    bias, res = _rnd(g, n), _rnd(g, m, n)
+    if int8:
+        want = lnmm_kernel.geglu_matmul_q_plain(h, w, ws, bias, res).float()
+    else:
+        want = lnmm_kernel.geglu_matmul_plain(h, w, bias, res).float()
+    out = torch.empty((m, n), device="cuda", dtype=BF16)
+    lib, sms = _build.lib(), _build.sm_count(0)
+    p = _build.geglu_matmul_plan(m, f, n, sms, w_bytes=1 if int8 else 2)
+    pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
+    choices = _thin_choices(pick, f, n, 1 if int8 else 2,
+                            _q_stages if int8 else lambda total: STAGES)
     rows = []
     for bm, bn, strip, stages, splits in choices:
         def call(bm=bm, bn=bn, strip=strip, stages=stages, splits=splits):
-            _build.check(lib.a2k_geglu_matmul_bf16(
-                h.data_ptr(), w.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
-                m, f, n, bm, bn, strip, stages, splits, _build.stream_of(h)), "geglu_matmul")
+            tail = (bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(), m, f, n, bm, bn, strip,
+                    stages, splits, _build.stream_of(h))
+            if int8:
+                rc = lib.a2k_geglu_matmul_q_bf16(h.data_ptr(), w.data_ptr(), ws.data_ptr(), *tail)
+            else:
+                rc = lib.a2k_geglu_matmul_bf16(h.data_ptr(), w.data_ptr(), *tail)
+            _build.check(rc, "geglu_matmul")
 
         choice = (bm, bn, strip, stages, splits)
-        rows.append((_timed(call, out, want, f"K4 {shape} {choice}", reps) * 1e3, choice))
+        what = f"K4{'q' if int8 else ''} {shape} {choice}"
+        rows.append((_timed(call, out, want, what, reps) * 1e3, choice))
+    rows.sort()
+    return rows, pick
+
+
+def sweep_k5(shape, reps):
+    """[(us, choice)] sorted by time and the plan's pick, for one K5 shape;
+    choice = (bm, bn, strip, stages, splits)."""
+    m, k, n = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = _rnd(g, m, k)
+    (wq, ws), bias = _int8(g, k, n), _rnd(g, n)
+    want = lnmm_kernel.int8_matmul_plain(x, wq, ws, bias).float()
+    out = torch.empty((m, n), device="cuda", dtype=BF16)
+    lib, sms = _build.lib(), _build.sm_count(0)
+    p = _build.int8_matmul_plan(m, k, n, sms)
+    pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
+    rows = []
+    for bm, bn, strip, stages, splits in _thin_choices(pick, k, n, 1, _q_stages):
+        def call(bm=bm, bn=bn, strip=strip, stages=stages, splits=splits):
+            _build.check(lib.a2k_int8_matmul_bf16(
+                x.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
+                m, k, n, bm, bn, strip, stages, splits, _build.stream_of(x)), "int8_matmul")
+
+        choice = (bm, bn, strip, stages, splits)
+        rows.append((_timed(call, out, want, f"K5 {shape} {choice}", reps) * 1e3, choice))
     rows.sort()
     return rows, pick
 
@@ -224,19 +283,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10, help="timed calls per choice")
     ap.add_argument("--json", help="write every row of every shape to this file")
-    ap.add_argument("--only", choices=("k1", "k4", "k1q", "k3q"), help="sweep one kernel only")
+    ap.add_argument("--only", choices=("k1", "k4", "k1q", "k3q", "k5", "k4q"),
+                    help="sweep one kernel only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_k1_k4: no CUDA device", file=sys.stderr)
         return 2
     print(f"device: {torch.cuda.get_device_name(0)}, {_build.sm_count(0)} SMs")
     k1, k4 = main_path_shapes()
-    k1q, k3q = int8_shapes()
+    k1q, k3q, k5, k4q = int8_shapes()
     table = {}
     with torch.inference_mode():
         for key, shapes, sweep in (("k1", k1, sweep_k1), ("k4", k4, sweep_k4),
                                    ("k1q", k1q, lambda s, r: sweep_k1(s, r, int8=True)),
-                                   ("k3q", k3q, sweep_k3q)):
+                                   ("k3q", k3q, sweep_k3q), ("k5", k5, sweep_k5),
+                                   ("k4q", k4q, lambda s, r: sweep_k4(s, r, int8=True))):
             if args.only not in (None, key):
                 continue
             for shape in shapes:

@@ -38,16 +38,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      cancellation); K1's and K1q's statistics pass and conv timed apart,
      beside K1 and K4 the product alone on the materialised activation
      (cuDNN's conv, cuBLAS's matmul: yardsticks, never library_ms), beside
-     each bf16 K1q and K3q shape its bound, the bf16 K1 or K3 at the same
-     shape and the same call on the shared GEMM core (the design before
-     their bf16 kernels); K1-K4 in bf16 at
+     each bf16 K1q, K3q, K4q and K5 shape its bound, its bf16 sibling (K1,
+     K3 or K4 at the same shape on the dequantized weight; for K5 the bf16
+     mode's own cuBLAS linear) and the same call on the shared GEMM core
+     (the design before their bf16 kernels), and beside K5
+     aten::_weight_int8pack_mm where it has a CUDA kernel (its
+     library_ms; no bias); K1-K4 in bf16 at
      ragged shapes (T, M, N, F and Cout no multiples of their tiles; K1 at
      T = 1, F = 1, 2, 3 and with a group straddling the concat split) and K2
      on strided q, k, v; K7 and K8 at the
      A/B tool's four shapes (bf16), one f32 shape, the q, k, v of the large
      UNet's T = 1024 K2 calls, and inputs whose logits clamp; times of both,
      the least time the card could take (bound) and, for the attention
-     kernels, scaled_dot_product_attention's;
+     kernels, scaled_dot_product_attention's (library_ms);
   4. one full-width UNet forward (all leaves non-zero), kernels against the
      all-plain path: the t5 UNet in bf16 and f32, the audioldm2-full UNet
      in int8 (bf16 activations), the large UNet at CFG batch 6 in bf16 and
@@ -58,9 +61,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      paths (their median is the p50 latency), one on the full, sr and full8
      paths, and one at batch 2 on each, with output checks (and, on the full
      paths, the GPT-2 tokens finite and the CLAP text embedding of unit
-     norm), no CUDA tensor reaching a plain version, no bf16 K1, K4, K1q or
-     K3q call reaching the shared GEMM core instead of its own kernel, and
-     launch counts,
+     norm), no CUDA tensor reaching a plain version, no bf16 K1, K4, K1q,
+     K3q, K5 or K4q call reaching the shared GEMM core instead of its own
+     kernel, on the full8 path no split-K workspace allocated, and launch
+     counts,
      reset to 0 just before the request, equal to the counts computed from
      the config (the sr path's VAE encode included); the PLMS and DDPM
      requests likewise, once each at batch 1; on the large path also the
@@ -110,6 +114,10 @@ FLOOR_FACTOR = 1.25
 # by the type a kernel multiplies in (bf16 tensor cores; f32 FMA units)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+# The bf16 call each int8 kernel is held beside (side_times)
+SIBLINGS = {"gn_silu_conv3x3_q": "K1", "ln_matmul_q": "K3", "geglu_matmul_q": "K4",
+            "int8_matmul": "cuBLAS linear"}
 
 KERNELS = {
     "gn_silu_conv3x3": ("audioldm2_torch/csrc/gn_silu_conv.cu",
@@ -281,16 +289,16 @@ def plain_versions_forbidden():
 
 
 # The shared GEMM core's entry points that a bf16 call must not reach on a
-# main path: K1, K4, K1q and K3q have bf16 kernels of their own.
+# main path: K1, K4, K1q, K3q, K5 and K4q have bf16 kernels of their own.
 SHARED_CORE_ENTRIES = ("a2k_gn_silu_conv3x3", "a2k_geglu_matmul", "a2k_gn_silu_conv3x3_q",
-                       "a2k_ln_matmul_q")
+                       "a2k_ln_matmul_q", "a2k_int8_matmul", "a2k_geglu_matmul_q")
 
 
 @contextlib.contextmanager
 def shared_core_bf16_counted(out):
-    """Count in ``out`` the bf16 K1, K4, K1q and K3q calls that reach the
-    shared GEMM core's entry points (a shape or an alignment their own
-    kernels' plans decline) instead of the bf16 kernels."""
+    """Count in ``out`` the bf16 K1, K4, K1q, K3q, K5 and K4q calls that
+    reach the shared GEMM core's entry points (a shape or an alignment their
+    own kernels' plans decline) instead of the bf16 kernels."""
     import torch
     from audioldm2_torch.ops import _build
 
@@ -314,6 +322,28 @@ def shared_core_bf16_counted(out):
     finally:
         for name, fn in saved.items():
             setattr(lib, name, fn)
+
+
+@contextlib.contextmanager
+def workspaces_counted(out):
+    """Count in ``out["workspaces"]`` the split-K workspaces the shared GEMM
+    core's launch arguments allocate (a torch.empty and a reduce launch
+    each)."""
+    from audioldm2_torch.ops import _build
+
+    saved = _build.gemm_launch_args
+    out["workspaces"] = 0
+
+    def counting(*args, **kw):
+        got = saved(*args, **kw)
+        out["workspaces"] += got[0] is not None
+        return got
+
+    _build.gemm_launch_args = counting
+    try:
+        yield
+    finally:
+        _build.gemm_launch_args = saved
 
 
 @contextlib.contextmanager
@@ -434,15 +464,32 @@ def bound_times(name, args):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
 
 
-def library_call(name, args):
-    """One PyTorch call computing the same function, where there is one
-    (scaled_dot_product_attention for the unmasked self-attentions), else
-    None. Timed as a yardstick only; the port never calls it."""
-    if name not in ATTENTION_KERNELS:
-        return None
-    from audioldm2_torch.tools.ab_attn_variants import sdpa
+def int8pack_mm_on_cuda() -> bool:
+    """Whether this PyTorch has a CUDA kernel for aten::_weight_int8pack_mm."""
+    import torch
 
-    return lambda: sdpa(*args[:4])
+    return torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA")
+
+
+def library_call(name, args):
+    """(label, fn): one PyTorch call computing the same function, where
+    there is one, else None: scaled_dot_product_attention for the unmasked
+    self-attentions; for bf16 K5, aten::_weight_int8pack_mm where it has a
+    CUDA kernel (x . wq^T * scale on an [N, K] copy of the weight made here,
+    outside the timed call; it adds no bias). Timed as a yardstick only; the
+    port never calls it."""
+    import torch
+
+    if name in ATTENTION_KERNELS:
+        from audioldm2_torch.tools.ab_attn_variants import sdpa
+
+        return "sdpa", lambda: sdpa(*args[:4])
+    if name == "int8_matmul" and args[0].is_cuda and args[0].dtype == torch.bfloat16 \
+            and int8pack_mm_on_cuda():
+        x, wq, ws = args[:3]
+        x2, wt = x.reshape(-1, x.shape[-1]), wq.t().contiguous()
+        return "_weight_int8pack_mm (no bias)", lambda: torch._weight_int8pack_mm(x2, wt, ws)
+    return None
 
 
 def side_times(name, args):
@@ -450,17 +497,35 @@ def side_times(name, args):
     the product alone on the same inputs with the activation already
     materialised: cuDNN's channels-last conv for K1, cuBLAS's matmul for K4
     (ms a call). Neither yardstick computes the kernel's function, so
-    neither is its library_ms. For bf16 K1q and K3q: the bf16 sibling (K1 or
-    K3 at the same shape, on the dequantized weight rounded to bf16), and
+    neither is its library_ms. For bf16 K1q, K3q and K4q: the bf16 sibling
+    (K1, K3 or K4 at the same shape, on the dequantized weight rounded to
+    bf16); for bf16 K5 the bf16 mode's own call at those sites (nn.linear:
+    cuBLAS on the dequantized bf16 weight, with the bias); and for all four
     the parent design, the same call on the shared GEMM core."""
     import torch
     import torch.nn.functional as F
-    from audioldm2_torch.ops import lnmm_kernel, resblock_kernel
+    from audioldm2_torch.ops import lnmm_kernel, nn, resblock_kernel
 
     out = {}
     if not args[0].is_cuda:  # a rehearsal on the CPU: no kernel to time
         return out
     with torch.inference_mode():
+        if name in ("int8_matmul", "geglu_matmul_q") and args[0].dtype == torch.bfloat16:
+            x, wq, ws, b = args[:4]
+            w16 = (wq.float() * ws).to(torch.bfloat16)
+            if name == "int8_matmul":
+                p16 = {"w": w16} if b is None else {"w": w16, "b": b}
+                y = torch.empty((*x.shape[:-1], wq.shape[-1]), device=x.device, dtype=x.dtype)
+                out["sibling_ms"] = cuda_ms(lambda: nn.linear(p16, x))
+                out["parent_ms"] = cuda_ms(lambda: lnmm_kernel._int8_shared_core(
+                    name, x, wq, ws, b, y))
+            else:
+                res = args[4]
+                y = torch.empty_like(res)
+                out["sibling_ms"] = cuda_ms(lambda: lnmm_kernel.geglu_matmul(x, w16, b, res))
+                out["parent_ms"] = cuda_ms(lambda: lnmm_kernel._geglu_shared_core(
+                    name, x, wq, ws, b, res, y))
+            return out
         if name in ("gn_silu_conv3x3_q", "ln_matmul_q") and args[0].dtype == torch.bfloat16:
             if name == "gn_silu_conv3x3_q":
                 x1, x2, gamma, beta, wq, ws, b, groups, eps = args
@@ -545,10 +610,11 @@ def add_call(st, name, args, n, d, r, k_ms, p_ms):
     st["ops_ms"] += n * o_ms
     lib = library_call(name, args)
     if lib is not None:
+        label, fn = lib
         with torch.inference_mode():
-            lib_ms = cuda_ms(lib)
+            lib_ms = cuda_ms(fn)
         st["library_ms"] = (st["library_ms"] or 0.0) + n * lib_ms
-        log(f"       sdpa {lib_ms:.4f} ms a call: the kernel takes {k_ms / lib_ms:.2f}x that; "
+        log(f"       {label} {lib_ms:.4f} ms a call: the kernel takes {k_ms / lib_ms:.2f}x that; "
             f"bound {max(b_ms, o_ms):.4f} ms")
     st["max_abs_err"] = max(st["max_abs_err"], d)
     st["max_rel_err"] = max(st["max_rel_err"], r)
@@ -584,6 +650,9 @@ def phase_device():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
+    log("aten::_weight_int8pack_mm " + ("has a CUDA kernel: K5's library_ms is its time (no bias)"
+                                        if int8pack_mm_on_cuda() else
+                                        "has no CUDA kernel here: K5's library_ms is null"))
     t0 = time.perf_counter()
     _build.lib()
     info = _build.BUILD_INFO
@@ -800,8 +869,7 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
                              f"{side['yardstick_ms']:.4f} ms")
             if "sibling_ms" in side:
                 b_ms, o_ms = bound_times(name, args)
-                parts.append(f"bound {max(b_ms, o_ms):.4f} ms; bf16 "
-                             f"{'K1' if name == 'gn_silu_conv3x3_q' else 'K3'} at this shape "
+                parts.append(f"bound {max(b_ms, o_ms):.4f} ms; bf16 {SIBLINGS[name]} at this shape "
                              f"{side['sibling_ms']:.4f} ms (this kernel "
                              f"{res[2] / side['sibling_ms']:.2f}x it); the shared core (the "
                              f"parent design) {side['parent_ms']:.4f} ms "
@@ -836,7 +904,7 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
             check_kernel(name, args, tol, f"{dt} +10 offset {describe(big)}", failures)
 
     for name, st in stats.items():
-        lib = "" if st["library_ms"] is None else f", sdpa {st['library_ms']:.3f} ms"
+        lib = "" if st["library_ms"] is None else f", library call {st['library_ms']:.3f} ms"
         side = ""
         if st["stats_ms"]:
             side += (f"; stats pass {st['stats_ms']:.3f} ms, conv "
@@ -1034,20 +1102,24 @@ def build(tag, cfg, device):
     return model
 
 
-def one_request(model, call, expected, bsz: int, duration: float, label: str):
+def one_request(model, call, expected, bsz: int, duration: float, label: str,
+                no_workspaces: bool = False):
     """call(bsz) -> waveform, with the launch counts set to 0 just before and
     read just after; checks the output, the conditioning, that no CUDA
-    tensor reached a plain version and the counts. Returns (wall, counts)."""
+    tensor reached a plain version, that no bf16 call reached the shared
+    core, the counts and, with ``no_workspaces``, that no split-K workspace
+    was allocated. Returns (wall, counts)."""
     import numpy as np
     import torch
     from audioldm2_torch import ops
 
-    cond, on_core = {}, {}
+    cond, on_core, work = {}, {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with plain_versions_forbidden(), conditioning_recorded(cond), shared_core_bf16_counted(on_core):
+    with plain_versions_forbidden(), conditioning_recorded(cond), \
+            shared_core_bf16_counted(on_core), workspaces_counted(work):
         wav = call(bsz)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1056,10 +1128,13 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
     log(f"  request {label}, batch {bsz}, {duration} s: wall {wall:.3f} s, real-time factor "
         f"{duration * bsz / wall:.3f}x, peak memory {peak:.2f} GiB, timings "
         f"{json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
-    log(f"    launches {counts}")
+    log(f"    launches {counts}; split-K workspaces allocated {work['workspaces']}")
     if on_core:
-        raise AssertionError(f"bf16 K1/K4/K1q/K3q calls on the shared core instead of their "
-                             f"kernels: {on_core}")
+        raise AssertionError(f"bf16 K1/K4/K1q/K3q/K5/K4q calls on the shared core instead of "
+                             f"their kernels: {on_core}")
+    if no_workspaces and work["workspaces"]:
+        raise AssertionError(f"{work['workspaces']} split-K workspaces allocated in a request "
+                             "that should allocate none")
     want_shape = (bsz, 1, int(duration * model.cfg.preprocessing.sampling_rate))
     if wav.shape != want_shape:
         raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")
@@ -1109,7 +1184,7 @@ PROMPTS_SHORT = PROMPTS[2:]
 
 
 def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str,
-                   prompts=None):
+                   prompts=None, no_workspaces: bool = False):
     """A short warm-up request (allocator, cuDNN plans, lazy module state),
     then the batch-1 requests and the batch-2 request of ``prompts`` (PROMPTS
     by default) through ``request(prompt, batchsize, steps, duration)``;
@@ -1118,7 +1193,8 @@ def phase_requests(tag, model, request, expected, steps: int, duration: float, l
     launches, walls = None, {1: [], 2: []}
     for prompt, bsz in prompts or PROMPTS:
         wall, counts = one_request(model, lambda b: request(prompt, b, steps, duration),
-                                   expected, bsz, duration, f"{label}, {steps} steps")
+                                   expected, bsz, duration, f"{label}, {steps} steps",
+                                   no_workspaces)
         launches = launches or counts
         walls[bsz].append(wall)
     p50 = sorted(walls[1])[len(walls[1]) // 2]
@@ -1210,7 +1286,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     model = build("full8", dataclasses.replace(full_cfg, weight_quant="int8"), device)
     launches["full8"], e2e["full8"] = phase_requests(
         "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT, no_workspaces=True)
     del model
 
     model = build("large", large_cfg, device)

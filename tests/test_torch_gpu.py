@@ -438,6 +438,136 @@ def test_k1q_and_k3q_give_the_same_bits_twice(cuda):
             assert torch.equal(lnmm_kernel.ln_matmul_q(*args), first)
 
 
+# K4q and K5 in bf16 on the row-block kernel: every (M, F, N) and (M, K, N)
+# one audioldm2-full int8 UNet forward gives them at CFG batch 2
+# (unet.geglu_matmul_shapes with weight_quant="int8", unet.int8_matmul_shapes),
+# then ragged M, F and K no multiple of the 64-deep K tile, and the large
+# config's CFG batch 6 level.
+FULL8_K4Q = [(2048, 1024, 256), (512, 1536, 384), (128, 2560, 640)]
+K4Q_EDGES = [(50, 1024, 256), (77, 2560, 640), (130, 200, 96), (100, 1032, 144), (384, 2560, 640)]
+FULL8_K5 = [(2048, 256, 256), (512, 384, 384), (128, 640, 640)]
+K5_EDGES = [(50, 256, 256), (77, 640, 640), (100, 200, 96), (1, 384, 384), (6144, 256, 256),
+            (128, 2560, 640)]
+
+
+def _k4q_args(g, M, F, N, device, dt=torch.bfloat16):
+    wq, ws = _int8_spread(g, (F, N), device)
+    return (_rand(g, (M, 2 * F), dt, device), wq, ws, _rand(g, (N,), dt, device, scale=100.0),
+            _rand(g, (M, N), dt, device, scale=100.0))
+
+
+def _k5_args(g, M, K, N, device, with_bias=True):
+    wq, ws = _int8_spread(g, (K, N), device)
+    return (_rand(g, (1, M, K), torch.bfloat16, device, offset=0.5), wq, ws,
+            _rand(g, (N,), torch.bfloat16, device, scale=100.0) if with_bias else None)
+
+
+@pytest.mark.parametrize("M,F,N", FULL8_K4Q + K4Q_EDGES)
+def test_geglu_matmul_q_bf16_kernel(cuda, M, F, N):
+    """bf16 K4q on the row-block kernel (never the shared core) against its
+    plain version, with weights at +-127, spread scales and the bias and
+    residual as the cast tree holds them."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    args = _k4q_args(g, M, F, N, cuda)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.geglu_matmul_q(*args)
+    assert calls == {"a2k_geglu_matmul_q_bf16": 1}
+    _check(got, lnmm_kernel.geglu_matmul_q_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N", FULL8_K5 + K5_EDGES)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_matmul_bf16_kernel(cuda, M, K, N, with_bias):
+    """bf16 K5 on the row-block kernel (never the shared core) against its
+    plain version, with weights at +-127, spread scales and a bf16 bias as
+    the cast tree holds it, or none."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    args = _k5_args(g, M, K, N, cuda, with_bias)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.int8_matmul(*args)
+    assert calls == {"a2k_int8_matmul_bf16": 1}
+    _check(got, lnmm_kernel.int8_matmul_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,F,N", [(128, 2560, 632), (50, 256, 200)])
+def test_int8_n_no_multiple_of_16_takes_the_shared_core(cuda, M, F, N):
+    """The int8 ring copies 16 bytes a row: bf16 K4q and K5 with N no
+    multiple of 16 reach the shared core's entries, which stay right."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    args = _k4q_args(g, M, F, N, cuda)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.geglu_matmul_q(*args)
+    assert calls == {"a2k_geglu_matmul_q": 1}
+    _check(got, lnmm_kernel.geglu_matmul_q_plain(*args), torch.bfloat16)
+    args = _k5_args(g, M, F, N, cuda)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.int8_matmul(*args)
+    assert calls == {"a2k_int8_matmul": 1}
+    _check(got, lnmm_kernel.int8_matmul_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("bm,bn", [(64, 128), (64, 64), (32, 128), (32, 64), (16, 128), (16, 64)])
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_k4q_and_k5_every_tile_and_cluster_split(cuda, bm, bn, splits):
+    """Each tile the kernel is built for (the thinner ones convert on their
+    idle warps), with K split over a cluster of 1, 2 and 5 blocks, through
+    the C entry points at the full8 deep level (M = 128, 10 and 40 K tiles)
+    and at a ragged M, against the plain versions."""
+    from audioldm2_torch.ops import _build
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    lib = _build.lib()
+    stages = 3
+    kps = -(-40 // splits) * _build.LNMM_BK  # K4q's share of F = 2560 a block holds
+    fits = _build.row_block_smem(bm, bn, kps, stages, 1, splits) <= _build.LNMM_MAX_SMEM
+    for m in (128, 77):
+        h, wq, ws, b, res = _k4q_args(g, m, 2560, 640, cuda)
+        out = torch.empty_like(res)
+        rc = lib.a2k_geglu_matmul_q_bf16(
+            h.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), 1, res.data_ptr(),
+            out.data_ptr(), m, 2560, 640, bm, bn, 1, stages, splits, _build.stream_of(h))
+        if not fits:  # a row block wider than shared memory holds is refused, not run
+            assert rc == 1  # cudaErrorInvalidValue
+        else:
+            _build.check(rc, "K4q")
+            _check(out, lnmm_kernel.geglu_matmul_q_plain(h, wq, ws, b, res), torch.bfloat16)
+        x, wq, ws, b = _k5_args(g, m, 640, 640, cuda)
+        out = torch.empty((1, m, 640), device=cuda, dtype=torch.bfloat16)
+        _build.check(lib.a2k_int8_matmul_bf16(
+            x.data_ptr(), wq.data_ptr(), ws.data_ptr(), b.data_ptr(), 1, out.data_ptr(), m, 640,
+            640, bm, bn, 1, stages, splits, _build.stream_of(x)), "K5")
+        _check(out, lnmm_kernel.int8_matmul_plain(x, wq, ws, b), torch.bfloat16)
+
+
+def test_full8_plans_split_k_where_the_deep_level_needs_it(cuda):
+    """Where K4q's plan splits K over a cluster at a full8 shape, the wrapper
+    launches that split and agrees with the plain version."""
+    from audioldm2_torch.ops import _build
+
+    sms = _build.sm_count(torch.cuda.current_device())
+    plan = _build.geglu_matmul_plan(128, 2560, 640, sms, w_bytes=1)
+    assert plan.splits > 1
+    g = torch.Generator(device=cuda).manual_seed(21)
+    args = _k4q_args(g, 128, 2560, 640, cuda)
+    _check(lnmm_kernel.geglu_matmul_q(*args), lnmm_kernel.geglu_matmul_q_plain(*args),
+           torch.bfloat16)
+
+
+def test_k4q_and_k5_give_the_same_bits_twice(cuda):
+    """Fixed-order sums, also over a cluster: bitwise equal outputs."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    for M, F, N in FULL8_K4Q:
+        args = _k4q_args(g, M, F, N, cuda)
+        first = lnmm_kernel.geglu_matmul_q(*args)
+        for _ in range(3):
+            assert torch.equal(lnmm_kernel.geglu_matmul_q(*args), first)
+    for M, K, N in FULL8_K5:
+        args = _k5_args(g, M, K, N, cuda)
+        first = lnmm_kernel.int8_matmul(*args)
+        for _ in range(3):
+            assert torch.equal(lnmm_kernel.int8_matmul(*args), first)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("M,F,N", [(128, 2560, 640), (4096, 512, 128), (50, 20, 12)])
 def test_geglu_matmul_q_kernel(cuda, dt, M, F, N):

@@ -222,6 +222,26 @@ def test_timing_tool_sums_each_forward_from_its_calls():
     assert sums["large"]["k1_conv_unheld_ms"] == pytest.approx(44 * 4.0e-3)
     assert sums["large"]["k4_held_ms"] == pytest.approx(128 * 7.0e-3)
     assert sums["t5"]["k4_yardstick_held_ms"] == pytest.approx(32 * 1.0e-3)
+    # K5 and K4q on the full8 forward, each with its bf16 sibling and the
+    # shared core's time
+    assert [s for s, _ in shapes["k5"]] == [[2048, 256, 256], [512, 384, 384], [128, 640, 640]]
+    assert [s for s, _ in shapes["k4q"]] == [[2048, 1024, 256], [512, 1536, 384],
+                                             [128, 2560, 640]]
+    assert sum(c["full8"] for _, c in shapes["k5"]) == 96
+    assert sum(c["full8"] for _, c in shapes["k4q"]) == 48
+    k5 = [{"calls": c, "held_us": 3.0, "unheld_us": 6.0, "sibling_held_us": 2.0,
+           "shared_core_held_us": 9.0} for _, c in shapes["k5"]]
+    k4q = [{"calls": c, "held_us": 5.0, "unheld_us": 7.0, "sibling_held_us": 4.0,
+            "shared_core_held_us": 11.0} for _, c in shapes["k4q"]]
+    sums = tool.per_forward(k2, k3, k1, k4, (), (), k5, k4q)
+    assert sums["full8"]["k5_held_ms"] == pytest.approx(96 * 3.0e-3)
+    assert sums["full8"]["k5_unheld_ms"] == pytest.approx(96 * 6.0e-3)
+    assert sums["full8"]["k5_bf16_sibling_held_ms"] == pytest.approx(96 * 2.0e-3)
+    assert sums["full8"]["k5_shared_core_held_ms"] == pytest.approx(96 * 9.0e-3)
+    assert sums["full8"]["k4q_held_ms"] == pytest.approx(48 * 5.0e-3)
+    assert sums["full8"]["k4q_bf16_sibling_held_ms"] == pytest.approx(48 * 4.0e-3)
+    assert sums["full8"]["k4q_shared_core_held_ms"] == pytest.approx(48 * 11.0e-3)
+    assert "k3q_held_ms" not in sums["full8"] and "k5_held_ms" not in sums["t5"]
 
 
 # ---------------------------------------------------------------------------
@@ -452,39 +472,53 @@ def test_gn_stats_chunks_cover_every_row_once(s, cin):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,batch,k3q,k1q", [("audioldm2-full", 2, 144, 44),
-                                                ("audioldm2-full-large-1150k", 6, 352, 44),
-                                                ("audioldm_16k_crossattn_t5", 2, 96, 44)])
-def test_int8_shapes_add_up_to_the_launch_count(name, batch, k3q, k1q):
-    """A quantized forward's K3q and K1q shapes (weight_quant="int8"): their
-    calls sum to the int8 launch counts, and every one is a shape of the
-    unquantized forward's K3 or K1 (the predicates keep K and N multiples
-    of 128)."""
+@pytest.mark.parametrize("name,batch,k3q,k1q,k5,k4q", [
+    ("audioldm2-full", 2, 144, 44, 96, 48),
+    ("audioldm2-full-large-1150k", 6, 352, 44, 288, 128),
+    ("audioldm_16k_crossattn_t5", 2, 96, 44, 64, 32)])
+def test_int8_shapes_add_up_to_the_launch_count(name, batch, k3q, k1q, k5, k4q):
+    """A quantized forward's K3q, K1q, K5 and K4q shapes (weight_quant=
+    "int8"): their calls sum to the int8 launch counts, and every K3q, K1q
+    and K4q shape is one of the unquantized forward's K3, K1 or K4 (the
+    predicates keep K and N multiples of 128); K5's are the (M, C, C)
+    to_out projections (and a None slot's to_q) of the K3 shapes' M and C."""
     cfg = at.default_audioldm_config(name)
     size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
     launches = unet.kernel_launches_per_forward(cfg.unet, "int8")
     got_k3q = unet.ln_matmul_shapes(*size, weight_quant="int8")
     got_k1q = unet.conv_shapes(*size, weight_quant="int8")
+    got_k5 = unet.int8_matmul_shapes(*size)
+    got_k4q = unet.geglu_matmul_shapes(*size, weight_quant="int8")
     assert sum(got_k3q.values()) == launches["ln_matmul_q"] == k3q
     assert sum(got_k1q.values()) == launches["gn_silu_conv3x3_q"] == k1q
-    assert launches["ln_matmul"] == launches["gn_silu_conv3x3"] == 0
+    assert sum(got_k5.values()) == launches["int8_matmul"] == k5
+    assert sum(got_k4q.values()) == launches["geglu_matmul_q"] == k4q
+    assert launches["ln_matmul"] == launches["gn_silu_conv3x3"] == launches["geglu_matmul"] == 0
     assert set(got_k3q) <= set(unet.ln_matmul_shapes(*size))
     assert set(got_k1q) <= set(unet.conv_shapes(*size))
+    assert set(got_k4q) <= set(unet.geglu_matmul_shapes(*size))
+    assert {(m, c, c) for m, c, _ in unet.ln_matmul_shapes(*size)} == set(got_k5)
 
 
 def _full8_shapes():
     cfg = at.default_audioldm_config("audioldm2-full")
     size = (cfg.unet, 2, cfg.latent_t_size, cfg.latent_f_size)
     return (sorted(unet.ln_matmul_shapes(*size, weight_quant="int8")),
-            sorted(unet.conv_shapes(*size, weight_quant="int8")))
+            sorted(unet.conv_shapes(*size, weight_quant="int8")),
+            unet.int8_matmul_shapes(*size), unet.geglu_matmul_shapes(*size, weight_quant="int8"))
 
 
-FULL8_K3Q, FULL8_K1Q = _full8_shapes()
+FULL8_K3Q, FULL8_K1Q, FULL8_K5_CALLS, FULL8_K4Q_CALLS = _full8_shapes()
+FULL8_K5, FULL8_K4Q = sorted(FULL8_K5_CALLS), sorted(FULL8_K4Q_CALLS)
 
 
 def test_full8_shapes_are_nine_and_seventeen():
+    """K3q's 9 and K1q's 17 shapes; K5's 3 and K4q's 3, with their calls."""
     assert len(FULL8_K3Q) == 9 and len(FULL8_K1Q) == 17
     assert {(m, c) for m, c, _ in FULL8_K3Q} == {(2048, 256), (512, 384), (128, 640)}
+    assert FULL8_K5_CALLS == {(2048, 256, 256): 30, (512, 384, 384): 30, (128, 640, 640): 36}
+    assert FULL8_K4Q_CALLS == {(2048, 1024, 256): 15, (512, 1536, 384): 15,
+                               (128, 2560, 640): 18}
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
@@ -620,3 +654,130 @@ def test_k1q_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_car
     rk.gn_silu_conv3x3_q(x1.float(), x2.float(), gamma, beta, wq, ws, bias)
     assert set(lib.calls) == {"a2k_gn_stats", "a2k_gn_silu_conv3x3_q"}
     assert lib.calls["a2k_gn_silu_conv3x3_q"][4:6] == (wq.data_ptr(), ws.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# K5 and K4q (int8 weights) on the row-block kernel with K4's tiles
+# ---------------------------------------------------------------------------
+
+
+def _check_thin_q_plan(plan, m, k, n, sms, tiles):
+    """Coverage, shared memory and fill of a K4q or K5 plan: the row blocks
+    cover M, the strips N once, the (split) K tiles K; A's share beside two
+    bf16 staging tiles and an int8 ring of at least two tiles (the split's
+    f32 tile in the same memory) within what a block may use; the grid
+    fills the SMs the shape could fill (counting splits), or LNMM_MIN_FILL
+    of them in one wave."""
+    assert plan is not None and (plan.bm, plan.bn) in tiles
+    strips, row_blocks = plan.grid
+    n_tiles = math.ceil(n / plan.bn)
+    assert row_blocks == math.ceil(m / plan.bm)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert plan.k_tiles * plan.bk >= k > (plan.k_tiles - 1) * plan.bk
+    kps = math.ceil(plan.k_tiles / plan.splits)
+    assert 1 <= plan.splits <= _build.GEGLU_MAX_SPLITS and (plan.splits - 1) * kps < plan.k_tiles
+    assert plan.splits == 1 or plan.strip_tiles == 1
+    a_bytes = plan.bm * (kps * plan.bk + _build.LNMM_PAD) * 2
+    staging = 2 * plan.bk * (plan.bn + _build.LNMM_PAD) * 2
+    ring = plan.stages * plan.bk * (plan.bn + _build.LNMM_Q_PAD)
+    assert plan.smem_bytes == max(a_bytes + staging + ring,
+                                  plan.bm * (plan.bn + 4) * 4 * (plan.splits > 1))
+    assert plan.smem_bytes == _build.row_block_smem(plan.bm, plan.bn, kps * plan.bk, plan.stages,
+                                                    1, plan.splits) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= _build.LNMM_MAX_STAGES
+    blocks = strips * row_blocks * plan.splits
+    fill = min(sms, row_blocks * n_tiles * min(_build.GEGLU_MAX_SPLITS, plan.k_tiles))
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("m,k,n", FULL8_K5 + [(6144, 256, 256), (50, 200, 96), (1, 384, 384)])
+def test_int8_matmul_plan(m, k, n, sms):
+    _check_thin_q_plan(_build.int8_matmul_plan(m, k, n, sms), m, k, n, sms, _build.GEGLU_TILES)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("m,f,n", FULL8_K4Q + [(384, 2560, 640), (77, 2560, 640), (130, 200, 96)])
+def test_geglu_matmul_q_plan(m, f, n, sms):
+    _check_thin_q_plan(_build.geglu_matmul_plan(m, f, n, sms, w_bytes=1), m, f, n, sms,
+                       _build.GEGLU_TILES)
+
+
+def test_k5_and_k4q_plans_decline_what_the_kernel_does_not_take():
+    """f32; N no multiple of 16 (an int8 row is copied 16 bytes at a time;
+    the bf16 K4 plan still takes 8); K no multiple of 8; and a row block
+    wider than shared memory holds beside two bf16 staging tiles and two
+    int8 tiles, even split over the widest cluster. The wrappers send these
+    to the shared GEMM core."""
+    assert _build.int8_matmul_plan(128, 640, 640, SMS) is not None
+    assert _build.int8_matmul_plan(128, 640, 640, SMS, dtype="f32") is None
+    assert _build.geglu_matmul_plan(128, 2560, 640, SMS, dtype="f32", w_bytes=1) is None
+    assert _build.int8_matmul_plan(128, 640, 648, SMS) is None
+    assert _build.geglu_matmul_plan(128, 2560, 648, SMS, w_bytes=1) is None
+    assert _build.geglu_matmul_plan(128, 2560, 648, SMS) is not None
+    assert _build.int8_matmul_plan(128, 644, 640, SMS) is None
+    assert _build.geglu_matmul_plan(128, 2564, 640, SMS, w_bytes=1) is None
+    bm, bn = min(_build.GEGLU_TILES)
+    fixed = 2 * _build.LNMM_BK * (bn + _build.LNMM_PAD) * 2 + 2 * _build.LNMM_BK * (bn + 16)
+    widest = (SMEM_LIMIT - fixed) // (bm * 2)
+    widest = (widest - _build.LNMM_PAD) // _build.LNMM_BK * _build.LNMM_BK
+    widest *= _build.GEGLU_MAX_SPLITS
+    for plan in (_build.int8_matmul_plan, lambda m, k, n, sms: _build.geglu_matmul_plan(
+            m, k, n, sms, w_bytes=1)):
+        assert plan(2048, widest, 640, SMS) is not None
+        assert plan(2048, widest + _build.LNMM_BK, 640, SMS) is None
+
+
+def test_k4q_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card):
+    """A bf16 geglu_matmul_q call reaches a2k_geglu_matmul_q_bf16 with the
+    plan's launch arguments, the int8 weight and the f32 scale as stored and
+    the bf16 bias and residual read as stored, and launches nothing else
+    (no conversion, no workspace reduce); f32 inputs reach the shared core."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    m, f, n = 128, 2560, 640
+    h, res = torch.zeros(2, m // 2, 2 * f, dtype=bf16), torch.zeros(2, m // 2, n, dtype=bf16)
+    bias = torch.ones(n, dtype=bf16)
+    wq, ws = torch.zeros(f, n, dtype=torch.int8), torch.ones(n)
+    out = lk.geglu_matmul_q(h, wq, ws, bias, res)
+    args = lib.calls.pop("a2k_geglu_matmul_q_bf16")
+    plan = _build.geglu_matmul_plan(m, f, n, SMS, w_bytes=1)
+    assert args[:7] == (h.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), 1,
+                        res.data_ptr(), out.data_ptr())
+    assert args[7:10] == (m, f, n)
+    assert args[10:15] == (plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits)
+    assert out.shape == res.shape and out.dtype == bf16
+    assert not lib.calls
+    lk.geglu_matmul_q(h.float(), wq, ws, bias, res.float())
+    assert set(lib.calls) == {"a2k_geglu_matmul_q"}
+    assert lib.calls["a2k_geglu_matmul_q"][1:3] == (wq.data_ptr(), ws.data_ptr())
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_k5_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card, with_bias):
+    """A bf16 int8_matmul call reaches a2k_int8_matmul_bf16 with the plan's
+    launch arguments, the int8 weight and the f32 scale as stored and a bf16
+    bias read as stored (or null), and launches nothing else; f32 inputs
+    reach the shared core."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    m, k, n = 128, 640, 640
+    x = torch.zeros(2, m // 2, k, dtype=bf16)
+    bias = torch.ones(n, dtype=bf16) if with_bias else None
+    wq, ws = torch.zeros(k, n, dtype=torch.int8), torch.ones(n)
+    out = lk.int8_matmul(x, wq, ws, bias)
+    args = lib.calls.pop("a2k_int8_matmul_bf16")
+    plan = _build.int8_matmul_plan(m, k, n, SMS)
+    assert args[:6] == (x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        bias.data_ptr() if with_bias else None, 1, out.data_ptr())
+    assert args[6:9] == (m, k, n)
+    assert args[9:14] == (plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits)
+    assert out.shape == (2, m // 2, n) and out.dtype == bf16
+    assert not lib.calls
+    lk.int8_matmul(x.float(), wq, ws, bias)
+    assert set(lib.calls) == {"a2k_int8_matmul"}
+    assert lib.calls["a2k_int8_matmul"][1:3] == (wq.data_ptr(), ws.data_ptr())
