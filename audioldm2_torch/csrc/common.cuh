@@ -36,10 +36,10 @@
 // writing an f32 partial tile to a workspace; splitk_reduce sums the slices
 // in a fixed order (deterministic) and applies bias and residual.
 //
-// The core serves K1q, K3q, K4q and K5, and K1, K3 and K4 in f32 or at
-// shapes their own bf16 kernels do not take. The kernels redesigned around
+// The core serves K1q, K3q, K4q and K5 in f32, K3 and K4 in f32, and K1 at
+// shapes its own kernels do not take. The kernels redesigned around
 // Hopper's asynchronous copies, the bf16 K2 (attention.cu), K3 and K4
-// (lnmm.cu) and K1 (gn_silu_conv.cu), do not use it; they share the PTX
+// (lnmm.cu) and K1 in bf16 and f32 (gn_silu_conv.cu), do not use it; they share the PTX
 // helpers below (16-byte cp.async with zero fill, ldmatrix, mma.sync
 // m16n8k16 with f32 accumulation, the quad transpose of the epilogues).
 #pragma once
@@ -281,6 +281,18 @@ __device__ __forceinline__ V block_sum(V v, V* scratch) {
   for (int i = 0; i < nwarps; ++i) total += scratch[i];
   __syncthreads();
   return total;
+}
+
+// (n, mean, m2) of one part combined with (nb, mb, m2b) of another, by
+// Chan's formula; a part with nb = 0 leaves it as it is. The GroupNorm
+// statistics of K1, K1q and K6 combine their partial sums with it.
+__device__ __forceinline__ void chan_combine(double& n, double& mean, double& m2, double nb,
+                                             double mb, double m2b) {
+  if (nb == 0.0) return;
+  const double tot = n + nb, w = nb / tot, d = mb - mean;
+  mean += d * w;
+  m2 += m2b + d * d * n * w;
+  n = tot;
 }
 
 constexpr int BM = 64;

@@ -11,7 +11,7 @@
 // design of two launches, and the concat [x1 ; x2] of the decoder stays two
 // pointers (a GroupNorm group may straddle the split).
 //
-// 1. a2k_gn_stats (also K1q's and K6's): a split, coalesced reduction. A
+// 1. a2k_gn_stats (also K1q's): a split, coalesced reduction. A
 //    grid of (row chunks, batch), a chunk being eight rows for each thread
 //    (ops/_build.py: gn_stats_chunks); each block reads whole rows of
 //    [x1 ; x2] (16-byte loads, eight consecutive channels a thread, its
@@ -73,10 +73,15 @@
 // shared core's K1q, which evaluated silu(x * a + c) of a shifted tap for
 // every tap and every 64-wide N tile and split K through a workspace.
 //
-// The shared GEMM core (common.cuh) keeps K1 and K1q in f32 (the sr path's
-// VAE encode, on the FMA units), and the shapes the plans decline (channels
-// no multiple of 8, K1q's Cout no multiple of 16, unaligned pointers): its A
-// prologue computes silu(x * a + c) of a shifted tap as the tile loads.
+// K1 in f32 (the sr path's VAE encode) runs the same statistics pass and
+// a2k_gn_silu_conv3x3_f32: the same conv kernel with TX = float, 32-channel
+// chunks and the products in 3xTF32 on the tensor cores (below); bound by
+// those products at the TF32 rate, three a multiply-add.
+//
+// The shared GEMM core (common.cuh) keeps K1q in f32 and the shapes the
+// plans decline (channels no multiple of 8, K1q's Cout no multiple of 16,
+// unaligned pointers): its A prologue computes silu(x * a + c) of a shifted
+// tap as the tile loads.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -105,17 +110,6 @@ __device__ __forceinline__ void gn_piece(const T* x1, const T* x2, size_t row, i
       v[i] = c < C1 ? to_f(x1[row * C1 + c]) : c < C1 + C2 ? to_f(x2[row * C2 + (c - C1)]) : 0.f;
     }
   }
-}
-
-// (n, mean, m2) of one part combined with (nb, mb, m2b) of another, by
-// Chan's formula; a part with nb = 0 leaves it as it is.
-__device__ __forceinline__ void chan_combine(double& n, double& mean, double& m2, double nb,
-                                             double mb, double m2b) {
-  if (nb == 0.0) return;
-  const double tot = n + nb, w = nb / tot, d = mb - mean;
-  mean += d * w;
-  m2 += m2b + d * d * n * w;
-  n = tot;
 }
 
 // Each group's sum over the block's per-thread partials psum [RP][8 * CPR]
@@ -302,7 +296,8 @@ static int gn_stats_impl(const void* x1, const void* x2, int B, int S, int C1, i
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 conv: halo'd patch activated once per chunk, nine shifted views
+// The conv: halo'd patch activated once per chunk, nine shifted views; bf16
+// (K1, K1q) and f32 (K1 in 3xTF32) on one kernel
 // ---------------------------------------------------------------------------
 
 constexpr int CV_CK = 64;         // input channels per chunk: the K depth of one tap's W tile
@@ -313,9 +308,50 @@ constexpr int CV_MAX_STAGES = 8;  // at most 10: a patch must land before its ch
 constexpr int CV_MAX_SPLITS = 8;  // the portable cluster size
 constexpr int CV_MAX_SMEM = 232448;
 
-// Shared memory of one block: two patch buffers, the chunk's a and c (two
-// buffers), the W ring (K1q: two bf16 staging tiles and an int8 ring of rows
-// padded by 16 bytes); the split epilogue's f32 tile reuses it.
+// K1 in f32 (the sr path's VAE encode) is the same kernel with TX = float:
+// the halo'd patch of a channel chunk comes in by cp.async, is activated
+// once (silu(x * a + c) in f32 with expf, zero outside the image: SAME
+// padding of the activated tensor) and read by the nine taps as shifted
+// ldmatrix views; the weight streams through a cp.async ring; + bias in f32
+// after the whole K; small M splits the chunks over a cluster. The products
+// are 3xTF32 on mma.sync m16n8k8: each f32 operand v is split once into
+// hi = tf32(v) and lo = tf32(v - hi) (round to nearest, away on ties), and
+// every k8 step accumulates lo.hi + hi.lo + hi.hi in f32, the small terms
+// first. One TF32 product keeps 11 significant bits of each operand and
+// misses the f32 bar (1e-4 relative) at K = 9 x 512; three keep about 22.
+//
+// Layouts (f32 words; a tf32 value is an f32 with its low 13 bits zero):
+//   the raw patch [P][32], cp.async's landing place, one buffer;
+//   the activated patch in two planes, hi and lo, [P][CV32_LD], split as
+//     it is activated: a row stride of 144 bytes puts the eight rows of an
+//     ldmatrix phase on eight bank groups, and one ldmatrix.x4 of 8 x 4
+//     tf32 gives the A fragment (rows g and g + 8, k t and t + 4) as for
+//     bf16;
+//   the ring of raw W tiles [CV32_CK][BN + 4]: a row stride of 4 mod 32
+//     words lets the split read a float4 a lane, a lane a row, with no bank
+//     conflict;
+//   two staging tiles, each two planes [BN][CV32_LD], the split weight
+//     written transposed (n rows, k contiguous), so that ldmatrix without
+//     .trans gives the B fragment (k t and t + 4, n g): ldmatrix has no
+//     32-bit transpose. Each ring tile is split once, a quarter after each
+//     k8 step of the previous tile's products (K1q's int8 ring and staging),
+//     and its slot frees at once; no second copy of the weight lives in
+//     device memory.
+// The chunk is 32 channels: the patch's two planes are four times the bf16
+// patch's bytes at the same chunk. One tile, (256, 64), the fastest at every
+// shape of the encode, with 16 warps, each two m16 tiles by four n8 tiles.
+// Measured against this design on an H100 (PERF.md): 8 warps a block, B
+// read from the raw ring and split in registers by every warp (no staging
+// tiles), and A split in registers from one activated plane were each
+// slower, the last by 17%.
+constexpr int CV32_CK = 32;           // input channels per chunk
+constexpr int CV32_LD = CV32_CK + 4;  // plane and staging row stride (floats)
+constexpr int CV32_THREADS = 512;     // 16 warps
+constexpr int CV32_BM = 256, CV32_BN = 64;
+
+// Shared memory of one bf16 block: two patch buffers, the chunk's a and c
+// (two buffers), the W ring (K1q: two bf16 staging tiles and an int8 ring of
+// rows padded by 16 bytes); the split epilogue's f32 tile reuses it.
 __host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int tt, int ft, int stages,
                                                   int w_bytes = 2) {
   const size_t ring = w_bytes == 1
@@ -328,31 +364,80 @@ __host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int tt, int ft
   return main > epi ? main : epi;
 }
 
-// TW: the weight's type, bf16 (K1) or int8 (K1q: the ring holds int8 tiles,
-// each converted once into one of two bf16 staging tiles that the products
-// read, and the per-output-channel scale wscale multiplies the f32 sums in
-// the epilogue).
-template <int BM, int BN, typename TW = bf16>
-__global__ void __launch_bounds__(CV_THREADS)
-gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
-                         const float* __restrict__ a, const float* __restrict__ c,
-                         const TW* __restrict__ w, const float* __restrict__ wscale,
-                         const void* __restrict__ bias, bool p16,
-                         bf16* __restrict__ out, int T, int F, int C1, int C2, int Cout, int tt,
-                         int ft, int strip_tiles, int stages, int chunks_per_split) {
+// ... of one f32 block: the raw patch, the two planes, the chunk's a and c,
+// the ring, two staging tiles of two planes; the split epilogue's f32 tile
+// reuses it.
+__host__ __device__ inline size_t conv32_smem_bytes(int BM, int BN, int tt, int ft, int stages) {
+  const size_t P = (size_t)(tt + 2) * (ft + 2);
+  const size_t main = P * CV32_CK * 4 + 2 * P * CV32_LD * 4 + (size_t)2 * CV32_CK * 4 +
+                      (size_t)stages * CV32_CK * (BN + 4) * 4 + (size_t)4 * BN * CV32_LD * 4;
+  const size_t epi = (size_t)BM * (BN + 4) * sizeof(float);
+  return main > epi ? main : epi;
+}
+
+// The conv's geometry for an activation type: channels a chunk, patch row
+// stride (elements), threads a block.
+template <typename TX>
+struct ConvGeom {
+  static constexpr int CK = CV_CK, LD = CV_LD, THREADS = CV_THREADS;
+};
+template <>
+struct ConvGeom<float> {
+  static constexpr int CK = CV32_CK, LD = CV32_LD, THREADS = CV32_THREADS;
+};
+
+// f32 -> tf32, round to nearest with ties away from zero (cvt.rna): the
+// result is an f32 whose 13 low mantissa bits are zero.
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// d += a . b for one 16 x 8 x 8 tf32 product, f32 accumulation. Fragments
+// (g = lane / 4, t = lane % 4): a0 (row g, k t), a1 (row g + 8, k t), a2
+// (row g, k t + 4), a3 (row g + 8, k t + 4); b0 (k t, n g), b1 (k t + 4,
+// n g); d as in m16n8k16.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// TX: the activation's (and output's) type: bf16, or f32 (3xTF32 products,
+// TW float). TW: the weight's type, TX or int8 (K1q, bf16 only: the ring
+// holds int8 tiles, each converted once into one of two bf16 staging tiles
+// that the products read, and the per-output-channel scale wscale
+// multiplies the f32 sums in the epilogue).
+template <int BM, int BN, typename TW = bf16, typename TX = bf16>
+__global__ void __launch_bounds__(ConvGeom<TX>::THREADS)
+gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
+                    const float* __restrict__ a, const float* __restrict__ c,
+                    const TW* __restrict__ w, const float* __restrict__ wscale,
+                    const void* __restrict__ bias, bool p16, TX* __restrict__ out, int T, int F,
+                    int C1, int C2, int Cout, int tt, int ft, int strip_tiles, int stages,
+                    int chunks_per_split) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
-  constexpr int WARPS_N = BN / 32, WARPS_M = (CV_THREADS / 32) / WARPS_N;
+  constexpr bool F32 = std::is_same<TX, float>::value;
+  constexpr int CK = ConvGeom<TX>::CK, LD = ConvGeom<TX>::LD, THREADS = ConvGeom<TX>::THREADS;
+  constexpr int EPP = 16 / (int)sizeof(TX);  // elements of a 16-byte piece: CK / EPP = 8 a row
+  constexpr int WARPS_N = BN / 32, WARPS_M = (THREADS / 32) / WARPS_N;
   constexpr int WM = BM / WARPS_M;  // rows per warp: 64, 32 or 16
   constexpr int MT = WM / 16;       // m16 tiles per warp; its 32 columns are 4 n8 tiles
   constexpr int B_LD = BN + CV_PAD;
-  constexpr int W_STAGE = CV_CK * B_LD;
-  constexpr int R_LD = Q ? BN + 16 : B_LD;  // a ring row, in TW elements (int8: 16 bytes of pad)
-  constexpr int R_STAGE = CV_CK * R_LD;
+  constexpr int W_STAGE = CK * B_LD;
+  // a ring row, in TW elements (int8: 16 bytes of pad; f32: 4 words)
+  constexpr int R_LD = F32 ? BN + 4 : Q ? BN + 16 : B_LD;
+  constexpr int R_STAGE = CK * R_LD;
+  constexpr int S_PLANE = BN * LD;                // f32: one plane of a staging tile
   constexpr int CPR = BN * (int)sizeof(TW) / 16;  // 16-byte chunks per W tile row
-  constexpr int W_ROWS = CV_THREADS / CPR;     // W tile rows one pass of the block copies
+  constexpr int W_ROWS = THREADS / CPR;           // W tile rows one pass of the block copies
+  static_assert(CK / EPP == 8, "a patch row is eight 16-byte pieces");
 
   extern __shared__ __align__(128) unsigned char cv_smem[];
-  const int Cin = C1 + C2, n_chunks = (Cin + CV_CK - 1) / CV_CK;
+  const int Cin = C1 + C2, n_chunks = (Cin + CK - 1) / CK;
   const int PW = ft + 2, P = (tt + 2) * PW;  // patch width and positions
   const int t_tiles = (T + tt - 1) / tt, f_tiles = (F + ft - 1) / ft;
   const int b = blockIdx.y / (t_tiles * f_tiles);
@@ -366,40 +451,54 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   const int per_nt = 9 * nk;           // W tiles of one N tile
   const int total = my_tiles * per_nt;  // ... of the strip
 
-  bf16* patch = reinterpret_cast<bf16*>(cv_smem);               // [2][P][CV_LD]
-  float* ac = reinterpret_cast<float*>(patch + 2 * P * CV_LD);  // [2][a, c][CV_CK]
-  // the ring, stages x [CV_CK][B_LD]; K1q: two staging tiles, then the ring
-  bf16* Ws = reinterpret_cast<bf16*>(ac + 4 * CV_CK);
-  TW* Wr;  // the ring: stages x [CV_CK][R_LD]
-  if constexpr (Q)
-    Wr = reinterpret_cast<TW*>(Ws + 2 * W_STAGE);
-  else
-    Wr = Ws;
+  // bf16: two patch buffers [2][P][LD], activated in place, then the a, c
+  // of two chunks [2][a, c][CK], the ring (K1q: two staging tiles, then the
+  // ring). f32: the raw patch [P][CK], its two planes hi, lo [P][LD], the
+  // chunk's [a, c][CK], the ring, two staging tiles [2][hi, lo][BN][LD].
+  using TS = typename std::conditional<F32, float, bf16>::type;  // staging tiles
+  TX* patch = reinterpret_cast<TX*>(cv_smem);
+  float* hi = reinterpret_cast<float*>(cv_smem) + (size_t)P * CK;
+  float* lo = hi + (size_t)P * LD;
+  float* ac = F32 ? lo + (size_t)P * LD : reinterpret_cast<float*>(patch + 2 * P * LD);
+  TS* Ws;
+  TW* Wr;  // the ring: stages x [CK][R_LD]
+  if constexpr (F32) {
+    Wr = ac + 2 * CK;
+    Ws = Wr + (size_t)stages * R_STAGE;
+  } else {
+    Ws = reinterpret_cast<bf16*>(ac + 4 * CK);
+    if constexpr (Q)
+      Wr = reinterpret_cast<TW*>(Ws + 2 * W_STAGE);
+    else
+      Wr = Ws;
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
 
   // The raw patch of the strip's chunk number `seq` (chunk seq % nk) and its
-  // a, c into buffer seq & 1, without a commit: chunk 0's before the ring
-  // starts, chunk s + 1's with the W tile issued at chunk s's first tap, so
+  // a, c, without a commit: chunk 0's before the ring starts; bf16: into
+  // buffer seq & 1, chunk s + 1's with the W tile issued at chunk s's first
+  // tap; f32: into the one raw buffer, right after chunk s is activated; so
   // a patch is in flight for nine tiles before its activation.
   auto load_patch = [&](int seq) {
-    const int ch0 = (kc0 + seq % nk) * CV_CK;
-    bf16* dst = patch + (size_t)(seq & 1) * P * CV_LD;
-    for (int idx = tid; idx < P * (CV_CK / 8); idx += CV_THREADS) {
+    constexpr int P_LD = F32 ? CK : LD;
+    const int ch0 = (kc0 + seq % nk) * CK;
+    TX* dst = F32 ? patch : patch + (size_t)(seq & 1) * P * LD;
+    for (int idx = tid; idx < P * (CK / EPP); idx += THREADS) {
       const int p = idx >> 3, q = idx & 7;
-      const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW, ch = ch0 + q * 8;
+      const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW, ch = ch0 + q * EPP;
       const bool ok = tq >= 0 && tq < T && fq >= 0 && fq < F && ch < Cin;
       const size_t row = ((size_t)b * T + tq) * F + fq;
-      const bf16* src = !ok ? x1 : ch < C1 ? x1 + row * C1 + ch : x2 + row * C2 + (ch - C1);
-      cp_async16(dst + p * CV_LD + q * 8, src, ok);
+      const TX* src = !ok ? x1 : ch < C1 ? x1 + row * C1 + ch : x2 + row * C2 + (ch - C1);
+      cp_async16(dst + p * P_LD + q * EPP, src, ok);
     }
-    if (tid < CV_CK / 2) {  // 16 copies of four floats of a, then 16 of c
-      const int which = tid / (CV_CK / 4), ch = ch0 + (tid % (CV_CK / 4)) * 4;
+    if (tid < CK / 2) {  // copies of four floats of a, then as many of c
+      const int which = tid / (CK / 4), ch = ch0 + (tid % (CK / 4)) * 4;
       const bool ok = ch < Cin;
       const float* src = (which ? c : a) + (size_t)b * Cin + ch;
-      cp_async16(ac + (seq & 1) * 2 * CV_CK + which * CV_CK + (tid % (CV_CK / 4)) * 4,
+      cp_async16(ac + (F32 ? 0 : (seq & 1) * 2 * CK) + which * CK + (tid % (CK / 4)) * 4,
                  ok ? src : a, ok);
     }
   };
@@ -411,13 +510,13 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   int ld = 0, ld_nt = 0, ld_kc = 0, ld_tap = 0, ld_slot = 0;
   auto load_next = [&]() {
     if (ld < total) {
-      const int ch0 = (kc0 + ld_kc) * CV_CK;
+      const int ch0 = (kc0 + ld_kc) * CK;
       const int n0 = (tile0 + ld_nt) * BN;
       const bool n_ok = n0 + w_c < Cout;
       const TW* src = w + ((size_t)ld_tap * Cin + ch0 + w_r) * Cout + n0 + w_c;
       TW* dst = Wr + (size_t)ld_slot * R_STAGE + w_r * R_LD + w_c;
 #pragma unroll
-      for (int j = 0; j < CV_CK / W_ROWS; ++j) {
+      for (int j = 0; j < CK / W_ROWS; ++j) {
         const bool ok = n_ok && ch0 + j * W_ROWS + w_r < Cin;
         cp_async16(dst + j * W_ROWS * R_LD, ok ? src + (size_t)j * W_ROWS * Cout : w, ok);
       }
@@ -434,85 +533,160 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
     cp_async_commit();
   };
 
-  // silu(x * a + c) of the patch of the strip's chunk number `seq` (buffer
-  // seq & 1), in place, in f32 with one rounding to bf16; zero outside the
-  // image and past Cin.
+  // silu(x * a + c) of the patch of the strip's chunk number `seq`, zero
+  // outside the image and past Cin. bf16: buffer seq & 1, in place, in f32
+  // with one rounding to bf16. f32: from the raw patch, with expf and IEEE
+  // division, split once into the hi and lo planes.
   auto activate = [&](int seq) {
-    const int buf = seq & 1, ch0 = (kc0 + seq % nk) * CV_CK;
-    bf16* pb = patch + (size_t)buf * P * CV_LD;
-    const float* as = ac + buf * 2 * CV_CK;
-    const float* cs = as + CV_CK;
-    for (int idx = tid; idx < P * (CV_CK / 8); idx += CV_THREADS) {
-      const int p = idx >> 3, q = idx & 7;
-      const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW;
-      bf16* e = pb + p * CV_LD + q * 8;
-      float y[8];
-      if (tq >= 0 && tq < T && fq >= 0 && fq < F && ch0 + q * 8 < Cin) {
-        float v[8];
-        unpack8(*reinterpret_cast<const uint4*>(e), v);
+    const int ch0 = (kc0 + seq % nk) * CK;
+    if constexpr (F32) {
+      for (int idx = tid; idx < P * (CK / 4); idx += THREADS) {
+        const int p = idx >> 3, q = idx & 7;
+        const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW;
+        float4 h = make_float4(0.f, 0.f, 0.f, 0.f), l = h;
+        if (tq >= 0 && tq < T && fq >= 0 && fq < F && ch0 + q * 4 < Cin) {
+          const float4 v = *reinterpret_cast<const float4*>(patch + p * CK + q * 4);
+          const float4 av = *reinterpret_cast<const float4*>(ac + q * 4);
+          const float4 cv = *reinterpret_cast<const float4*>(ac + CK + q * 4);
+          const float xs[4] = {v.x, v.y, v.z, v.w}, as[4] = {av.x, av.y, av.z, av.w},
+                      cs[4] = {cv.x, cv.y, cv.z, cv.w};
+          float hs[4], ls[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float z = v[i] * as[q * 8 + i] + cs[q * 8 + i];
-          y[i] = __fdividef(z, 1.f + __expf(-z));
+          for (int i = 0; i < 4; ++i) {
+            const float z = xs[i] * as[i] + cs[i];
+            const float y = z / (1.f + expf(-z));
+            hs[i] = to_tf32(y);
+            ls[i] = to_tf32(y - hs[i]);
+          }
+          h = make_float4(hs[0], hs[1], hs[2], hs[3]);
+          l = make_float4(ls[0], ls[1], ls[2], ls[3]);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) y[i] = 0.f;
+        *reinterpret_cast<float4*>(hi + p * LD + q * 4) = h;
+        *reinterpret_cast<float4*>(lo + p * LD + q * 4) = l;
       }
-      store8(e, y);
+    } else {
+      const int buf = seq & 1;
+      bf16* pb = patch + (size_t)buf * P * LD;
+      const float* as = ac + buf * 2 * CK;
+      const float* cs = as + CK;
+      for (int idx = tid; idx < P * (CK / 8); idx += THREADS) {
+        const int p = idx >> 3, q = idx & 7;
+        const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW;
+        bf16* e = pb + p * LD + q * 8;
+        float y[8];
+        if (tq >= 0 && tq < T && fq >= 0 && fq < F && ch0 + q * 8 < Cin) {
+          float v[8];
+          unpack8(*reinterpret_cast<const uint4*>(e), v);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float z = v[i] * as[q * 8 + i] + cs[q * 8 + i];
+            y[i] = __fdividef(z, 1.f + __expf(-z));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) y[i] = 0.f;
+        }
+        store8(e, y);
+      }
     }
   };
 
   // Per lane: the patch position of the output row its ldmatrix address
   // names in each m16 tile, at tap (0, 0); rows past the tile read position
-  // 0 and are never stored.
+  // 0 and are never stored. f32 (8 x 4 tf32 matrices): matrix lane / 8, rows
+  // + 8 for odd, k + 4 for the upper two. B: bf16, the ring or staging tile
+  // read by ldmatrix.trans; f32, staging row n = wn 32 + (lane / 16) 8 +
+  // lane % 8, k + 4 for odd matrices.
   int apos[MT];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi) {
-    const int r = wm * WM + mi * 16 + (lane & 15);
-    apos[mi] = (r < tt * ft ? (r / ft) * PW + r % ft : 0) * CV_LD + (lane >> 4) * 8;
+    const int r = F32 ? wm * WM + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8
+                      : wm * WM + mi * 16 + (lane & 15);
+    apos[mi] = (r < tt * ft ? (r / ft) * PW + r % ft : 0) * LD + (lane >> 4) * (F32 ? 4 : 8);
   }
-  const int b_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
+  const int b_off =
+      F32 ? (wn * 32 + (lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 4
+          : ((((lane >> 3) & 1) << 3) + (lane & 7)) * B_LD + wn * 32 + (lane >> 4) * 8;
 
   // K1q: the int8 W tile in ring slot `rs` into bf16 staging tile `sb`, 16
   // values a thread a step (zero-filled rows and columns stay zero)
   auto convert = [&](int rs, int sb) {
     const TW* src = Wr + (size_t)rs * R_STAGE;
-    bf16* dst = Ws + (size_t)sb * W_STAGE;
+    bf16* dst = reinterpret_cast<bf16*>(Ws) + (size_t)sb * W_STAGE;
 #pragma unroll
-    for (int u = 0; u < CV_CK * (BN / 16) / CV_THREADS; ++u) {
-      const int q = tid + u * CV_THREADS, r = q / (BN / 16), col = (q % (BN / 16)) * 16;
-      uint4 lo, hi;
-      int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo, hi);
-      *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo;
-      *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi;
+    for (int u = 0; u < CK * (BN / 16) / THREADS; ++u) {
+      const int q = tid + u * THREADS, r = q / (BN / 16), col = (q % (BN / 16)) * 16;
+      uint4 lo8, hi8;
+      int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + r * R_LD + col), lo8, hi8);
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col) = lo8;
+      *reinterpret_cast<uint4*>(dst + r * B_LD + col + 8) = hi8;
+    }
+  };
+
+  // f32: ring slot `rs` split into staging tile `sb`, transposed: lane k of
+  // warp w reads row k's columns n0..n0+3 (a float4) for n0 = 4 (w + warps
+  // i) and writes hi and lo at [n][k]; `step` of four takes the column
+  // groups i with 4 i / NI == step, so that the split interleaves with the
+  // products of the k8 steps
+  constexpr int NI = BN * 8 / THREADS;  // column groups of four a warp splits
+  auto split = [&](int rs, int sb, int step) {
+    const float* src = reinterpret_cast<const float*>(Wr) + (size_t)rs * R_STAGE + lane * R_LD;
+    float* dh = reinterpret_cast<float*>(Ws) + (size_t)sb * 2 * S_PLANE + lane;
+    float* dl = dh + S_PLANE;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      if (i * 4 / NI != step) continue;
+      const int n0 = 4 * (warp + THREADS / 32 * i);
+      const float4 v = *reinterpret_cast<const float4*>(src + n0);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const float h = to_tf32(vs[jn]);
+        dh[(n0 + jn) * LD] = h;
+        dl[(n0 + jn) * LD] = to_tf32(vs[jn] - h);
+      }
     }
   };
 
   load_patch(0);
   cp_async_commit();
-  // K1q's ring keeps one tile more in flight: a slot is free once its tile
-  // is converted, a step ahead of its products
-  for (int s = 0; s < stages - (Q ? 0 : 1); ++s) load_next();
-  if constexpr (Q) {  // W tile 0 into staging tile 0
+  // K1q's and f32's rings keep one tile more in flight: a slot is free once
+  // its tile is converted or split into staging, a step ahead of its products
+  constexpr bool STAGED = Q || F32;
+  for (int s = 0; s < stages - (STAGED ? 0 : 1); ++s) load_next();
+  if constexpr (STAGED) {  // W tile 0 into staging tile 0
     cp_async_wait_dyn(stages - 1);  // patch 0 and W tile 0 have landed
     __syncthreads();
-    convert(0, 0);
+    if constexpr (F32) {
+#pragma unroll
+      for (int step = 0; step < 4; ++step) split(0, 0, step);
+    } else {
+      convert(0, 0);
+    }
   }
 
   float acc[MT][4][4];
   int kt = 0, nt = 0, slot = 0, tap = 0, seq = 0;
   for (int i = 0; i < total; ++i) {
-    // W tile i (K1q: i + 1), and every patch up to its chunk's, has landed
+    // W tile i (staged: i + 1), and every patch up to its chunk's, has landed
     cp_async_wait_dyn(stages - 2);
-    // ... for all; tile i - 1's slot (K1q: tile i's, and staging tile i + 1's), and at tap 0 the
-    // last chunk's buffer, free
+    // ... for all; tile i - 1's slot (staged: tile i's, and staging tile i +
+    // 1's), and at tap 0 the last chunk's buffer (f32: the planes), free
     __syncthreads();
-    if (tap == 0 && seq + 1 < my_tiles * nk) load_patch(seq + 1);
-    load_next();  // tile i + stages - 1 (K1q: i + stages; with the next chunk's patch, at tap 0)
-    if (tap == 0) {  // this chunk's patch has landed: activate it, whole
-      activate(seq);
-      __syncthreads();
+    if constexpr (F32) {
+      if (tap == 0) {  // this chunk's raw patch has landed: activate it, whole
+        activate(seq);
+        __syncthreads();
+        if (seq + 1 < my_tiles * nk) load_patch(seq + 1);
+      }
+      load_next();  // tile i + stages (with the next chunk's patch, at tap 0)
+    } else {
+      if (tap == 0 && seq + 1 < my_tiles * nk) load_patch(seq + 1);
+      load_next();  // tile i + stages - 1 (K1q: i + stages; with the next chunk's patch, at tap 0)
+      if (tap == 0) {  // this chunk's patch has landed: activate it, whole
+        activate(seq);
+        __syncthreads();
+      }
     }
     if (kt == 0) {
 #pragma unroll
@@ -522,35 +696,69 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
     }
-    const bf16* Wt = Ws + (size_t)(Q ? i & 1 : slot) * W_STAGE + b_off;
-    if (++slot == stages) slot = 0;
-    const bf16* At = patch + (size_t)(seq & 1) * P * CV_LD + ((tap / 3) * PW + tap % 3) * CV_LD;
-    uint32_t af[2][MT][4], bfr[2][2][4];
-    auto fetch = [&](int set, int kk) {
+    if constexpr (F32) {
+      const float* Bh = reinterpret_cast<const float*>(Ws) + (size_t)(i & 1) * 2 * S_PLANE + b_off;
+      const float* Bl = Bh + S_PLANE;
+      const int shift = ((tap / 3) * PW + tap % 3) * LD;
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) ldmatrix_x4(af[set][mi], At + apos[mi] + kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) ldmatrix_x4_trans(bfr[set][np], Wt + kk * B_LD + np * 16);
-    };
-    fetch(0, 0);
-#pragma unroll
-    for (int ks = 0; ks < CV_CK / 16; ++ks) {
-      if (ks + 1 < CV_CK / 16) fetch((ks + 1) & 1, (ks + 1) * 16);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
+      for (int kk = 0; kk < CK; kk += 8) {
+        uint32_t bh[2][4], bl[2][4];
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
-          mma_bf16_16816(acc[mi][2 * np], af[ks & 1][mi], bfr[ks & 1][np][0],
-                         bfr[ks & 1][np][1]);
-          mma_bf16_16816(acc[mi][2 * np + 1], af[ks & 1][mi], bfr[ks & 1][np][2],
-                         bfr[ks & 1][np][3]);
+          ldmatrix_x4(bh[np], Bh + np * 16 * LD + kk);
+          ldmatrix_x4(bl[np], Bl + np * 16 * LD + kk);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          uint32_t ah[4], al[4];
+          ldmatrix_x4(ah, hi + shift + apos[mi] + kk);
+          ldmatrix_x4(al, lo + shift + apos[mi] + kk);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              float(&d)[4] = acc[mi][2 * np + h2];
+              mma_tf32_1688(d, al, bh[np][2 * h2], bh[np][2 * h2 + 1]);
+              mma_tf32_1688(d, ah, bl[np][2 * h2], bl[np][2 * h2 + 1]);
+              mma_tf32_1688(d, ah, bh[np][2 * h2], bh[np][2 * h2 + 1]);
+            }
+          }
+        }
+        // a quarter of tile i + 1 into the other staging tile, behind this k8
+        // step's products
+        if (i + 1 < total) split((i + 1) % stages, (i + 1) & 1, kk / 8);
+      }
+    } else {
+      const bf16* Wt = Ws + (size_t)(Q ? i & 1 : slot) * W_STAGE + b_off;
+      if (++slot == stages) slot = 0;
+      const bf16* At = patch + (size_t)(seq & 1) * P * LD + ((tap / 3) * PW + tap % 3) * LD;
+      uint32_t af[2][MT][4], bfr[2][2][4];
+      auto fetch = [&](int set, int kk) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) ldmatrix_x4(af[set][mi], At + apos[mi] + kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) ldmatrix_x4_trans(bfr[set][np], Wt + kk * B_LD + np * 16);
+      };
+      fetch(0, 0);
+#pragma unroll
+      for (int ks = 0; ks < CK / 16; ++ks) {
+        if (ks + 1 < CK / 16) fetch((ks + 1) & 1, (ks + 1) * 16);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            mma_bf16_16816(acc[mi][2 * np], af[ks & 1][mi], bfr[ks & 1][np][0],
+                           bfr[ks & 1][np][1]);
+            mma_bf16_16816(acc[mi][2 * np + 1], af[ks & 1][mi], bfr[ks & 1][np][2],
+                           bfr[ks & 1][np][3]);
+          }
         }
       }
-    }
-    // K1q: tile i + 1 into the other staging tile, behind this tile's
-    // products, whose tensor-core work its loads and integer work overlap
-    if constexpr (Q) {
-      if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
+      // K1q: tile i + 1 into the other staging tile, behind this tile's
+      // products, whose tensor-core work its loads and integer work overlap
+      if constexpr (Q) {
+        if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
+      }
     }
     if (++tap == 9) {
       tap = 0;
@@ -591,21 +799,42 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
           }
         }
       }
-      const int col = nb + t * 8;
+      if constexpr (F32) {  // f32 pairs from registers
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
+        for (int j = 0; j < 4; ++j) {
+          const int col = nb + j * 8 + 2 * t;
+          if (col >= Cout) continue;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          uint32_t v[4];
+          for (int mi = 0; mi < MT; ++mi) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0], acc[mi][j][2 * half + 1] + bv[j][1]);
-          quad_transpose(v, t);
-          const int r = wm * WM + mi * 16 + half * 8 + g;
-          const int tq = t0 + r / ft, fq = f0 + r % ft;
-          if (r < tt * ft && tq < T && fq < F && col < Cout)
-            *reinterpret_cast<uint4*>(out + (((size_t)b * T + tq) * F + fq) * Cout + col) =
-                make_uint4(v[0], v[1], v[2], v[3]);
+            for (int half = 0; half < 2; ++half) {
+              const int r = wm * WM + mi * 16 + half * 8 + g;
+              const int tq = t0 + r / ft, fq = f0 + r % ft;
+              if (r < tt * ft && tq < T && fq < F)
+                *reinterpret_cast<float2*>(out + (((size_t)b * T + tq) * F + fq) * Cout + col) =
+                    make_float2(acc[mi][j][2 * half] + bv[j][0],
+                                acc[mi][j][2 * half + 1] + bv[j][1]);
+            }
+          }
+        }
+      } else {
+        const int col = nb + t * 8;
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = pack_bf16(acc[mi][j][2 * half] + bv[j][0],
+                               acc[mi][j][2 * half + 1] + bv[j][1]);
+            quad_transpose(v, t);
+            const int r = wm * WM + mi * 16 + half * 8 + g;
+            const int tq = t0 + r / ft, fq = f0 + r % ft;
+            if (r < tt * ft && tq < T && fq < F && col < Cout)
+              *reinterpret_cast<uint4*>(out + (((size_t)b * T + tq) * F + fq) * Cout + col) =
+                  make_uint4(v[0], v[1], v[2], v[3]);
+          }
         }
       }
     }
@@ -624,7 +853,7 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
     constexpr int C_LD = BN + 4;
     float* Cs = reinterpret_cast<float*>(cv_smem);
     cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the patch and the ring
+    __syncthreads();  // every warp is done with the patch, the ring and the staging
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -638,17 +867,17 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
     const int splits = gridDim.z, rank = blockIdx.z;
     const int my_rows = (BM - rank + splits - 1) / splits;
     const int n0 = tile0 * BN;
-    for (int it = tid; it < my_rows * (BN / 8); it += CV_THREADS) {
+    for (int it = tid; it < my_rows * (BN / 8); it += THREADS) {
       const int r = rank + (it / (BN / 8)) * splits, col = n0 + (it % (BN / 8)) * 8;
       const int tq = t0 + r / ft, fq = f0 + r % ft;
       if (!(r < tt * ft && tq < T && fq < F && col < Cout)) continue;
       float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       for (int s = 0; s < splits; ++s) {
         const float* src = cluster.map_shared_rank(Cs, s) + r * C_LD + (col - n0);
-        const float4 lo = *reinterpret_cast<const float4*>(src);
-        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-        v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
-        v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        const float4 lo4 = *reinterpret_cast<const float4*>(src);
+        const float4 hi4 = *reinterpret_cast<const float4*>(src + 4);
+        v[0] += lo4.x; v[1] += lo4.y; v[2] += lo4.z; v[3] += lo4.w;
+        v[4] += hi4.x; v[5] += hi4.y; v[6] += hi4.z; v[7] += hi4.w;
       }
       float bv[8];
       load8_param(bias, col, p16, bv);
@@ -666,13 +895,14 @@ gn_silu_conv_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x
   }
 }
 
-template <int BM, int BN, typename TW = bf16>
-static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const void* c,
-                            const void* w, const void* bias, bool p16, void* out, int B, int T,
-                            int F, int C1, int C2, int Cout, int tt, int ft, int strip_tiles,
-                            int stages, int splits, cudaStream_t stream,
-                            const void* wscale = nullptr) {
-  auto kern = gn_silu_conv_bf16_kernel<BM, BN, TW>;
+template <int BM, int BN, typename TW = bf16, typename TX = bf16>
+static int conv_launch(const void* x1, const void* x2, const void* a, const void* c,
+                       const void* w, const void* bias, bool p16, void* out, int B, int T, int F,
+                       int C1, int C2, int Cout, int tt, int ft, int strip_tiles, int stages,
+                       int splits, cudaStream_t stream, const void* wscale = nullptr) {
+  constexpr bool F32 = std::is_same<TX, float>::value;
+  constexpr int CK = ConvGeom<TX>::CK, THREADS = ConvGeom<TX>::THREADS;
+  auto kern = gn_silu_conv_kernel<BM, BN, TW, TX>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -680,26 +910,27 @@ static int conv_bf16_launch(const void* x1, const void* x2, const void* a, const
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const size_t smem = conv_smem_bytes(BM, BN, tt, ft, stages, (int)sizeof(TW));
+  const size_t smem = F32 ? conv32_smem_bytes(BM, BN, tt, ft, stages)
+                          : conv_smem_bytes(BM, BN, tt, ft, stages, (int)sizeof(TW));
   if (smem > (size_t)CV_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const int n_chunks = (C1 + C2 + CV_CK - 1) / CV_CK;
+  const int n_chunks = (C1 + C2 + CK - 1) / CK;
   const int cps = (n_chunks + splits - 1) / splits;
   if ((splits - 1) * cps >= n_chunks) return (int)cudaErrorInvalidValue;  // an empty split
   const int n_tiles = (Cout + BN - 1) / BN;
   dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles,
             B * ((T + tt - 1) / tt) * ((F + ft - 1) / ft), splits);
-  const bf16 *px1 = static_cast<const bf16*>(x1), *px2 = static_cast<const bf16*>(x2);
+  const TX *px1 = static_cast<const TX*>(x1), *px2 = static_cast<const TX*>(x2);
   const TW* pw = static_cast<const TW*>(w);
   const float *pa = static_cast<const float*>(a), *pc = static_cast<const float*>(c),
               *ps = static_cast<const float*>(wscale);
-  bf16* po = static_cast<bf16*>(out);
+  TX* po = static_cast<TX*>(out);
   if (splits == 1) {
-    kern<<<grid, CV_THREADS, smem, stream>>>(px1, px2, pa, pc, pw, ps, bias, p16, po, T, F, C1,
-                                             C2, Cout, tt, ft, strip_tiles, stages, cps);
+    kern<<<grid, THREADS, smem, stream>>>(px1, px2, pa, pc, pw, ps, bias, p16, po, T, F, C1, C2,
+                                          Cout, tt, ft, strip_tiles, stages, cps);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
-    cfg.blockDim = dim3(CV_THREADS);
+    cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -849,16 +1080,16 @@ int a2k_gn_silu_conv3x3_bf16(const void* x1, const void* x2, const void* a, cons
        reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
   if (bm == 256 && bn == 64)
-    return a2k::conv_bf16_launch<256, 64>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
+    return a2k::conv_launch<256, 64>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
                                           tt, ft, strip_tiles, stages, splits, s);
   if (bm == 128 && bn == 128)
-    return a2k::conv_bf16_launch<128, 128>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
+    return a2k::conv_launch<128, 128>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
                                            tt, ft, strip_tiles, stages, splits, s);
   if (bm == 64 && bn == 128)
-    return a2k::conv_bf16_launch<64, 128>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
+    return a2k::conv_launch<64, 128>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
                                           tt, ft, strip_tiles, stages, splits, s);
   if (bm == 64 && bn == 64)
-    return a2k::conv_bf16_launch<64, 64>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
+    return a2k::conv_launch<64, 64>(x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout,
                                          tt, ft, strip_tiles, stages, splits, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -886,22 +1117,49 @@ int a2k_gn_silu_conv3x3_q_bf16(const void* x1, const void* x2, const void* a, co
        reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
   if (bm == 256 && bn == 64)
-    return a2k::conv_bf16_launch<256, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+    return a2k::conv_launch<256, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
                                                   C2, Cout, tt, ft, strip_tiles, stages, splits,
                                                   s, wscale);
   if (bm == 128 && bn == 128)
-    return a2k::conv_bf16_launch<128, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+    return a2k::conv_launch<128, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
                                                    C2, Cout, tt, ft, strip_tiles, stages, splits,
                                                    s, wscale);
   if (bm == 64 && bn == 128)
-    return a2k::conv_bf16_launch<64, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+    return a2k::conv_launch<64, 128, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
                                                   C2, Cout, tt, ft, strip_tiles, stages, splits,
                                                   s, wscale);
   if (bm == 64 && bn == 64)
-    return a2k::conv_bf16_launch<64, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
+    return a2k::conv_launch<64, 64, int8_t>(x1, x2, a, c, wq, bias, p16, out, B, T, F, C1,
                                                  C2, Cout, tt, ft, strip_tiles, stages, splits,
                                                  s, wscale);
   return (int)cudaErrorInvalidValue;
+}
+
+// K1 in f32 with its launch plan (3xTF32 on the tensor cores): as
+// a2k_gn_silu_conv3x3_bf16 with x1, x2, w and out f32 (bias f32 or bf16, read
+// as stored), (bm, bn) = (256, 64) only; stages 2 to 8 raw W tiles in the
+// ring.
+int a2k_gn_silu_conv3x3_f32(const void* x1, const void* x2, const void* a, const void* c,
+                            const void* w, const void* bias, int param_dtype, void* out, int B,
+                            int T, int F, int C1, int C2, int Cout, int bm, int bn, int tt,
+                            int ft, int strip_tiles, int stages, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || F <= 0 || C1 <= 0 || C2 < 0 || Cout <= 0 || (C1 & 7) || (C2 & 7) ||
+      (Cout & 7) || (C2 > 0 && x2 == nullptr) || tt < 1 || ft < 1 || tt * ft > bm ||
+      strip_tiles < 1 || stages < 2 || stages > a2k::CV_MAX_STAGES || splits < 1 ||
+      splits > a2k::CV_MAX_SPLITS || (splits > 1 && strip_tiles != 1) ||
+      (param_dtype != 0 && param_dtype != 1) || bias == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x1) | reinterpret_cast<uintptr_t>(x2) |
+       reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(c) |
+       reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (bm != a2k::CV32_BM || bn != a2k::CV32_BN) return (int)cudaErrorInvalidValue;
+  return a2k::conv_launch<a2k::CV32_BM, a2k::CV32_BN, float, float>(
+      x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout, tt, ft, strip_tiles, stages,
+      splits, s);
 }
 
 // The shared core: w: [3, 3, C1+C2, Cout] in the activation dtype; bias: f32

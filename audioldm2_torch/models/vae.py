@@ -222,6 +222,31 @@ def decode_conv_shapes(cfg: VAEConfig, batch: int, latent_t: int, latent_f: int)
     return shapes
 
 
+def encode_conv_shapes(cfg: VAEConfig, batch: int, t: int, f: int) -> dict:
+    """{(B, T, F, C1, 0, Cout): calls} of the K1 launches of one encode of a
+    [batch, t, f, 1] mel, as decode_conv_shapes: conv1 and conv2 of every
+    ResBlock at its level (/2 in T and F per downsample, /4 in T for a
+    time-stride-4 one), then the two mid-block ResBlocks. The calls sum to
+    kernel_launches_per_encode(cfg)["gn_silu_conv3x3"]."""
+    shapes: dict = {}
+
+    def add(cin, cout):
+        for key in ((batch, t, f, cin, 0, cout), (batch, t, f, cout, 0, cout)):
+            shapes[key] = shapes.get(key, 0) + 1
+
+    block_in = cfg.ch
+    for i, mult in enumerate(cfg.ch_mult):
+        for _ in range(cfg.num_res_blocks):
+            add(block_in, cfg.ch * mult)
+            block_in = cfg.ch * mult
+        if i != len(cfg.ch_mult) - 1:
+            t = (t + 2) // 4 if i in cfg.downsample_time_stride4_levels else t // 2
+            f //= 2
+    add(block_in, block_in)  # mid block_1
+    add(block_in, block_in)  # mid block_2
+    return shapes
+
+
 def _launches(cfg: VAEConfig, n_res: int) -> dict:
     """Two K1 per ResBlock, one K6 (norm_out); the single-head mid attention
     takes K2 only if its width is a kernel head_dim (it is 512 in every

@@ -52,6 +52,8 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_gn_silu_conv3x3_f32": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _I, _P],
     "a2k_flash_attention": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P],
@@ -68,7 +70,9 @@ SIGNATURES = {
     "a2k_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "a2k_geglu_matmul_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "a2k_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
-    "a2k_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_group_norm_silu": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _I, _P],
+    "a2k_group_norm_silu_occupancy": [_I, _I, _I, _P],
     "a2k_attention_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
@@ -498,6 +502,21 @@ _CONV_Q_MODEL = _ConvModel({(256, 64): 1.05, (128, 128): 0.8, (64, 128): 1.3, (6
                            _CONV_Q_REGS)
 
 
+# The f32 K1 (the same kernel, 3xTF32 on the tensor cores): chunks of
+# CONV32_CK channels, the activated patch and the weight's staging tiles in
+# two planes (hi, lo) of rows of CONV32_LD f32 words, one tile,
+# CONV32_TILE, with CONV32_THREADS threads: tools/tune_k1_k4.py --only
+# k1f32 on an H100 timed it fastest at every shape of the encode, its only
+# traffic (see PERF.md). Its own constants (three products a multiply-add,
+# an expf and a split an element of the patch; registers from ptxas), set
+# against the same sweep.
+CONV32_CK, CONV32_LD = 32, 36
+CONV32_TILE = (256, 64)
+CONV32_THREADS = 512
+_CONV_F32_MODEL = _ConvModel({CONV32_TILE: 3.2}, _CONV_BLOCK_COST, 2500.0, 1.5e6,
+                             _CONV_RED_COST, _CONV_SM_SHARE, {CONV32_TILE: 112})
+
+
 class ConvPlan(NamedTuple):
     """How the bf16 K1 kernel covers a [B, T, F, Cin] -> Cout conv: blocks
     of tt x ft output positions of one sample (at most ``bm`` rows of the
@@ -532,16 +551,30 @@ def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int, w_bytes: in
     return max(main, bm * (bn + 4) * 4)
 
 
+def conv32_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int) -> int:
+    """The f32 kernel's block: the raw patch [P, CONV32_CK], its activation
+    in two planes [P, CONV32_LD], the chunk's a and c, a ring of raw W tiles
+    [CONV32_CK, bn + 4] and two staging tiles of the split weight in two
+    planes [bn, CONV32_LD] (P = (tt + 2) x (ft + 2)); the split epilogue's
+    f32 tile [bm, bn + 4] reuses the same memory."""
+    p = (tt + 2) * (ft + 2)
+    main = (p * CONV32_CK * 4 + 2 * p * CONV32_LD * 4 + 2 * CONV32_CK * 4
+            + stages * CONV32_CK * (bn + 4) * 4 + 4 * bn * CONV32_LD * 4)
+    return max(main, bm * (bn + 4) * 4)
+
+
 @functools.lru_cache(maxsize=1024)
 def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
                       dtype: str = "bf16", w_bytes: int = 2) -> Optional[ConvPlan]:
-    """The launch plan of the bf16 K1 kernel, or None for what it does not
-    take (f32, Cin or Cout not a multiple of 8); the wrapper sends those,
-    and unaligned pointers or concat parts no multiple of 8, to the shared
-    GEMM core. ``w_bytes`` 1: K1q's plan, an int8 weight on the same kernel
-    (Cout a multiple of 16), its ring's tiles half the bytes beside two bf16
-    staging tiles (``conv_smem_bytes``), under its own constants
-    (``_CONV_Q_MODEL``).
+    """The launch plan of the K1 kernel, or None for what it does not take
+    (Cin or Cout not a multiple of 8); the wrapper sends those, and
+    unaligned pointers or concat parts no multiple of 8, to the shared GEMM
+    core. ``w_bytes`` 1: K1q's plan, an int8 weight on the same kernel
+    (Cout a multiple of 16; bf16 only), its ring's tiles half the bytes
+    beside two bf16 staging tiles (``conv_smem_bytes``), under its own
+    constants (``_CONV_Q_MODEL``). ``dtype`` "f32": the f32 kernel (3xTF32),
+    chunks of CONV32_CK channels, ``conv32_smem_bytes``, its own constants
+    (``_CONV_F32_MODEL``).
 
     A block's tile is ft = min(F, bm) positions wide in F and as many rows
     of T as fit in bm (at most T). Candidates: each (bm, bn), each split of
@@ -553,24 +586,28 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
     nine tiles' multiply-adds and nine ring waits, and with a split the
     cluster's reduction; the grid runs in waves of the blocks the SMs hold
     at once (_waves_cost)."""
-    if (dtype != "bf16" or min(b, t, f) < 1 or cin < 8 or cout < 8 or cin % 8
-            or cout % (16 if w_bytes == 1 else 8)):
+    f32 = dtype == "f32"
+    if ((dtype != "bf16" and not (f32 and w_bytes == 2)) or min(b, t, f) < 1 or cin < 8
+            or cout < 8 or cin % 8 or cout % (16 if w_bytes == 1 else 8)):
         return None
-    k_chunks = -(-cin // CONV_CK)
-    model = _CONV_Q_MODEL if w_bytes == 1 else _CONV_MODEL
+    ck = CONV32_CK if f32 else CONV_CK
+    k_chunks = -(-cin // ck)
+    model = _CONV_F32_MODEL if f32 else _CONV_Q_MODEL if w_bytes == 1 else _CONV_MODEL
     best, best_cost = None, None
-    for (bm, bn), stages in itertools.product(CONV_TILES, CONV_STAGES):
+    for (bm, bn), stages in itertools.product((CONV32_TILE,) if f32 else CONV_TILES,
+                                              CONV_STAGES):
         ft = min(f, bm)
         tt = min(bm // ft, t)
-        smem = conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes)
+        smem = (conv32_smem_bytes(bm, bn, tt, ft, stages) if f32
+                else conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes))
         if smem > LNMM_MAX_SMEM:
             continue
         m_tiles = b * -(-t // tt) * -(-f // ft)
         n_tiles = -(-cout // bn)
-        occ = blocks_per_sm(smem, model.regs[(bm, bn)])
+        occ = blocks_per_sm(smem, model.regs[(bm, bn)], CONV32_THREADS if f32 else 256)
         fill = min(sms, m_tiles * n_tiles * min(CONV_MAX_SPLITS, k_chunks))
-        chunk_cost = ((tt + 2) * (ft + 2) * CONV_CK * model.act
-                      + 9 * bm * bn * CONV_CK * model.tile_cost[(bm, bn)]
+        chunk_cost = ((tt + 2) * (ft + 2) * ck * model.act
+                      + 9 * bm * bn * ck * model.tile_cost[(bm, bn)]
                       + 9 * model.ring / (stages - 1))
         for want in range(1, min(CONV_MAX_SPLITS, k_chunks) + 1):
             cps = -(-k_chunks // want)
@@ -586,7 +623,7 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
                 cost = _waves_cost(blocks, sms, occ, block_cost, model.share)
                 if best_cost is None or cost < best_cost:
                     best_cost = cost
-                    best = ConvPlan(bm, bn, tt, ft, CONV_CK, k_chunks, strip_tiles, stages,
+                    best = ConvPlan(bm, bn, tt, ft, ck, k_chunks, strip_tiles, stages,
                                     splits, (strips, m_tiles, splits), smem)
     return best
 
@@ -612,11 +649,115 @@ GN_COUNTER_SLOTS = 1 << 16  # samples one statistics launch can take
 
 
 @functools.lru_cache(maxsize=None)
-def gn_counter(device_index: int) -> torch.Tensor:
-    """The statistics pass's per-sample arrival counters on one device:
-    allocated and zeroed once, left zeroed by every launch (the last block
-    of each sample resets its own). Launches on one stream at a time."""
+def gn_counter(device_index: int, stream: int) -> torch.Tensor:
+    """The statistics pass's per-sample arrival counters for the launches on
+    one stream of one device: allocated and zeroed once, left zeroed by
+    every launch (the last block of each sample resets its own)."""
     return torch.zeros(GN_COUNTER_SLOTS, dtype=torch.int32,
+                       device=torch.device("cuda", device_index))
+
+
+# K6 (csrc/groupnorm.cu: a2k_group_norm_silu): one cooperative launch of at
+# most one block of GN_THREADS per SM, the blocks of a sample splitting its
+# rows.
+GN_THREADS = 512
+GN_MAX_SMEM = 232448
+GN_PARTIAL_FLOATS = 1 << 20  # the per-block partial sums one launch can write
+# Bytes of x below which a block is not worth its share of the barrier and
+# the combine: tools/tune_k1_k4.py --only k6 on an H100 timed the t5 UNet's
+# out_norm (1 MB a sample) at 14.9 us on 66 blocks a sample and 13.0 on 32
+# (PERF.md).
+GN_BLOCK_BYTES = 32768
+
+
+class GroupNormPlan(NamedTuple):
+    """How K6 covers x [B, S, C]: ``blocks_per_sample`` blocks per sample,
+    each taking ``rows`` consecutive rows (the last may take fewer, none
+    takes none), the last ``rows_held`` of them in shared memory: all of
+    them (``resident``: x read once), or as many as fit, the rows before
+    them read from device memory for the statistics and again for the
+    output. ``slots`` samples at a time (all of them unless B is above the
+    SM count), each block taking its part of samples slot, slot + slots,
+    ... in turn. Grid: slots x blocks_per_sample."""
+    resident: bool
+    blocks_per_sample: int
+    rows: int
+    rows_held: int
+    slots: int
+    grid: int
+    smem_bytes: int
+
+
+def gn_silu_smem_bytes(rows_held: int, c: int, groups: int, esize: int, vec: bool) -> int:
+    """K6's block (``gnsilu_smem_bytes``): the slab of rows_held rows
+    (16-byte rounded), the running (n, mean, M2) per group in double, the
+    per-thread channel sums [row lanes, C], the chunk's group means and M2s,
+    and the affine [2, C]."""
+    cp = c // 8 if vec else c
+    rp = 1 if cp >= GN_THREADS else GN_THREADS // cp
+    slab = -(-rows_held * c * esize // 16) * 16
+    return slab + groups * 3 * 8 + rp * c * 4 + 2 * groups * 4 + 2 * c * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def group_norm_silu_plan(b: int, s: int, c: int, dtype: str, sms: int, groups: int = 32,
+                         vec: bool = True) -> Optional[GroupNormPlan]:
+    """K6's launch plan for x [b, s, c] in ``dtype`` ("bf16" or "f32") on a
+    card of ``sms`` SMs: at most one block per SM, floor(sms / b) per
+    sample (one where b is above sms, the samples then taken sms at a time),
+    fewer where a block would hold less than GN_BLOCK_BYTES of x or no row,
+    each a contiguous run of rows. The run stays in shared memory when it
+    fits (``resident``; on 132 SMs up to about 29 MB of x in all), else its
+    last rows stay, as many as fit, and the rest are read again for the
+    output. The cooperative launch needs the whole grid resident: the
+    wrapper holds the grid to what cudaOccupancyMaxActiveBlocksPerMulti-
+    processor allows at the plan's shared memory (``gn_silu_occupancy``).
+    None where one row does not fit."""
+    if min(b, s, c, groups, sms) < 1 or c % groups:
+        return None
+    esize = 2 if dtype == "bf16" else 4
+    nb = max(1, min(sms // b, -(-s * c * esize // GN_BLOCK_BYTES)))
+    rows = -(-s // nb)
+    nb = -(-s // rows)  # no empty block
+    slots = min(b, sms // nb)
+    smem = gn_silu_smem_bytes(rows, c, groups, esize, vec)
+    if smem <= GN_MAX_SMEM:
+        return GroupNormPlan(True, nb, rows, rows, slots, slots * nb, smem)
+    fixed = gn_silu_smem_bytes(0, c, groups, esize, vec)
+    held = (GN_MAX_SMEM - fixed) // (c * esize)
+    if held < 1:
+        return None
+    return GroupNormPlan(False, nb, rows, held, slots, slots * nb,
+                         gn_silu_smem_bytes(held, c, groups, esize, vec))
+
+
+@functools.lru_cache(maxsize=None)
+def gn_silu_occupancy(device_index: int, dtype_code: int, vec: bool, smem: int) -> int:
+    """Blocks of K6 one SM of the device holds at once with ``smem`` bytes
+    of shared memory, read once per (device, instantiation, size)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(lib().a2k_group_norm_silu_occupancy(dtype_code, int(vec), smem,
+                                                  ctypes.addressof(blocks)),
+              "a2k_group_norm_silu_occupancy")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def gn_barrier(device_index: int, stream: int) -> torch.Tensor:
+    """K6's per-sample barrier words for the launches on one stream of one
+    device (arrivals, left zero by every launch; a generation word each):
+    zeroed once. Launches on two streams never share them."""
+    return torch.zeros(2 * GN_COUNTER_SLOTS, dtype=torch.int32,
+                       device=torch.device("cuda", device_index))
+
+
+@functools.lru_cache(maxsize=None)
+def gn_partials(device_index: int, stream: int) -> torch.Tensor:
+    """K6's scratch for each block's (mean, M2) per group, reused by the
+    launches on one stream of one device (each after the last, in stream
+    order)."""
+    return torch.empty(GN_PARTIAL_FLOATS, dtype=torch.float32,
                        device=torch.device("cuda", device_index))
 
 

@@ -1,13 +1,16 @@
 """K6: GroupNorm (+ SiLU) with no conv after it.
 
 K6 replaces ``audioldm2_tpu/ops/groupnorm_pallas.py`` (group_norm_silu)
-with two launches: K1's split statistics pass (``a2k_gn_stats`` in
-``csrc/gn_silu_conv.cu`` through ``resblock_kernel.gn_stats``, one input),
-which folds the norm into a per-(B, C) affine (a, c), then an elementwise
-pass ``y = silu(x * a + c)``
-(``a2k_gn_apply`` in ``csrc/groupnorm.cu``). Statistics, affine and SiLU
-are f32 and the output is rounded once to x's dtype, as the Pallas kernel
-does.
+with one cooperative launch of ``a2k_group_norm_silu``
+(``csrc/groupnorm.cu``) under ``_build.group_norm_silu_plan``: the blocks
+of a sample hold its rows in shared memory, form exact two-pass group
+statistics there, meet at a per-sample barrier, each combine the sample's
+partials in the same fixed order and write ``y = silu(x * a + c)`` from
+shared memory, so x is read once and y written once. A batch above the SM
+count is taken that many samples at a time in the same launch; the barrier
+words and partials belong to the stream the launch is on. Statistics,
+affine and SiLU are f32 and the output is rounded once to x's dtype, as
+the Pallas kernel does.
 
 :func:`group_norm_silu` takes the plain version for CPU tensors and the
 kernel for CUDA tensors; :func:`group_norm_silu_plain` is the oracle.
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from audioldm2_torch.ops import _build, resblock_kernel
+from audioldm2_torch.ops import _build
 from audioldm2_torch.ops import nn as _nn
 
 
@@ -45,15 +48,34 @@ def group_norm_silu(x: torch.Tensor, gn_scale, gn_bias, groups: int = 32, eps: f
     if c % groups:
         raise ValueError(f"{name}: {c} channels do not split into {groups} groups")
     s = x.numel() // (bsz * c) if x.numel() else 0
-    a, shift = resblock_kernel.gn_stats(x, None, gn_scale, gn_bias, groups, eps)
+    dev = x.device
+    (gamma, beta), param_code = _build.params_as_stored(dev, gn_scale, gn_bias)
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"{name}: scale and bias must be [{c}]")
     out = torch.empty_like(x)
-    lib = _build.lib()
-    dt = _build.dtype_code(x)
+    if s == 0:
+        return out
+    index = dev.index or 0
     stream = _build.stream_of(x)
+    dt = _build.dtype_code(x)
     vec = c % 8 == 0 and _build.aligned16(x, out)
-    _build.check(lib.a2k_gn_apply(
-        x.data_ptr(), a.data_ptr(), shift.data_ptr(), out.data_ptr(), bsz, s, c, int(silu),
-        int(vec), dt, stream,
+    plan = _build.group_norm_silu_plan(bsz, s, c, "bf16" if dt else "f32",
+                                       _build.sm_count(index), groups, vec)
+    if plan is None:
+        raise ValueError(f"{name}: no launch plan for [{bsz}, {s}, {c}] on this card")
+    occupancy = _build.gn_silu_occupancy(index, dt, vec, plan.smem_bytes)
+    if plan.grid > occupancy * _build.sm_count(index):
+        raise RuntimeError(f"{name}: {plan.grid} blocks do not fit on the card at once "
+                           f"({occupancy} a SM)")
+    part = _build.gn_partials(index, stream)
+    bar = _build.gn_barrier(index, stream)
+    if bsz * plan.blocks_per_sample * groups * 2 > part.numel() or 2 * bsz > bar.numel():
+        raise ValueError(f"{name}: {bsz} samples x {plan.blocks_per_sample} blocks x {groups} "
+                         f"groups exceed the scratch")
+    _build.check(_build.lib().a2k_group_norm_silu(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), param_code, out.data_ptr(), bsz, s, c,
+        groups, float(eps), int(silu), plan.slots, plan.blocks_per_sample, plan.rows,
+        plan.rows_held, int(vec), part.data_ptr(), bar.data_ptr(), dt, stream,
     ), name)
     group_norm_silu.launches += 1
     return out

@@ -4,13 +4,15 @@ K1 replaces ``audioldm2_tpu/ops/resblock_pallas.py`` (gn_silu_conv3x3,
 _cat, _tiled, _cat_tiled) with two launches of ``csrc/gn_silu_conv.cu``: a
 split GroupNorm statistics pass (:func:`gn_stats`) that folds the norm into a
 per-(B, C) affine, then the conv, which applies silu(x*a + c) to each input
-patch once and zero-pads after the activation. In bf16 the conv is its own
-kernel under a launch plan (``_build.gn_silu_conv_plan``: a halo'd patch in
-shared memory, nine shifted views of it, a cp.async ring of weight tiles,
-mma.sync, a thread-block cluster splitting the input channels at small M);
-in f32, and at the shapes the plan declines, it runs on the shared GEMM
-core. ``x2`` is the decoder's skip tensor, read in place of a materialized
-channel concat. K1q replaces ``gn_silu_conv3x3_q`` (the int8 serving mode):
+patch once and zero-pads after the activation. The conv is its own kernel
+under a launch plan (``_build.gn_silu_conv_plan``: a halo'd patch in shared
+memory, nine shifted views of it, a cp.async ring of weight tiles,
+mma.sync, a thread-block cluster splitting the input channels at small M),
+in bf16 or, for the sr path's f32 VAE encode, in f32 with 3xTF32 products
+(each operand split into two TF32 parts, three tensor-core products); at
+the shapes the plan declines it runs on the shared GEMM core. ``x2`` is the
+decoder's skip tensor, read in place of a materialized channel concat. K1q
+replaces ``gn_silu_conv3x3_q`` (the int8 serving mode):
 the same statistics, then, in bf16, the same conv kernel with an int8
 weight [3, 3, Cin, Cout] streamed as int8 tiles and converted in shared
 memory, and a per-output-channel f32 scale applied to the f32 sums
@@ -64,7 +66,7 @@ def gn_silu_conv3x3_q_plain(x1, x2, gn_scale, gn_bias, wq, ws, b, groups: int = 
 
 
 def gn_stats(x1, x2, gn_scale, gn_bias, groups: int = 32, eps: float = 1e-5):
-    """The GroupNorm statistics pass of K1, K1q and K6 (``a2k_gn_stats``) on
+    """The GroupNorm statistics pass of K1 and K1q (``a2k_gn_stats``) on
     CUDA tensors: the per-(B, C) affine (a, c), f32 [B, C1+C2], that folds
     GroupNorm over [x1 ; x2] with scale and bias, y = x * a + c. The scale
     and bias are read as stored (bf16 or f32)."""
@@ -89,22 +91,25 @@ def gn_stats(x1, x2, gn_scale, gn_bias, groups: int = 32, eps: float = 1e-5):
     _build.check(_build.lib().a2k_gn_stats(
         x1.data_ptr(), None if x2 is None else x2.data_ptr(), bsz, s, c1, c2, groups,
         float(eps), gamma.data_ptr(), beta.data_ptr(), param_code, ac[0].data_ptr(),
-        ac[1].data_ptr(), part.data_ptr(), chunks, _build.gn_counter(dev.index or 0).data_ptr(),
+        ac[1].data_ptr(), part.data_ptr(), chunks,
+        _build.gn_counter(dev.index or 0, _build.stream_of(x1)).data_ptr(),
         _build.dtype_code(x1), _build.stream_of(x1),
     ), "a2k_gn_stats")
     return ac[0], ac[1]
 
 
-def _conv_bf16(x1, x2, a, c, w, b, out, ws=None):
-    """The bf16 K1 kernel (ws None) or K1q (w int8, ws its f32 scale) under
-    its launch plan; False (nothing launched) for a shape or an alignment it
-    does not take."""
+def _conv_kernel(x1, x2, a, c, w, b, out, ws=None):
+    """The conv under its launch plan: K1 in bf16 (ws None), in f32 (3xTF32
+    on the tensor cores) or K1q in bf16 (w int8, ws its f32 scale); False
+    (nothing launched) for a dtype, shape or alignment the kernels do not
+    take."""
     bsz, t, f, c1 = x1.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     cout = w.shape[-1]
     dev = x1.device
+    f32 = x1.dtype == torch.float32
     plan = _build.gn_silu_conv_plan(bsz, t, f, c1 + c2, cout, _build.sm_count(dev.index or 0),
-                                    w_bytes=2 if ws is None else 1)
+                                    "f32" if f32 else "bf16", 2 if ws is None else 1)
     (bias,), param_code = _build.params_as_stored(dev, b)
     if plan is None or c1 % 8 or c2 % 8 or not _build.aligned16(x1, x2, a, c, w, ws, bias, out):
         return False
@@ -114,10 +119,12 @@ def _conv_bf16(x1, x2, a, c, w, b, out, ws=None):
             plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages, plan.splits,
             _build.stream_of(x1))
     lib = _build.lib()
-    if ws is None:
-        rc = lib.a2k_gn_silu_conv3x3_bf16(*head, *tail)
-    else:
+    if ws is not None:
         rc = lib.a2k_gn_silu_conv3x3_q_bf16(*head, ws.data_ptr(), *tail)
+    elif f32:
+        rc = lib.a2k_gn_silu_conv3x3_f32(*head, *tail)
+    else:
+        rc = lib.a2k_gn_silu_conv3x3_bf16(*head, *tail)
     _build.check(rc, "gn_silu_conv3x3" if ws is None else "gn_silu_conv3x3_q")
     return True
 
@@ -152,8 +159,9 @@ def _conv_shared_core(name, x1, x2, a, c, w, ws, b, out):
 
 def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
     """The GroupNorm statistics pass, then the conv: K1 (ws None, w in
-    x1.dtype) or K1q (w int8, ws its f32 scale) on the bf16 kernel where x1
-    is bf16 and the plan takes the shape, else on the shared GEMM core."""
+    x1.dtype) on its bf16 or f32 kernel, K1q (w int8, ws its f32 scale) on
+    the bf16 kernel where x1 is bf16, where the plan takes the shape; else
+    on the shared GEMM core."""
     parts = (x1,) if x2 is None else (x1, x2)
     _build.require_cuda(name, *parts)
     if ws is None:
@@ -175,8 +183,8 @@ def _launch(name, x1, x2, gn_scale, gn_bias, w, ws, b, groups, eps):
     dev = x1.device
     a, c = gn_stats(x1, x2, gn_scale, gn_bias, groups, eps)
     out = torch.empty((bsz, t, f, cout), device=dev, dtype=x1.dtype)
-    if x1.dtype != BF16 or not _conv_bf16(x1, x2, a, c, w, b, out, ws):
-        # f32, and the bf16 shapes the plan declines
+    if not _conv_kernel(x1, x2, a, c, w, b, out, ws):
+        # K1q in f32, and the shapes the plans decline
         _conv_shared_core(name, x1, x2, a, c, w, ws, b, out)
     return out
 

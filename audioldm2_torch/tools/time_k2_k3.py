@@ -34,7 +34,19 @@ cast parameter tree holds them:
       ``nn.linear`` on the dequantized weight, cuBLAS; K4q: bf16 K4 on it)
       and the parent design, the same call on the shared GEMM core (in a
       tree without the ``_*_shared_core`` functions, its wrapper, which is
-      that core), with the SHA-256 of their outputs.
+      that core), with the SHA-256 of their outputs;
+  K1 in f32 ("k1f32") at the 16 calls of one full-width VAE encode
+      (``vae.encode_conv_shapes``, the sr path's "sr_encode"), whole, its
+      statistics pass and its conv apart, with cuDNN's f32 conv (TF32 off)
+      on the activation already materialised as the yardstick, and the
+      SHA-256 of its output;
+  K6 ("k6") at its main-path calls: the t5 UNet's out_norm at CFG batch 2
+      and the large one's at 6 (bf16, one a forward), the t5 VAE decoder's
+      norm_out (bf16) at batch 1 and at the batches requests also decode
+      (2: a t5 batch-2 request; 3 and 6: a large request of three
+      candidates at batch 1 and 2; above what the grid's shared memory
+      holds, so re-read mode), and the VAE encoder's (f32, the sr path),
+      with F.group_norm + F.silu (two PyTorch calls) as the yardstick.
 Each call is checked against its plain version first, then timed with
 ``timing.cuda_ms``: with the device held while the host queues the calls
 (device time) and without the hold (a call shorter than its launch then
@@ -54,6 +66,7 @@ Usage (on a machine with an NVIDIA GPU):
   python -m audioldm2_torch.tools.time_k2_k3 --json OUT.json
   python -m audioldm2_torch.tools.time_k2_k3 --shapes-from OUT.json --json OLD.json
   python -m audioldm2_torch.tools.time_k2_k3 --only k5,k4q --json OUT.json
+  python -m audioldm2_torch.tools.time_k2_k3 --only k1f32,k6 --json OUT.json
 """
 
 from __future__ import annotations
@@ -67,13 +80,20 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from audioldm2_torch.ops import _build, attention_kernel, lnmm_kernel, nn, resblock_kernel
+from audioldm2_torch.ops import (_build, attention_kernel, groupnorm_kernel, lnmm_kernel, nn,
+                                 resblock_kernel)
 from audioldm2_torch.tools.timing import cuda_ms
 
 FORWARDS = (("t5", "audioldm_16k_crossattn_t5", 2), ("large", "audioldm2-full-large-1150k", 6))
 VAE_FORWARD = ("t5_vae", "audioldm_16k_crossattn_t5", 1)
 INT8_FORWARD = ("full8", "audioldm2-full", 2)
+ENCODE_FORWARD = ("sr_encode", "audioldm2-full", 1)
+# the VAE decodes at batches above 1: K6's norm_out there, one call each
+DECODE_K6 = (("t5_vae_b2", "audioldm_16k_crossattn_t5", 2),
+             ("large_vae_b3", "audioldm2-full-large-1150k", 3),
+             ("large_vae_b6", "audioldm2-full-large-1150k", 6))
 BF16_TOL = 2e-2
+F32_TOL = 1e-4
 BF16 = torch.bfloat16
 CHECK_PLAIN = True  # --no-check clears it
 
@@ -83,8 +103,9 @@ def main_path_shapes() -> dict:
     {forward: [fused calls, separate calls]}]], "k3": [[(M, C, N), {forward:
     calls}]], "k4": [[(M, F, N), {forward: calls}]], "k1q", "k3q", "k4q": as
     K1, K3 and K4 on the full8 forward, "k5": [[(M, K, N), {"full8":
-    calls}]]} from this tree's configs; K1's forwards include the t5 VAE
-    decode at batch 1."""
+    calls}]], "k1f32": K1's shapes of one f32 VAE encode, "k6": [[(B, T, F,
+    C, dtype, eps), {forward: calls}]]} from this tree's configs; K1's
+    forwards include the t5 VAE decode at batch 1."""
     import audioldm2_torch as at
     from audioldm2_torch.models import unet, vae
 
@@ -110,17 +131,35 @@ def main_path_shapes() -> dict:
     k3q = {s: {tag: c} for s, c in unet.ln_matmul_shapes(*size, weight_quant="int8").items()}
     k5 = {s: {tag: c} for s, c in unet.int8_matmul_shapes(*size).items()}
     k4q = {s: {tag: c} for s, c in unet.geglu_matmul_shapes(*size, weight_quant="int8").items()}
+    tag, name, batch = ENCODE_FORWARD
+    cfg = at.default_audioldm_config(name)
+    frames = int(10.0 * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+    enc = vae.encode_conv_shapes(cfg.vae, batch, frames, cfg.preprocessing.n_mel_channels)
+    k1f32 = {s: {tag: c} for s, c in enc.items()}
+    deep = min(enc)  # the encoder's last level: its norm_out's input
+    k6 = {}
+    for tag, name, batch in FORWARDS:
+        cfg = at.default_audioldm_config(name)
+        k6[(batch, cfg.latent_t_size, cfg.latent_f_size, cfg.unet.model_channels, "bf16",
+            1e-5)] = {tag: 1}
+    for tag, name, batch in (VAE_FORWARD,) + DECODE_K6:
+        cfg = at.default_audioldm_config(name)
+        up = cfg.vae.downsample_factor
+        k6.setdefault((batch, up * cfg.latent_t_size, up * cfg.latent_f_size,
+                       cfg.vae.ch * cfg.vae.ch_mult[0], "bf16", 1e-6), {})[tag] = 1
+    k6[(1, deep[1], deep[2], deep[5], "f32", 1e-6)] = {ENCODE_FORWARD[0]: 1}
     return {key: [[list(s), c] for s, c in sorted(table.items(), reverse=True)]
             for key, table in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4), ("k1q", k1q),
-                               ("k3q", k3q), ("k5", k5), ("k4q", k4q))}
+                               ("k3q", k3q), ("k5", k5), ("k4q", k4q), ("k1f32", k1f32),
+                               ("k6", k6))}
 
 
-def _checked(got, want, what):
+def _checked(got, want, what, tol=BF16_TOL):
     if not CHECK_PLAIN:
         return
     err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
-    if not err <= BF16_TOL:
-        raise AssertionError(f"{what}: rel {err:.3e} > {BF16_TOL}")
+    if not err <= tol:
+        raise AssertionError(f"{what}: rel {err:.3e} > {tol}")
 
 
 def _both(fn) -> dict:
@@ -150,15 +189,23 @@ def _stats_call(x1, x2, gamma, beta, groups, eps):
     return call
 
 
-def time_k1(shape, device) -> dict:
+def k1_args(shape, device):
+    """gn_silu_conv3x3's bf16 arguments at (B, T, F, C1, C2, Cout), drawn
+    from seed 0 on ``device``: the inputs whose output hashes two trees
+    compare."""
     bsz, t, f, c1, c2, cout = shape
     cin = c1 + c2
     g = torch.Generator(device=device).manual_seed(0)
     x1 = _rnd(g, device, bsz, t, f, c1, offset=1.0)
     x2 = _rnd(g, device, bsz, t, f, c2) if c2 else None
-    args = (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin),
+    return (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin),
             _rnd(g, device, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, device, cout),
             32, 1e-5)
+
+
+def time_k1(shape, device) -> dict:
+    args = k1_args(shape, device)
+    x1, x2 = args[:2]
     got = resblock_kernel.gn_silu_conv3x3(*args)
     _checked(got, resblock_kernel.gn_silu_conv3x3_plain(*args), f"K1 {shape}")
     whole = _both(lambda: resblock_kernel.gn_silu_conv3x3(*args))
@@ -232,15 +279,22 @@ def _int8(g, device, *dims):
     return wq, torch.rand(dims[-1], generator=g, device=device) * 0.01 + 1e-3
 
 
-def time_k1q(shape, device) -> dict:
+def k1q_args(shape, device):
+    """gn_silu_conv3x3_q's bf16 arguments at (B, T, F, C1, C2, Cout), drawn
+    from seed 0 on ``device``, as k1_args."""
     bsz, t, f, c1, c2, cout = shape
     cin = c1 + c2
     g = torch.Generator(device=device).manual_seed(0)
     x1 = _rnd(g, device, bsz, t, f, c1, offset=1.0)
     x2 = _rnd(g, device, bsz, t, f, c2) if c2 else None
     wq, ws = _int8(g, device, 3, 3, cin, cout)
-    args = (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin), wq, ws,
+    return (x1, x2, _rnd(g, device, cin, offset=1.0), _rnd(g, device, cin), wq, ws,
             _rnd(g, device, cout), 32, 1e-5)
+
+
+def time_k1q(shape, device) -> dict:
+    args = k1q_args(shape, device)
+    x1, x2, wq, ws = args[0], args[1], args[4], args[5]
     got = resblock_kernel.gn_silu_conv3x3_q(*args)
     _checked(got, resblock_kernel.gn_silu_conv3x3_q_plain(*args), f"K1q {shape}")
     whole = _both(lambda: resblock_kernel.gn_silu_conv3x3_q(*args))
@@ -308,19 +362,68 @@ def time_k4q(shape, device) -> dict:
             "shared_core_held_us": parent, "sha256": sha256(got)}
 
 
+def time_k1f32(shape, device) -> dict:
+    """K1 in f32 at one encode shape: as time_k1, all in f32 (the VAE's f32
+    parameters), the yardstick cuDNN's f32 conv with TF32 off."""
+    bsz, t, f, c1, c2, cout = shape
+    cin = c1 + c2
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*dims, scale=1.0, offset=0.0):
+        return torch.randn(dims, generator=g, device=device) * scale + offset
+
+    x1 = rnd(bsz, t, f, c1, offset=1.0)
+    x2 = rnd(bsz, t, f, c2) if c2 else None
+    args = (x1, x2, rnd(cin, offset=1.0), rnd(cin), rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+            rnd(cout), 32, 1e-6)
+    got = resblock_kernel.gn_silu_conv3x3(*args)
+    _checked(got, resblock_kernel.gn_silu_conv3x3_plain(*args), f"K1 f32 {shape}", F32_TOL)
+    whole = _both(lambda: resblock_kernel.gn_silu_conv3x3(*args))
+    stats = _both(_stats_call(x1, x2, args[2], args[3], 32, 1e-6))
+    x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
+    h = F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, args[2], args[3], 1e-6)).contiguous(
+        memory_format=torch.channels_last)
+    w = args[4].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    yard = cuda_ms(lambda: F.conv2d(h, w, args[5], padding=1)) * 1e3
+    return {"whole": whole, "stats": stats,
+            "conv": {k: whole[k] - stats[k] for k in whole}, "yardstick_held_us": yard,
+            "sha256": sha256(got)}
+
+
+def time_k6(shape, device) -> dict:
+    """K6 at one call (B, T, F, C, dtype, eps): the whole call, and F.group_norm
+    + F.silu on a channels-first copy as the yardstick (two calls)."""
+    bsz, t, f, c, dt, eps = shape
+    dtype = BF16 if dt == "bf16" else torch.float32
+    g = torch.Generator(device=device).manual_seed(0)
+    x = (torch.randn((bsz, t, f, c), generator=g, device=device) + 1.0).to(dtype)
+    gamma = (torch.randn(c, generator=g, device=device) + 1.0).to(dtype)
+    beta = torch.randn(c, generator=g, device=device).to(dtype)
+    args = (x, gamma, beta, 32, eps)
+    got = groupnorm_kernel.group_norm_silu(*args)
+    _checked(got, groupnorm_kernel.group_norm_silu_plain(*args), f"K6 {shape}",
+             BF16_TOL if dtype == BF16 else F32_TOL)
+    xc = x.movedim(-1, 1).contiguous()
+    yard = cuda_ms(lambda: F.silu(F.group_norm(xc, 32, gamma, beta, eps))) * 1e3
+    return {**_both(lambda: groupnorm_kernel.group_norm_silu(*args)), "yardstick_held_us": yard,
+            "sha256": sha256(got)}
+
+
 def _sum(rows, tag, value) -> float:
     """ms of one forward: each shape's us weighed by its calls in ``tag``."""
     return sum(r["calls"].get(tag, 0) * value(r) for r in rows) * 1e-3
 
 
 def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=(),
-                rows_k5=(), rows_k4q=()) -> dict:
+                rows_k5=(), rows_k4q=(), rows_k1f32=(), rows_k6=()) -> dict:
     """ms per forward: K1 (whole, stats, conv, yardstick), K3, K4 (whole,
     yardstick), K2 as the UNet calls it (fused calls on the views, the rest
     on contiguous tensors) and K2 on contiguous tensors throughout, each
     with and without the hold (the yardsticks held only); on the full8
     forward K1q (whole, stats, conv), K3q, K5 and K4q, their bf16 siblings
-    held and K5's and K4q's shared-core design held."""
+    held and K5's and K4q's shared-core design held; the f32 K1 (whole,
+    stats, conv, yardstick) on the sr path's encode; K6 (and its yardstick)
+    on each forward that calls it."""
     out = {}
     tag = INT8_FORWARD[0]
     if rows_k1q or rows_k3q or rows_k5 or rows_k4q:
@@ -351,7 +454,7 @@ def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=
             if rows_k1:
                 for part in ("whole", "stats", "conv"):
                     row[f"k1_{part}_{k}_ms"] = _sum(rows_k1, tag, lambda r: r[part][key])
-            if tag == VAE_FORWARD[0]:
+            if tag == VAE_FORWARD[0] or not (rows_k2 or rows_k3):
                 continue
             row[f"k3_{k}_ms"] = _sum(rows_k3, tag, lambda r: r[key])
             if rows_k4:
@@ -366,6 +469,21 @@ def per_forward(rows_k2, rows_k3, rows_k1=(), rows_k4=(), rows_k1q=(), rows_k3q=
                 row[f"{name}_yardstick_held_ms"] = _sum(rows, tag,
                                                         lambda r: r["yardstick_held_us"])
         out[tag] = row
+    for tag in [f[0] for f in FORWARDS + (VAE_FORWARD, ENCODE_FORWARD) + DECODE_K6]:
+        row = out.setdefault(tag, {})
+        for key in ("held_us", "unheld_us"):
+            k = key[:-3]
+            if rows_k1f32 and tag == ENCODE_FORWARD[0]:
+                for part in ("whole", "stats", "conv"):
+                    row[f"k1f32_{part}_{k}_ms"] = _sum(rows_k1f32, tag, lambda r: r[part][key])
+            if rows_k6:
+                row[f"k6_{k}_ms"] = _sum(rows_k6, tag, lambda r: r[key])
+        for name, rows in (("k1f32", rows_k1f32), ("k6", rows_k6)):
+            if rows and (name == "k6" or tag == ENCODE_FORWARD[0]):
+                row[f"{name}_yardstick_held_ms"] = _sum(rows, tag,
+                                                        lambda r: r["yardstick_held_us"])
+        if not row:
+            del out[tag]
     return out
 
 
@@ -393,10 +511,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4, "k1q": time_k1q,
-              "k3q": time_k3q, "k5": time_k5, "k4q": time_k4q}
+              "k3q": time_k3q, "k5": time_k5, "k4q": time_k4q, "k1f32": time_k1f32,
+              "k6": time_k6}
+    rows = {key: [] for key in timers}
     if args.only:
         timers = {k: v for k, v in timers.items() if k in args.only.split(",")}
-    rows = {key: [] for key in ("k1", "k2", "k3", "k4", "k1q", "k3q", "k5", "k4q")}
     with torch.inference_mode():
         for key, timer in timers.items():
             for shape, calls in shapes.get(key, []):
@@ -407,16 +526,17 @@ def main(argv=None) -> int:
                              f"{row['contiguous']['unheld_us']:.1f} unheld; views "
                              f"{row['views']['held_us']:.1f} held, "
                              f"{row['views']['unheld_us']:.1f} unheld")
-                elif key in ("k1", "k1q"):
+                elif key in ("k1", "k1q", "k1f32"):
                     times = ", ".join(f"{part} {row[part]['held_us']:.1f} us held, "
                                       f"{row[part]['unheld_us']:.1f} unheld"
                                       for part in ("whole", "stats", "conv"))
-                    if key == "k1":
+                    if key != "k1q":
                         times += f"; cuDNN conv alone {row['yardstick_held_us']:.1f} us held"
                 else:
                     times = f"{row['held_us']:.1f} us held, {row['unheld_us']:.1f} unheld"
                     if "yardstick_held_us" in row:
-                        times += f"; matmul alone {row['yardstick_held_us']:.1f} us held"
+                        alone = "F.group_norm + F.silu" if key == "k6" else "matmul alone"
+                        times += f"; {alone} {row['yardstick_held_us']:.1f} us held"
                 if "sibling_held_us" in row:
                     sibling = "cuBLAS linear" if key == "k5" else key[:2].upper()
                     times += (f"; bf16 {sibling} at this shape "
@@ -425,7 +545,7 @@ def main(argv=None) -> int:
                     times += f"; shared core {row['shared_core_held_us']:.1f} us held"
                 print(f"{key.upper()} {tuple(shape)} calls {calls}: {times}", flush=True)
     sums = per_forward(rows["k2"], rows["k3"], rows["k1"], rows["k4"], rows["k1q"], rows["k3q"],
-                       rows["k5"], rows["k4q"])
+                       rows["k5"], rows["k4q"], rows["k1f32"], rows["k6"])
     for tag, row in sums.items():
         print(f"{tag} forward, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()))
     if args.json:

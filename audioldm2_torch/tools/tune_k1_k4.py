@@ -30,8 +30,22 @@ int8 ring depths, beside ``_build.int8_matmul_plan`` and
 ``geglu_matmul_plan(..., w_bytes=1)``; their tile costs (``_K5_TILE_COST``,
 ``_GEGLU_Q_TILE_COST``) are set against this table.
 
+K1 in f32 (``--only k1f32``): the five shapes of one full-width VAE encode
+(``vae.encode_conv_shapes``, the sr path) through ``a2k_gn_silu_conv3x3_f32``
+(3xTF32; its one tile ``_build.CONV32_TILE``: split, strip, ring depth)
+beside ``_build.gn_silu_conv_plan(..., dtype="f32")``, each choice held to
+the f32 bar of the plain version; ``_CONV_F32_MODEL`` is set against this
+table.
+
+K6 (``--only k6``): its main-path calls (``time_k2_k3.main_path_shapes``)
+through ``a2k_group_norm_silu`` on grids of 8 to 132 blocks (blocks per
+sample, each a run of rows resident in shared memory) beside
+``_build.group_norm_silu_plan``'s; ``GN_BLOCK_BYTES`` is set against this
+table.
+
 Usage (on a machine with an NVIDIA GPU):
-  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json] [--only k1|k4|k1q|k3q|k5|k4q]
+  python -m audioldm2_torch.tools.tune_k1_k4 [--json OUT.json]
+      [--only k1|k4|k1q|k3q|k5|k4q|k1f32|k6]
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ Q_STAGES = (2, 3, 4, 6, 8, 12)  # K3q's ring depths where the ring does not hold
 STAGES = (2, 3, 4, 6)    # K4's ring depths; K1's are _build.CONV_STAGES
 STRIPS = (1, 2, 3, 4, 6)
 BF16_TOL = 2e-2
+F32_TOL = 1e-4
 BF16 = torch.bfloat16
 
 
@@ -81,6 +96,22 @@ def int8_shapes():
             sorted(unet.geglu_matmul_shapes(*size, weight_quant="int8"), reverse=True))
 
 
+def encode_shapes():
+    """The f32 K1 shapes of one 10 s VAE encode of audioldm2-full, largest
+    first."""
+    cfg = at.default_audioldm_config(INT8_FORWARD[0])
+    frames = int(10.0 * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+    return sorted(vae.encode_conv_shapes(cfg.vae, 1, frames, cfg.preprocessing.n_mel_channels),
+                  reverse=True)
+
+
+def k6_shapes():
+    """K6's main-path calls [(B, T, F, C, dtype, eps), {forward: calls}]."""
+    from audioldm2_torch.tools import time_k2_k3
+
+    return time_k2_k3.main_path_shapes()["k6"]
+
+
 def _int8(g, *dims):
     wq = torch.randint(-127, 128, dims, generator=g, device="cuda").to(torch.int8)
     return wq, torch.rand(dims[-1], generator=g, device="cuda") * 0.01 + 1e-3
@@ -90,39 +121,47 @@ def _rnd(g, *dims, scale=1.0, offset=0.0):
     return (torch.randn(dims, generator=g, device="cuda") * scale + offset).to(BF16)
 
 
-def _timed(call, out, want, what, reps):
+def _timed(call, out, want, what, reps, tol=BF16_TOL):
     call()
     torch.cuda.synchronize()
     err = (out.float() - want).abs().max().item() / want.abs().max().item()
-    if err > BF16_TOL:
+    if not err <= tol:
         raise AssertionError(f"{what}: rel {err:.3e}")
     return cuda_ms(call, reps)
 
 
-def sweep_k1(shape, reps, int8=False):
-    """[(us, choice)] sorted by time and the plan's pick, for one K1 (or,
-    with int8, K1q) shape; choice = (bm, bn, strip, stages, splits)."""
+def sweep_k1(shape, reps, int8=False, f32=False):
+    """[(us, choice)] sorted by time and the plan's pick, for one K1 (with
+    int8, K1q; with f32, the f32 kernel) shape; choice = (bm, bn, strip,
+    stages, splits)."""
     b, t, f, c1, c2, cout = shape
     cin = c1 + c2
     w_bytes = 1 if int8 else 2
     g = torch.Generator(device="cuda").manual_seed(0)
-    x1 = _rnd(g, b, t, f, c1, offset=1.0)
-    x2 = _rnd(g, b, t, f, c2) if c2 else None
-    gamma, beta = _rnd(g, cin, offset=1.0), _rnd(g, cin)
+    dt = torch.float32 if f32 else BF16
+
+    def rnd(*dims, scale=1.0, offset=0.0):
+        if f32:
+            return torch.randn(dims, generator=g, device="cuda") * scale + offset
+        return _rnd(g, *dims, scale=scale, offset=offset)
+
+    x1 = rnd(b, t, f, c1, offset=1.0)
+    x2 = rnd(b, t, f, c2) if c2 else None
+    gamma, beta = rnd(cin, offset=1.0), rnd(cin)
     if int8:
         (w, ws), bias = _int8(g, 3, 3, cin, cout), _rnd(g, cout)
         want = resblock_kernel.gn_silu_conv3x3_q_plain(x1, x2, gamma, beta, w, ws, bias).float()
     else:
-        w, bias = _rnd(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5), _rnd(g, cout)
+        w, bias = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5), rnd(cout)
         want = resblock_kernel.gn_silu_conv3x3_plain(x1, x2, gamma, beta, w, bias).float()
     a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta)
-    out = torch.empty((b, t, f, cout), device="cuda", dtype=BF16)
+    out = torch.empty((b, t, f, cout), device="cuda", dtype=dt)
     lib, sms = _build.lib(), _build.sm_count(0)
-    k_chunks = -(-cin // _build.CONV_CK)
-    p = _build.gn_silu_conv_plan(b, t, f, cin, cout, sms, w_bytes=w_bytes)
+    k_chunks = -(-cin // (_build.CONV32_CK if f32 else _build.CONV_CK))
+    p = _build.gn_silu_conv_plan(b, t, f, cin, cout, sms, "f32" if f32 else "bf16", w_bytes)
     pick = (p.bm, p.bn, p.strip_tiles, p.stages, p.splits)
     choices = {pick}
-    for bm, bn in _build.CONV_TILES:
+    for bm, bn in (_build.CONV32_TILE,) if f32 else _build.CONV_TILES:
         ft = min(f, bm)
         tt = min(bm // ft, t)
         n_tiles = -(-cout // bn)
@@ -130,8 +169,9 @@ def sweep_k1(shape, reps, int8=False):
             splits = -(-k_chunks // -(-k_chunks // asked))
             for strip in {s for s in (*STRIPS, n_tiles) if s <= n_tiles} if splits == 1 else (1,):
                 for stages in _build.CONV_STAGES:
-                    if _build.conv_smem_bytes(bm, bn, tt, ft, stages,
-                                              w_bytes) <= _build.LNMM_MAX_SMEM:
+                    smem = (_build.conv32_smem_bytes(bm, bn, tt, ft, stages) if f32 else
+                            _build.conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes))
+                    if smem <= _build.LNMM_MAX_SMEM:
                         choices.add((bm, bn, strip, stages, splits))
     rows = []
     for bm, bn, strip, stages, splits in choices:
@@ -141,19 +181,63 @@ def sweep_k1(shape, reps, int8=False):
         def call(bm=bm, bn=bn, tt=tt, ft=ft, strip=strip, stages=stages, splits=splits):
             head = (x1.data_ptr(), None if x2 is None else x2.data_ptr(), a.data_ptr(),
                     c.data_ptr(), w.data_ptr())
-            tail = (bias.data_ptr(), 1, out.data_ptr(), b, t, f, c1, c2, cout, bm, bn, tt, ft,
-                    strip, stages, splits, _build.stream_of(x1))
+            tail = (bias.data_ptr(), int(not f32), out.data_ptr(), b, t, f, c1, c2, cout, bm, bn,
+                    tt, ft, strip, stages, splits, _build.stream_of(x1))
             if int8:
                 rc = lib.a2k_gn_silu_conv3x3_q_bf16(*head, ws.data_ptr(), *tail)
+            elif f32:
+                rc = lib.a2k_gn_silu_conv3x3_f32(*head, *tail)
             else:
                 rc = lib.a2k_gn_silu_conv3x3_bf16(*head, *tail)
             _build.check(rc, "gn_silu_conv3x3")
 
         choice = (bm, bn, strip, stages, splits)
-        what = f"K1{'q' if int8 else ''} {shape} {choice}"
-        rows.append((_timed(call, out, want, what, reps) * 1e3, choice))
+        what = f"K1{'q' if int8 else ' f32' if f32 else ''} {shape} {choice}"
+        rows.append((_timed(call, out, want, what, reps, F32_TOL if f32 else BF16_TOL) * 1e3,
+                     choice))
     rows.sort()
     return rows, pick
+
+
+def sweep_k6(shape, reps):
+    """[(us, choice)] sorted by time and the plan's pick, for one K6 call
+    (B, T, F, C, dtype, eps); choice = (blocks per sample,)."""
+    from audioldm2_torch.ops import groupnorm_kernel
+
+    bsz, t, f, c, dt, eps = shape
+    dtype = BF16 if dt == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((bsz, t, f, c), generator=g, device="cuda") + 1.0).to(dtype)
+    gamma = (torch.randn(c, generator=g, device="cuda") + 1.0).to(dtype)
+    beta = torch.randn(c, generator=g, device="cuda").to(dtype)
+    want = groupnorm_kernel.group_norm_silu_plain(x, gamma, beta, 32, eps).float()
+    out = torch.empty_like(x)
+    s = t * f
+    lib, sms = _build.lib(), _build.sm_count(0)
+    p = _build.group_norm_silu_plan(bsz, s, c, dt, sms)
+    code, pcode = _build.dtype_code(x), int(dtype == BF16)
+    stream = _build.stream_of(x)
+    part, bar = _build.gn_partials(0, stream), _build.gn_barrier(0, stream)
+    rows_by_nb = {}
+    for total in (8, 16, 22, 33, 44, 66, 96, 132):
+        nb = max(1, min(total, sms) // bsz)
+        rows = -(-s // nb)
+        nb = -(-s // rows)
+        if _build.gn_silu_smem_bytes(rows, c, 32, x.element_size(), True) <= _build.GN_MAX_SMEM:
+            rows_by_nb[nb] = (rows, rows)
+    rows_by_nb[p.blocks_per_sample] = (p.rows, p.rows_held)
+    rows = []
+    for nb, (r, held) in sorted(rows_by_nb.items()):
+        def call(nb=nb, r=r, held=held):
+            _build.check(lib.a2k_group_norm_silu(
+                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pcode, out.data_ptr(), bsz, s, c,
+                32, eps, 1, bsz, nb, r, held, 1, part.data_ptr(), bar.data_ptr(), code, stream),
+                "group_norm_silu")
+
+        tol = BF16_TOL if dtype == BF16 else F32_TOL
+        rows.append((_timed(call, out, want, f"K6 {shape} {nb}", reps, tol) * 1e3, (nb,)))
+    rows.sort()
+    return rows, (p.blocks_per_sample,)
 
 
 def _thin_choices(pick, k, n, w_bytes, stage_choices):
@@ -283,13 +367,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10, help="timed calls per choice")
     ap.add_argument("--json", help="write every row of every shape to this file")
-    ap.add_argument("--only", choices=("k1", "k4", "k1q", "k3q", "k5", "k4q"),
+    ap.add_argument("--only", choices=("k1", "k4", "k1q", "k3q", "k5", "k4q", "k1f32", "k6"),
                     help="sweep one kernel only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_k1_k4: no CUDA device", file=sys.stderr)
         return 2
     print(f"device: {torch.cuda.get_device_name(0)}, {_build.sm_count(0)} SMs")
+    torch.backends.cudnn.allow_tf32 = False  # the f32 plain version: a full-precision oracle
+    torch.backends.cuda.matmul.allow_tf32 = False
     k1, k4 = main_path_shapes()
     k1q, k3q, k5, k4q = int8_shapes()
     table = {}
@@ -297,7 +383,10 @@ def main(argv=None) -> int:
         for key, shapes, sweep in (("k1", k1, sweep_k1), ("k4", k4, sweep_k4),
                                    ("k1q", k1q, lambda s, r: sweep_k1(s, r, int8=True)),
                                    ("k3q", k3q, sweep_k3q), ("k5", k5, sweep_k5),
-                                   ("k4q", k4q, lambda s, r: sweep_k4(s, r, int8=True))):
+                                   ("k4q", k4q, lambda s, r: sweep_k4(s, r, int8=True)),
+                                   ("k1f32", encode_shapes(),
+                                    lambda s, r: sweep_k1(s, r, f32=True)),
+                                   ("k6", [tuple(sh) for sh, _ in k6_shapes()], sweep_k6)):
             if args.only not in (None, key):
                 continue
             for shape in shapes:
@@ -306,8 +395,8 @@ def main(argv=None) -> int:
                 table[f"{key} {shape}"] = {"pick": pick, "rows": rows}
                 print(f"{key.upper()} {shape}: plan {pick} {pick_us:.1f} us, fastest "
                       f"{rows[0][0]:.1f} us {rows[0][1]} (plan / fastest "
-                      f"{pick_us / rows[0][0]:.2f}); next {rows[1][0]:.1f} {rows[1][1]}, "
-                      f"{rows[2][0]:.1f} {rows[2][1]}", flush=True)
+                      f"{pick_us / rows[0][0]:.2f}); next "
+                      + ", ".join(f"{us:.1f} {choice}" for us, choice in rows[1:3]), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(table, f)

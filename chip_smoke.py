@@ -35,9 +35,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      UNet) and the large path's UNet at CFG batch 6, kernel against its
      plain PyTorch version, plus one shape per kernel in f32 and the VAE
      decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
-     cancellation); K1's and K1q's statistics pass and conv timed apart,
+     cancellation); K6 at the VAE decoder's norm_out at the batches
+     requests also decode (2, 3 and 6: re-read mode, above what the grid's
+     shared memory holds), checked and timed beside its bound, its plain
+     version and F.group_norm + F.silu, outside the per-forward sums;
+     K1's and K1q's statistics pass and conv timed apart,
      beside K1 and K4 the product alone on the materialised activation
-     (cuDNN's conv, cuBLAS's matmul: yardsticks, never library_ms), beside
+     (cuDNN's conv, in f32 with TF32 off, cuBLAS's matmul: yardsticks,
+     never library_ms), beside K6 F.group_norm + F.silu (two calls, a
+     yardstick), beside the f32 K1 its bound in 3xTF32 at the TF32 rate,
+     on the FMA units, and the same call on the shared GEMM core (the
+     design before its tensor-core kernel); the C entries of each K6 call
+     (one launch) and f32 K1 call (its statistics pass and its own conv,
+     not the shared core) are counted and checked; beside
      each bf16 K1q, K3q, K4q and K5 shape its bound, its bf16 sibling (K1,
      K3 or K4 at the same shape on the dequantized weight; for K5 the bf16
      mode's own cuBLAS linear) and the same call on the shared GEMM core
@@ -61,10 +71,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      paths (their median is the p50 latency), one on the full, sr and full8
      paths, and one at batch 2 on each, with output checks (and, on the full
      paths, the GPT-2 tokens finite and the CLAP text embedding of unit
-     norm), no CUDA tensor reaching a plain version, no bf16 K1, K4, K1q,
-     K3q, K5 or K4q call reaching the shared GEMM core instead of its own
-     kernel, on the full8 path no split-K workspace allocated, and launch
-     counts,
+     norm), no CUDA tensor reaching a plain version, no K1 call (bf16 or
+     f32) and no bf16 K4, K1q, K3q, K5 or K4q call reaching the shared GEMM
+     core instead of its own kernel, no split-K workspace allocated, and
+     launch counts,
      reset to 0 just before the request, equal to the counts computed from
      the config (the sr path's VAE encode included); the PLMS and DDPM
      requests likewise, once each at batch 1; on the large path also the
@@ -75,12 +85,13 @@ The last two lines are the kernels' JSON record and {"ok": true, ...}.
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
 in f32; the whole audioldm2-full int8 UNet, whose bf16 rounding alone moves
 its output by more than 2e-2, is held to 1.25 times that movement (see
-FLOOR_FACTOR), and so is the large-1150k UNet in bf16. TF32 is switched off for cuDNN and matmuls, so the f32 plain path
-is a full-precision oracle. K1q, K3q and K4q round their activation to
-bf16 even in f32, as the Pallas kernels do; their f32 inputs are built so
-that this activation is an exact bf16 value in both versions (see
-exact_f32_args), since a value within an f32 ulp of a bf16 rounding
-boundary may round the other way in the other version.
+FLOOR_FACTOR), and so is the large-1150k UNet in bf16. TF32 is switched off
+for cuDNN and matmuls, so the f32 plain path is a full-precision oracle (the
+f32 K1 multiplies in 3xTF32, about 22 bits of each operand). K1q, K3q and
+K4q round their activation to bf16 even in f32, as the Pallas kernels do;
+their f32 inputs are built so that this activation is an exact bf16 value
+in both versions (see exact_f32_args), since a value within an f32 ulp of a
+bf16 rounding boundary may round the other way in the other version.
 """
 
 from __future__ import annotations
@@ -112,8 +123,10 @@ ROUND_ONCE_SHARE = 1e-3
 FLOOR_FACTOR = 1.25
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and operations/s
 # by the type a kernel multiplies in (bf16 tensor cores; f32 FMA units)
+# (bf16 tensor cores; TF32 tensor cores, where the f32 K1 does its 3xTF32
+# products: three a multiply-add; f32 FMA units)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 # The bf16 call each int8 kernel is held beside (side_times)
 SIBLINGS = {"gn_silu_conv3x3_q": "K1", "ln_matmul_q": "K3", "geglu_matmul_q": "K4",
@@ -288,17 +301,19 @@ def plain_versions_forbidden():
             setattr(mod, name, fn)
 
 
-# The shared GEMM core's entry points that a bf16 call must not reach on a
-# main path: K1, K4, K1q, K3q, K5 and K4q have bf16 kernels of their own.
-SHARED_CORE_ENTRIES = ("a2k_gn_silu_conv3x3", "a2k_geglu_matmul", "a2k_gn_silu_conv3x3_q",
-                       "a2k_ln_matmul_q", "a2k_int8_matmul", "a2k_geglu_matmul_q")
+# The shared GEMM core's entry points that a main-path call must not reach,
+# with the dtypes whose calls have a kernel of their own: K1 in bf16 and in
+# f32 (the sr path's VAE encode), K4, K1q, K3q, K5 and K4q in bf16.
+SHARED_CORE_ENTRIES = {"a2k_gn_silu_conv3x3": ("bf16", "f32"), "a2k_geglu_matmul": ("bf16",),
+                       "a2k_gn_silu_conv3x3_q": ("bf16",), "a2k_ln_matmul_q": ("bf16",),
+                       "a2k_int8_matmul": ("bf16",), "a2k_geglu_matmul_q": ("bf16",)}
 
 
 @contextlib.contextmanager
 def shared_core_bf16_counted(out):
-    """Count in ``out`` the bf16 K1, K4, K1q, K3q, K5 and K4q calls that
-    reach the shared GEMM core's entry points (a shape or an alignment their
-    own kernels' plans decline) instead of the bf16 kernels."""
+    """Count in ``out`` the K1 (bf16 or f32), K4, K1q, K3q, K5 and K4q (bf16)
+    calls that reach the shared GEMM core's entry points (a shape or an
+    alignment their own kernels' plans decline) instead of their kernels."""
     import torch
     from audioldm2_torch.ops import _build
 
@@ -306,13 +321,13 @@ def shared_core_bf16_counted(out):
         yield
         return
     lib = _build.lib()
-    bf16 = _build.DTYPE_CODES[torch.bfloat16]
+    codes = {"bf16": _build.DTYPE_CODES[torch.bfloat16], "f32": _build.DTYPE_CODES[torch.float32]}
     saved = {}
-    for name in SHARED_CORE_ENTRIES:
+    for name, dtypes in SHARED_CORE_ENTRIES.items():
         saved[name] = getattr(lib, name)
 
-        def counting(*args, _fn=saved[name], _name=name):
-            if args[-2] == bf16:  # (..., dtype, stream)
+        def counting(*args, _fn=saved[name], _name=name, _codes={codes[d] for d in dtypes}):
+            if args[-2] in _codes:  # (..., dtype, stream)
                 out[_name] = out.get(_name, 0) + 1
             return _fn(*args)
 
@@ -322,6 +337,42 @@ def shared_core_bf16_counted(out):
     finally:
         for name, fn in saved.items():
             setattr(lib, name, fn)
+
+
+@contextlib.contextmanager
+def entries_counted(out):
+    """Count in ``out`` every call of each C entry point of the kernel
+    library (what one wrapper call launches)."""
+    import torch
+    from audioldm2_torch.ops import _build
+
+    if not torch.cuda.is_available():  # a rehearsal on the CPU: no kernel launches
+        yield
+        return
+    lib, saved = _build.lib(), {}
+    for name in _build.SIGNATURES:
+        saved[name] = getattr(lib, name)
+
+        def counting(*args, _fn=saved[name], _name=name):
+            out[_name] = out.get(_name, 0) + 1
+            return _fn(*args)
+
+        setattr(lib, name, counting)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+
+
+# The C entry points one wrapper call of a redesigned kernel launches, by
+# (kernel, dtype), checked on its first call at every phase-3 shape: K6 is
+# one launch (no statistics pass); K1 in f32 its statistics pass and the
+# tensor-core conv, never the shared core.
+ONE_CALL_ENTRIES = {("group_norm_silu", "torch.bfloat16"): {"a2k_group_norm_silu": 1},
+                    ("group_norm_silu", "torch.float32"): {"a2k_group_norm_silu": 1},
+                    ("gn_silu_conv3x3", "torch.float32"): {"a2k_gn_stats": 1,
+                                                           "a2k_gn_silu_conv3x3_f32": 1}}
 
 
 @contextlib.contextmanager
@@ -432,7 +483,9 @@ def kernel_work(name, args):
     """(bytes, operations, the type it multiplies in) of one kernel call:
     each input read once and the output written once; the products' (or,
     for K6, the elementwise) operations. K1q, K3q and K4q multiply bf16
-    tiles; the others in their activation's type."""
+    tiles; K1 in f32 multiplies in 3xTF32 on the tensor cores, three TF32
+    products a multiply-add (its FMA-unit bound: fma_bound_ms); the others in
+    their activation's type."""
     import torch
 
     def nbytes(t):
@@ -444,8 +497,10 @@ def kernel_work(name, args):
     if name in ("gn_silu_conv3x3", "gn_silu_conv3x3_q"):
         cin = x.shape[-1] + (0 if args[1] is None else args[1].shape[-1])
         cout = args[4].shape[-1]
-        return (sum(map(nbytes, args)) + rows * cout * x.element_size(),
-                2 * rows * 9 * cin * cout, kind)
+        ops = 2 * rows * 9 * cin * cout
+        if kind == "f32" and name == "gn_silu_conv3x3":
+            return sum(map(nbytes, args)) + rows * cout * x.element_size(), 3 * ops, "tf32"
+        return sum(map(nbytes, args)) + rows * cout * x.element_size(), ops, kind
     if name in ATTENTION_KERNELS:
         b, t, h, d = x.shape
         return sum(map(nbytes, args[:3])) + nbytes(x), 4 * b * h * t * t * d, kind
@@ -462,6 +517,13 @@ def bound_times(name, args):
     """(bytes over the HBM rate, operations over the peak of their type), ms."""
     nbytes, ops, kind = kernel_work(name, args)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+
+
+def fma_bound_ms(name, args) -> float:
+    """The f32 K1's product bound on the FMA units (one f32 multiply-add a
+    multiply-add, 67 TF/s), printed beside its 3xTF32 bound; 0 otherwise."""
+    nbytes, ops, kind = kernel_work(name, args)
+    return ops / 3 / PEAK_OPS_PER_S["f32"] * 1e3 if kind == "tf32" else 0.0
 
 
 def int8pack_mm_on_cuda() -> bool:
@@ -553,6 +615,14 @@ def side_times(name, args):
             x1, x2, gamma, beta, w, b, groups, eps = args
             out["stats_ms"] = cuda_ms(lambda: resblock_kernel.gn_stats(x1, x2, gamma, beta,
                                                                        groups, eps))
+            if x1.dtype == torch.float32:  # the parent design: the conv on the shared core
+                y = torch.empty((*x1.shape[:3], w.shape[-1]), device=x1.device)
+
+                def on_shared_core():
+                    a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta, groups, eps)
+                    resblock_kernel._conv_shared_core(name, x1, x2, a, c, w, None, b, y)
+
+                out["parent_ms"] = cuda_ms(on_shared_core)
             x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
             h = F.silu(F.group_norm(x.float().permute(0, 3, 1, 2), groups, gamma.float(),
                                     beta.float(), eps)).to(x1.dtype)
@@ -565,6 +635,11 @@ def side_times(name, args):
             a, gate = torch.chunk(h.float(), 2, dim=-1)
             u = (a * F.gelu(gate)).to(h.dtype)
             out["yardstick_ms"] = cuda_ms(lambda: torch.matmul(u, w))
+        elif name == "group_norm_silu":  # two PyTorch calls, channels first
+            x, gamma, beta, groups, eps = args[:5]
+            xc = x.movedim(-1, 1).contiguous()
+            gc, bc = gamma.to(x.dtype), beta.to(x.dtype)
+            out["yardstick_ms"] = cuda_ms(lambda: F.silu(F.group_norm(xc, groups, gc, bc, eps)))
     return out
 
 
@@ -572,7 +647,7 @@ def new_stats():
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
             "library_ms": None, "max_abs_err": 0.0, "max_rel_err": 0.0, "f32_rel_err": 0.0,
             "shapes": 0, "stats_ms": 0.0, "yardstick_ms": 0.0, "sibling_ms": 0.0,
-            "parent_ms": 0.0}
+            "parent_ms": 0.0, "fma_ms": 0.0}
 
 
 def check_kernel(name, args, tol, tag, failures):
@@ -581,17 +656,23 @@ def check_kernel(name, args, tol, tag, failures):
     import torch
 
     kern, plain = _wrappers()[name]
+    calls = {}
     with torch.inference_mode():
-        got = kern(*args)
+        with entries_counted(calls):
+            got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
         ok_finite = bool(torch.isfinite(got).all())
         d, r = rel_err(got, want)
         k_ms = cuda_ms(lambda: kern(*args))
         p_ms = cuda_ms(lambda: plain(*args))
-    status = "ok" if ok_finite and r <= tol else "FAIL"
+    want_calls = ONE_CALL_ENTRIES.get((name, str(args[0].dtype)))
+    calls.pop("a2k_group_norm_silu_occupancy", None)  # a query, read once per size
+    launched_as_designed = want_calls is None or not args[0].is_cuda or calls == want_calls
+    status = "ok" if ok_finite and r <= tol and launched_as_designed else "FAIL"
     log(f"  {status} {tag}: max_abs_err {d:.3e} rel {r:.3e} (tol {tol:g}) "
-        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms"
+        + ("" if want_calls is None else f"; C entries of one call {calls}"))
     if status != "ok":
         failures.append(tag)
     return d, r, k_ms, p_ms
@@ -608,6 +689,7 @@ def add_call(st, name, args, n, d, r, k_ms, p_ms):
     st["bound_ms"] += n * max(b_ms, o_ms)
     st["bytes_ms"] += n * b_ms
     st["ops_ms"] += n * o_ms
+    st["fma_ms"] += n * fma_bound_ms(name, args)
     lib = library_call(name, args)
     if lib is not None:
         label, fn = lib
@@ -863,10 +945,19 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
             if "stats_ms" in side:
                 parts.append(f"stats pass {side['stats_ms']:.4f} ms, conv "
                              f"{res[2] - side['stats_ms']:.4f} ms (kernel less stats)")
-            if "yardstick_ms" in side:
+            if "yardstick_ms" in side and name == "group_norm_silu":
+                parts.append(f"yardstick, F.group_norm + F.silu (two calls, not library_ms): "
+                             f"{side['yardstick_ms']:.4f} ms")
+            elif "yardstick_ms" in side:
                 tool = "cuDNN conv" if name == "gn_silu_conv3x3" else "cuBLAS matmul"
                 parts.append(f"yardstick, the product alone ({tool}): "
                              f"{side['yardstick_ms']:.4f} ms")
+            if "parent_ms" in side and "sibling_ms" not in side:
+                b_ms, o_ms = bound_times(name, args)
+                parts.append(f"bound {max(b_ms, o_ms):.4f} ms (3xTF32 at the TF32 rate; on the "
+                             f"FMA units {fma_bound_ms(name, args):.4f} ms); the shared core (the "
+                             f"parent design) {side['parent_ms']:.4f} ms "
+                             f"({side['parent_ms'] / res[2]:.2f}x this kernel)")
             if "sibling_ms" in side:
                 b_ms, o_ms = bound_times(name, args)
                 parts.append(f"bound {max(b_ms, o_ms):.4f} ms; bf16 {SIBLINGS[name]} at this shape "
@@ -910,7 +1001,11 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
             side += (f"; stats pass {st['stats_ms']:.3f} ms, conv "
                      f"{st['ms'] - st['stats_ms']:.3f} ms")
         if st["yardstick_ms"]:
-            side += f"; yardstick (product alone) {st['yardstick_ms']:.3f} ms"
+            what = "F.group_norm + F.silu" if name == "group_norm_silu" else "product alone"
+            side += f"; yardstick ({what}) {st['yardstick_ms']:.3f} ms"
+        if st["parent_ms"] and not st["sibling_ms"]:
+            side += (f"; FMA bound {st['fma_ms']:.3f} ms, shared core (parent design) "
+                     f"{st['parent_ms']:.3f} ms")
         if st["sibling_ms"]:
             side += (f"; bf16 sibling at the same shapes {st['sibling_ms']:.3f} ms, shared core "
                      f"(parent design) {st['parent_ms']:.3f} ms")
@@ -923,6 +1018,50 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return stats
+
+
+# The batches the VAE decodes besides 1: a t5 batch-2 request, a large
+# request of three candidates at batch 1 and at batch 2
+DECODE_BATCHES = (2, 3, 6)
+
+
+def phase_k6_batches(first, stats):
+    """K6 at the VAE decoder's norm_out (the recorded batch-1 call's x, each
+    further sample offset by 0.5) at DECODE_BATCHES: one launch, against
+    the plain version, timed beside its bound and F.group_norm + F.silu.
+    The plan's mode is printed; at 33.5 MB and more the grid's shared
+    memory cannot hold x, so each block holds its last rows and reads the
+    others twice (re-read mode). Kept out of the per-forward sums."""
+    import torch
+    from audioldm2_torch.ops import _build
+
+    name = "group_norm_silu"
+    sig = max((s for s in first if s[0] == name and s[-1] == 1e-6),
+              key=lambda s: math.prod(s[1][0]))
+    x, *rest = first[sig]
+    failures = []
+    for batch in DECODE_BATCHES:
+        ones = [1] * (x.dim() - 1)
+        shift = 0.5 * torch.arange(batch, device=x.device, dtype=torch.float32)
+        xb = (x.float().repeat(batch, *ones) + shift.view(-1, *ones)).to(x.dtype)
+        args = (xb, *rest)
+        d, r, k_ms, p_ms = check_kernel(name, args, BF16_TOL, f"bf16 VAE decode norm_out, batch "
+                                        f"{batch} {describe(signature(name, args))}", failures)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], d)
+        b_ms, o_ms = bound_times(name, args)
+        side = side_times(name, args)
+        mode = "on the CPU"
+        if xb.is_cuda:
+            c = xb.shape[-1]
+            plan = _build.group_norm_silu_plan(batch, xb.numel() // (batch * c), c, "bf16",
+                                               _build.sm_count(xb.device.index or 0))
+            mode = ("resident" if plan.resident
+                    else f"re-read, {plan.rows_held} of {plan.rows} rows a block held")
+        log(f"       {mode}; bound {max(b_ms, o_ms):.4f} ms (kernel {k_ms / max(b_ms, o_ms):.2f}x "
+            f"it); yardstick, F.group_norm + F.silu (two calls, not library_ms): "
+            f"{side.get('yardstick_ms', float('nan')):.4f} ms")
+    if failures:
+        raise AssertionError(f"kernel checks failed: {failures}")
 
 
 def phase_ragged(stats, device):
@@ -1102,13 +1241,12 @@ def build(tag, cfg, device):
     return model
 
 
-def one_request(model, call, expected, bsz: int, duration: float, label: str,
-                no_workspaces: bool = False):
+def one_request(model, call, expected, bsz: int, duration: float, label: str):
     """call(bsz) -> waveform, with the launch counts set to 0 just before and
     read just after; checks the output, the conditioning, that no CUDA
     tensor reached a plain version, that no bf16 call reached the shared
-    core, the counts and, with ``no_workspaces``, that no split-K workspace
-    was allocated. Returns (wall, counts)."""
+    core, the counts and that no split-K workspace was allocated. Returns
+    (wall, counts)."""
     import numpy as np
     import torch
     from audioldm2_torch import ops
@@ -1130,11 +1268,11 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str,
         f"{json.dumps({k: round(v, 4) for k, v in model.last_timings.items()})}")
     log(f"    launches {counts}; split-K workspaces allocated {work['workspaces']}")
     if on_core:
-        raise AssertionError(f"bf16 K1/K4/K1q/K3q/K5/K4q calls on the shared core instead of "
-                             f"their kernels: {on_core}")
-    if no_workspaces and work["workspaces"]:
-        raise AssertionError(f"{work['workspaces']} split-K workspaces allocated in a request "
-                             "that should allocate none")
+        raise AssertionError(f"K1 (bf16, f32), K4, K1q, K3q, K5 or K4q (bf16) calls on the shared "
+                             f"core instead of their kernels: {on_core}")
+    if work["workspaces"]:
+        raise AssertionError(f"{work['workspaces']} split-K workspaces allocated in a request; "
+                             "no request should allocate one")
     want_shape = (bsz, 1, int(duration * model.cfg.preprocessing.sampling_rate))
     if wav.shape != want_shape:
         raise AssertionError(f"waveform shape {wav.shape}, expected {want_shape}")
@@ -1184,7 +1322,7 @@ PROMPTS_SHORT = PROMPTS[2:]
 
 
 def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str,
-                   prompts=None, no_workspaces: bool = False):
+                   prompts=None):
     """A short warm-up request (allocator, cuDNN plans, lazy module state),
     then the batch-1 requests and the batch-2 request of ``prompts`` (PROMPTS
     by default) through ``request(prompt, batchsize, steps, duration)``;
@@ -1193,8 +1331,7 @@ def phase_requests(tag, model, request, expected, steps: int, duration: float, l
     launches, walls = None, {1: [], 2: []}
     for prompt, bsz in prompts or PROMPTS:
         wall, counts = one_request(model, lambda b: request(prompt, b, steps, duration),
-                                   expected, bsz, duration, f"{label}, {steps} steps",
-                                   no_workspaces)
+                                   expected, bsz, duration, f"{label}, {steps} steps")
         launches = launches or counts
         walls[bsz].append(wall)
     p50 = sorted(walls[1])[len(walls[1]) // 2]
@@ -1286,7 +1423,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     model = build("full8", dataclasses.replace(full_cfg, weight_quant="int8"), device)
     launches["full8"], e2e["full8"] = phase_requests(
         "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT, no_workspaces=True)
+        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
     del model
 
     model = build("large", large_cfg, device)
@@ -1334,9 +1471,11 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
 
     log("== phase 3: kernels against their plain versions")
     log("  -- t5 path: K1-K4, K6 (UNet forward + VAE decode)")
-    stats = phase_kernels(*discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device),
-                          offset_check=True)
-    del vae_p
+    t5_first, t5_counts = discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device)
+    stats = phase_kernels(t5_first, t5_counts, offset_check=True)
+    log("  -- K6 at the VAE decoder's norm_out, batches " + ", ".join(map(str, DECODE_BATCHES)))
+    phase_k6_batches(t5_first, stats)
+    del vae_p, t5_first
     log("  -- K1-K4 at ragged and halo shapes, K2 on strided q, k, v")
     phase_ragged(stats, device)
     log("  -- sr path: K1 and K6 in f32 (one full-width VAE encode of a chirp's log-mel)")

@@ -591,6 +591,144 @@ def test_int8_matmul_kernel(cuda, dt, M, K, N, with_bias):
     _check(lnmm_kernel.int8_matmul(*args), lnmm_kernel.int8_matmul_plain(*args), dt)
 
 
+# K1 in f32 on its own kernel (3xTF32): every shape of one full-width VAE
+# encode (vae.encode_conv_shapes), the same with the input channels split
+# into a concat [x1 ; x2], and the encoder's largest and deepest shapes
+# offset by +10 (GroupNorm cancellation at S = 65536 and K = 4608)
+ENCODE_K1 = [(1, 1024, 64, 128, 0, 128), (1, 512, 32, 128, 0, 256), (1, 512, 32, 256, 0, 256),
+             (1, 256, 16, 256, 0, 512), (1, 256, 16, 512, 0, 512)]
+ENCODE_K1_CAT = [(b, t, f, c1 // 2, c1 - c1 // 2, cout) for b, t, f, c1, _, cout in ENCODE_K1]
+
+
+@pytest.mark.parametrize("offset", [0.0, 10.0])
+@pytest.mark.parametrize("B,T,F,c1,c2,cout", ENCODE_K1 + ENCODE_K1_CAT)
+def test_gn_silu_conv3x3_f32_kernel(cuda, B, T, F, c1, c2, cout, offset):
+    """f32 K1 on its tensor-core kernel (never the shared core) within the
+    f32 bar of its plain version, with and without x2 and with the +10
+    offset, at the encoder's eps."""
+    dt = torch.float32
+    g = torch.Generator(device=cuda).manual_seed(21)
+    cin = c1 + c2
+    args = (_rand(g, (B, T, F, c1), dt, cuda, offset=offset),
+            _rand(g, (B, T, F, c2), dt, cuda, offset=offset) if c2 else None,
+            _rand(g, (cin,), dt, cuda, offset=1.0), _rand(g, (cin,), dt, cuda),
+            _rand(g, (3, 3, cin, cout), dt, cuda, scale=(9 * cin) ** -0.5),
+            _rand(g, (cout,), dt, cuda), 32, 1e-6)
+    with _entries_counted() as calls:
+        got = resblock_kernel.gn_silu_conv3x3(*args)
+    assert calls.get("a2k_gn_silu_conv3x3_f32") == 1 and "a2k_gn_silu_conv3x3" not in calls
+    _check(got, resblock_kernel.gn_silu_conv3x3_plain(*args), dt)
+
+
+@pytest.mark.parametrize("bm,bn", [(256, 64)])
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_f32_k1_every_tile_and_cluster_split(cuda, bm, bn, splits):
+    """The tile the f32 conv is built for, cluster splits of 1, 2 and 5 (a
+    ragged last share), two ring depths and, without a split, a strip of two
+    N tiles, through the C entry point at a shape with ragged T and Cout
+    tiles and a concat, against the plain version; another tile is
+    refused."""
+    from audioldm2_torch.ops import _build
+
+    dt = torch.float32
+    g = torch.Generator(device=cuda).manual_seed(22)
+    B, T, F, c1, c2, cout = 2, 37, 16, 192, 96, 200
+    cin = c1 + c2
+    x1, x2 = _rand(g, (B, T, F, c1), dt, cuda, offset=0.5), _rand(g, (B, T, F, c2), dt, cuda)
+    gamma, beta = _rand(g, (cin,), dt, cuda, offset=1.0), _rand(g, (cin,), dt, cuda)
+    w = _rand(g, (3, 3, cin, cout), dt, cuda, scale=(9 * cin) ** -0.5)
+    bias = _rand(g, (cout,), dt, cuda)
+    want = resblock_kernel.gn_silu_conv3x3_plain(x1, x2, gamma, beta, w, bias, 32, 1e-5)
+    a, c = resblock_kernel.gn_stats(x1, x2, gamma, beta, 32, 1e-5)
+    ft = min(F, bm)
+    tt = min(bm // ft, T)
+    fits = [s for s in _build.CONV_STAGES
+            if _build.conv32_smem_bytes(bm, bn, tt, ft, s) <= _build.LNMM_MAX_SMEM]
+    for stages in sorted({fits[0], fits[-1]}):
+        for strip in (1, 2) if splits == 1 else (1,):
+            out = torch.full((B, T, F, cout), float("nan"), device=cuda)
+            _build.check(_build.lib().a2k_gn_silu_conv3x3_f32(
+                x1.data_ptr(), x2.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), 0, out.data_ptr(), B, T, F, c1, c2, cout, bm, bn, tt, ft, strip,
+                stages, splits, _build.stream_of(x1)), "a2k_gn_silu_conv3x3_f32")
+            _check(out, want, dt)
+    assert _build.lib().a2k_gn_silu_conv3x3_f32(
+        x1.data_ptr(), x2.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        0, out.data_ptr(), B, T, F, c1, c2, cout, 128, 128, 1, 16, 1, 2, 1,
+        _build.stream_of(x1)) != 0
+
+
+def test_f32_k1_gives_the_same_bits_twice(cuda):
+    """Fixed-order sums, also over a cluster: bitwise equal f32 outputs."""
+    dt = torch.float32
+    g = torch.Generator(device=cuda).manual_seed(23)
+    for B, T, F, c1, c2, cout in ((1, 256, 16, 512, 0, 512), (2, 32, 2, 640, 640, 640)):
+        cin = c1 + c2
+        args = (_rand(g, (B, T, F, c1), dt, cuda),
+                _rand(g, (B, T, F, c2), dt, cuda) if c2 else None,
+                _rand(g, (cin,), dt, cuda), _rand(g, (cin,), dt, cuda),
+                _rand(g, (3, 3, cin, cout), dt, cuda, scale=(9 * cin) ** -0.5),
+                _rand(g, (cout,), dt, cuda), 32, 1e-6)
+        first = resblock_kernel.gn_silu_conv3x3(*args)
+        for _ in range(3):
+            assert torch.equal(resblock_kernel.gn_silu_conv3x3(*args), first)
+
+
+# K6 in one launch: the main path's four shapes (t5 UNet out_norm at CFG 2,
+# large at CFG 6, the VAE decoder's and encoder's norm_out), batches 1 to 6,
+# C no multiple of 8 (scalar path), tensors above what the grid's shared
+# memory holds (re-read mode: the VAE decoder's norm_out at batch 2 and 3,
+# 67 and 134 MB in f32, and in f32 rows of 36 channels and wide rows of
+# 520), and batches above the SM count (samples in turn)
+K6_SHAPES = [((2, 256, 16, 128), 32, 1e-5), ((6, 256, 16, 128), 32, 1e-5),
+             ((1, 1024, 64, 128), 32, 1e-6), ((1, 256, 16, 512), 32, 1e-6),
+             ((3, 100, 7, 256), 32, 1e-5), ((4, 33, 64), 32, 1e-5), ((5, 9, 3, 64), 32, 1e-5),
+             ((2, 7, 5, 36), 4, 1e-5), ((1, 2048, 64, 128), 32, 1e-6),
+             ((1, 4096, 64, 128), 32, 1e-6), ((2, 1024, 64, 128), 32, 1e-6),
+             ((3, 1024, 64, 128), 32, 1e-6), ((140, 8, 4, 64), 32, 1e-5),
+             ((300, 16, 36), 4, 1e-5), ((1, 512, 512, 36), 4, 1e-5), ((1, 16384, 520), 4, 1e-5)]
+
+
+@pytest.mark.parametrize("offset", [0.0, 10.0])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("shape,groups,eps", K6_SHAPES)
+def test_group_norm_silu_is_one_launch(cuda, dt, shape, groups, eps, offset):
+    """K6 launches a2k_group_norm_silu once (no statistics pass) and agrees
+    with its plain version, resident or re-reading, with the +10 offset;
+    bf16 parameters as the cast tree holds them."""
+    from audioldm2_torch.ops import _build
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+    c = shape[-1]
+    x = _rand(g, shape, dt, cuda, offset=offset)
+    pdt = torch.bfloat16 if dt == torch.bfloat16 else torch.float32
+    args = (x, _rand(g, (c,), pdt, cuda, offset=1.0), _rand(g, (c,), pdt, cuda), groups, eps)
+    with _entries_counted() as calls:
+        got = groupnorm_kernel.group_norm_silu(*args)
+    assert calls.get("a2k_group_norm_silu") == 1 and "a2k_gn_stats" not in calls
+    _check(got, groupnorm_kernel.group_norm_silu_plain(*args), dt)
+    bsz = shape[0]
+    s = x.numel() // (bsz * c)
+    plan = _build.group_norm_silu_plan(bsz, s, c, "bf16" if dt == torch.bfloat16 else "f32",
+                                       _build.sm_count(0), groups, c % 8 == 0)
+    assert plan.resident == (x.numel() * x.element_size() < 20e6)
+
+
+def test_group_norm_silu_gives_the_same_bits_twice(cuda):
+    """Every block combines the sample's partials in one fixed order: the
+    same bits in every run, resident and re-reading."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    for shape, dt in (((1, 1024, 64, 128), torch.bfloat16), ((1, 256, 16, 512), torch.float32),
+                      ((1, 2048, 64, 128), torch.float32), ((6, 256, 16, 128), torch.bfloat16),
+                      ((2, 1024, 64, 128), torch.bfloat16), ((140, 8, 4, 64), torch.float32)):
+        c = shape[-1]
+        args = (_rand(g, shape, dt, cuda, offset=3.0), _rand(g, (c,), torch.float32, cuda),
+                _rand(g, (c,), torch.float32, cuda), 32, 1e-6)
+        first = groupnorm_kernel.group_norm_silu(*args)
+        for _ in range(3):
+            assert torch.equal(groupnorm_kernel.group_norm_silu(*args), first)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("shape,groups,eps,offset,silu", [
     ((2, 256, 16, 128), 32, 1e-5, 0.0, True),     # UNet out_norm, CFG batch 2
@@ -607,6 +745,32 @@ def test_group_norm_silu_kernel(cuda, dt, shape, groups, eps, offset, silu):
             _rand(g, (c,), torch.float32, cuda), groups, eps, silu)
     _check(groupnorm_kernel.group_norm_silu(*args), groupnorm_kernel.group_norm_silu_plain(*args),
            dt)
+
+
+def test_group_norm_silu_on_two_streams_at_once(cuda):
+    """Launches on two streams, queued without a wait between them, keep
+    their barriers and partials apart: each agrees with its plain version
+    and with the same call made alone."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    calls = []
+    for shape in ((2, 1024, 64, 128), (6, 256, 16, 128)):
+        c = shape[-1]
+        calls.append((_rand(g, shape, torch.bfloat16, cuda, offset=2.0),
+                      _rand(g, (c,), torch.float32, cuda), _rand(g, (c,), torch.float32, cuda),
+                      32, 1e-6))
+    alone = [groupnorm_kernel.group_norm_silu(*args) for args in calls]
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    torch.cuda.synchronize(cuda)
+    for _ in range(3):
+        got = []
+        for stream, args in zip(streams, calls):
+            with torch.cuda.stream(stream):
+                got.append(groupnorm_kernel.group_norm_silu(*args))
+        torch.cuda.synchronize(cuda)
+        for y, want in zip(got, alone):
+            assert torch.equal(y, want)
+    for args, y in zip(calls, alone):
+        _check(y, groupnorm_kernel.group_norm_silu_plain(*args), torch.bfloat16)
 
 
 def test_group_norm_silu_rejects_what_the_kernel_does_not_take(cuda):
@@ -766,4 +930,86 @@ def test_k3_gives_the_bits_it_gave_before_k4_shared_its_kernel(cuda):
     with torch.inference_mode():
         for shape, want in K3_SHA256_BEFORE_K4_JOINED.items():
             got = lnmm_kernel.ln_matmul(*time_k2_k3.k3_args(shape, cuda))
+            assert time_k2_k3.sha256(got) == want, shape
+
+
+# SHA-256 of the bf16 K1 output at its 39 main-path shapes and of the bf16 K1q
+# output at its 17 full8 shapes (B, T, F, C1, C2, Cout), on time_k2_k3's inputs
+# (time_k1, time_k1q), from the tree before the f32 K1 and K6 were redesigned
+# (NVIDIA H100 80GB HBM3): the f32 work must leave the bf16 kernels' bits alone.
+K1_SHA256_BEFORE_F32 = {
+    (6, 256, 16, 256, 128, 128): "87e315cf6be43b245895c62743367efa7437addf6e4b391c8b1d59b90b4f7849",
+    (6, 256, 16, 128, 128, 128): "fa8ad351c69b5e779e9743cf2db2fec2b268428f46fde15e742da0d05ec46c8b",
+    (6, 256, 16, 128, 0, 128): "e7667244ebd0816ee35669893e3d3b672de6df26638e9e6bb26f8f3a4617f6fc",
+    (6, 128, 8, 384, 256, 256): "6a1e64002b1aefa075719cdcf080e34ab729cb28f61c32aa3a89c51248ee2000",
+    (6, 128, 8, 256, 256, 256): "c31b9e7857a268e8c97cfd8769f6be3412395b40d0a08aaf1ee9d04ae60579ca",
+    (6, 128, 8, 256, 128, 256): "b90c707c508ab65bc492f5aee61a5c24acffb0029c6ea7bdeb1c0ab1531a9620",
+    (6, 128, 8, 256, 0, 256): "518a751200e451a649e932055478d3081cbd3ae0e86b1a27ad74dbc6fab3899d",
+    (6, 128, 8, 128, 0, 256): "e4192c8ab6f141deb0acd723577eeca28168aa3070848901ee47185390baa4ac",
+    (6, 64, 4, 640, 384, 384): "e3cbdf6eb345e888631ca852cb7f5ac68baa129a7f55db2fedbf2e8a9c476faa",
+    (6, 64, 4, 384, 384, 384): "1579ff558343e7e857e3ef2a635040340a15adeb20bc3bf07106c640521b634b",
+    (6, 64, 4, 384, 256, 384): "6779fe18bd55cc24da3dd4fa14c3694a59a9aaa9c9695893d264ddbc325178c0",
+    (6, 64, 4, 384, 0, 384): "9592dbdd2952edbbeeb3efafee6392a06195c401a246bc20036bfd7981a8e0b5",
+    (6, 64, 4, 256, 0, 384): "26480482e49964da7eb5a5e8ea6602bd813f5d190d669d2dba482eb192975228",
+    (6, 32, 2, 640, 640, 640): "b02cfa283b8f0f5faa4f9b9330cc07fd5564c748ec75bd29548c12eea00c367e",
+    (6, 32, 2, 640, 384, 640): "0285336ee512ad69eb236e11174ad6e0b98980abd62f23cfab6b931ba76b6223",
+    (6, 32, 2, 640, 0, 640): "face41d80f4ec1cb7f7ed6562a41ce292ae432e5f3fd9e9cd6dec524ab3cc1e8",
+    (6, 32, 2, 384, 0, 640): "0821fe8300e9ffd7edb174e3b15ed7e69f7e6eb6084b3d893572d563242ccf2e",
+    (2, 256, 16, 256, 128, 128): "f2efcbb55550626545c137a3c8e8f957cdce79d3b150ca5196b984d448c18c33",
+    (2, 256, 16, 128, 128, 128): "2b089619f7b967da153518ec857664cbf3e4641039fa2bab364e5dfe125501c6",
+    (2, 256, 16, 128, 0, 128): "e0b1600d76565c29c8a030307337d3d831da1ddd160c3f8d713c6fa2a5c69201",
+    (2, 128, 8, 384, 256, 256): "1263fe8850ce034fd8cbf635314dd65e8a389a20ef0f82768326ae0930600ec4",
+    (2, 128, 8, 256, 256, 256): "f275eb57ce0c84fd84246feb8061549102444da7e4472aae35ae0ab357c893c8",
+    (2, 128, 8, 256, 128, 256): "cb5d1bc8d7de87b054d6e7d23262f671764c46b993ed3cf98a443d089f5ef6e0",
+    (2, 128, 8, 256, 0, 256): "0cb610e231334101a44859378887b8c98ab38a5c0e8b927501ab0d47f76cd4ef",
+    (2, 128, 8, 128, 0, 256): "f8f2fc2bce8d56608bec450f6860ec95cfe8c29be312e67cd6a15b593861fdb7",
+    (2, 64, 4, 640, 384, 384): "7e90bfe91211110eb6206f2bdeee536ae8ad3edda0ef22dec58b056bf8d8314a",
+    (2, 64, 4, 384, 384, 384): "b7d103e3502c6999dd2f0a3aad32c30826588f3e4e0d47cdbbb80a893b54a6d2",
+    (2, 64, 4, 384, 256, 384): "aae630b4fa2c8feaa07d40fe1255a46bfd73041ad4d24755abbedd5d1c2675d4",
+    (2, 64, 4, 384, 0, 384): "649c868ddf28628f0956bbc419de7f5c4ce2d29c6fb86c56e3c15adcc7cec92d",
+    (2, 64, 4, 256, 0, 384): "6c79bb441b6b9364124f4993798b3c711843e22ce60b0cba23c964bb66104b35",
+    (2, 32, 2, 640, 640, 640): "4082c9294259961231a8c24c8267bd56e6cececb39e9c3ddfd1a4572606266ba",
+    (2, 32, 2, 640, 384, 640): "67672ad7513f2a2e7acf66f38cc3fb724afb73e1ecdeb52b76e99bae5c1bf1ca",
+    (2, 32, 2, 640, 0, 640): "e2ca84f04283318aff8ff7a787888cfef950a54ae45359338c1f67c6e432ec25",
+    (2, 32, 2, 384, 0, 640): "8d5376df3d3149743fbc29c10bdb2d83184246dc41e401ebb7fe04daba1071e9",
+    (1, 1024, 64, 256, 0, 128): "8ba32936a30d2235a719aa66373bf2f7beee699aef2d0060e27ce0b4574776a3",
+    (1, 1024, 64, 128, 0, 128): "96e5dfccab0b007265eb2ec01e66a1261bded76202a5db852cb5d6d705ff005c",
+    (1, 512, 32, 512, 0, 256): "670553c0c439bafb593e163ca41270d2b35950110df23f6a208e38143ee50cc1",
+    (1, 512, 32, 256, 0, 256): "8d66d25ac8ffcd847cbd550e4e70d3b630a039c67c98718b85c7f35c28785184",
+    (1, 256, 16, 512, 0, 512): "ea4f1590bcaf783dbdea994120089afeab027e7509c417e37c7643a72e59fdc0",
+}
+K1Q_SHA256_BEFORE_F32 = {
+    (2, 256, 16, 256, 128, 128): "be29692a46b80dc3f0e3465b5cfd535e4f03833d4aec9976f51dd9c6dff4f23b",
+    (2, 256, 16, 128, 128, 128): "d4a7a4282a808012c6179c2314c030ee482f5b64a798dedbf86c7d28d084edc8",
+    (2, 256, 16, 128, 0, 128): "dc40c0b9b7ebfb51f961be832016f439d056ab8b0138be7352f2cb0e64b48d7f",
+    (2, 128, 8, 384, 256, 256): "c4b7a183fc6d0170b02bcd1cf504fca81028b2a9fd8f941dbae693d90d726b81",
+    (2, 128, 8, 256, 256, 256): "cff3ea694e71167417643321460393fedb539b4219dfc4f8b81190e7ca83214d",
+    (2, 128, 8, 256, 128, 256): "f875bdcc93f9c6cbbd7f7f8d3bca96a20fdcc1597e189ba4e9e5c2ea94f6da94",
+    (2, 128, 8, 256, 0, 256): "dbf38367bf9ff93fc69dde82ba94ef2e4c3cfc52476d7a40208a6d0df758b22f",
+    (2, 128, 8, 128, 0, 256): "8632942c99a0629f410493a765df9f7d849061963a9fc141bae5d44adbb33f7e",
+    (2, 64, 4, 640, 384, 384): "59e4aa48c664ebca40745203bf2a3638056e05d210e1948cce18647dfa4ebb8c",
+    (2, 64, 4, 384, 384, 384): "16be15d09a202bc4e564c5bb9f511e4bc82fc11d0b0f74650ac1298e8a41b431",
+    (2, 64, 4, 384, 256, 384): "fbd842c9ebe7659b94da4d32081bb959706732a20a6e63fa3117d81489cb4ac4",
+    (2, 64, 4, 384, 0, 384): "6c42d8761c734681a6b1316448f52a7d2ab855d4edab7aaefef7bdd35e6ca2a5",
+    (2, 64, 4, 256, 0, 384): "d9ddccb3d9a1375035916497ec43b3f9288544e48ebf9d348570838a726eed9c",
+    (2, 32, 2, 640, 640, 640): "fab8dd44f7246a5b46c3dd11b5866a1a83af1d97997b2d8e8b3829be3f87c219",
+    (2, 32, 2, 640, 384, 640): "d50ebc3d99cb15ab82926b8930bf2f565153975a27811ad88912e4fb28824c2f",
+    (2, 32, 2, 640, 0, 640): "fcbf96448f56a1ffa629aaf4342031bc28b2afc9688580371a54fc52b7352d42",
+    (2, 32, 2, 384, 0, 640): "605b058a25a7260b6370537aa141c5eb813c82c04ffd389553df96abd4efdf53",
+}
+
+
+def test_bf16_k1_and_k1q_give_the_bits_they_gave_before_the_f32_kernel(cuda):
+    """The f32 K1 is a sibling kernel in the same source: bf16 K1 and K1q
+    must give the same bytes at every main-path shape as before it."""
+    from audioldm2_torch.tools import time_k2_k3
+
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the recorded hashes are an sm_90 card's")
+    with torch.inference_mode():
+        for shape, want in K1_SHA256_BEFORE_F32.items():
+            got = resblock_kernel.gn_silu_conv3x3(*time_k2_k3.k1_args(shape, cuda))
+            assert time_k2_k3.sha256(got) == want, shape
+        for shape, want in K1Q_SHA256_BEFORE_F32.items():
+            got = resblock_kernel.gn_silu_conv3x3_q(*time_k2_k3.k1q_args(shape, cuda))
             assert time_k2_k3.sha256(got) == want, shape

@@ -371,11 +371,14 @@ def test_geglu_matmul_plan(m, f, n, sms):
 
 
 def test_plans_decline_what_the_kernels_do_not_take():
-    """f32, channels no multiple of 8, and K4 rows wider than a row block
-    of the smallest tile holds beside two W tiles; those calls go to the
-    shared GEMM core (never to a plain version on the card)."""
+    """K4 in f32 (K1 in f32 has its own kernel; K1q in f32 does not),
+    channels no multiple of 8, and K4 rows wider than a row block of the
+    smallest tile holds beside two W tiles; those calls go to the shared
+    GEMM core (never to a plain version on the card)."""
     assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS) is not None
-    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS, dtype="f32") is None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS, dtype="f32") is not None
+    assert _build.gn_silu_conv_plan(2, 32, 2, 640, 640, SMS, dtype="f32", w_bytes=1) is None
+    assert _build.gn_silu_conv_plan(1, 5, 3, 100, 64, SMS, dtype="f32") is None
     assert _build.gn_silu_conv_plan(1, 5, 3, 96, 70, SMS) is None
     assert _build.gn_silu_conv_plan(1, 5, 3, 100, 64, SMS) is None
     assert _build.geglu_matmul_plan(128, 2560, 640, SMS) is not None
@@ -412,7 +415,13 @@ def recorded_lib(monkeypatch):
     monkeypatch.setattr(_build, "sm_count", lambda index: SMS)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: None)
-    monkeypatch.setattr(_build, "gn_counter", lambda index: torch.zeros(8, dtype=torch.int32))
+    monkeypatch.setattr(_build, "gn_counter",
+                        lambda index, stream: torch.zeros(8, dtype=torch.int32))
+    monkeypatch.setattr(_build, "gn_barrier", lambda index, stream: torch.zeros(
+        2 * _build.GN_COUNTER_SLOTS, dtype=torch.int32))
+    monkeypatch.setattr(_build, "gn_partials",
+                        lambda index, stream: torch.zeros(_build.GN_PARTIAL_FLOATS))
+    monkeypatch.setattr(_build, "gn_silu_occupancy", lambda index, code, vec, smem: 1)
     return lib
 
 
@@ -436,7 +445,7 @@ def test_k1_and_k4_parameters_go_to_the_kernels_as_they_are_stored(recorded_lib)
 
     w = torch.zeros(3, 3, 128, 96, dtype=bf16)
     out = torch.empty(2, 8, 4, 96, dtype=bf16)
-    assert rk._conv_bf16(x1, x2, a, c, w, bias, out)
+    assert rk._conv_kernel(x1, x2, a, c, w, bias, out)
     args = recorded_lib.calls["a2k_gn_silu_conv3x3_bf16"]
     assert args[5:8] == (bias.data_ptr(), 1, out.data_ptr())
 
@@ -598,7 +607,11 @@ def as_if_on_the_card(recorded_lib, monkeypatch):
     """The wrappers' CUDA branch on CPU tensors: every tensor reports
     is_cuda, so the public wrappers route as they do on the card, into the
     recording stand-in."""
+    from audioldm2_torch import ops
+
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    for fn in ops.kernel_wrappers().values():  # the stand-in's calls count no launch
+        monkeypatch.setattr(fn, "launches", fn.launches)
     return recorded_lib
 
 
@@ -781,3 +794,253 @@ def test_k5_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card
     lk.int8_matmul(x.float(), wq, ws, bias)
     assert set(lib.calls) == {"a2k_int8_matmul"}
     assert lib.calls["a2k_int8_matmul"][1:3] == (wq.data_ptr(), ws.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# K1 in f32 (3xTF32 on the tensor cores) and K6 in one launch
+# ---------------------------------------------------------------------------
+
+
+def _encode_shapes():
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config("audioldm2-full")
+    t = int(10.0 * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+    return vae.encode_conv_shapes(cfg.vae, 1, t, cfg.preprocessing.n_mel_channels)
+
+
+ENCODE_K1 = _encode_shapes()
+
+
+def test_encode_shapes_are_the_sixteen_of_a_full_width_encode():
+    """One 10 s VAE encode gives K1 16 calls at five shapes (the launch
+    count the smoke run checks): 1024 x 64 at 128 channels, then 512 x 32
+    and 256 x 16 at 256 and 512."""
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config("audioldm2-full")
+    assert ENCODE_K1 == {(1, 1024, 64, 128, 0, 128): 4, (1, 512, 32, 128, 0, 256): 1,
+                         (1, 512, 32, 256, 0, 256): 3, (1, 256, 16, 256, 0, 512): 1,
+                         (1, 256, 16, 512, 0, 512): 7}
+    assert sum(ENCODE_K1.values()) == vae.kernel_launches_per_encode(cfg.vae)["gn_silu_conv3x3"]
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("b,t,f,c1,c2,cout", sorted(ENCODE_K1) + CONV_HALO
+                         + [(2, 32, 2, 640, 640, 640), (1, 256, 16, 256, 256, 512)])
+def test_gn_silu_conv_f32_plan(b, t, f, c1, c2, cout, sms):
+    """The f32 plan: its one tile, whole 32-channel chunks cover Cin, the
+    tiles cover T x F and the strips Cout once, the split gives every block a chunk, the
+    block (raw patch, two activated planes, a ring of raw W tiles, two
+    staging tiles of two planes) fits the shared memory a block may use,
+    and the grid fills the SMs the shape could fill, or LNMM_MIN_FILL of
+    them in one wave."""
+    plan = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, sms, dtype="f32")
+    assert plan is not None and (plan.bm, plan.bn) == _build.CONV32_TILE == (256, 64)
+    assert plan.ck == _build.CONV32_CK == 32
+    assert 1 <= plan.tt <= t and 1 <= plan.ft <= f and plan.tt * plan.ft <= plan.bm
+    strips, m_tiles, splits = plan.grid
+    assert m_tiles == b * math.ceil(t / plan.tt) * math.ceil(f / plan.ft)
+    assert plan.k_chunks == math.ceil((c1 + c2) / 32)
+    cps = math.ceil(plan.k_chunks / splits)
+    assert 1 <= splits <= _build.CONV_MAX_SPLITS and (splits - 1) * cps < plan.k_chunks
+    n_tiles = math.ceil(cout / plan.bn)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert splits == 1 or plan.strip_tiles == 1
+    p = (plan.tt + 2) * (plan.ft + 2)
+    main = (p * 32 * 4 + 2 * p * 36 * 4 + 2 * 32 * 4 + plan.stages * 32 * (plan.bn + 4) * 4
+            + 2 * 2 * plan.bn * 36 * 4)
+    assert plan.smem_bytes == max(main, plan.bm * (plan.bn + 4) * 4) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= _build.CONV_MAX_STAGES
+    blocks = strips * m_tiles * splits
+    fill = min(sms, m_tiles * n_tiles * min(_build.CONV_MAX_SPLITS, plan.k_chunks))
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+# The bf16 K1 and K1q plans' picks before the f32 plan existed (ConvPlan fields)
+_BF16_K1_PICKS = {
+    (1, 1024, 64, 128, 128): (128, 128, 2, 64, 64, 2, 1, 8, 1, (1, 512, 1), 216320),
+    (2, 32, 2, 1280, 640): (64, 64, 32, 2, 64, 20, 1, 8, 7, (10, 2, 7), 113920),
+    (2, 32, 2, 1280, 640, "q"): (64, 128, 32, 2, 64, 20, 1, 6, 7, (5, 2, 7), 130304),
+}
+
+
+def test_f32_plans_leave_the_bf16_picks_as_they_were():
+    """The f32 plan has constants of its own: the bf16 and K1q plans at
+    every main-path shape are what they were before it existed (K1 at the
+    t5 VAE's largest shape and the deep level, K1q at the full8 deep level)."""
+    assert _build.gn_silu_conv_plan(1, 1024, 64, 128, 128, SMS) == _build.ConvPlan(
+        *_BF16_K1_PICKS[(1, 1024, 64, 128, 128)])
+    assert _build.gn_silu_conv_plan(2, 32, 2, 1280, 640, SMS) == _build.ConvPlan(
+        *_BF16_K1_PICKS[(2, 32, 2, 1280, 640)])
+    assert _build.gn_silu_conv_plan(2, 32, 2, 1280, 640, SMS, w_bytes=1) == _build.ConvPlan(
+        *_BF16_K1_PICKS[(2, 32, 2, 1280, 640, "q")])
+
+
+K6_MAIN = [(2, 4096, 128, "bf16"), (6, 4096, 128, "bf16"), (1, 65536, 128, "bf16"),
+           (1, 4096, 512, "f32")]
+K6_EDGES = [(1, 65536, 128, "f32"), (1, 131072, 128, "f32"), (3, 1000, 256, "bf16"),
+            (4, 35, 36, "f32"), (5, 7, 64, "bf16"), (1, 1, 512, "f32"), (6, 40, 64, "f32"),
+            (2, 65536, 128, "bf16"), (3, 65536, 128, "bf16"), (133, 64, 128, "bf16"),
+            (300, 4096, 128, "bf16"), (1000, 3, 36, "f32")]
+
+
+def _k6_groups(c):
+    return 32 if c % 32 == 0 else 4
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("b,s,c,dtype", K6_MAIN + K6_EDGES)
+def test_group_norm_silu_plan(b, s, c, dtype, sms):
+    """K6's plan: each sample's blocks take its rows in consecutive runs
+    that cover every row once, none empty, and the slots take every sample
+    once; the grid (slots x blocks per sample) is never more than one block
+    per SM, the co-residency the cooperative launch needs, nor more blocks
+    than GN_BLOCK_BYTES of x each; a batch above the SM count gets one
+    block a sample, sms samples at a time; the slab stays in shared memory
+    exactly when its bytes fit, else the rows held are the most that fit."""
+    groups, vec = _k6_groups(c), c % 8 == 0
+    esize = 2 if dtype == "bf16" else 4
+    plan = _build.group_norm_silu_plan(b, s, c, dtype, sms, groups, vec)
+    assert plan is not None
+    nb, rows = plan.blocks_per_sample, plan.rows
+    assert plan.grid == plan.slots * nb <= sms and plan.slots == min(b, sms // nb)
+    covered = []
+    for k in range(nb):
+        run = range(k * rows, min(s, (k + 1) * rows))
+        assert len(run) >= 1
+        covered += run
+    assert covered == list(range(s))
+    taken = sorted(q for slot in range(plan.slots) for q in range(slot, b, plan.slots))
+    assert taken == list(range(b))
+    # as many blocks as the SMs give each sample, unless a block would hold
+    # less than GN_BLOCK_BYTES of x
+    want = max(1, min(sms // b, math.ceil(s * c * esize / _build.GN_BLOCK_BYTES)))
+    assert nb == math.ceil(s / math.ceil(s / want))
+    whole = _build.gn_silu_smem_bytes(rows, c, groups, esize, vec)
+    assert plan.resident == (whole <= _build.GN_MAX_SMEM)
+    if plan.resident:
+        assert plan.rows_held == rows and plan.smem_bytes == whole
+    else:
+        assert 1 <= plan.rows_held < rows
+        assert plan.smem_bytes == _build.gn_silu_smem_bytes(plan.rows_held, c, groups, esize,
+                                                            vec) <= _build.GN_MAX_SMEM
+        assert _build.gn_silu_smem_bytes(plan.rows_held + 1, c, groups, esize,
+                                         vec) > _build.GN_MAX_SMEM
+
+
+def test_group_norm_silu_plan_switches_modes_where_the_bytes_say():
+    """On 132 SMs the batch-1 main-path tensors (2 to 16.8 MB) are resident;
+    the mode turns to re-read where a block's rows no longer fit in 227 KB
+    of shared memory beside its fixed share (about 29 MB of x in all), as
+    for the VAE decoder's norm_out at batch 2 and 3 (33.5 and 50 MB), whose
+    blocks then hold the most rows that fit; a batch above the SM count
+    takes one block a sample, 132 samples at a time."""
+    for b, s, c, dtype in K6_MAIN:
+        assert _build.group_norm_silu_plan(b, s, c, dtype, SMS).resident
+    fixed = _build.gn_silu_smem_bytes(0, 128, 32, 4, True)
+    fits = (_build.GN_MAX_SMEM - fixed) // (128 * 4)  # rows of 128 f32 a block holds
+    assert _build.group_norm_silu_plan(1, fits * SMS, 128, "f32", SMS).resident
+    assert not _build.group_norm_silu_plan(1, fits * SMS + SMS, 128, "f32", SMS).resident
+    assert 28e6 < fits * SMS * 128 * 4 < 30e6
+    for b in (2, 3):
+        plan = _build.group_norm_silu_plan(b, 65536, 128, "bf16", SMS)
+        held = (_build.GN_MAX_SMEM - _build.gn_silu_smem_bytes(0, 128, 32, 2, True)) // 256
+        assert not plan.resident and plan.rows_held == held
+        assert plan.grid == b * (SMS // b)
+    plan = _build.group_norm_silu_plan(133, 64, 128, "bf16", SMS)
+    assert (plan.blocks_per_sample, plan.slots, plan.grid) == (1, SMS, SMS) and plan.resident
+
+
+def test_f32_k1_reaches_its_kernel_with_its_parameters_as_stored(as_if_on_the_card):
+    """An f32 gn_silu_conv3x3 call runs the statistics pass and then
+    a2k_gn_silu_conv3x3_f32 with the f32 plan's launch arguments, the weight
+    and the f32 conv bias as stored (the same storage: nothing converted, no
+    workspace, no reduce launch); a shape the plan declines reaches the
+    shared core."""
+    from audioldm2_torch.ops import resblock_kernel as rk
+
+    lib = as_if_on_the_card
+    for b, t, f, c1, c2, cout in ((1, 256, 16, 512, 0, 512), (2, 32, 2, 640, 384, 640)):
+        x1 = torch.zeros(b, t, f, c1)
+        x2 = torch.zeros(b, t, f, c2) if c2 else None
+        gamma, beta, bias = (torch.ones(k) for k in (c1 + c2, c1 + c2, cout))
+        w = torch.zeros(3, 3, c1 + c2, cout)
+        out = rk.gn_silu_conv3x3(x1, x2, gamma, beta, w, bias)
+        assert set(lib.calls) == {"a2k_gn_stats", "a2k_gn_silu_conv3x3_f32"}
+        args = lib.calls.pop("a2k_gn_silu_conv3x3_f32")
+        plan = _build.gn_silu_conv_plan(b, t, f, c1 + c2, cout, SMS, dtype="f32")
+        assert args[0] == x1.data_ptr() and args[1] == (None if x2 is None else x2.data_ptr())
+        assert args[4:8] == (w.data_ptr(), bias.data_ptr(), 0, out.data_ptr())
+        assert args[8:14] == (b, t, f, c1, c2, cout)
+        assert args[14:21] == (plan.bm, plan.bn, plan.tt, plan.ft, plan.strip_tiles, plan.stages,
+                               plan.splits)
+        assert out.shape == (b, t, f, cout) and out.dtype == torch.float32
+        assert lib.calls.pop("a2k_gn_stats")[10] == 0
+    x = torch.zeros(1, 5, 3, 100)
+    rk.gn_silu_conv3x3(x, None, torch.ones(100), torch.zeros(100), torch.zeros(3, 3, 100, 64),
+                       torch.zeros(64), 4)
+    assert set(lib.calls) == {"a2k_gn_stats", "a2k_gn_silu_conv3x3"}
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 16, 128), (140, 8, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_is_one_launch_with_its_parameters_as_stored(as_if_on_the_card, dtype, shape):
+    """A group_norm_silu call launches a2k_group_norm_silu once, with the
+    plan's slots, blocks per sample, rows and rows held, bf16 GroupNorm
+    parameters as stored (code 1), and nothing else: no statistics pass, no
+    second pass; a batch above the SM count too (its samples in turn)."""
+    from audioldm2_torch.ops import groupnorm_kernel as gk
+
+    lib = as_if_on_the_card
+    x = torch.zeros(*shape, dtype=dtype)
+    bsz, c = shape[0], shape[-1]
+    s = x.numel() // (bsz * c)
+    gamma, beta = torch.ones(c, dtype=torch.bfloat16), torch.zeros(c, dtype=torch.bfloat16)
+    out = gk.group_norm_silu(x, gamma, beta, 32, 1e-5)
+    assert set(lib.calls) == {"a2k_group_norm_silu"}
+    args = lib.calls.pop("a2k_group_norm_silu")
+    plan = _build.group_norm_silu_plan(bsz, s, c, "bf16" if dtype == torch.bfloat16 else "f32",
+                                       SMS, 32, True)
+    assert args[:5] == (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), 1, out.data_ptr())
+    assert args[5:9] == (bsz, s, c, 32) and args[10] == 1
+    assert args[11:16] == (plan.slots, plan.blocks_per_sample, plan.rows, plan.rows_held, 1)
+    assert plan.slots == min(bsz, SMS)
+    assert out.shape == x.shape and out.dtype == dtype
+    gk.group_norm_silu(x, gamma.float(), beta.float(), 32, 1e-5, silu=False)
+    args = lib.calls.pop("a2k_group_norm_silu")
+    assert args[3] == 0 and args[10] == 0 and not lib.calls
+
+
+def test_timing_tool_sums_the_f32_encode_and_k6():
+    """tools.time_k2_k3's f32 K1 rows are the 16 calls of one full-width
+    encode; its K6 rows are the main-path calls, one each on the t5 and
+    large UNet forwards, the VAE decodes at batch 1, 2, 3 and 6 and the sr
+    encode."""
+    from audioldm2_torch.tools import time_k2_k3 as tool
+
+    shapes = tool.main_path_shapes()
+    assert {tuple(s): c["sr_encode"] for s, c in shapes["k1f32"]} == ENCODE_K1
+    k6 = {tuple(s): c for s, c in shapes["k6"]}
+    assert k6 == {(2, 256, 16, 128, "bf16", 1e-5): {"t5": 1},
+                  (6, 256, 16, 128, "bf16", 1e-5): {"large": 1},
+                  (1, 1024, 64, 128, "bf16", 1e-6): {"t5_vae": 1},
+                  (2, 1024, 64, 128, "bf16", 1e-6): {"t5_vae_b2": 1},
+                  (3, 1024, 64, 128, "bf16", 1e-6): {"large_vae_b3": 1},
+                  (6, 1024, 64, 128, "bf16", 1e-6): {"large_vae_b6": 1},
+                  (1, 256, 16, 512, "f32", 1e-6): {"sr_encode": 1}}
+    part = {"held_us": 100.0, "unheld_us": 120.0}
+    k1f32 = [{"calls": c, "whole": part, "stats": {"held_us": 10.0, "unheld_us": 30.0},
+              "conv": {"held_us": 90.0, "unheld_us": 90.0}, "yardstick_held_us": 50.0}
+             for _, c in shapes["k1f32"]]
+    rows_k6 = [{"calls": c, "held_us": 20.0, "unheld_us": 40.0, "yardstick_held_us": 25.0}
+               for _, c in shapes["k6"]]
+    sums = tool.per_forward((), (), rows_k1f32=k1f32, rows_k6=rows_k6)
+    assert sums["sr_encode"]["k1f32_whole_held_ms"] == pytest.approx(16 * 0.1)
+    assert sums["sr_encode"]["k1f32_stats_unheld_ms"] == pytest.approx(16 * 0.03)
+    assert sums["sr_encode"]["k1f32_yardstick_held_ms"] == pytest.approx(16 * 0.05)
+    for tag in ("t5", "large", "t5_vae", "t5_vae_b2", "large_vae_b3", "large_vae_b6",
+                "sr_encode"):
+        assert sums[tag]["k6_held_ms"] == pytest.approx(0.02)
+        assert sums[tag]["k6_yardstick_held_ms"] == pytest.approx(0.025)
+    assert "k1f32_whole_held_ms" not in sums["t5"] and "k3_held_ms" not in sums["t5"]
