@@ -7,9 +7,10 @@ the host modules it needs (config, diffusion schedule, tokenizers, wav IO).
 
 Public surface: build_model, text_to_audio, super_resolution_and_inpainting,
 seed_everything, save_wave, read_wav_file, round_up_duration,
-default_audioldm_config, with the JAX package's signatures. The t5
-family (audioldm_16k_crossattn_t5), audioldm2-full and
-audioldm2-full-large-1150k run, each in bf16 or in the int8 serving mode
+default_audioldm_config, with the JAX package's signatures. All seven
+checkpoint families run (the t5 family, audioldm2-full and -music-665k,
+audioldm2-full-large-1150k, audioldm_48k and the two speech families),
+each in bf16 or in the int8 serving mode
 (``build_model(weight_quant="int8")``), with the DDIM, PLMS and DDPM
 samplers and the CLAP rerank of ``n_candidate_gen_per_text`` candidates.
 """

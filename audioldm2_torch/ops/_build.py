@@ -577,7 +577,9 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
     (``_CONV_F32_MODEL``).
 
     A block's tile is ft = min(F, bm) positions wide in F and as many rows
-    of T as fit in bm (at most T). Candidates: each (bm, bn), each split of
+    of T as fit in bm (at most T); in f32, where that patch does not fit
+    the shared memory at the shallowest ring (F of 128 and more: the 48 kHz
+    VAE encode), ft halves until it does. Candidates: each (bm, bn), each split of
     the chunks over a cluster of up to CONV_MAX_SPLITS blocks, and without a
     split each strip length; kept if the grid fills the SMs the shape could
     fill, min(sms, tiles x min(CONV_MAX_SPLITS, chunks)), or at least
@@ -598,6 +600,10 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
                                               CONV_STAGES):
         ft = min(f, bm)
         tt = min(bm // ft, t)
+        while f32 and ft > 8 and conv32_smem_bytes(bm, bn, tt, ft,
+                                                   min(CONV_STAGES)) > LNMM_MAX_SMEM:
+            ft //= 2
+            tt = min(bm // ft, t)
         smem = (conv32_smem_bytes(bm, bn, tt, ft, stages) if f32
                 else conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes))
         if smem > LNMM_MAX_SMEM:

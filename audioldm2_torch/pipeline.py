@@ -1,12 +1,16 @@
 """Public pipeline API of the port: build_model / text_to_audio /
 super_resolution_and_inpainting.
 
-Port of ``audioldm2_tpu/pipeline.py`` for the t5 family
-(audioldm_16k_crossattn_t5), audioldm2-full and audioldm2-full-large-1150k,
-each in bf16 or in the int8 serving mode (``weight_quant="int8"`` or
-``AUDIOLDM2_WEIGHT_QUANT=int8``). Host side: tokenization through the
-port's ``utils.text`` (the JAX package's tokenizers, so both packages see
-the same ids, hash fallback included), wav reading through its
+Port of ``audioldm2_tpu/pipeline.py`` for all seven checkpoint families:
+the t5 family (audioldm_16k_crossattn_t5), audioldm2-full (and
+audioldm2-music-665k), audioldm2-full-large-1150k, audioldm_48k (a FiLM-only
+UNet, the 48 kHz VAE and vocoder) and the speech families
+(audioldm2-speech-gigaspeech, -ljspeech: a phoneme encoder and a 512-token
+sequence generator), each in bf16 or in the int8 serving mode
+(``weight_quant="int8"`` or ``AUDIOLDM2_WEIGHT_QUANT=int8``). Host side:
+tokenization through the port's ``utils.text`` (the JAX package's
+tokenizers and phoneme pipeline, so both packages see the same ids, hash
+and grapheme fallbacks included), wav reading through its
 ``utils.audio_io``, batch assembly and timing. Device side: conditioning ->
 CFG sampler (DDIM, PLMS or DDPM) -> VAE decode -> vocoder in
 ``diffusion.latent_diffusion``; for sr/inpainting also the log-mel
@@ -74,6 +78,11 @@ def _first_clap_cfg(cfg: ModelConfig) -> CLAPConfig:
     return walk(cfg.conditioners) or cfg.reranker_clap or CLAPConfig()
 
 
+def _has_kind(specs, kind: str) -> bool:
+    """Whether a conditioner of ``kind`` is in ``specs`` (nested included)."""
+    return any(s.kind == kind or _has_kind(s.nested, kind) for s in specs)
+
+
 def round_up_duration(duration: float, bucket: float = 2.5) -> float:
     """Snap a duration up to the bucket grid (default 2.5 s); the generated
     waveform is trimmed back to the requested duration."""
@@ -94,6 +103,7 @@ class AudioLDM2:
         self.clap_tok = text_utils.clap_tokenizer(_first_clap_cfg(cfg))
         self.reranker_tok = (text_utils.clap_tokenizer(cfg.reranker_clap)
                              if cfg.reranker_clap is not None else None)
+        self.phonemes = _has_kind(cfg.conditioners, "phoneme")
         pre = cfg.preprocessing
         self.mel = MelSpectrogram(
             filter_length=pre.filter_length, hop_length=pre.hop_length,
@@ -104,10 +114,14 @@ class AudioLDM2:
         self.last_timings: Dict[str, float] = {}
         self.last_similarities: Optional[np.ndarray] = None  # the last rerank's, [B * n]
 
-    def make_batch(self, text: str, batchsize: int = 1) -> Dict[str, torch.Tensor]:
+    def make_batch(self, text: str, transcription: str = "",
+                   batchsize: int = 1) -> Dict[str, torch.Tensor]:
         """Tokenize the prompt (and "" for the unconditional branch) with the
         T5 tokenizer, where a conditioner needs it, and the CLAP tokenizer,
-        to fixed-shape tensors on the model's device."""
+        and, where a phoneme conditioner reads them, the transcription's VITS
+        phoneme ids ([batchsize, 310], "" when there is none), to
+        fixed-shape tensors on the model's device. A family without a
+        phoneme conditioner ignores the transcription, as in JAX."""
         texts = [text] * batchsize
         arrays = {}
         for name, tok in (("t5", self.t5_tok), ("clap", self.clap_tok)):
@@ -117,6 +131,9 @@ class AudioLDM2:
             uids, umask = tok([""])
             arrays.update({f"{name}_ids": ids, f"{name}_mask": mask,
                            f"{name}_uncond_ids": uids, f"{name}_uncond_mask": umask})
+        if self.phonemes:
+            phonemes = text_utils.text_to_phonemes(transcription) if transcription else ""
+            arrays["phoneme_idx"] = text_utils.phoneme_ids([phonemes] * batchsize)
         return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
 
 
@@ -164,11 +181,6 @@ def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
         cfg = dataclasses.replace(cfg, weight_quant=weight_quant)
     if cfg.weight_quant not in (None, "int8"):
         raise ValueError(f"weight_quant {cfg.weight_quant!r}: only 'int8' is supported")
-    if cfg.unet.extra_film_condition_dim is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the FiLM-conditioned UNet with the 48 kHz VAE and vocoder "
-            "(audioldm_48k) is not ported to audioldm2_torch yet (ROADMAP queue 1 item 11)"
-        )
     for spec in cfg.conditioners:
         conditioners.check_kind(spec)
     device = torch.device("cuda" if device is None else device)
@@ -189,11 +201,6 @@ def _record_timings(model: AudioLDM2, duration: float, batchsize: int, **stages)
                           "x_realtime": duration * batchsize / total if total > 0 else 0.0}
 
 
-def _check_request(transcription: str) -> None:
-    if transcription:
-        raise NotImplementedError("transcriptions need the TTS family (ROADMAP queue 1 item 12)")
-
-
 def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
                   ddim_steps: int = 200, duration: float = 10, batchsize: int = 1,
                   guidance_scale: float = 3.5, n_candidate_gen_per_text: int = 3,
@@ -206,14 +213,14 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
     ``use_ema`` denoises with the EMA UNet weights (``params["unet_ema"]``).
     ``n_candidate_gen_per_text`` candidates are generated per prompt (CFG
     batch 2 * batchsize * n) and the CLAP reranker keeps the best of each
-    prompt's (:func:`rerank_and_select`). ``latent_t_per_second`` and
-    ``config`` are accepted and ignored, as in the JAX package: the latent
-    length comes from ``model.cfg``."""
-    _check_request(transcription)
+    prompt's (:func:`rerank_and_select`). ``transcription`` is the speech
+    families' text to speak (ignored by the others, as in the JAX package).
+    ``latent_t_per_second`` and ``config`` are accepted and ignored, as in
+    the JAX package: the latent length comes from ``model.cfg``."""
     n = int(n_candidate_gen_per_text)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     t0 = time.perf_counter()
-    batch = model.make_batch(text, batchsize=batchsize)
+    batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
     t1 = time.perf_counter()
     gen_duration = round_up_duration(duration, duration_bucket) if duration_bucket else duration
     latent_t_size = int(gen_duration * model.cfg.latent_t_per_second)
@@ -289,9 +296,9 @@ def super_resolution_and_inpainting(
     and frequency span ``freq_mask_ratio_start_and_end`` regenerated, the
     rest blended from the q-sampled encoding at every step), with
     ``n_candidate_gen_per_text`` candidates per prompt reranked by CLAP.
-    ``latent_t_per_second`` and ``config`` are accepted and ignored, as in
-    the JAX package: the mel length comes from ``model.cfg``."""
-    _check_request(transcription)
+    ``transcription`` as in :func:`text_to_audio`. ``latent_t_per_second``
+    and ``config`` are accepted and ignored, as in the JAX package: the mel
+    length comes from ``model.cfg``."""
     n = int(n_candidate_gen_per_text)
     cfg = model.cfg
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
@@ -303,7 +310,7 @@ def super_resolution_and_inpainting(
                            target_frames * cfg.preprocessing.hop_length, target_sr=sr)
     fbank = model.mel.fbank(wav_in, target_length=target_frames)  # [1, T, M]
     mel_in = fbank[..., None].repeat(batchsize, 1, 1, 1)
-    batch = model.make_batch(text, batchsize=batchsize)
+    batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
     z0 = model.ldm.encode_mel(gen, mel_in)
     batch["inpaint_mask"] = latent_inpaint_mask(
         z0.shape, time_mask_ratio_start_and_end, freq_mask_ratio_start_and_end).to(z0.device)

@@ -2,10 +2,12 @@
 
 The port's own copy of the tokenizers of ``audioldm2_tpu/utils/text.py``
 (HF tokenizer when its cache is present, else the deterministic hash
-fallback with the same special ids), so both packages see the same ids.
-The CLIP-BPE tokenizer of CLAP's transformer text tower and the VITS
-phoneme pipeline belong to towers the port does not have yet:
-``clap_tokenizer`` raises for ``tmodel="transformer"``.
+fallback with the same special ids), so both packages see the same ids,
+and of its VITS phoneme pipeline (``text_to_phonemes``, ``phoneme_ids``:
+espeak through ``phonemizer`` when it is installed, else the same cleaned
+graphemes). The CLIP-BPE tokenizer of CLAP's transformer text tower
+belongs to a tower the port does not have yet: ``clap_tokenizer`` raises
+for ``tmodel="transformer"``.
 
 Reference behaviors mirrored:
 * T5: max_length=128, truncation (reference encoders/modules.py:173-181);
@@ -174,3 +176,74 @@ def clap_tokenizer(clap_cfg) -> object:
         return bert_tokenizer(clap_cfg.text_max_length)
     # roberta and bart share the roberta-base vocab
     return roberta_tokenizer(clap_cfg.text_max_length)
+
+
+# ---------------------------------------------------------------------------
+# VITS phoneme pipeline
+# ---------------------------------------------------------------------------
+
+PAD_LENGTH = 310
+_PAD = "_"
+_PUNCTUATION = ';:,.!?¡¿—…"«»“” '
+_LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+_LETTERS_IPA = (
+    "ɑɐɒæɓʙβɔɕçɗɖðʤəɘɚɛɜɝɞɟʄɡɠɢʛɦɧħɥʜɨɪʝɭɬɫɮʟɱɯɰŋɳɲɴøɵɸθœɶʘɹɺɾɻʀʁɽʂʃʈʧʉʊʋⱱʌɣɤʍχʎʏʑʐʒʔʡʕʢǀǁǂǃˈˌːˑʼʴʰʱʲʷˠˤ˞↓↑→↗↘'̩'ᵻ"
+)
+_SPECIAL = "♪☎☒☝⚠"
+
+VITS_SYMBOLS = [_PAD] + list(_PUNCTUATION) + list(_LETTERS) + list(_LETTERS_IPA) + list(_SPECIAL)
+_SYMBOL_TO_ID = {s: i for i, s in enumerate(VITS_SYMBOLS)}
+
+_ABBREVIATIONS = [
+    (re.compile(r"\b%s\." % abbr, re.IGNORECASE), full)
+    for abbr, full in [
+        ("mrs", "misess"), ("mr", "mister"), ("dr", "doctor"), ("st", "saint"),
+        ("co", "company"), ("jr", "junior"), ("maj", "major"), ("gen", "general"),
+        ("drs", "doctors"), ("rev", "reverend"), ("lt", "lieutenant"),
+        ("hon", "honorable"), ("sgt", "sergeant"), ("capt", "captain"),
+        ("esq", "esquire"), ("ltd", "limited"), ("col", "colonel"), ("ft", "fort"),
+    ]
+]
+
+
+def _expand_abbreviations(text: str) -> str:
+    for pattern, replacement in _ABBREVIATIONS:
+        text = pattern.sub(replacement, text)
+    return text
+
+
+def text_to_phonemes(text: str) -> str:
+    """english_cleaners2 equivalent (reference
+    phoneme_encoder/text/cleaners.py:89-100): lowercase, abbreviation
+    expansion, espeak IPA phonemization with stress/punctuation. Falls back
+    to cleaned graphemes (all in the VITS symbol set) when espeak is
+    absent."""
+    text = re.sub(r"<.*?>", "", text)  # reference pipeline.py:33-34
+    text = text.lower()
+    text = _expand_abbreviations(text)
+    phonemes = None
+    try:
+        from phonemizer import phonemize
+
+        phonemes = phonemize(
+            text,
+            language="en-us",
+            backend="espeak",
+            strip=True,
+            preserve_punctuation=True,
+            with_stress=True,
+        )
+    except Exception:
+        phonemes = text  # grapheme fallback
+    return re.sub(r"\s+", " ", phonemes)
+
+
+def phoneme_ids(phonemes: List[str], pad_length: int = PAD_LENGTH) -> np.ndarray:
+    """get_vits_phoneme_ids_no_padding equivalent (reference
+    latent_diffusion/util.py:28-49): first entry + "⚠" EOS, unknown -> "_",
+    right-pad with 0 to 310, tiled to the batch."""
+    batchsize = len(phonemes)
+    clean = phonemes[0] + "⚠"
+    seq = [_SYMBOL_TO_ID.get(s, _SYMBOL_TO_ID[_PAD]) for s in clean][:pad_length]
+    seq = seq + [0] * (pad_length - len(seq))
+    return np.tile(np.asarray(seq, np.int32)[None, :], (batchsize, 1))

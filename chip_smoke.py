@@ -18,6 +18,14 @@ width:
           context-free third cross slot whose attn2 runs K2), bf16,
           text_to_audio at n_candidate_gen_per_text = 3 (CFG batch 6), with
           the CLAP rerank (HTSAT-base audio tower, RoBERTa text tower, f32);
+  48k     audioldm_48k (the CLAP text embedding as the UNet's only, FiLM,
+          condition; one context-free slot whose attn2 runs K2; the 48 kHz
+          VAE, 256 mel bins, and vocoder), bf16, text_to_audio at 3
+          candidates with the rerank at batch 1 (CFG batch 6, decode batch
+          3) and at 1 candidate at batch 2;
+  tts     audioldm2-speech-gigaspeech (the VITS phoneme encoder and the CLAP
+          text embedding feeding a 512-token GPT-2 sequence generator, one
+          768-wide context slot), bf16, text_to_audio with a transcription;
   ab      the attention A/B entry point (audioldm2_torch.tools.
           ab_attn_variants) once: the plain version, K2, K7 (v6bd), K8 (v7)
           and scaled_dot_product_attention at the JAX tool's shapes.
@@ -32,12 +40,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   3. kernels: every distinct shape the t5 path gives K1-K4 and K6 (UNet at
      10 s and CFG batch 2, VAE decode at batch 1), the f32 shapes of one
      full-width VAE encode (K1, K6), the full8 path's int8 kernels (its
-     UNet) and the large path's UNet at CFG batch 6, kernel against its
+     UNet), the large path's UNet at CFG batch 6, and the 48k path's UNet
+     at CFG batch 2, VAE decode at batch 1 and f32 VAE encode of a 48 kHz
+     chirp (256 mel bins), kernel against its
      plain PyTorch version, plus one shape per kernel in f32 and the VAE
      decoder's largest K1 and K6 shapes offset by +10 (GroupNorm
      cancellation); K6 at the VAE decoder's norm_out at the batches
      requests also decode (2, 3 and 6: re-read mode, above what the grid's
-     shared memory holds), checked and timed beside its bound, its plain
+     shared memory holds) and at the 48k decoder's at 1, 2 and 3 (67, 134
+     and 201 MB, re-read mode), checked and timed beside its bound, its plain
      version and F.group_norm + F.silu, outside the per-forward sums;
      K1's and K1q's statistics pass and conv timed apart,
      beside K1 and K4 the product alone on the materialised activation
@@ -63,29 +74,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels, scaled_dot_product_attention's (library_ms);
   4. one full-width UNet forward (all leaves non-zero), kernels against the
      all-plain path: the t5 UNet in bf16 and f32, the audioldm2-full UNet
-     in int8 (bf16 activations), the large UNet at CFG batch 6 in bf16 and
-     f32; one full-width f32 VAE encode, kernels against the all-plain
-     path, and its time;
+     in int8 (bf16 activations), the large UNet at CFG batch 6 and the 48k
+     UNet at CFG batch 2 in bf16 and f32; one full-width f32 VAE encode at
+     16 and at 48 kHz, kernels against the all-plain path, and its time;
   5. requests on each path at the reference defaults (10 s, 200 steps,
      guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 and large
-     paths (their median is the p50 latency), one on the full, sr and full8
-     paths, and one at batch 2 on each, with output checks (and, on the full
-     paths, the GPT-2 tokens finite and the CLAP text embedding of unit
-     norm), no CUDA tensor reaching a plain version, no K1 call (bf16 or
-     f32) and no bf16 K4, K1q, K3q, K5 or K4q call reaching the shared GEMM
-     core instead of its own kernel, no split-K workspace allocated, and
-     launch counts,
-     reset to 0 just before the request, equal to the counts computed from
-     the config (the sr path's VAE encode included); the PLMS and DDPM
-     requests likewise, once each at batch 1; on the large path also the
-     rerank: the similarities finite and in [-1, 1], the kept candidate the
-     argmax of each prompt's, the CLAP audio embeddings of unit norm.
+     paths (their median is the p50 latency), one on the full, sr, full8,
+     48k and tts paths, and one at batch 2 on each, with output checks (and,
+     on the paths with a sequence generator, the GPT-2 tokens finite and the
+     CLAP text embedding of unit norm; the walls of the sequence generator
+     and of the vocoder apart), no CUDA tensor reaching a plain version, no
+     K1 call (bf16 or f32) and no bf16 K4, K1q, K3q, K5 or K4q call
+     reaching the shared GEMM core instead of its own kernel, no split-K
+     workspace allocated, and launch counts, reset to 0 just before the
+     request, equal to the counts computed from the config (the sr path's
+     VAE encode included); the PLMS and DDPM requests likewise, once each
+     at batch 1; on the large and 48k paths also the rerank: the
+     similarities finite and in [-1, 1], the kept candidate the argmax of
+     each prompt's, the CLAP audio embeddings of unit norm.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
 in f32; the whole audioldm2-full int8 UNet, whose bf16 rounding alone moves
 its output by more than 2e-2, is held to 1.25 times that movement (see
-FLOOR_FACTOR), and so is the large-1150k UNet in bf16. TF32 is switched off
+FLOOR_FACTOR), and so are the large-1150k and 48k UNets in bf16. TF32 is switched off
 for cuDNN and matmuls, so the f32 plain path is a full-precision oracle (the
 f32 K1 multiplies in 3xTF32, about 22 bits of each operand). K1q, K3q and
 K4q round their activation to bf16 even in f32, as the Pallas kernels do;
@@ -112,6 +124,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T5_MODEL = "audioldm_16k_crossattn_t5"
 FULL_MODEL = "audioldm2-full"
 LARGE_MODEL = "audioldm2-full-large-1150k"
+K48_MODEL = "audioldm_48k"
+TTS_MODEL = "audioldm2-speech-gigaspeech"
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
 ROUND_ONCE_SHARE = 1e-3
@@ -400,17 +414,29 @@ def workspaces_counted(out):
 @contextlib.contextmanager
 def conditioning_recorded(out):
     """Record the GPT-2 tokens, the CLAP text and audio embeddings a request
-    makes, and each rerank's candidates, batch size and kept waveforms."""
+    makes, each rerank's candidates, batch size and kept waveforms, and the
+    walls of the sequence generator and the vocoder (the device synchronized
+    before and after each) with the vocoder's operations."""
+    import torch
     from audioldm2_torch import pipeline
-    from audioldm2_torch.models import clap, sequence_gen
+    from audioldm2_torch.models import clap, sequence_gen, vocoder
 
     saved = (clap.text_embedding, clap.audio_embedding, sequence_gen.generate,
-             pipeline.rerank_and_select)
+             pipeline.rerank_and_select, vocoder.apply_vocoder)
 
-    def recorder(key, fn):
+    def recorder(key, fn, wall_key=None, ops=None):
         def wrapped(*a, **kw):
+            if wall_key:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
             got = fn(*a, **kw)
-            out.setdefault(key, []).append(got)
+            if wall_key:
+                torch.cuda.synchronize()
+                out.setdefault(wall_key, []).append(time.perf_counter() - t0)
+            if key:
+                out.setdefault(key, []).append(got)
+            if ops:
+                out.setdefault(wall_key + "_ops", []).append(ops(*a))
             return got
         return wrapped
 
@@ -421,13 +447,32 @@ def conditioning_recorded(out):
 
     clap.text_embedding = recorder("clap", saved[0])
     clap.audio_embedding = recorder("clap_audio", saved[1])
-    sequence_gen.generate = recorder("gpt2", saved[2])
+    sequence_gen.generate = recorder("gpt2", saved[2], "gpt2_s")
     pipeline.rerank_and_select = rerank_and_select
+    vocoder.apply_vocoder = recorder(None, saved[4], "vocoder_s",
+                                     lambda p, cfg, mel: vocoder_ops(cfg, tuple(mel.shape)))
     try:
         yield
     finally:
         (clap.text_embedding, clap.audio_embedding, sequence_gen.generate,
-         pipeline.rerank_and_select) = saved
+         pipeline.rerank_and_select, vocoder.apply_vocoder) = saved
+
+
+def vocoder_ops(cfg, mel_shape) -> float:
+    """Operations (two a multiply-add) of one apply_vocoder call on a mel of
+    ``mel_shape`` [B, T, num_mels]: each conv's 2 k Cin Cout a sample it
+    writes (a transposed conv's a sample it reads)."""
+    b, length, _ = mel_shape
+    ch = cfg.upsample_initial_channel
+    convs = 2 if cfg.resblock == "1" else 1
+    ops = 2 * 7 * cfg.num_mels * ch * length  # conv_pre
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        cin, cout = ch >> i, ch >> (i + 1)
+        ops += 2 * k * cin * cout * length
+        length = (length - 1) * u - 2 * ((k - u) // 2) + k
+        ops += sum(2 * convs * len(d) * ks * cout * cout * length
+                   for ks, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+    return b * (ops + 2 * 7 * (ch >> len(cfg.upsample_rates)) * length)  # + conv_post
 
 
 def exact_f32_args(name, args, seed: int = 0):
@@ -822,9 +867,11 @@ def phase_rounding(device):
 
 
 def _ctx_inputs(cfg, device, g, batch: int = 2):
-    """One bf16 context per set cross slot (a None slot takes none) at CFG
-    batch ``batch`` and its mask: the unconditional half keeps one token,
-    the conditional half a tenth."""
+    """The UNet's conditioning at CFG batch ``batch``: (one bf16 context per
+    set cross slot (a None slot takes none), their masks, the FiLM y or
+    None). A T5 context's unconditional half keeps one token, its
+    conditional half a tenth; y, where the config has a FiLM condition, is
+    a unit-norm row per sample (as the CLAP text embedding is)."""
     import torch
 
     n_tok = {1024: 128, 768: 8}  # T5 tokens; the GPT-2 sequence generator's 8
@@ -837,14 +884,24 @@ def _ctx_inputs(cfg, device, g, batch: int = 2):
             mask[:batch // 2, 1:] = 0.0
             mask[batch // 2:, n // 10:] = 0.0
         masks.append(mask)
-    return ctxs, masks
+    y = None
+    if cfg.unet.extra_film_condition_dim is not None:
+        y = torch.randn((batch, cfg.unet.extra_film_condition_dim), generator=g, device=device)
+        y = (y / torch.linalg.vector_norm(y, dim=-1, keepdim=True)).to(torch.bfloat16)
+    return ctxs, masks, y
 
 
-def discover_calls(cfg, unet_f32, vae_p, ctxs, masks, device):
-    """One UNet forward (10 s, the contexts' CFG batch) with the config's
-    per-call transforms (int8 ones included) and, when vae_p is given, one
-    VAE decode (batch 1), through the kernels, recording the first call of
-    each distinct shape and how many calls each shape gets."""
+def _cond_batch(cond) -> int:
+    ctxs, _, y = cond
+    return (ctxs[0] if ctxs else y).shape[0]
+
+
+def discover_calls(cfg, unet_f32, vae_p, cond, device):
+    """One UNet forward (10 s, the conditioning's CFG batch; cond from
+    _ctx_inputs) with the config's per-call transforms (int8 ones included)
+    and, when vae_p is given, one VAE decode (batch 1), through the kernels,
+    recording the first call of each distinct shape and how many calls each
+    shape gets."""
     import torch
     from audioldm2_torch.diffusion.latent_diffusion import prepare_unet
     from audioldm2_torch.models import unet, vae
@@ -858,13 +915,14 @@ def discover_calls(cfg, unet_f32, vae_p, ctxs, masks, device):
             first[sig] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
     g = torch.Generator(device=device).manual_seed(11)
-    batch = ctxs[0].shape[0]
+    ctxs, masks, y = cond
+    batch = _cond_batch(cond)
     x = torch.randn((batch, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
                     generator=g, device=device).to(torch.bfloat16)
     t = torch.full((batch,), 500, dtype=torch.int32, device=device)
     with torch.inference_mode(), patched_dispatch("record", record):
         unet_p, kv = prepare_unet({"unet": unet_f32}, cfg, ctxs)
-        unet.apply_unet(unet_p, cfg.unet, x, t, ctxs, masks, cross_kv=kv)
+        unet.apply_unet(unet_p, cfg.unet, x, t, ctxs, masks, y=y, cross_kv=kv)
         if vae_p is not None:
             z = torch.randn((1, cfg.latent_t_size, cfg.latent_f_size, cfg.vae.embed_dim),
                             generator=g, device=device).to(torch.bfloat16)
@@ -928,7 +986,7 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
     names = sorted({sig[0] for sig in first}, key=list(KERNELS).index)
     stats = {k: new_stats() for k in names}
     failures = []
-    vae_ms = {}  # kernel ms of the VAE's calls (its norms have eps 1e-6), apart from the UNet's
+    vae = {}  # the VAE's calls (its norms have eps 1e-6), apart from the UNet's
 
     for sig, args in first.items():
         name = sig[0]
@@ -967,7 +1025,11 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
                              f"({side['parent_ms'] / res[2]:.2f}x this kernel)")
             log("       " + "; ".join(parts))
         if offset_check and sig[-1] == 1e-6:
-            vae_ms[name] = vae_ms.get(name, 0.0) + n * res[2]
+            part = vae.setdefault(name, dict.fromkeys(("ms", "plain", "bound", "yardstick"), 0.0))
+            for key, ms in (("ms", res[2]), ("plain", res[3]),
+                            ("bound", max(bound_times(name, args))),
+                            ("yardstick", side.get("yardstick_ms", 0.0))):
+                part[key] += n * ms
 
     # one shape per kernel in f32 (the smallest recorded), TF32 off
     for name in names if f32_pass else ():
@@ -1012,9 +1074,11 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         log(f"  {name}: {st['shapes']} shapes, one forward: "
             f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
             f"{st['bound_ms']:.3f} ms{lib}{side}")
-        if name in vae_ms:
-            log(f"    of which the UNet forward {st['ms'] - vae_ms[name]:.3f} ms and the VAE "
-                f"decode {vae_ms[name]:.3f} ms")
+        if name in vae:
+            v = vae[name]
+            log(f"    of which the UNet forward {st['ms'] - v['ms']:.3f} ms and the VAE decode "
+                f"{v['ms']:.3f} ms (plain {v['plain']:.3f}, bound {v['bound']:.3f}, yardstick "
+                f"{v['yardstick']:.3f})")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return stats
@@ -1025,13 +1089,15 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
 DECODE_BATCHES = (2, 3, 6)
 
 
-def phase_k6_batches(first, stats):
+def phase_k6_batches(first, stats, batches=DECODE_BATCHES):
     """K6 at the VAE decoder's norm_out (the recorded batch-1 call's x, each
-    further sample offset by 0.5) at DECODE_BATCHES: one launch, against
-    the plain version, timed beside its bound and F.group_norm + F.silu.
-    The plan's mode is printed; at 33.5 MB and more the grid's shared
-    memory cannot hold x, so each block holds its last rows and reads the
-    others twice (re-read mode). Kept out of the per-forward sums."""
+    further sample offset by 0.5) at ``batches``: one launch, against the
+    plain version, timed beside its bound and F.group_norm + F.silu. The
+    plan's mode is printed; at 33.5 MB and more the grid's shared memory
+    cannot hold x, so each block holds its last rows and reads the others
+    twice (re-read mode: the t5 decoder's at batch 2 and up, the 48k
+    decoder's 67 MB a sample at every batch). Kept out of the per-forward
+    sums."""
     import torch
     from audioldm2_torch.ops import _build
 
@@ -1040,7 +1106,7 @@ def phase_k6_batches(first, stats):
               key=lambda s: math.prod(s[1][0]))
     x, *rest = first[sig]
     failures = []
-    for batch in DECODE_BATCHES:
+    for batch in batches:
         ones = [1] * (x.dim() - 1)
         shift = 0.5 * torch.arange(batch, device=x.device, dtype=torch.float32)
         xb = (x.float().repeat(batch, *ones) + shift.view(-1, *ones)).to(x.dtype)
@@ -1178,11 +1244,11 @@ def phase_variants(large_first, device):
     return stats
 
 
-def unet_eps(cfg, unet_f32, ctxs, masks, device, dt, plain: bool = False):
-    """One UNet forward (the contexts' CFG batch, t = 981) in compute dtype
-    ``dt`` with the config's per-call transforms (int8 ones included),
-    through the kernels or, with ``plain``, through every kernel's plain
-    version."""
+def unet_eps(cfg, unet_f32, cond, device, dt, plain: bool = False):
+    """One UNet forward (the conditioning's CFG batch, t = 981) in compute
+    dtype ``dt`` with the config's per-call transforms (int8 ones
+    included), through the kernels or, with ``plain``, through every
+    kernel's plain version."""
     import dataclasses
 
     import torch
@@ -1190,7 +1256,8 @@ def unet_eps(cfg, unet_f32, ctxs, masks, device, dt, plain: bool = False):
     from audioldm2_torch.models import unet
 
     g = torch.Generator(device=device).manual_seed(12)
-    batch = ctxs[0].shape[0]
+    ctxs, masks, y = cond
+    batch = _cond_batch(cond)
     x = torch.randn((batch, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
                     generator=g, device=device)
     t = torch.full((batch,), 981, dtype=torch.int32, device=device)
@@ -1199,7 +1266,8 @@ def unet_eps(cfg, unet_f32, ctxs, masks, device, dt, plain: bool = False):
     c = [ctx.to(dt) for ctx in ctxs]
     with torch.inference_mode(), (patched_dispatch("plain") if plain else contextlib.nullcontext()):
         p, kv = prepare_unet({"unet": unet_f32}, dcfg, c)
-        eps = unet.apply_unet(p, cfg.unet, x.to(dt), t, c, masks, cross_kv=kv).float()
+        eps = unet.apply_unet(p, cfg.unet, x.to(dt), t, c, masks,
+                              y=None if y is None else y.to(dt), cross_kv=kv).float()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(eps).all()):
         raise AssertionError(f"UNet forward ({'plain' if plain else 'kernels'}, {dt}) "
@@ -1246,7 +1314,8 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
     read just after; checks the output, the conditioning, that no CUDA
     tensor reached a plain version, that no bf16 call reached the shared
     core, the counts and that no split-K workspace was allocated. Returns
-    (wall, counts)."""
+    (wall, counts, {stage: wall}) with the sequence generator's and the
+    vocoder's walls."""
     import numpy as np
     import torch
     from audioldm2_torch import ops
@@ -1294,6 +1363,11 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
     if cond.get("gpt2"):
         log(f"    GPT-2 tokens {[tuple(t.shape) for t in cond['gpt2']]} finite; CLAP "
             f"embeddings {[tuple(e.shape) for e in cond['clap']]} of unit norm")
+    stages = {k: sum(cond[k]) for k in ("gpt2_s", "vocoder_s") if cond.get(k)}
+    voc_ops = sum(cond.get("vocoder_s_ops", []))
+    log(f"    walls: sequence generator {stages.get('gpt2_s', 0.0):.3f} s, vocoder "
+        f"{stages.get('vocoder_s', 0.0):.3f} s ({voc_ops / 1e12:.3f} TFLOP, "
+        f"{voc_ops / 1e12 / max(stages.get('vocoder_s', 0.0), 1e-9):.1f} TF/s)")
     for cands, b, n, kept in cond.get("rerank", []):
         if n <= 1:
             continue
@@ -1311,14 +1385,15 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
             f"norm; rerank_s {model.last_timings['rerank_s']:.4f}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
-    return wall, counts
+    return wall, counts, stages
 
 
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
            ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
-# the full, sr and full8 paths: one batch-1 and one batch-2 request, so that
-# the whole run keeps well inside its time on a slow host
+# the full, sr, full8, 48k and tts paths: one batch-1 and one batch-2
+# request, so that the whole run keeps well inside its time on a slow host
 PROMPTS_SHORT = PROMPTS[2:]
+TRANSCRIPTION = "The quick brown fox jumps over the lazy dog, twice."
 
 
 def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str,
@@ -1328,17 +1403,20 @@ def phase_requests(tag, model, request, expected, steps: int, duration: float, l
     by default) through ``request(prompt, batchsize, steps, duration)``;
     returns the launch counts of the first request and the timings."""
     request("warm up", 1, 10, 2.5)
-    launches, walls = None, {1: [], 2: []}
+    launches, walls, stage_walls = None, {1: [], 2: []}, {}
     for prompt, bsz in prompts or PROMPTS:
-        wall, counts = one_request(model, lambda b: request(prompt, b, steps, duration),
-                                   expected, bsz, duration, f"{label}, {steps} steps")
+        wall, counts, stages = one_request(model, lambda b: request(prompt, b, steps, duration),
+                                           expected, bsz, duration, f"{label}, {steps} steps")
         launches = launches or counts
         walls[bsz].append(wall)
+        for k, v in stages.items():
+            stage_walls.setdefault(k, []).append(round(v, 4))
     p50 = sorted(walls[1])[len(walls[1]) // 2]
     s_audio = duration * 2 / walls[2][0]
     log(f"  path {tag} end to end ({duration} s clips, {steps} steps): p50 latency at batch 1 "
         f"{p50:.3f} s over {len(walls[1])} requests; {s_audio:.3f} s-audio/s at batch 2")
-    return launches, {"p50_s": p50, "s_audio_per_s": s_audio}
+    return launches, {"p50_s": p50, "s_audio_per_s": s_audio, "batch1_s": walls[1],
+                      "batch2_s": walls[2], **stage_walls}
 
 
 def write_wav(path: str, sr: int, seconds: float) -> str:
@@ -1369,7 +1447,7 @@ def phase_ab(device):
     return counts, {r["label"]: {"ms": r["ms"], "max_abs_err": r["max_abs_err"]} for r in rows}
 
 
-def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
+def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, duration: float):
     """The requests of every path; returns {path: launch counts of its first
     request} and {path: timings}."""
     import dataclasses
@@ -1393,7 +1471,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
         "t5", model, t2a(model), expect(model.cfg, steps), steps, duration,
         "text_to_audio ddim, guidance 3.5")
     for sampler in ("plms", "ddpm"):
-        wall, launches[f"t5_{sampler}"] = one_request(
+        wall, launches[f"t5_{sampler}"], _ = one_request(
             model, lambda b: t2a(model, sampler=sampler)("A bell tolling twice.", b, steps,
                                                          duration),
             expect(model.cfg, steps, sampler), 1, duration,
@@ -1430,6 +1508,25 @@ def phase_5(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     launches["large"], e2e["large"] = phase_requests(
         "large", model, t2a(model, n=3), expect(model.cfg, steps), steps, duration,
         "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP")
+    del model
+
+    model = build("48k", k48_cfg, device)
+    three, one = t2a(model, n=3), t2a(model)
+
+    def k48_request(prompt, bsz, n_steps, dur):  # 3 candidates at batch 1, 1 at batch 2
+        return (three if bsz == 1 else one)(prompt, bsz, n_steps, dur)
+
+    launches["48k"], e2e["48k"] = phase_requests(
+        "48k", model, k48_request, expect(model.cfg, steps), steps, duration,
+        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP at batch 1, 1 at "
+        "batch 2", PROMPTS_SHORT)
+    del model
+
+    model = build("tts", tts_cfg, device)
+    launches["tts"], e2e["tts"] = phase_requests(
+        "tts", model, t2a(model, transcription=TRANSCRIPTION), expect(model.cfg, steps), steps,
+        duration, f"text_to_audio ddim, guidance 3.5, transcription {TRANSCRIPTION!r}",
+        PROMPTS_SHORT)
     return launches, e2e
 
 
@@ -1446,7 +1543,7 @@ def _leaves(tree):
         yield tree
 
 
-def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
+def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, duration: float):
     """Phases 2-5 at the configs' widths on ``device``; returns the
     per-kernel stats of phase 3 and the launch counts of the first request
     of each path."""
@@ -1463,15 +1560,15 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     t5_unet = unet.init_unet(ini, t5_cfg.unet)
     vae_f32 = init_vae(ini, t5_cfg.vae)
     vae_p = cast_floating(vae_f32, torch.bfloat16)
-    t5_ctx, t5_mask = _ctx_inputs(t5_cfg, device, g)
+    t5_cond = _ctx_inputs(t5_cfg, device, g)
     full8_cfg = dataclasses.replace(full_cfg, weight_quant="int8")
 
     full_unet = unet.init_unet(ini, full_cfg.unet)
-    full_ctx, full_mask = _ctx_inputs(full_cfg, device, g)
+    full_cond = _ctx_inputs(full_cfg, device, g)
 
     log("== phase 3: kernels against their plain versions")
     log("  -- t5 path: K1-K4, K6 (UNet forward + VAE decode)")
-    t5_first, t5_counts = discover_calls(t5_cfg, t5_unet, vae_p, t5_ctx, t5_mask, device)
+    t5_first, t5_counts = discover_calls(t5_cfg, t5_unet, vae_p, t5_cond, device)
     stats = phase_kernels(t5_first, t5_counts, offset_check=True)
     log("  -- K6 at the VAE decoder's norm_out, batches " + ", ".join(map(str, DECODE_BATCHES)))
     phase_k6_batches(t5_first, stats)
@@ -1485,26 +1582,45 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     for name, st in enc_stats.items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
     log("  -- full8 path: the int8 kernels (UNet forward; its K2 shapes are the t5 path's)")
-    first, counts = discover_calls(full8_cfg, full_unet, None, full_ctx, full_mask, device)
+    first, counts = discover_calls(full8_cfg, full_unet, None, full_cond, device)
     int8 = {s: a for s, a in first.items() if s[0] not in stats}
     stats.update(phase_kernels(int8, counts, offset_check=False))
     del first, int8
     log("  -- large path: K1-K4, K6 on the large-1150k UNet at CFG batch 6 (K2 also on the "
         "None slot's attn2)")
     large_unet = unet.init_unet(ini, large_cfg.unet)
-    large_ctx, large_mask = _ctx_inputs(large_cfg, device, g, batch=6)
-    large_first, large_counts = discover_calls(large_cfg, large_unet, None, large_ctx,
-                                               large_mask, device)
+    large_cond = _ctx_inputs(large_cfg, device, g, batch=6)
+    large_first, large_counts = discover_calls(large_cfg, large_unet, None, large_cond, device)
     large_stats = phase_kernels(large_first, large_counts, offset_check=False, f32_pass=False)
     for name, st in large_stats.items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+    log("  -- 48k path: K1-K4, K6 on the 48k UNet at CFG batch 2 (FiLM y, K2 also on the None "
+        "slot's attn2) and its VAE decode at batch 1 (1024 x 256 mel, four levels)")
+    k48_unet = unet.init_unet(ini, k48_cfg.unet)
+    k48_vae_f32 = init_vae(ini, k48_cfg.vae)
+    k48_cond = _ctx_inputs(k48_cfg, device, g)
+    k48_first, k48_counts = discover_calls(k48_cfg, k48_unet,
+                                           cast_floating(k48_vae_f32, torch.bfloat16), k48_cond,
+                                           device)
+    k48_stats = phase_kernels(k48_first, k48_counts, offset_check=True, f32_pass=False)
+    log("  -- K6 at the 48k VAE decoder's norm_out, batches 1, 2, 3")
+    phase_k6_batches(k48_first, k48_stats, (1, 2, 3))
+    del k48_first
+    log("  -- 48k sr path: K1 and K6 in f32 (one full-width VAE encode of a 48 kHz chirp's "
+        "256-bin log-mel)")
+    k48_mel = encoder_mel(k48_cfg, device, duration)
+    k48_enc = phase_kernels(*discover_encode_calls(k48_cfg, k48_vae_f32, k48_mel),
+                            offset_check=False, f32_pass=False)
+    for part in (k48_stats, k48_enc):
+        for name, st in part.items():
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
     log("  -- K7 (v6bd) and K8 (v7), the A/B entry point's kernels")
     stats.update(phase_variants(large_first, device))
     del large_first
 
     log("== phase 4: full-width UNet forward, kernels against the all-plain path")
     bf16, f32 = torch.bfloat16, torch.float32
-    t5_args = (t5_cfg, t5_unet, t5_ctx, t5_mask, device)
+    t5_args = (t5_cfg, t5_unet, t5_cond, device)
     ref = unet_eps(*t5_args, f32, plain=True)
     unet_check("t5 bf16", unet_eps(*t5_args, bf16), unet_eps(*t5_args, bf16, plain=True), ref,
                BF16_TOL)
@@ -1512,7 +1628,7 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     del t5_unet
     # int8: the f32 reference is the all-plain int8 forward in f32 (bf16-rounded
     # activations, f32 everything else)
-    full8_args = (full8_cfg, full_unet, full_ctx, full_mask, device)
+    full8_args = (full8_cfg, full_unet, full_cond, device)
     eps_int8 = unet_eps(*full8_args, bf16)
     plain8, ref8 = unet_eps(*full8_args, bf16, plain=True), unet_eps(*full8_args, f32, plain=True)
     floor = rel_err(plain8, ref8)[1]
@@ -1521,7 +1637,7 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
         f"{FLOOR_FACTOR:g} x that)")
     unet_check("audioldm2-full int8 (bf16 activations)", eps_int8, plain8, ref8,
                max(BF16_TOL, FLOOR_FACTOR * floor))
-    full_args = (full_cfg, full_unet, full_ctx, full_mask, device)
+    full_args = (full_cfg, full_unet, full_cond, device)
     eps_bf16 = unet_eps(*full_args, bf16)
     for tag, y in (("bf16", eps_bf16), ("int8", eps_int8)):
         d, r = rel_err(y, unet_eps(*full_args, f32, plain=True))
@@ -1531,7 +1647,7 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
     log(f"  (information) audioldm2-full int8 eps against bf16 eps: max_abs_err {d:.3e} "
         f"rel {r:.3e}")
     del full_unet, eps_bf16, eps_int8
-    large_args = (large_cfg, large_unet, large_ctx, large_mask, device)
+    large_args = (large_cfg, large_unet, large_cond, device)
     ref_l = unet_eps(*large_args, f32, plain=True)
     plain_l = unet_eps(*large_args, bf16, plain=True)
     floor_l = rel_err(plain_l, ref_l)[1]
@@ -1541,10 +1657,22 @@ def run(t5_cfg, full_cfg, large_cfg, device, steps: int, duration: float):
                max(BF16_TOL, FLOOR_FACTOR * floor_l))
     unet_check("large-1150k f32", unet_eps(*large_args, f32), ref_l, ref_l, F32_TOL)
     del large_unet, ref_l, plain_l
+    k48_args = (k48_cfg, k48_unet, k48_cond, device)
+    ref_k = unet_eps(*k48_args, f32, plain=True)
+    plain_k = unet_eps(*k48_args, bf16, plain=True)
+    floor_k = rel_err(plain_k, ref_k)[1]
+    log(f"  48k, CFG batch 2 (FiLM): bf16 rounding alone moves eps by {floor_k:.3e}; the kernels "
+        f"are held to max({BF16_TOL:g}, {FLOOR_FACTOR:g} x that)")
+    unet_check("48k bf16", unet_eps(*k48_args, bf16), plain_k, ref_k,
+               max(BF16_TOL, FLOOR_FACTOR * floor_k))
+    unet_check("48k f32", unet_eps(*k48_args, f32), ref_k, ref_k, F32_TOL)
+    del k48_unet, ref_k, plain_k
     encode_check(full_cfg, vae_f32, mel)
-    del vae_f32, mel
+    encode_check(k48_cfg, k48_vae_f32, k48_mel)
+    del vae_f32, mel, k48_vae_f32, k48_mel
 
-    launches, e2e = phase_5(t5_cfg, full_cfg, large_cfg, device, steps, duration)
+    launches, e2e = phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps,
+                            duration)
     return stats, launches, e2e
 
 
@@ -1555,7 +1683,8 @@ def encode_check(cfg, vae_f32, mel):
     from audioldm2_torch.models import vae
     from audioldm2_torch.ops.nn import full_f32
 
-    log("== phase 4: full-width f32 VAE encode, kernels against the all-plain path")
+    log(f"== phase 4: full-width f32 VAE encode ({cfg.name}), kernels against the all-plain "
+        "path")
 
     def encode():
         return torch.cat(vae.encode_moments(vae_f32, cfg.vae, mel), dim=-1)
@@ -1614,9 +1743,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     phase_device()
-    stats, launches, e2e = run(at.default_audioldm_config(T5_MODEL),
-                               at.default_audioldm_config(FULL_MODEL),
-                               at.default_audioldm_config(LARGE_MODEL), "cuda", args.steps, 10.0)
+    stats, launches, e2e = run(*(at.default_audioldm_config(name) for name in
+                                 (T5_MODEL, FULL_MODEL, LARGE_MODEL, K48_MODEL, TTS_MODEL)),
+                               "cuda", args.steps, 10.0)
     log(f"end to end: {json.dumps(e2e)}")
     record = kernel_record(stats, launches)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -592,11 +592,15 @@ def test_int8_matmul_kernel(cuda, dt, M, K, N, with_bias):
 
 
 # K1 in f32 on its own kernel (3xTF32): every shape of one full-width VAE
-# encode (vae.encode_conv_shapes), the same with the input channels split
-# into a concat [x1 ; x2], and the encoder's largest and deepest shapes
-# offset by +10 (GroupNorm cancellation at S = 65536 and K = 4608)
+# encode (vae.encode_conv_shapes) at 16 kHz and at 48 kHz (256 mel bins:
+# tiles narrower than F, several along it), the same with the input
+# channels split into a concat [x1 ; x2], and each shape offset by +10
+# (GroupNorm cancellation at S up to 262144 and K up to 9216)
 ENCODE_K1 = [(1, 1024, 64, 128, 0, 128), (1, 512, 32, 128, 0, 256), (1, 512, 32, 256, 0, 256),
-             (1, 256, 16, 256, 0, 512), (1, 256, 16, 512, 0, 512)]
+             (1, 256, 16, 256, 0, 512), (1, 256, 16, 512, 0, 512),
+             (1, 1024, 256, 128, 0, 128), (1, 512, 128, 128, 0, 256), (1, 512, 128, 256, 0, 256),
+             (1, 256, 64, 256, 0, 512), (1, 128, 32, 512, 0, 1024),
+             (1, 128, 32, 1024, 0, 1024)]
 ENCODE_K1_CAT = [(b, t, f, c1 // 2, c1 - c1 // 2, cout) for b, t, f, c1, _, cout in ENCODE_K1]
 
 
@@ -679,14 +683,17 @@ def test_f32_k1_gives_the_same_bits_twice(cuda):
 # C no multiple of 8 (scalar path), tensors above what the grid's shared
 # memory holds (re-read mode: the VAE decoder's norm_out at batch 2 and 3,
 # 67 and 134 MB in f32, and in f32 rows of 36 channels and wide rows of
-# 520), and batches above the SM count (samples in turn)
+# 520; the 48k VAE decoder's norm_out at batch 1, 2 and 3, 67 to 201 MB in
+# bf16), and batches above the SM count (samples in turn)
 K6_SHAPES = [((2, 256, 16, 128), 32, 1e-5), ((6, 256, 16, 128), 32, 1e-5),
              ((1, 1024, 64, 128), 32, 1e-6), ((1, 256, 16, 512), 32, 1e-6),
              ((3, 100, 7, 256), 32, 1e-5), ((4, 33, 64), 32, 1e-5), ((5, 9, 3, 64), 32, 1e-5),
              ((2, 7, 5, 36), 4, 1e-5), ((1, 2048, 64, 128), 32, 1e-6),
              ((1, 4096, 64, 128), 32, 1e-6), ((2, 1024, 64, 128), 32, 1e-6),
              ((3, 1024, 64, 128), 32, 1e-6), ((140, 8, 4, 64), 32, 1e-5),
-             ((300, 16, 36), 4, 1e-5), ((1, 512, 512, 36), 4, 1e-5), ((1, 16384, 520), 4, 1e-5)]
+             ((300, 16, 36), 4, 1e-5), ((1, 512, 512, 36), 4, 1e-5), ((1, 16384, 520), 4, 1e-5),
+             ((1, 1024, 256, 128), 32, 1e-6), ((2, 1024, 256, 128), 32, 1e-6),
+             ((3, 1024, 256, 128), 32, 1e-6)]
 
 
 @pytest.mark.parametrize("offset", [0.0, 10.0])

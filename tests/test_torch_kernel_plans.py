@@ -2,8 +2,9 @@
 
 ``_build.ln_matmul_plan`` is plain Python: it picks rows per block, N-tile
 width, strip length and ring depth from (M, C, N) and the SM count. Held
-here for every (M, C, N) that one UNet forward of the t5, audioldm2-full
-and large-1150k configs gives K3 at CFG batch 2 and 6, and for the ragged
+here for every (M, C, N) that one UNet forward of the t5, audioldm2-full,
+large-1150k, 48k and speech configs gives K3 at CFG batch 2 and 6, and for
+the ragged
 shapes of the GPU tests: the strips cover every column exactly once, the
 block fits the shared memory a Hopper block may use, the K tiles cover C
 (the kernel zero-fills past it), and the grid fills the SMs the shape could
@@ -21,7 +22,11 @@ from audioldm2_torch.ops import _build
 
 SMS = 132  # an H100 SXM
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
-CONFIGS = ("audioldm_16k_crossattn_t5", "audioldm2-full", "audioldm2-full-large-1150k")
+CONFIGS = ("audioldm_16k_crossattn_t5", "audioldm2-full", "audioldm2-full-large-1150k",
+           "audioldm_48k", "audioldm2-speech-gigaspeech")
+# the batches a VAE decodes on the main paths: a request at batch 1 or 2, of
+# one or three candidates
+DECODE_BATCHES = (1, 2, 3, 6)
 RAGGED = [(100, 384, 200), (128, 320, 200), (128, 640, 1920), (70, 40, 72), (300, 648, 136),
           (1, 64, 64), (6144, 256, 768), (1536, 384, 384), (128, 640, 5120)]
 
@@ -249,21 +254,23 @@ def test_timing_tool_sums_each_forward_from_its_calls():
 # ---------------------------------------------------------------------------
 
 FORWARDS = [("audioldm_16k_crossattn_t5", 2), ("audioldm_16k_crossattn_t5", 6),
-            ("audioldm2-full-large-1150k", 6)]
+            ("audioldm2-full-large-1150k", 6), ("audioldm_48k", 2), ("audioldm_48k", 6)]
 PLAN_SMS = [132, 108, 78]
 
 
 @pytest.mark.parametrize("name,batch", FORWARDS)
 def test_conv_and_geglu_shapes_add_up_to_the_launch_count(name, batch):
     """K1's (B, T, F, C1, C2, Cout) and K4's (M, F, N) per UNet forward: the
-    ResBlocks' convs at the four levels of the 10 s latent (C2 > 0 on the
-    decoder's concat), the GEGLU proj_out of every transformer block."""
+    ResBlocks' convs at the four levels of the 10 s latent (256 x 16, or
+    the 48k family's 128 x 32; C2 > 0 on the decoder's concat), the GEGLU
+    proj_out of every transformer block."""
     cfg = at.default_audioldm_config(name)
     size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
     launches = unet.kernel_launches_per_forward(cfg.unet)
     convs = unet.conv_shapes(*size)
     assert sum(convs.values()) == launches["gn_silu_conv3x3"] == 44
-    assert {(t, f) for _, t, f, _, _, _ in convs} == {(256, 16), (128, 8), (64, 4), (32, 2)}
+    t0, f0 = (128, 32) if name == "audioldm_48k" else (256, 16)
+    assert {(t, f) for _, t, f, _, _, _ in convs} == {(t0 >> k, f0 >> k) for k in range(4)}
     assert all(b == batch for b, *_ in convs) and any(c2 for *_, c2, _ in convs)
     geglu = unet.geglu_matmul_shapes(*size)
     assert sum(geglu.values()) == launches["geglu_matmul"]
@@ -291,8 +298,25 @@ def _conv_main_path_shapes():
         for batch in (2, 6):
             shapes |= set(unet.conv_shapes(cfg.unet, batch, cfg.latent_t_size,
                                            cfg.latent_f_size))
-        shapes |= set(vae.decode_conv_shapes(cfg.vae, 1, cfg.latent_t_size, cfg.latent_f_size))
+        for batch in DECODE_BATCHES:
+            shapes |= set(vae.decode_conv_shapes(cfg.vae, batch, cfg.latent_t_size,
+                                                 cfg.latent_f_size))
     return sorted(shapes)
+
+
+def test_48k_vae_decode_conv_shapes_add_up_to_the_launch_count():
+    """The 48k VAE decoder: 28 K1 calls over four levels, from 128 x 32 at
+    1024 channels to 1024 x 256 at 128 (the largest K1 calls of any path:
+    262,144 positions a sample), at every batch a request decodes."""
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config("audioldm_48k")
+    for batch in DECODE_BATCHES:
+        got = vae.decode_conv_shapes(cfg.vae, batch, cfg.latent_t_size, cfg.latent_f_size)
+        assert sum(got.values()) == vae.kernel_launches_per_decode(cfg.vae)["gn_silu_conv3x3"]
+        assert sum(got.values()) == 28 and got[(batch, 1024, 256, 128, 0, 128)] == 5
+        assert {(c, co) for *_, c, _, co in got} >= {(1024, 1024), (256, 128)}
+        assert set(got) <= set(CONV_SHAPES)
 
 
 CONV_HALO = [(1, 1, 24, 64, 0, 64), (2, 40, 1, 64, 0, 128), (1, 96, 2, 128, 0, 128),
@@ -484,7 +508,9 @@ def test_gn_stats_chunks_cover_every_row_once(s, cin):
 @pytest.mark.parametrize("name,batch,k3q,k1q,k5,k4q", [
     ("audioldm2-full", 2, 144, 44, 96, 48),
     ("audioldm2-full-large-1150k", 6, 352, 44, 288, 128),
-    ("audioldm_16k_crossattn_t5", 2, 96, 44, 64, 32)])
+    ("audioldm_16k_crossattn_t5", 2, 96, 44, 64, 32),
+    ("audioldm_48k", 2, 80, 44, 80, 32), ("audioldm_48k", 6, 80, 44, 80, 32),
+    ("audioldm2-speech-gigaspeech", 2, 96, 44, 64, 32)])
 def test_int8_shapes_add_up_to_the_launch_count(name, batch, k3q, k1q, k5, k4q):
     """A quantized forward's K3q, K1q, K5 and K4q shapes (weight_quant=
     "int8"): their calls sum to the int8 launch counts, and every K3q, K1q
@@ -521,6 +547,25 @@ FULL8_K3Q, FULL8_K1Q, FULL8_K5_CALLS, FULL8_K4Q_CALLS = _full8_shapes()
 FULL8_K5, FULL8_K4Q = sorted(FULL8_K5_CALLS), sorted(FULL8_K4Q_CALLS)
 
 
+def _k48_int8_shapes():
+    """The 48k UNet's K3q, K1q, K5 and K4q shapes at CFG batch 2 and 6 that
+    the full8 forward does not give."""
+    cfg = at.default_audioldm_config("audioldm_48k")
+    out = [set(), set(), set(), set()]
+    for batch in (2, 6):
+        size = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+        for got, shapes in zip(out, (unet.ln_matmul_shapes(*size, weight_quant="int8"),
+                                     unet.conv_shapes(*size, weight_quant="int8"),
+                                     unet.int8_matmul_shapes(*size),
+                                     unet.geglu_matmul_shapes(*size, weight_quant="int8"))):
+            got |= set(shapes)
+    return [sorted(got - set(full)) for got, full in
+            zip(out, (FULL8_K3Q, FULL8_K1Q, FULL8_K5, FULL8_K4Q))]
+
+
+K48_K3Q, K48_K1Q, K48_K5, K48_K4Q = _k48_int8_shapes()
+
+
 def test_full8_shapes_are_nine_and_seventeen():
     """K3q's 9 and K1q's 17 shapes; K5's 3 and K4q's 3, with their calls."""
     assert len(FULL8_K3Q) == 9 and len(FULL8_K1Q) == 17
@@ -531,7 +576,7 @@ def test_full8_shapes_are_nine_and_seventeen():
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("m,c,n", FULL8_K3Q)
+@pytest.mark.parametrize("m,c,n", FULL8_K3Q + K48_K3Q)
 def test_ln_matmul_q_plan(m, c, n, sms):
     """K3q's plan on K3's kernel: its tiles cover M, N and K (no split), its
     A beside two bf16 staging tiles and an int8 ring within the shared
@@ -561,7 +606,7 @@ def test_ln_matmul_q_plan(m, c, n, sms):
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("b,t,f,c1,c2,cout", FULL8_K1Q)
+@pytest.mark.parametrize("b,t,f,c1,c2,cout", FULL8_K1Q + K48_K1Q)
 def test_gn_silu_conv_q_plan(b, t, f, c1, c2, cout, sms):
     """K1q's plan on K1's kernel: the same coverage as K1's, two patch
     buffers beside two bf16 staging tiles and an int8 ring within the shared
@@ -704,13 +749,13 @@ def _check_thin_q_plan(plan, m, k, n, sms, tiles):
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("m,k,n", FULL8_K5 + [(6144, 256, 256), (50, 200, 96), (1, 384, 384)])
+@pytest.mark.parametrize("m,k,n", FULL8_K5 + K48_K5 + [(50, 200, 96), (1, 384, 384)])
 def test_int8_matmul_plan(m, k, n, sms):
     _check_thin_q_plan(_build.int8_matmul_plan(m, k, n, sms), m, k, n, sms, _build.GEGLU_TILES)
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("m,f,n", FULL8_K4Q + [(384, 2560, 640), (77, 2560, 640), (130, 200, 96)])
+@pytest.mark.parametrize("m,f,n", FULL8_K4Q + K48_K4Q + [(77, 2560, 640), (130, 200, 96)])
 def test_geglu_matmul_q_plan(m, f, n, sms):
     _check_thin_q_plan(_build.geglu_matmul_plan(m, f, n, sms, w_bytes=1), m, f, n, sms,
                        _build.GEGLU_TILES)
@@ -801,15 +846,31 @@ def test_k5_reaches_its_bf16_kernel_with_its_weights_as_stored(as_if_on_the_card
 # ---------------------------------------------------------------------------
 
 
-def _encode_shapes():
+def _encode_shapes(name="audioldm2-full", batch=1):
     from audioldm2_torch.models import vae
 
-    cfg = at.default_audioldm_config("audioldm2-full")
+    cfg = at.default_audioldm_config(name)
     t = int(10.0 * cfg.latent_t_per_second * cfg.vae.downsample_factor)
-    return vae.encode_conv_shapes(cfg.vae, 1, t, cfg.preprocessing.n_mel_channels)
+    return vae.encode_conv_shapes(cfg.vae, batch, t, cfg.preprocessing.n_mel_channels)
 
 
 ENCODE_K1 = _encode_shapes()
+ENCODE_48K_K1 = sorted({s for b in DECODE_BATCHES for s in _encode_shapes("audioldm_48k", b)})
+
+
+def test_48k_encode_shapes_are_the_twenty_of_a_full_width_encode():
+    """One 10 s VAE encode at 48 kHz gives K1 20 calls at seven shapes, from
+    1024 x 256 at 128 channels (a tile narrower than F: see the f32 plan)
+    to 128 x 32 at 1024."""
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config("audioldm_48k")
+    got = _encode_shapes("audioldm_48k")
+    assert got == {(1, 1024, 256, 128, 0, 128): 4, (1, 512, 128, 128, 0, 256): 1,
+                   (1, 512, 128, 256, 0, 256): 3, (1, 256, 64, 256, 0, 512): 1,
+                   (1, 256, 64, 512, 0, 512): 3, (1, 128, 32, 512, 0, 1024): 1,
+                   (1, 128, 32, 1024, 0, 1024): 7}
+    assert sum(got.values()) == vae.kernel_launches_per_encode(cfg.vae)["gn_silu_conv3x3"]
 
 
 def test_encode_shapes_are_the_sixteen_of_a_full_width_encode():
@@ -826,11 +887,12 @@ def test_encode_shapes_are_the_sixteen_of_a_full_width_encode():
 
 
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("b,t,f,c1,c2,cout", sorted(ENCODE_K1) + CONV_HALO
+@pytest.mark.parametrize("b,t,f,c1,c2,cout", sorted(ENCODE_K1) + ENCODE_48K_K1 + CONV_HALO
                          + [(2, 32, 2, 640, 640, 640), (1, 256, 16, 256, 256, 512)])
 def test_gn_silu_conv_f32_plan(b, t, f, c1, c2, cout, sms):
     """The f32 plan: its one tile, whole 32-channel chunks cover Cin, the
-    tiles cover T x F and the strips Cout once, the split gives every block a chunk, the
+    tiles cover T x F (narrower than F where a full-width patch would not
+    fit: F = 128 and 256) and the strips Cout once, the split gives every block a chunk, the
     block (raw patch, two activated planes, a ring of raw W tiles, two
     staging tiles of two planes) fits the shared memory a block may use,
     and the grid fills the SMs the shape could fill, or LNMM_MIN_FILL of
@@ -889,8 +951,15 @@ def _k6_groups(c):
     return 32 if c % 32 == 0 else 4
 
 
+# the 48k path: the VAE decoder's norm_out at every batch a request decodes
+# (67 to 403 MB), its +10 offset check in f32 (134 MB) and the f32 encoder's
+# norm_out
+K6_48K = [(b, 262144, 128, "bf16") for b in DECODE_BATCHES] + [(1, 262144, 128, "f32"),
+                                                                (1, 4096, 1024, "f32")]
+
+
 @pytest.mark.parametrize("sms", PLAN_SMS)
-@pytest.mark.parametrize("b,s,c,dtype", K6_MAIN + K6_EDGES)
+@pytest.mark.parametrize("b,s,c,dtype", K6_MAIN + K6_EDGES + K6_48K)
 def test_group_norm_silu_plan(b, s, c, dtype, sms):
     """K6's plan: each sample's blocks take its rows in consecutive runs
     that cover every row once, none empty, and the slots take every sample
@@ -950,6 +1019,22 @@ def test_group_norm_silu_plan_switches_modes_where_the_bytes_say():
         assert plan.grid == b * (SMS // b)
     plan = _build.group_norm_silu_plan(133, 64, 128, "bf16", SMS)
     assert (plan.blocks_per_sample, plan.slots, plan.grid) == (1, SMS, SMS) and plan.resident
+
+
+def test_group_norm_silu_plan_takes_the_48k_norm_out_in_re_read_mode():
+    """The 48k VAE decoder's norm_out, [B, 1024 x 256, 128] bf16, 67 MB a
+    sample, is above what the grid's shared memory holds at every batch: at
+    batch 1 each of the 132 blocks takes 1986 rows and holds its last 836;
+    at 2, 3 and 6 the blocks split among the samples and hold as many. The
+    f32 encoder's norm_out (16.8 MB) is resident."""
+    held = (_build.GN_MAX_SMEM - _build.gn_silu_smem_bytes(0, 128, 32, 2, True)) // 256
+    assert held == 836
+    for b in DECODE_BATCHES:
+        plan = _build.group_norm_silu_plan(b, 262144, 128, "bf16", SMS)
+        assert not plan.resident and plan.rows_held == held
+        assert plan.grid == b * (SMS // b) and plan.rows == math.ceil(262144 / (SMS // b))
+    assert _build.group_norm_silu_plan(1, 262144, 128, "bf16", SMS).rows == 1986
+    assert _build.group_norm_silu_plan(1, 4096, 1024, "f32", SMS).resident
 
 
 def test_f32_k1_reaches_its_kernel_with_its_parameters_as_stored(as_if_on_the_card):

@@ -399,6 +399,29 @@ def test_schedule_matches_jax(timesteps, steps):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("text", ["Dr. Smith's 2 dogs barked at Mr. Jones!",
+                                  "  Hello <b>world</b>, ça va?  ", "",
+                                  "ENGLISH sgt. capt. LTD. ft.; a\tb\nc"])
+def test_phoneme_pipeline_matches_jax(text):
+    """The copied VITS phoneme tables and functions: the same symbols, ids,
+    pad length and abbreviations; the same phonemes (here the grapheme
+    fallback, with no phonemizer installed) and padded ids at batch 1 and 3
+    and at a short pad length that cuts the sequence."""
+    from audioldm2_torch.utils import text as ttext
+    from audioldm2_tpu.utils import text as jtext
+
+    assert ttext.VITS_SYMBOLS == jtext.VITS_SYMBOLS and len(ttext.VITS_SYMBOLS) == 183
+    assert ttext._SYMBOL_TO_ID == jtext._SYMBOL_TO_ID and ttext.PAD_LENGTH == jtext.PAD_LENGTH
+    assert [(p.pattern, r) for p, r in ttext._ABBREVIATIONS] == [
+        (p.pattern, r) for p, r in jtext._ABBREVIATIONS]
+    phonemes = ttext.text_to_phonemes(text)
+    assert phonemes == jtext.text_to_phonemes(text)
+    for batch, pad in ((1, 310), (3, 310), (2, 8)):
+        got = ttext.phoneme_ids([phonemes] * batch, pad)
+        np.testing.assert_array_equal(got, jtext.phoneme_ids([phonemes] * batch, pad))
+        assert got.shape == (batch, pad) and got.dtype == np.int32
+
+
 def test_build_model_takes_a_jax_config_by_its_fields():
     """A JAX-package config builds that config (not the default one); an
     object of another type raises."""

@@ -74,20 +74,40 @@ def test_text_to_audio_shape_and_determinism(tmodel):
 def test_text_to_audio_refuses_candidates_without_clap(tmodel):
     """A config without a reranker (the tiny t5 one) cannot rank
     candidates: as in JAX, n_candidate_gen_per_text > 1 (the default 3)
-    warns and returns each prompt's first candidate; a transcription is
-    refused."""
+    warns and returns each prompt's first candidate; a transcription, which
+    only the speech families read, is accepted and changes nothing, as in
+    JAX."""
     kw = dict(seed=3, ddim_steps=5, duration=0.32, duration_bucket=None)
     with pytest.warns(UserWarning, match="CLAP reranker"):
         got = at.text_to_audio(tmodel, "rain", **kw)
     assert got.shape == (1, 1, 512) and np.isfinite(got).all()
-    with pytest.raises(NotImplementedError, match="TTS"):
-        at.text_to_audio(tmodel, "rain", transcription="hello", **kw)
+    with pytest.warns(UserWarning, match="CLAP reranker"):
+        spoken = at.text_to_audio(tmodel, "rain", transcription="hello", **kw)
+    np.testing.assert_array_equal(spoken, got)
 
 
-@pytest.mark.parametrize("name", ["audioldm_48k", "audioldm2-speech-gigaspeech"])
+def _unported_config(what):
+    """A config with a part that is not ported yet: a CLAP conditioner in
+    audio embedding mode (ROADMAP queue 1 item 9) or an AudioMAE-pooled
+    conditioner (item 10)."""
+    import dataclasses
+
+    from audioldm2_torch.config import AudioMAEConfig, ConditionerSpec
+
+    cfg = at.default_audioldm_config("audioldm_48k")
+    if what == "clap_audio_mode":
+        spec = cfg.conditioners[0]
+        spec = dataclasses.replace(spec, clap=dataclasses.replace(spec.clap, embed_mode="audio"))
+    else:
+        spec = ConditionerSpec(name="crossattn_audiomae_pooled", kind="audiomae_pooled",
+                               cond_stage_key="ta_kaldi_fbank", audiomae=AudioMAEConfig())
+    return dataclasses.replace(cfg, conditioners=(spec,))
+
+
+@pytest.mark.parametrize("name", ["clap_audio_mode", "audiomae_pooled"])
 def test_build_model_refuses_unported_families(name):
     with pytest.raises(NotImplementedError, match="not ported"):
-        at.build_model(model_name=name, device="cpu")
+        at.build_model(config=_unported_config(name), device="cpu")
 
 
 def test_build_model_builds_audioldm2_full_and_refuses_candidates():
@@ -95,7 +115,8 @@ def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     only: its 1.62 B parameters would take 6.5 GB on the CPU); the tiny
     tree's structure is held against JAX in test_torch_full.py. It carries
     the HTSAT-base + RoBERTa reranker CLAP (0.198 B) that the default
-    n_candidate_gen_per_text = 3 reads; a transcription is refused."""
+    n_candidate_gen_per_text = 3 reads; a transcription is accepted and
+    ignored (no phoneme ids in its batch), as in JAX."""
     model = at.build_model(model_name="audioldm2-full", device="meta")
     p = model.ldm.params
     seqgen = p["cond"]["crossattn_audiomae_generated"]
@@ -111,8 +132,8 @@ def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     assert 1.9e8 < rr < 2.0e8, rr
     assert p["reranker_clap"]["audio_projection"]["lin1"]["w"].shape == (1024, 512)
     assert model.reranker_tok is not None
-    with pytest.raises(NotImplementedError, match="TTS"):
-        at.text_to_audio(model, "rain", transcription="hello")
+    batch = model.make_batch("rain", "hello", 2)
+    assert "phoneme_idx" not in batch and tuple(batch["clap_ids"].shape) == (2, 512)
 
 
 def test_build_model_needs_a_card_for_cuda(monkeypatch):
@@ -198,13 +219,26 @@ def test_seed_everything_seeds_and_returns_a_generator():
 
 
 @pytest.mark.parametrize("name", ["audioldm_16k_crossattn_t5", "audioldm2-full",
-                                  "audioldm2-music-665k", "audioldm2-full-large-1150k"])
+                                  "audioldm2-music-665k", "audioldm2-full-large-1150k",
+                                  "audioldm_48k", "audioldm2-speech-gigaspeech",
+                                  "audioldm2-speech-ljspeech"])
 def test_build_model_builds_every_family_the_port_runs(name):
     """Each family the port runs builds at full width on the meta device
-    (shapes only); audioldm2-music-665k has audioldm2-full's tree."""
+    (shapes only), with its parameter count in millions (the reranker's
+    198.5 M included); audioldm2-music-665k has audioldm2-full's tree and
+    the two speech families one tree (the phoneme encoder and the
+    512-token generator in their conditioner)."""
     model = at.build_model(model_name=name, device="meta")
     assert model.cfg.name == name
     shapes = _flatten(model.ldm.params)
-    assert 9e8 < sum(math.prod(s) for s in shapes.values()) < 2.1e9
+    millions = {"audioldm_16k_crossattn_t5": 915.9, "audioldm2-full": 1624.1,
+                "audioldm2-music-665k": 1624.1, "audioldm2-full-large-1150k": 1995.2,
+                "audioldm_48k": 1073.5, "audioldm2-speech-gigaspeech": 862.4,
+                "audioldm2-speech-ljspeech": 862.4}
+    assert round(sum(math.prod(s) for s in shapes.values()) / 1e5) / 10 == millions[name]
     if name == "audioldm2-music-665k":
         assert shapes == _flatten(at.build_model(device="meta").ldm.params)
+    if name == "audioldm2-speech-ljspeech":
+        giga = at.build_model(model_name="audioldm2-speech-gigaspeech", device="meta")
+        assert shapes == _flatten(giga.ldm.params)
+        assert "/cond/crossattn_audiomae_generated/cond/crossattn_vits_phoneme/pos_emb" in shapes
