@@ -29,10 +29,14 @@ def from_jax_tree(tree: Any, device="cpu", dtype: torch.dtype = torch.float32) -
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_tree(v, device, dtype) for v in tree)
     if hasattr(tree, "shape") and hasattr(tree, "dtype"):
-        t = torch.from_numpy(np.array(tree))  # a writable copy
+        a = np.asarray(tree)
+        # the array as it lies in memory (a leaf converted from a checkpoint is
+        # a transposed view of the loaded tensor) to the device, then one
+        # contiguous copy there, which owns its memory
+        t = torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
         if t.is_floating_point():
             t = t.to(dtype)
-        return t.to(device)
+        return t.clone(memory_format=torch.contiguous_format)
     return tree
 
 

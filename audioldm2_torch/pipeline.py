@@ -17,10 +17,13 @@ CFG sampler (DDIM, PLMS or DDPM) -> VAE decode -> vocoder in
 (``ops.stft``) and the f32 VAE encode; with ``n_candidate_gen_per_text >
 1`` the CLAP rerank (``models.clap.rerank_score``) of the candidates.
 
-No checkpoint is loaded yet: ``build_model`` draws random weights on the
-device from ``seed``, or takes an existing parameter tree (the JAX
-package's numpy tree or the port's own). The public functions take the
-JAX package's parameters, in its order.
+Weights: ``build_model(ckpt_path)`` reads a reference monolithic ``.pth``
+through the port's converter (``convert.py``, ``convert_cond.py``,
+``convert_htsat.py``: the JAX package's tree, bit for bit); ``params=``
+takes an existing tree (the JAX package's numpy tree, an ``.npz`` read by
+``utils.checkpoint.load_npz``, or the port's own); otherwise weights are
+drawn on the device from ``seed``. The public functions take the JAX
+package's parameters, in its order.
 """
 
 from __future__ import annotations
@@ -149,18 +152,77 @@ def seed_everything(seed: int, device="cuda") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def load_checkpoint_params(ckpt_path: str, cfg: ModelConfig) -> Dict:
+    """Convert a reference ``.pth`` monolithic checkpoint (its state dict,
+    bare or under ``"state_dict"``) into the parameter tree, numpy leaves
+    that share memory with the loaded tensors.
+
+    ``weights_only=True`` is torch.load's default since torch 2.6, so this
+    reads what the JAX package's ``torch.load(ckpt_path, map_location="cpu")``
+    reads on the same torch: tensors and plain containers, no pickled code."""
+    from audioldm2_torch import convert
+
+    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    return convert_state_dict(convert.state_dict_to_numpy(sd), cfg)
+
+
+def convert_state_dict(sd: Dict[str, np.ndarray], cfg: ModelConfig) -> Dict:
+    """A reference monolithic state dict (numpy values, the key layout of
+    ``LatentDiffusion.state_dict()``, reference pipeline.py:172-174) -> the
+    parameter tree: UNet, VAE, vocoder, ``scale_factor``, each conditioner,
+    the reranker CLAP when ``clap.model.*`` keys are present and
+    ``unet_ema`` from the ``model_ema.*`` shadows (left out, with a warning,
+    when they are incomplete). The port's copy of the JAX package's
+    ``convert_state_dict``."""
+    from audioldm2_torch import convert, convert_cond
+
+    params: Dict = {
+        "unet": convert.convert_unet(sd, cfg.unet, prefix="model.diffusion_model."),
+        "vae": convert.convert_vae(sd, cfg.vae, prefix="first_stage_model."),
+        "vocoder": convert.convert_vocoder(sd, cfg.vocoder, prefix="first_stage_model.vocoder."),
+        "scale_factor": np.asarray(sd.get("scale_factor", 1.0), np.float32),
+        "cond": {},
+    }
+    for idx, spec in enumerate(cfg.conditioners):
+        prefix = f"cond_stage_models.{idx}."
+        if spec.kind == "flan_t5":
+            params["cond"][spec.name] = {
+                "t5": convert.convert_t5_encoder(sd, spec.flan_t5, prefix + "model.")}
+        else:
+            params["cond"][spec.name] = convert_cond.convert_conditioner(sd, spec, prefix)
+    if cfg.reranker_clap is not None and any(k.startswith("clap.model.") for k in sd):
+        # the DDPM-level reranker CLAP (reference ddpm.py:114-120)
+        params["reranker_clap"] = convert.convert_clap(sd, "clap.model.")
+    if any(k.startswith("model_ema.") for k in sd):
+        # LitEma's shadows (reference ddpm.py:131-134) as a second UNet tree,
+        # read by generate(use_ema=True)
+        try:
+            ema_sd = convert.expand_ema_keys(sd)
+            params["unet_ema"] = convert.convert_unet(ema_sd, cfg.unet,
+                                                      prefix="model.diffusion_model.")
+        except KeyError as e:
+            warnings.warn(
+                f"model_ema.* keys present but incomplete ({e}); EMA "
+                "inference disabled for this checkpoint.", stacklevel=2,
+            )
+    return params
+
+
 def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
                 model_name: str = "audioldm2-full", weight_quant: Optional[str] = None, *,
                 seed: int = 0, params=None, nonzero_init: bool = False) -> AudioLDM2:
     """Build the model on ``device`` (None: the card, which must be
     present); the first five parameters are the JAX package's.
 
-    ``ckpt_path``: None draws random weights; a path that does not exist
-    warns and draws random weights, as the JAX package does; an existing
-    file raises ``NotImplementedError`` (checkpoint loading is not ported).
-    ``params``: an existing tree (the JAX package's numpy tree or the
-    port's); when None, weights are drawn on the device from ``seed``
-    (on the ``"meta"`` device, shapes only, with no memory).
+    ``ckpt_path``: a reference ``.pth`` (:func:`load_checkpoint_params`;
+    a file that does not load or convert raises); a path that does not
+    exist warns and draws random weights, as the JAX package does.
+    ``params``: an existing tree (the JAX package's numpy tree, an ``.npz``
+    read by ``utils.checkpoint.load_npz``, or the port's); passing it with
+    ``ckpt_path`` raises ``ValueError``. With neither, weights are drawn on
+    the device from ``seed`` (on the ``"meta"`` device, shapes only, with
+    no memory). A loaded tree moves to the device leaf by leaf.
     ``config``: the port's ``ModelConfig`` or any dataclass with its fields
     (the JAX package's), rebuilt by ``config.coerce``; None builds
     ``default_audioldm_config(model_name)``.
@@ -169,12 +231,9 @@ def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
     environment variable ``AUDIOLDM2_WEIGHT_QUANT=int8``) selects the int8
     serving mode: the UNet's transformer linears and ResBlock convs run
     int8 weights through the int8 kernels."""
-    if ckpt_path is not None and os.path.exists(ckpt_path):
-        raise NotImplementedError(
-            f"build_model({ckpt_path!r}): checkpoint loading is not ported to audioldm2_torch "
-            "yet (ROADMAP queue 1 item 17)")
-    if ckpt_path is not None:
-        print(f"WARNING: checkpoint {ckpt_path} not found; using random init")
+    if ckpt_path is not None and params is not None:
+        raise ValueError("build_model: pass ckpt_path or params, not both (they would give "
+                         "two parameter trees)")
     cfg = default_audioldm_config(model_name) if config is None else config_m.coerce(config)
     weight_quant = weight_quant or os.environ.get("AUDIOLDM2_WEIGHT_QUANT") or None
     if weight_quant:
@@ -186,6 +245,10 @@ def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"build_model(device={str(device)!r}): no CUDA device is available")
+    if ckpt_path is not None and os.path.exists(ckpt_path):
+        params = load_checkpoint_params(ckpt_path, cfg)
+    elif ckpt_path is not None:
+        print(f"WARNING: checkpoint {ckpt_path} not found; using random init")
     if params is None:
         gen = torch.Generator(device=device if device.type != "meta" else "cpu")
         params = params_m.init_params(cfg, gen.manual_seed(int(seed)), device,

@@ -4,16 +4,21 @@
     python3 chip_smoke.py            # full run: 10 s clips, 200 DDIM steps
 
 Paths, each through the public API on random weights at full published
-width:
+width (the full, sr and full8 paths serve them from a checkpoint file):
   t5      audioldm_16k_crossattn_t5, bf16, text_to_audio (kernels K1-K4, K6),
           with one PLMS and one DDPM (1000-step) request besides DDIM;
   full    audioldm2-full (CLAP text tower, GPT-2 sequence generator, two
-          cross-attention slots), bf16, text_to_audio (K1-K4, K6);
+          cross-attention slots), bf16, text_to_audio (K1-K4, K6), built by
+          build_model(ckpt_path=) from a .pth of the drawn weights in the
+          reference's key layout (audioldm2_torch.tools.reference_layout,
+          with the nested AudioMAE encoder the port does not draw), every
+          loaded leaf equal to the written one;
   sr      audioldm2-full through super_resolution_and_inpainting on a
           synthesized 10 s 16 kHz wav: log-mel, f32 VAE encode (K1 and K6
           in f32), masked DDIM at guidance 2.5;
   full8   audioldm2-full in the int8 serving mode (weight_quant="int8":
-          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder, K6);
+          K1q, K3q, K4q and K5 in the UNet, K1 in the VAE decoder, K6),
+          built from the same file, which is then deleted;
   large   audioldm2-full-large-1150k (depth-2 spatial transformers, a
           context-free third cross slot whose attn2 runs K2), bf16,
           text_to_audio at n_candidate_gen_per_text = 3 (CFG batch 6), with
@@ -77,7 +82,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      in int8 (bf16 activations), the large UNet at CFG batch 6 and the 48k
      UNet at CFG batch 2 in bf16 and f32; one full-width f32 VAE encode at
      16 and at 48 kHz, kernels against the all-plain path, and its time;
-  5. requests on each path at the reference defaults (10 s, 200 steps,
+  5. the full path's checkpoint: its size, the torch.save seconds, and
+     build_model(ckpt_path)'s seconds split into torch.load, conversion and
+     transfer to the card, the host's RSS (current and, from
+     resource.getrusage, peak) and the device memory after the build, for
+     the full and the full8 builds, with the card's name and power limit;
+     requests on each path at the reference defaults (10 s, 200 steps,
      guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 and large
      paths (their median is the p50 latency), one on the full, sr, full8,
      48k and tts paths, and one at batch 2 on each, with output checks (and,
@@ -1309,6 +1319,172 @@ def build(tag, cfg, device):
     return model
 
 
+def _on_device(tree, device):
+    """The tree with its numpy leaves moved to ``device`` as tensors."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(v, device) for v in tree)
+    return torch.from_numpy(tree).to(device) if isinstance(tree, np.ndarray) else tree
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def _rss_gib():
+    """(the process's peak host RSS from resource.getrusage, its current RSS
+    from /proc/self/status) in GiB."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20, now / 2**20  # KiB
+
+
+def write_checkpoint(tag, model, ckpt_dir: str):
+    """The model's drawn tree, completed as a real checkpoint has it (the
+    nested AudioMAE encoder, which the port does not draw, drawn by
+    tools/reference_layout from seed 0), in the reference's key layout,
+    torch.save'd as {"state_dict": ...}. Fails if the disk is short. Returns
+    (path, the completed tree on the card)."""
+    import shutil
+
+    import torch
+    from audioldm2_torch.tools import reference_layout
+
+    cfg = model.cfg
+    full = _on_device(reference_layout.complete(model.ldm.params, cfg), model.device)
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    need = nbytes(t for _, t in _paths(full))
+    free = shutil.disk_usage(ckpt_dir).free
+    def n_params(pred):
+        return sum(t.numel() for k, t in _paths(full) if pred(k)) / 1e6
+
+    def cond_clap_audio(k):  # the conditioner CLAP's, not the reranker's (which reads them)
+        return k.startswith("/cond/") and re.search("/clap/audio_(branch|projection)/", k)
+
+    log(f"  checkpoint: {need / 1e9:.3f} GB of leaves, of which "
+        f"{(need - nbytes(_leaves(model.ldm.params))) / 1e9:.3f} GB filled (the nested AudioMAE "
+        f"encoder); {free / 1e9:.1f} GB free in {ckpt_dir}")
+    log("  read by no ported path (as in the JAX package's tree): the nested AudioMAE encoder "
+        f"{n_params(lambda k: '/crossattn_audiomae_pooled/' in k):.3f} M, the CLAP heads "
+        f"text_transform and audio_transform {n_params(lambda k: '_transform/' in k):.3f} M, the "
+        "text-mode conditioner CLAP's audio tower and projection "
+        f"{n_params(cond_clap_audio):.3f} M parameters")
+    if free < need * 1.1 + 2**30:
+        raise RuntimeError(f"path {tag}: {free / 1e9:.1f} GB free in {ckpt_dir}, the checkpoint "
+                           f"needs {need / 1e9:.1f} GB (set TMPDIR to a larger disk)")
+    path = os.path.join(ckpt_dir, f"{cfg.name}.pth")
+    rss0 = _rss_gib()
+    t0 = time.perf_counter()
+    reference_layout.save_pth(path, reference_layout.reference_state_dict(full, cfg))
+    save_s = time.perf_counter() - t0
+    rss1 = _rss_gib()
+    log(f"  torch.save: {os.path.getsize(path) / 1e9:.3f} GB in {save_s:.2f} s; host RSS "
+        f"{rss0[1]:.2f} GiB before, {rss1[1]:.2f} GiB after, peak {rss0[0]:.2f} GiB before, "
+        f"{rss1[0]:.2f} GiB after (resource.getrusage)")
+    torch.cuda.synchronize()
+    return path, full
+
+
+@contextlib.contextmanager
+def load_timed(times):
+    """Time torch.load, the whole load_checkpoint_params (load plus
+    conversion) and from_jax_tree (the transfer to the device; outermost
+    call only: it recurses) inside build_model(ckpt_path)."""
+    import torch
+    from audioldm2_torch import params as params_m, pipeline
+
+    saved = (torch.load, pipeline.load_checkpoint_params, params_m.from_jax_tree)
+    depth = {}
+
+    def timed(key, fn, sync=False):
+        def call(*args, **kw):
+            depth[key] = depth.get(key, 0) + 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+            finally:
+                depth[key] -= 1
+            if not depth[key]:
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    torch.load = timed("torch_load_s", saved[0])
+    pipeline.load_checkpoint_params = timed("load_and_convert_s", saved[1])
+    params_m.from_jax_tree = timed("to_device_s", saved[2], sync=True)
+    try:
+        yield times
+    finally:
+        torch.load, pipeline.load_checkpoint_params, params_m.from_jax_tree = saved
+
+
+def load_checkpoint(tag, path: str, cfg, device, weight_quant=None):
+    """build_model(ckpt_path=path) on the card, its wall split into
+    torch.load, conversion and transfer to the device, with the host's peak
+    RSS and the device memory after the build."""
+    import torch
+    import audioldm2_torch as at
+
+    log(f"== requests on path {tag}: build_model(ckpt_path={os.path.basename(path)!r}, "
+        f"config={cfg.name!r}, weight_quant={weight_quant!r})")
+    torch.cuda.empty_cache()
+    times, rss0 = {}, _rss_gib()
+    t0 = time.perf_counter()
+    with load_timed(times):
+        model = at.build_model(ckpt_path=path, config=cfg, device=device,
+                               weight_quant=weight_quant)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(model.ldm.params))
+    log(f"  build_model(ckpt_path): {wall:.2f} s = torch.load {times['torch_load_s']:.2f} s + "
+        f"conversion {times['load_and_convert_s'] - times['torch_load_s']:.2f} s + transfer to "
+        f"the device {times['to_device_s']:.2f} s + the rest "
+        f"{wall - times['load_and_convert_s'] - times['to_device_s']:.2f} s; "
+        f"{n_bytes / 1e9:.3f} GB of parameters on {torch.cuda.get_device_name(0)}; device memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; host RSS "
+        f"{rss0[1]:.2f} GiB before, peak {_rss_gib()[0]:.2f} GiB after (resource.getrusage; "
+        f"{rss0[0]:.2f} before); {nvidia_smi_line()}")
+    for leaf in _leaves(model.ldm.params):
+        if leaf.device.type != torch.device(device).type:
+            raise AssertionError(f"a loaded parameter lies on {leaf.device}, not {device}")
+    return model
+
+
+def hold_equal(loaded, want) -> int:
+    """Every leaf of the loaded tree torch.equal to the one written, and
+    contiguous; returns the leaf count."""
+    import torch
+
+    got, exp = dict(_paths(loaded)), dict(_paths(want))
+    if sorted(got) != sorted(exp):
+        raise AssertionError(f"loaded tree paths differ from the written tree's: "
+                             f"{sorted(set(got) ^ set(exp))[:10]}")
+    bad = [k for k in exp if not (torch.equal(got[k], exp[k]) and got[k].is_contiguous())]
+    if bad:
+        raise AssertionError(f"{len(bad)} loaded leaves differ from the written ones or are not "
+                             f"contiguous: {bad[:10]}")
+    log(f"  every one of the {len(exp)} loaded leaves equals the written one (torch.equal) and is "
+        "contiguous")
+    return len(exp)
+
+
 def one_request(model, call, expected, bsz: int, duration: float, label: str):
     """call(bsz) -> waveform, with the launch counts set to 0 just before and
     read just after; checks the output, the conditioning, that no CUDA
@@ -1450,8 +1626,6 @@ def phase_ab(device):
 def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, duration: float):
     """The requests of every path; returns {path: launch counts of its first
     request} and {path: timings}."""
-    import dataclasses
-
     import audioldm2_torch as at
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate as expect
 
@@ -1479,30 +1653,39 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         e2e[f"t5_{sampler}"] = {"wall_s": wall}
     del model
 
-    model = build("full", full_cfg, device)
-    launches["full"], e2e["full"] = phase_requests(
-        "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
-    log("== requests on path sr: the same model through super_resolution_and_inpainting")
-    with tempfile.TemporaryDirectory() as tmp:
-        wav_path = write_wav(os.path.join(tmp, "in.wav"), full_cfg.preprocessing.sampling_rate,
-                             duration)
+    # the full and full8 paths serve from a checkpoint file of the drawn weights
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        drawn = build("full (drawn, to be written)", full_cfg, device)
+        path, written = write_checkpoint("full", drawn, ckpt_dir)
+        del drawn
+        model = load_checkpoint("full", path, full_cfg, device)
+        hold_equal(model.ldm.params, written)
+        del written
+        launches["full"], e2e["full"] = phase_requests(
+            "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
+            "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+        log("== requests on path sr: the same model through super_resolution_and_inpainting")
+        with tempfile.TemporaryDirectory() as tmp:
+            wav_path = write_wav(os.path.join(tmp, "in.wav"),
+                                 full_cfg.preprocessing.sampling_rate, duration)
 
-        def sr_request(prompt, bsz, n_steps, dur):
-            return at.super_resolution_and_inpainting(
-                model, prompt, original_audio_file_path=wav_path, seed=42, ddim_steps=n_steps,
-                duration=dur, batchsize=bsz, guidance_scale=2.5, n_candidate_gen_per_text=1)
+            def sr_request(prompt, bsz, n_steps, dur):
+                return at.super_resolution_and_inpainting(
+                    model, prompt, original_audio_file_path=wav_path, seed=42,
+                    ddim_steps=n_steps, duration=dur, batchsize=bsz, guidance_scale=2.5,
+                    n_candidate_gen_per_text=1)
 
-        launches["sr"], e2e["sr"] = phase_requests(
-            "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps, duration,
-            "super_resolution_and_inpainting, guidance 2.5", PROMPTS_SHORT)
-    del model
+            launches["sr"], e2e["sr"] = phase_requests(
+                "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps,
+                duration, "super_resolution_and_inpainting, guidance 2.5", PROMPTS_SHORT)
+        del model
 
-    model = build("full8", dataclasses.replace(full_cfg, weight_quant="int8"), device)
-    launches["full8"], e2e["full8"] = phase_requests(
-        "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
-    del model
+        model = load_checkpoint("full8", path, full_cfg, device, weight_quant="int8")
+        launches["full8"], e2e["full8"] = phase_requests(
+            "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
+            "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+        del model
+    log(f"  checkpoint {os.path.basename(path)} deleted")
 
     model = build("large", large_cfg, device)
     launches["large"], e2e["large"] = phase_requests(
@@ -1533,14 +1716,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
 def _leaves(tree):
     import torch
 
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
+    return (leaf for _, leaf in _paths(tree) if isinstance(leaf, torch.Tensor))
 
 
 def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, duration: float):

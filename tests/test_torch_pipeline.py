@@ -7,6 +7,7 @@ prompt tokenized by the shared tokenizer, the same x_T, eta 0, 4 DDIM steps
 Bar: mel MAE < 1e-3 (ROADMAP)."""
 
 import math
+import pickle
 
 import numpy as np
 import pytest
@@ -174,16 +175,20 @@ def test_build_model_defaults_to_audioldm2_full_on_the_card(monkeypatch):
 
 def test_build_model_ckpt_path(tmp_path, capsys):
     """A missing checkpoint warns (the JAX package's words) and draws random
-    weights; an existing file is refused, never overwritten by random
-    weights."""
+    weights; a file that does not load raises torch.load's error, never
+    replaced by random weights; ckpt_path with params= is refused."""
     missing = str(tmp_path / "missing.pth")
     model = at.build_model(missing, model_name="audioldm_16k_crossattn_t5", device="meta")
     assert model.cfg.name == "audioldm_16k_crossattn_t5"
     assert f"WARNING: checkpoint {missing} not found; using random init" in capsys.readouterr().out
     present = tmp_path / "model.pth"
     present.write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
+    with pytest.raises(pickle.UnpicklingError):
         at.build_model(str(present), device="meta")
+    assert "using random init" not in capsys.readouterr().out
+    for path in (str(present), missing):
+        with pytest.raises(ValueError, match="ckpt_path or params, not both"):
+            at.build_model(path, device="meta", params={})
 
 
 def test_pipelines_accept_and_ignore_the_jax_keywords(tmodel, tmp_path):
