@@ -12,6 +12,7 @@ which runs it in f32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -193,6 +194,30 @@ def decode(p, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     """z: [B, t, f, embed_dim] -> mel [B, T, M, 1]."""
     z = nn.conv2d(p["post_quant_conv"], z)
     return apply_decoder(p["decoder"], cfg, z)
+
+
+def kl_divergence(mean: torch.Tensor, logvar: torch.Tensor,
+                  other_mean: Optional[torch.Tensor] = None,
+                  other_logvar: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL of the posterior against N(0, 1) or another diagonal Gaussian,
+    summed over all but the batch axis (JAX ``vae.py:227-245``, reference
+    distributions.py:36-55)."""
+    dims = tuple(range(1, mean.dim()))
+    var = torch.exp(logvar)
+    if other_mean is None:
+        return 0.5 * torch.sum(torch.square(mean) + var - 1.0 - logvar, dim=dims)
+    other_var = torch.exp(other_logvar)
+    return 0.5 * torch.sum(torch.square(mean - other_mean) / other_var + var / other_var - 1.0
+                           - logvar + other_logvar, dim=dims)
+
+
+def nll(mean: torch.Tensor, logvar: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+    """Negative log likelihood of ``sample`` under the posterior, summed over
+    all but the batch axis (JAX ``vae.py:248-255``, reference
+    distributions.py:57-66)."""
+    return 0.5 * torch.sum(math.log(2.0 * math.pi) + logvar
+                           + torch.square(sample - mean) / torch.exp(logvar),
+                           dim=tuple(range(1, mean.dim())))
 
 
 def decode_conv_shapes(cfg: VAEConfig, batch: int, latent_t: int, latent_f: int) -> dict:

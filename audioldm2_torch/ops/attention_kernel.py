@@ -9,13 +9,16 @@ projection (see :func:`_strides`), which the kernel reads in place.
 
 :func:`flash_self_attention` takes the plain version for CPU tensors and
 the kernel for CUDA tensors; :func:`self_attention_plain` is the oracle.
+A CUDA call that autograd must record goes through
+``autograd.KernelFunction`` (the kernel forward, the plain version's
+gradients backward).
 """
 
 from __future__ import annotations
 
 import torch
 
-from audioldm2_torch.ops import _build
+from audioldm2_torch.ops import _build, autograd
 from audioldm2_torch.ops import nn as _nn
 
 HEAD_DIMS = (32, 64, 128)
@@ -50,6 +53,9 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: [B, T, H, D] -> [B, T, H, D] in q.dtype, contiguous."""
     if not q.is_cuda:
         return self_attention_plain(q, k, v, scale)
+    if autograd.needs_grad(q, k, v):
+        return autograd.KernelFunction.apply(flash_self_attention, self_attention_plain, q, k, v,
+                                             scale)
     name = "flash_self_attention"
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one [B, T, H, D] shape")

@@ -13,14 +13,16 @@ affine and SiLU are f32 and the output is rounded once to x's dtype, as
 the Pallas kernel does.
 
 :func:`group_norm_silu` takes the plain version for CPU tensors and the
-kernel for CUDA tensors; :func:`group_norm_silu_plain` is the oracle.
+kernel for CUDA tensors; :func:`group_norm_silu_plain` is the oracle. A
+CUDA call that autograd must record goes through ``autograd.KernelFunction``
+(the kernel forward, the plain version's gradients backward).
 """
 
 from __future__ import annotations
 
 import torch
 
-from audioldm2_torch.ops import _build
+from audioldm2_torch.ops import _build, autograd
 from audioldm2_torch.ops import nn as _nn
 
 
@@ -40,6 +42,9 @@ def group_norm_silu(x: torch.Tensor, gn_scale, gn_bias, groups: int = 32, eps: f
     dtype."""
     if not x.is_cuda:
         return group_norm_silu_plain(x, gn_scale, gn_bias, groups, eps, silu)
+    if autograd.needs_grad(x, gn_scale, gn_bias):
+        return autograd.KernelFunction.apply(group_norm_silu, group_norm_silu_plain, x, gn_scale,
+                                             gn_bias, groups, eps, silu)
     name = "group_norm_silu"
     _build.require_cuda(name, x)
     if x.dim() < 2:

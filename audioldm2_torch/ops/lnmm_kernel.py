@@ -20,7 +20,10 @@ K5's pass only copies x's rows); in f32, or at a shape or an alignment a
 plan does not take, the shared GEMM core.
 
 Each wrapper takes the plain version for CPU tensors and the kernel for
-CUDA tensors; the ``*_plain`` functions are the oracles.
+CUDA tensors; the ``*_plain`` functions are the oracles. A CUDA call that
+autograd must record (``autograd.needs_grad``) goes through
+``autograd.KernelFunction`` for K3 and K4 (the kernel forward, the plain
+version's gradients backward); K3q, K4q and K5 refuse it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from audioldm2_torch.ops import _build
+from audioldm2_torch.ops import _build, autograd
 from audioldm2_torch.ops import nn as _nn
 
 BF16 = torch.bfloat16
@@ -231,6 +234,9 @@ def ln_matmul(x: torch.Tensor, ln_scale, ln_bias, w, bias: Optional[torch.Tensor
     """x: [..., C]; w: [C, N]; returns [..., N] in x.dtype."""
     if not x.is_cuda:
         return ln_matmul_plain(x, ln_scale, ln_bias, w, bias, eps)
+    if autograd.needs_grad(x, ln_scale, ln_bias, w, bias):
+        return autograd.KernelFunction.apply(ln_matmul, ln_matmul_plain, x, ln_scale, ln_bias, w,
+                                             bias, eps)
     w = w.to(x.dtype).contiguous()
     out = _ln_bf16("ln_matmul", x, ln_scale, ln_bias, w, bias, eps) if x.dtype == BF16 else None
     if out is None:  # f32, or C or N no multiple of 8, or unaligned: the shared core
@@ -244,6 +250,8 @@ def geglu_matmul(h: torch.Tensor, w, bias, residual: torch.Tensor) -> torch.Tens
     residual + (a * gelu(g)) @ w + bias in residual.dtype."""
     if not h.is_cuda:
         return geglu_matmul_plain(h, w, bias, residual)
+    if autograd.needs_grad(h, w, bias, residual):
+        return autograd.KernelFunction.apply(geglu_matmul, geglu_matmul_plain, h, w, bias, residual)
     out = _geglu("geglu_matmul", h, w.to(h.dtype).contiguous(), None, bias, residual)
     geglu_matmul.launches += 1
     return out
@@ -254,6 +262,8 @@ def ln_matmul_q(x: torch.Tensor, ln_scale, ln_bias, wq, ws,
     """x: [..., C]; wq: int8 [C, N]; ws: f32 [N]; returns [..., N] in x.dtype."""
     if not x.is_cuda:
         return ln_matmul_q_plain(x, ln_scale, ln_bias, wq, ws, bias, eps)
+    if autograd.needs_grad(x, ln_scale, ln_bias, ws, bias):
+        autograd.refuse_grad("ln_matmul_q")
     ws = _f32(ws, x.device)
     out = (_ln_bf16("ln_matmul_q", x, ln_scale, ln_bias, wq, bias, eps, ws)
            if x.dtype == BF16 else None)
@@ -268,6 +278,8 @@ def geglu_matmul_q(h: torch.Tensor, wq, ws, bias, residual: torch.Tensor) -> tor
     returns residual + (a * gelu(g)) @ dequant(wq) + bias in residual.dtype."""
     if not h.is_cuda:
         return geglu_matmul_q_plain(h, wq, ws, bias, residual)
+    if autograd.needs_grad(h, ws, bias, residual):
+        autograd.refuse_grad("geglu_matmul_q")
     out = _geglu("geglu_matmul_q", h, wq, _f32(ws, h.device), bias, residual)
     geglu_matmul_q.launches += 1
     return out
@@ -278,6 +290,8 @@ def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None) ->
     x @ dequant(wq) + bias in x.dtype."""
     if not x.is_cuda:
         return int8_matmul_plain(x, wq, ws, bias)
+    if autograd.needs_grad(x, ws, bias):
+        autograd.refuse_grad("int8_matmul")
     name = "int8_matmul"
     x = x.contiguous()
     _build.require_cuda(name, x)

@@ -23,7 +23,9 @@ conversion kernel runs before a bf16 K1 or K1q launch.
 
 :func:`gn_silu_conv3x3` and :func:`gn_silu_conv3x3_q` take their plain
 versions for CPU tensors and the kernels for CUDA tensors; the ``*_plain``
-functions are the oracles.
+functions are the oracles. A CUDA call that autograd must record
+(``autograd.needs_grad``) goes through ``autograd.KernelFunction``: K1 in
+the forward, the plain version's gradients in the backward; K1q refuses it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from audioldm2_torch.ops import _build, groupnorm_kernel
+from audioldm2_torch.ops import _build, autograd, groupnorm_kernel
 from audioldm2_torch.ops import nn as _nn
 
 BF16 = torch.bfloat16
@@ -195,6 +197,9 @@ def gn_silu_conv3x3(x1: torch.Tensor, x2: Optional[torch.Tensor], gn_scale, gn_b
     (HWIO); returns [B, T, F, Cout] in x1.dtype."""
     if not x1.is_cuda:
         return gn_silu_conv3x3_plain(x1, x2, gn_scale, gn_bias, w, b, groups, eps)
+    if autograd.needs_grad(x1, x2, gn_scale, gn_bias, w, b):
+        return autograd.KernelFunction.apply(gn_silu_conv3x3, gn_silu_conv3x3_plain, x1, x2,
+                                             gn_scale, gn_bias, w, b, groups, eps)
     out = _launch("gn_silu_conv3x3", x1, x2, gn_scale, gn_bias, w.to(x1.dtype).contiguous(),
                   None, b, groups, eps)
     gn_silu_conv3x3.launches += 1
@@ -207,6 +212,8 @@ def gn_silu_conv3x3_q(x1: torch.Tensor, x2: Optional[torch.Tensor], gn_scale, gn
     [Cout]; returns [B, T, F, Cout] in x1.dtype."""
     if not x1.is_cuda:
         return gn_silu_conv3x3_q_plain(x1, x2, gn_scale, gn_bias, wq, ws, b, groups, eps)
+    if autograd.needs_grad(x1, x2, gn_scale, gn_bias, ws, b):
+        autograd.refuse_grad("gn_silu_conv3x3_q")
     ws = ws.to(x1.device, torch.float32).contiguous()
     out = _launch("gn_silu_conv3x3_q", x1, x2, gn_scale, gn_bias, wq, ws, b, groups, eps)
     gn_silu_conv3x3_q.launches += 1

@@ -127,3 +127,100 @@ class MelSpectrogram:
         if t < target_length:
             return F.pad(m, (0, 0, 0, target_length - t))
         return m[:, :target_length].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kaldi-compatible fbank (the AudioMAE frontend; the training data's
+# ``ta_kaldi_fbank``)
+# ---------------------------------------------------------------------------
+
+
+def _kaldi_mel_banks(num_bins: int, window_length_padded: int, sample_freq: float,
+                     low_freq: float = 20.0, high_freq: float = 0.0) -> np.ndarray:
+    """Kaldi-style mel filterbank [num_bins, window_length_padded // 2]
+    (HTK mel scale 1127 ln(1 + f / 700), no nyquist bin), as
+    torchaudio.compliance.kaldi.get_mel_banks builds it; float64 maths,
+    float32 out (JAX ``stft.py:207-236``)."""
+    num_fft_bins = window_length_padded // 2
+    nyquist = 0.5 * sample_freq
+    if high_freq <= 0.0:
+        high_freq = nyquist + high_freq
+
+    fft_bin_width = sample_freq / window_length_padded
+
+    def mel(f):
+        return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+    mel_low = mel(low_freq)
+    mel_delta = (mel(high_freq) - mel_low) / (num_bins + 1)
+    bins = np.arange(num_bins, dtype=np.float64)[:, None]
+    left_mel = mel_low + bins * mel_delta
+    center_mel = mel_low + (bins + 1.0) * mel_delta
+    right_mel = mel_low + (bins + 2.0) * mel_delta
+    mels = mel(fft_bin_width * np.arange(num_fft_bins, dtype=np.float64)[None, :])
+    up_slope = (mels - left_mel) / (center_mel - left_mel)
+    down_slope = (right_mel - mels) / (right_mel - center_mel)
+    return np.maximum(0.0, np.minimum(up_slope, down_slope)).astype(np.float32)
+
+
+def stft_basis_nowin(filter_length: int) -> np.ndarray:
+    """Unwindowed real-DFT basis [filter_length, 2 * (filter_length // 2 + 1)]."""
+    cutoff = filter_length // 2 + 1
+    n = np.arange(filter_length, dtype=np.float64)
+    k = np.arange(cutoff, dtype=np.float64)[:, None]
+    angle = -2.0 * np.pi * k * n / filter_length
+    return np.concatenate([np.cos(angle), np.sin(angle)], axis=0).T.astype(np.float32)
+
+
+class KaldiFbank:
+    """torchaudio.compliance.kaldi.fbank-compatible log-mel fbank, fixed to
+    the AudioMAE frontend's settings (JAX ``stft.py:239-310``, reference
+    pipeline.py:44-80): 16 kHz, 25 ms frames every 10 ms with snip_edges,
+    per-frame DC removal, preemphasis 0.97, the symmetric hann window,
+    zero-padding to 512, 128 mel bins, no dither, no energy. The matmuls
+    run in full f32."""
+
+    NORM_MEAN = -4.2677393  # reference pipeline.py:45
+    NORM_STD = 4.5689974
+
+    def __init__(self, sample_rate: int = 16000, num_mel_bins: int = 128, device="cpu"):
+        self.sample_rate = sample_rate
+        self.frame_length = int(sample_rate * 0.025)
+        self.frame_shift = int(sample_rate * 0.010)
+        self.padded_length = 1 << (self.frame_length - 1).bit_length()
+        self.device = torch.device(device)
+        n = np.arange(self.frame_length, dtype=np.float64)
+        window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (self.frame_length - 1))
+        self.window = torch.from_numpy(window.astype(np.float32)).to(self.device)
+        self.mel_banks = torch.from_numpy(_kaldi_mel_banks(
+            num_mel_bins, self.padded_length, float(sample_rate))).to(self.device)
+        self.basis = torch.from_numpy(stft_basis_nowin(self.padded_length)).to(self.device)
+
+    def __call__(self, wav) -> torch.Tensor:
+        """[B, N] waveform (numpy or tensor) -> [B, T, num_mel_bins] kaldi
+        log-fbank, T = 1 + (N - 400) // 160 at 16 kHz."""
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        frames = wav.unfold(-1, self.frame_length, self.frame_shift)
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = (frames - 0.97 * prev) * self.window
+        frames = F.pad(frames, (0, self.padded_length - self.frame_length))
+        nfreq = self.basis.shape[1] // 2
+        with full_f32():
+            spec = torch.matmul(frames, self.basis)
+            real, imag = spec[..., :nfreq], spec[..., nfreq:]
+            power = real * real + imag * imag
+            mel = torch.matmul(power[..., :self.padded_length // 2], self.mel_banks.t())
+        return torch.log(torch.clamp(mel, min=torch.finfo(torch.float32).eps))
+
+    def normalized(self, wav, target_length: int = 1024) -> torch.Tensor:
+        """The AudioMAE-normalized fbank [B, target_length, num_mel_bins],
+        zero-padded or cut in time (reference pipeline.py:44-80)."""
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        fb = self(wav - wav.mean(dim=-1, keepdim=True))
+        t = fb.shape[1]
+        if t < target_length:
+            fb = F.pad(fb, (0, 0, 0, target_length - t))
+        else:
+            fb = fb[:, :target_length]
+        return (fb - self.NORM_MEAN) / (self.NORM_STD * 2.0)

@@ -33,7 +33,16 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           768-wide context slot), bf16, text_to_audio with a transcription;
   ab      the attention A/B entry point (audioldm2_torch.tools.
           ab_attn_variants) once: the plain version, K2, K7 (v6bd), K8 (v7)
-          and scaled_dot_product_attention at the JAX tool's shapes.
+          and scaled_dot_product_attention at the JAX tool's shapes;
+  train   audioldm_16k_crossattn_t5 (the t5 path's drawn weights, after its
+          requests) through make_full_train_step in f32: utils.data.
+          AudioDataset reads 8 synthetic 16 kHz wavs at 10.24 s into a
+          batch of 4 (mel [1024, 64, 1], ta_kaldi_fbank [1024, 128]), then
+          8 AdamW steps (lr 1e-4) on it with the same draws every step, an
+          EMA update after each: the VAE encode (K1, K6 in f32) and the
+          conditioning under torch.no_grad(), the UNet's K1, K2, K3, K4 and
+          K6 under autograd (ops.autograd: kernel forward, plain-version
+          recompute backward).
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -102,6 +111,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      at batch 1; on the large and 48k paths also the rerank: the
      similarities finite and in [-1, 1], the kept candidate the argmax of
      each prompt's, the CLAP audio embeddings of unit norm.
+     After the t5 requests, the train path: the kernels at the step's f32
+     shapes (the UNet at batch 4, the VAE encode of 4 mels) against their
+     plain versions, beside their bounds and yardsticks (cuDNN's f32 conv
+     for K1, F.linear or the product alone for K3 and K4, f32 SDPA for K2,
+     F.group_norm + F.silu for K6); one step's loss and UNet gradients
+     through the kernels against the plain path (loss within 1e-4, every
+     leaf's gradient within 1e-3 relative in norm, the worst printed); the
+     8 steps: every UNet leaf with a finite gradient, the losses finite and
+     falling (the least of the last four below the first), the first
+     step's launches equal to the UNet forward's plus the VAE encode's, its
+     backward's plain-version recomputes (the only CUDA calls a plain
+     version may take) equal to the UNet forward's launches of K1, K2, K3,
+     K4 and K6, no f32 K1 call on the shared core, the EMA of one leaf
+     against its ramp formula; the step's wall, forward, backward and
+     optimizer device times (CUDA events) and peak memory.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -302,25 +326,50 @@ def patched_dispatch(mode: str, record=None):
 
 
 @contextlib.contextmanager
-def plain_versions_forbidden():
+def plain_versions_forbidden(recomputes=None):
     """Make every plain version of a kernel raise if handed a CUDA tensor,
-    so a main-path run proves that no CUDA tensor took a plain path."""
+    so a main-path run proves that no CUDA tensor took a plain path. The
+    one exception is the recompute inside a kernel's autograd backward
+    (``ops.autograd.KernelFunction.backward``, wrapped here), each of which
+    adds one to ``recomputes[kernel name]`` where a dict is given."""
+    import functools
     import importlib
+    import threading
 
-    saved = []
-    for kern, plain in _wrappers().values():
+    from audioldm2_torch.ops import autograd
+
+    inside = threading.local()  # the CUDA backward runs on autograd's device thread
+    names, saved = {}, []
+    for name, (kern, plain) in _wrappers().items():
         mod = importlib.import_module(plain.__module__)
         saved.append((mod, plain.__name__, plain))
+        names[plain.__name__] = name
 
+        @functools.wraps(plain)
         def guard(*args, _fn=plain, **kw):
-            if any(getattr(a, "is_cuda", False) for a in args):
+            if not getattr(inside, "backward", False) and any(
+                    getattr(a, "is_cuda", False) for a in args):
                 raise AssertionError(f"{_fn.__name__} reached with a CUDA tensor on the main path")
             return _fn(*args, **kw)
 
         setattr(mod, plain.__name__, guard)
+    backward = vars(autograd.KernelFunction)["backward"]
+
+    def counted_backward(ctx, grad):
+        if recomputes is not None:
+            name = names[ctx.plain.__name__]
+            recomputes[name] = recomputes.get(name, 0) + 1
+        inside.backward = True
+        try:
+            return backward.__func__(ctx, grad)
+        finally:
+            inside.backward = False
+
+    autograd.KernelFunction.backward = staticmethod(counted_backward)
     try:
         yield
     finally:
+        autograd.KernelFunction.backward = backward
         for mod, name, fn in saved:
             setattr(mod, name, fn)
 
@@ -685,6 +734,12 @@ def side_times(name, args):
             wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             bt = b.to(x1.dtype)
             out["yardstick_ms"] = cuda_ms(lambda: F.conv2d(h, wt, bt, padding=1))
+        elif name == "ln_matmul":
+            x, gamma, beta, w, b, eps = args
+            y = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(), beta.float(),
+                             eps).to(x.dtype)
+            wt, bt = w.t().contiguous(), None if b is None else b.to(x.dtype)
+            out["yardstick_ms"] = cuda_ms(lambda: F.linear(y, wt, bt))
         elif name == "geglu_matmul":
             h, w = args[0], args[1]
             a, gate = torch.chunk(h.float(), 2, dim=-1)
@@ -1017,7 +1072,8 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
                 parts.append(f"yardstick, F.group_norm + F.silu (two calls, not library_ms): "
                              f"{side['yardstick_ms']:.4f} ms")
             elif "yardstick_ms" in side:
-                tool = "cuDNN conv" if name == "gn_silu_conv3x3" else "cuBLAS matmul"
+                tool = {"gn_silu_conv3x3": "cuDNN conv", "ln_matmul": "F.linear"}.get(
+                    name, "cuBLAS matmul")
                 parts.append(f"yardstick, the product alone ({tool}): "
                              f"{side['yardstick_ms']:.4f} ms")
             if "parent_ms" in side and "sibling_ms" not in side:
@@ -1651,6 +1707,8 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
             expect(model.cfg, steps, sampler), 1, duration,
             f"text_to_audio {sampler}, {steps if sampler == 'plms' else 'all 1000'} steps")
         e2e[f"t5_{sampler}"] = {"wall_s": wall}
+    # the train path takes the same drawn weights last: it updates them
+    launches["train"], e2e["train"] = phase_train(model, device)
     del model
 
     # the full and full8 paths serve from a checkpoint file of the drawn weights
@@ -1711,6 +1769,291 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         duration, f"text_to_audio ddim, guidance 3.5, transcription {TRANSCRIPTION!r}",
         PROMPTS_SHORT)
     return launches, e2e
+
+
+# The train path: make_full_train_step at full width in f32 (the step's own
+# precision, as in JAX), TRAIN_BATCH clips of 10.24 s, TRAIN_STEPS AdamW
+# steps at TRAIN_LR on one batch with the same draws every step. One
+# step's loss through the kernels and through the plain versions agree
+# within TRAIN_LOSS_TOL (relative), and each UNet leaf's gradient within
+# TRAIN_GRAD_TOL (||g_kernel - g_plain|| / ||g_plain||).
+TRAIN_BATCH = 4
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-4
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_CLIPS = 8
+# The step through the kernels against the all-plain step: TRAIN_AB_STEPS
+# steps of each after the checked ones, timed by the median of all but
+# the first, with the peak memory of each
+TRAIN_AB_STEPS = 6
+# The kernels with a gradient (ops.autograd), those of the f32 train step
+TRAIN_KERNELS = ("gn_silu_conv3x3", "flash_self_attention", "ln_matmul", "geglu_matmul",
+                 "group_norm_silu")
+
+
+def train_batch(cfg, tmp: str):
+    """TRAIN_CLIPS synthetic 16 kHz wavs (9 to 12.5 s: cropped and padded
+    to 10.24 s) and their JSON manifest, read by utils.data.AudioDataset
+    (seed 0); returns its first batch of TRAIN_BATCH and the host seconds."""
+    import numpy as np
+    from audioldm2_torch.utils.data import AudioDataset, DatasetConfig
+
+    sr = cfg.preprocessing.sampling_rate
+    entries = [{"wav": write_wav(os.path.join(tmp, f"clip{i}.wav"), sr, 9.0 + 0.5 * i),
+                "caption": PROMPTS[i % len(PROMPTS)][0]} for i in range(TRAIN_CLIPS)]
+    meta = os.path.join(tmp, "train.json")
+    with open(meta, "w") as f:
+        json.dump({"data": entries}, f)
+    t0 = time.perf_counter()
+    dataset = AudioDataset(DatasetConfig(metadata_paths=[meta], sampling_rate=sr), cfg, seed=0)
+    batch = next(dataset.batches(TRAIN_BATCH))
+    seconds = time.perf_counter() - t0
+    frames = round(10.24 * sr / cfg.preprocessing.hop_length)
+    want = {"fbank": (TRAIN_BATCH, frames, cfg.preprocessing.n_mel_channels, 1),
+            "ta_kaldi_fbank": (TRAIN_BATCH, 1024, 128)}
+    for key, shape in want.items():
+        if batch[key].shape != shape or not np.isfinite(batch[key]).all():
+            raise AssertionError(f"train batch {key} {batch[key].shape} is not a finite {shape}")
+    log(f"  data: {TRAIN_CLIPS} wavs, AudioDataset at 10.24 s, batch {TRAIN_BATCH}: fbank "
+        f"{batch['fbank'].shape}, ta_kaldi_fbank {batch['ta_kaldi_fbank'].shape}, t5_ids "
+        f"{batch['t5_ids'].shape}; {seconds:.2f} s on the host")
+    return batch
+
+
+def _split_by_eps(first, counts):
+    """The recorded calls of one train forward split into the UNet's and
+    the VAE encode's (whose GroupNorms have eps 1e-6)."""
+    parts = ({}, {}), ({}, {})
+    for sig, args in first.items():
+        f, c = parts[sig[-1] == 1e-6 and sig[0] in ("gn_silu_conv3x3", "group_norm_silu")]
+        f[sig], c[sig] = args, counts[sig]
+    return parts
+
+
+def phase_train(model, device):
+    """The train path on ``model`` (its weights are updated): the kernels
+    at the step's f32 shapes against their plain versions with their
+    yardsticks; one step's loss and gradients through the kernels against
+    the plain path; then TRAIN_STEPS steps of make_full_train_step with an
+    EMA update after each, the launch counts and backward recomputes of the
+    first step held to the config's, every UNet leaf's gradient finite,
+    the losses finite and falling, the EMA against its ramp formula, and
+    the step's wall, forward, backward and optimizer device times and peak
+    memory; then the step through the kernels against the all-plain step,
+    timed and measured alike. Returns (launch counts of the first step,
+    timings)."""
+    import numpy as np
+    import torch
+    from audioldm2_torch import ops
+    from audioldm2_torch.diffusion.schedule import DiffusionSchedule
+    from audioldm2_torch.models import unet, vae
+    from audioldm2_torch.ops.nn import full_f32
+    from audioldm2_torch.parallel import ema, train
+
+    cfg, params = model.cfg, model.ldm.params
+    log(f"== path train: make_full_train_step on {cfg.name}, f32, batch {TRAIN_BATCH}, AdamW lr "
+        f"{TRAIN_LR:g}, {TRAIN_STEPS} steps on one batch; {nvidia_smi_line()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = train_batch(cfg, tmp)
+    g = torch.Generator(device=device).manual_seed(0)
+    ds = cfg.vae.downsample_factor
+    shape = (TRAIN_BATCH, batch["fbank"].shape[1] // ds, batch["fbank"].shape[2] // ds,
+             cfg.vae.embed_dim)
+    d = cfg.diffusion
+    schedule = DiffusionSchedule.create(d.timesteps, d.beta_schedule, d.linear_start,
+                                        d.linear_end)
+    draws = {"posterior_noise": torch.randn(shape, generator=g, device=device),
+             "t": torch.randint(0, schedule.num_timesteps, (TRAIN_BATCH,), generator=g,
+                                device=device),
+             "noise": torch.randn(shape, generator=g, device=device)}
+    consts = train.schedule_consts(schedule, device)
+
+    def loss_of(**kw):
+        return train.full_diffusion_loss(params, cfg, consts, batch, **draws,
+                                         train_unet_only=True, **kw)
+
+    log("  -- the kernels at the step's f32 shapes (the UNet at batch "
+        f"{TRAIN_BATCH}, the VAE encode of {TRAIN_BATCH} mels), against their plain versions")
+    first, counts = {}, {}
+
+    def record(name, args):
+        sig = signature(name, args)
+        counts[sig] = counts.get(sig, 0) + 1
+        first.setdefault(sig, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+
+    with torch.inference_mode(), full_f32(), patched_dispatch("record", record):
+        loss_of()
+    (unet_first, unet_counts), (enc_first, enc_counts) = _split_by_eps(first, counts)
+    log(f"  UNet forward, batch {TRAIN_BATCH}, f32:")
+    stats = phase_kernels(unet_first, unet_counts, offset_check=False, f32_pass=False)
+    log(f"  VAE encode, batch {TRAIN_BATCH}, f32:")
+    enc_stats = phase_kernels(enc_first, enc_counts, offset_check=False, f32_pass=False)
+    del first, unet_first, enc_first
+
+    log("  -- one step's loss and UNet gradients, kernels against the plain path")
+    paths = [p for p, _ in _paths(params["unet"])]
+    leaves = [leaf.requires_grad_(True) for _, leaf in _paths(params["unet"])]
+    got = {}
+    for mode in ("kernels", "plain"):
+        with full_f32(), (patched_dispatch("plain") if mode == "plain"
+                          else contextlib.nullcontext()):
+            loss = loss_of()
+            got[mode] = (loss.item(), torch.autograd.grad(loss, leaves))
+        del loss
+    (l_k, g_k), (l_p, g_p) = got["kernels"], got["plain"]
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    rels = sorted(((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item(), p)
+                  for p, a, b in zip(paths, g_k, g_p))
+    finite = all(bool(torch.isfinite(a).all()) for a in g_k)
+    del got, g_k, g_p
+    log(f"  loss kernels {l_k:.6f}, plain {l_p:.6f}: rel {loss_rel:.3e} (tol {TRAIN_LOSS_TOL:g}); "
+        f"gradients of {len(rels)} UNet leaves, ||g_kernel - g_plain|| / ||g_plain||: median "
+        f"{rels[len(rels) // 2][0]:.3e}, worst {rels[-1][0]:.3e} at {rels[-1][1]} "
+        f"(tol {TRAIN_GRAD_TOL:g}); all finite {finite}")
+    if not finite or loss_rel > TRAIN_LOSS_TOL or rels[-1][0] > TRAIN_GRAD_TOL:
+        raise AssertionError("train step: kernels disagree with the plain path")
+
+    log(f"  -- {TRAIN_STEPS} steps of make_full_train_step, an EMA update after each")
+    per_fwd = unet.kernel_launches_per_forward(cfg.unet)
+    per_enc = vae.kernel_launches_per_encode(cfg.vae)
+    expected = {k: per_fwd[k] + per_enc[k] for k in ops.KERNEL_NAMES}
+    want_recomputes = {k: per_fwd[k] for k in TRAIN_KERNELS}
+    optimizer = train.AdamW(TRAIN_LR)
+    opt_state = optimizer.init(params["unet"])
+    step = train.make_full_train_step(cfg, optimizer)
+    probe = "/out_conv/w"
+    shadow = ema.init(params["unet"])
+    probe_start = dict(_paths(shadow.params))[probe].clone()
+    probe_values = []
+    events = {}
+    saved_loss = train.full_diffusion_loss
+
+    def event(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events[key] = e
+
+    def timed_loss(*a, **kw):
+        event("forward")
+        loss = saved_loss(*a, **kw)
+        event("backward")
+        return loss
+
+    saved_step = opt_state.step
+
+    def timed_step(*a, **kw):
+        event("optimizer")
+        return saved_step(*a, **kw)
+
+    def timed():
+        """One step: its loss and its device times from CUDA events."""
+        nonlocal params, opt_state
+        event("start")
+        params, opt_state, loss = step(params, opt_state, batch, **draws)
+        event("end")
+        torch.cuda.synchronize()
+        return loss, {k: events[a].elapsed_time(events[b]) for k, (a, b) in {
+            "step_ms": ("start", "end"), "forward_ms": ("forward", "backward"),
+            "backward_ms": ("backward", "optimizer"), "optimizer_ms": ("optimizer", "end"),
+        }.items()}
+
+    def median(times):
+        return {k: float(np.median([t[k] for t in times])) for k in times[0]}
+
+    losses, times, recomputes = [], [], {}
+    on_core, work = {}, {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    train.full_diffusion_loss, opt_state.step = timed_loss, timed_step
+    try:
+        for i in range(TRAIN_STEPS):
+            first_step = i == 0
+            if first_step:
+                ops.reset_launch_counts()
+            with plain_versions_forbidden(recomputes if first_step else None), \
+                    shared_core_bf16_counted(on_core), workspaces_counted(work):
+                loss, t = timed()
+            if first_step:
+                launches = ops.launch_counts()
+                missing = [p for p, leaf in _paths(params["unet"]) if leaf.grad is None
+                           or not bool(torch.isfinite(leaf.grad).all())]
+                if missing:
+                    raise AssertionError(f"{len(missing)} UNet leaves with no finite gradient: "
+                                         f"{missing[:5]}")
+            shadow = ema.update(shadow, params["unet"])
+            probe_values.append(dict(_paths(params["unet"]))[probe].detach().clone())
+            losses.append(loss.item())
+            times.append(t)
+            log(f"  step {i + 1}: loss {losses[-1]:.6f}; " + ", ".join(
+                f"{k} {v:.2f}" for k, v in t.items()))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  -- the step through the kernels against the all-plain step, {TRAIN_AB_STEPS} "
+            f"steps of each (plain first), median of steps 2-{TRAIN_AB_STEPS}")
+        ab = {}
+        for mode in ("plain", "kernels"):
+            torch.cuda.synchronize()
+            ab_held = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            with patched_dispatch("plain") if mode == "plain" else contextlib.nullcontext():
+                steps = [timed() for _ in range(TRAIN_AB_STEPS)]
+            ab_peak = torch.cuda.max_memory_allocated() / 2**30
+            ab[mode] = {**median([t for _, t in steps[1:]]), "peak_gib": ab_peak,
+                        "step_gib": ab_peak - ab_held}
+            log(f"  {mode}: losses {' '.join(f'{l.item():.5f}' for l, _ in steps)}; "
+                + ", ".join(f"{k} {v:.2f}" for k, v in ab[mode].items() if k.endswith("_ms"))
+                + f"; peak memory {ab_peak:.2f} GiB, {ab_peak - ab_held:.2f} above the "
+                f"{ab_held:.2f} held before the first step")
+            if not all(bool(torch.isfinite(l)) for l, _ in steps):
+                raise AssertionError(f"{mode} steps: a loss is not finite")
+    finally:
+        train.full_diffusion_loss, opt_state.step = saved_loss, saved_step
+    log(f"  kernels / plain: step {ab['kernels']['step_ms'] / ab['plain']['step_ms']:.3f}x, "
+        f"forward {ab['kernels']['forward_ms'] / ab['plain']['forward_ms']:.3f}x, backward "
+        f"{ab['kernels']['backward_ms'] / ab['plain']['backward_ms']:.3f}x, memory above the held "
+        f"{ab['kernels']['step_gib'] / ab['plain']['step_gib']:.3f}x; {nvidia_smi_line()}")
+    n_params = sum(t.numel() for t in _leaves(params)) / 1e6
+    n_unet = sum(t.numel() for t in _leaves(params["unet"])) / 1e6
+    log(f"  first step's launches {launches}; backward recomputes of the plain versions "
+        f"{recomputes}; split-K workspaces (f32 K3 and K4 on the shared core) "
+        f"{work['workspaces'] // TRAIN_STEPS} a step")
+    if {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"train step launches {launches} != UNet forward + VAE encode "
+                             f"{expected}")
+    if recomputes != want_recomputes:
+        raise AssertionError(f"backward recomputes {recomputes} != the UNet forward's launches "
+                             f"{want_recomputes}")
+    if on_core:
+        raise AssertionError(f"f32 K1 calls on the shared core in the train step: {on_core}")
+    if not np.isfinite(losses).all() or not min(losses[-4:]) < losses[0]:
+        raise AssertionError(f"train losses not finite or not falling: {losses}")
+    # the EMA of the probe leaf against the ramp formula on the host
+    s_host = probe_start.cpu().numpy()
+    for n, p in enumerate(probe_values, start=1):
+        keep = np.float32(1.0) - np.float32(ema.decay_at(n))
+        s_host = s_host - keep * (s_host - p.cpu().numpy())
+    got_ema = dict(_paths(shadow.params))[probe].cpu().numpy()
+    ema_err = float(np.abs(got_ema - s_host).max() / np.abs(s_host).max())
+    log(f"  EMA of {probe} after {shadow.updates} updates against the ramp formula on the host: "
+        f"rel {ema_err:.3e}")
+    if shadow.updates != TRAIN_STEPS or ema_err > 1e-6:
+        raise AssertionError(f"EMA off its ramp formula ({ema_err:.3e})")
+    summary = median(times[1:])
+    log(f"  losses {' '.join(f'{v:.5f}' for v in losses)} (min of the last four < the first)")
+    log(f"  step wall (CUDA events), median of steps 2-{TRAIN_STEPS}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in summary.items())
+        + f"; first step {times[0]['step_ms']:.2f} ms; peak memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; {held:.2f} held before the first step, the whole "
+        f"script's included); {n_params:.1f} M parameters, {n_unet:.1f} M "
+        f"trained (f32: {4 * n_params / 1e3:.2f} GB, gradients {4 * n_unet / 1e3:.2f} GB, AdamW "
+        f"moments {8 * n_unet / 1e3:.2f} GB, EMA shadow {4 * n_unet / 1e3:.2f} GB); "
+        f"{nvidia_smi_line()}")
+    for name, st in enc_stats.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+    return launches, {"losses": losses, "peak_gib": peak, **summary, "ab": ab,
+                      "max_abs_err": {k: v["max_abs_err"] for k, v in stats.items()}}
 
 
 def _leaves(tree):
@@ -1849,6 +2192,8 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
 
     launches, e2e = phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps,
                             duration)
+    for name, err in e2e["train"]["max_abs_err"].items():  # the f32 train-step shapes'
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     return stats, launches, e2e
 
 

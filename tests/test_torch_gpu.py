@@ -1,6 +1,7 @@
 """The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, K6, and the A/B
 attention variants K7 and K8) against their plain PyTorch versions on the
-card, and the plain bf16 convs' one rounding.
+card, the plain bf16 convs' one rounding, and the gradients through K1,
+K2, K3, K4 and K6 under autograd (ops.autograd) against the plain ones.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -14,6 +15,7 @@ come from chip_smoke.exact_f32_args, which keeps that activation off the
 bf16 rounding boundaries."""
 
 import contextlib
+import sys
 
 import numpy as np
 import pytest
@@ -1020,3 +1022,81 @@ def test_bf16_k1_and_k1q_give_the_bits_they_gave_before_the_f32_kernel(cuda):
         for shape, want in K1Q_SHA256_BEFORE_F32.items():
             got = resblock_kernel.gn_silu_conv3x3_q(*time_k2_k3.k1q_args(shape, cuda))
             assert time_k2_k3.sha256(got) == want, shape
+
+
+# ---------------------------------------------------------------------------
+# Autograd through the kernels (ops.autograd): the f32 train step's path
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases(g, device):
+    """(wrapper, plain, args) of each kernel with a gradient, f32, at small
+    shapes the kernels take (the f32 K1's plan, K2's head width 32)."""
+    def r(*shape, scale=1.0, offset=0.0):
+        return _rand(g, shape, torch.float32, device, scale, offset)
+
+    k1 = lambda c2: (r(2, 8, 4, 64, offset=0.5), r(2, 8, 4, c2) if c2 else None,  # noqa: E731
+                     r(64 + c2, scale=0.1, offset=1.0), r(64 + c2, scale=0.1),
+                     r(3, 3, 64 + c2, 96, scale=(9 * (64 + c2)) ** -0.5), r(96), 32, 1e-5)
+    return {
+        "K1": (resblock_kernel.gn_silu_conv3x3, resblock_kernel.gn_silu_conv3x3_plain, k1(0)),
+        "K1 with x2": (resblock_kernel.gn_silu_conv3x3, resblock_kernel.gn_silu_conv3x3_plain,
+                       k1(32)),
+        "K2": (attention_kernel.flash_self_attention, attention_kernel.self_attention_plain,
+               (r(2, 200, 4, 32), r(2, 200, 4, 32), r(2, 200, 4, 32), 32 ** -0.5)),
+        "K3": (lnmm_kernel.ln_matmul, lnmm_kernel.ln_matmul_plain,
+               (r(2, 100, 256, offset=1.0), r(256, scale=0.1, offset=1.0), r(256, scale=0.1),
+                r(256, 384, scale=1 / 16), r(384), 1e-5)),
+        "K4": (lnmm_kernel.geglu_matmul, lnmm_kernel.geglu_matmul_plain,
+               (r(2, 100, 512), r(256, 128, scale=1 / 16), r(128), r(2, 100, 128))),
+        "K6": (groupnorm_kernel.group_norm_silu, groupnorm_kernel.group_norm_silu_plain,
+               (r(2, 16, 8, 128, offset=2.0), r(128, scale=0.1, offset=1.0), r(128, scale=0.1),
+                32, 1e-5, True)),
+    }
+
+
+@pytest.mark.parametrize("case", ["K1", "K1 with x2", "K2", "K3", "K4", "K6"])
+def test_kernels_under_autograd_give_the_plain_gradients(cuda, monkeypatch, case):
+    """A CUDA call under grad launches the kernel once (its output within
+    the f32 bound of the plain version's) and its backward recomputes the
+    plain version once: every input's gradient within 1e-5 of autograd of
+    the plain version on the same inputs (the same operations on the same
+    saved inputs)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wrapper, plain, args = _grad_cases(g, cuda)[case]
+
+    def leaves():
+        return tuple(a.clone().requires_grad_(True) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    recomputes = []
+
+    def counted(*a):
+        recomputes.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(sys.modules[wrapper.__module__], plain.__name__, counted)
+    a1, a2 = leaves(), leaves()
+    launches = wrapper.launches
+    got = wrapper(*a1)
+    want = plain(*a2)
+    assert wrapper.launches == launches + 1 and got.grad_fn is not None and not recomputes
+    _check(got.detach(), want.detach(), torch.float32)
+    up = torch.randn(want.shape, generator=g, device=cuda)
+    got.backward(up)
+    want.backward(up)
+    assert len(recomputes) == 1
+    for x, y in zip(a1, a2):
+        if isinstance(x, torch.Tensor):
+            err = (x.grad - y.grad).abs().max().item()
+            assert err <= 1e-5 * y.grad.abs().max().item(), err
+
+
+def test_int8_kernels_refuse_autograd_on_the_card(cuda):
+    x = torch.randn(2, 10, 128, device=cuda, requires_grad=True)
+    wq = torch.zeros(128, 128, dtype=torch.int8, device=cuda)
+    ws = torch.ones(128, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        lnmm_kernel.int8_matmul(x, wq, ws, ws)
+    with torch.no_grad():
+        assert lnmm_kernel.int8_matmul(x, wq, ws, ws).shape == (2, 10, 128)
