@@ -13,6 +13,10 @@ audioldm2-full-large-1150k, audioldm_48k and the two speech families),
 each in bf16 or in the int8 serving mode
 (``build_model(weight_quant="int8")``), with the DDIM, PLMS and DDPM
 samplers and the CLAP rerank of ``n_candidate_gen_per_text`` candidates.
+Audio in: ``AudioLDM2.make_batch(waveform=, fbank=)`` feeds the AudioMAE
+conditioner and CLAP's audio embedding mode; every CLAP tower of the JAX
+registry (HTSAT, PANN CNN14 / CNN10, RoBERTa, BERT, BART, the CLIP-BPE
+transformer) is ported.
 
 Training (``parallel.train``, ``parallel.ema``, ``utils.data``):
 make_full_train_step, make_train_step, AdamW, AudioDataset, DatasetConfig,

@@ -5,7 +5,7 @@ equal on the same state dicts). Maps the reference's
 ``cond_stage_models.<i>.`` namespaces (and the nested
 ``cond_stage_models.<i>.cond_stage_models.<j>.`` of SequenceGenAudioMAECond)
 onto the conditioner trees of :mod:`audioldm2_torch.models.conditioners`,
-the nested AudioMAE encoder included, which no ported path reads.
+the nested AudioMAE encoder included.
 """
 
 from __future__ import annotations

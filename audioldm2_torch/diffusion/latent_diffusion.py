@@ -202,8 +202,10 @@ def kernel_launches_per_generate(cfg: ModelConfig, ddim_steps: int, sampler: str
     forwards (one batched CFG call each; int8 kernels in the int8 serving
     mode), one VAE decode (never quantized) and, with ``encode`` (the
     sr/inpainting path), one VAE encode. The conditioners run no kernel:
-    T5, RoBERTa and GPT-2 attention is masked (and T5's biased), and their
-    matmuls are plain f32 products."""
+    T5, RoBERTa, BERT, BART, the CLIP transformer and GPT-2 attention is
+    masked (and T5's biased), HTSAT's biased, AudioMAE's goes to
+    ``scaled_dot_product_attention``, and their matmuls and convs are plain
+    f32 products."""
     per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant)
     n = unet_forwards(cfg, ddim_steps, sampler)
     dec = vae.kernel_launches_per_decode(cfg.vae)

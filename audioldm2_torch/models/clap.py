@@ -1,20 +1,22 @@
 """CLAP text and audio embeddings and the rerank scorer, in PyTorch.
 
-Port of ``audioldm2_tpu/models/clap.py``: the RoBERTa text tower and the
-HTSAT audio tower (``models/htsat.py``), each projected through a two-layer
-MLP into the joint space and L2-normalized ([B, 1, D] text embeddings,
-[B, D] audio embeddings); the contrastive heads (``text_transform``,
-``audio_transform``, the two logit scales) are drawn so that the tree
-matches the JAX ``init_clap``, and nothing reads them. :func:`rerank_score`
-is the JAX ``_rerank_score``: the sinc resample to the CLAP rate as one
-strided conv over the phase bank, the repeat-pad clip fit, both embeddings
-and their cosine similarity, in f32 with TF32 off.
+Port of ``audioldm2_tpu/models/clap.py``: a text tower (RoBERTa, BERT,
+BART or the CLIP transformer) and an audio tower (HTSAT, ``models/htsat.py``,
+or PANN CNN14 / CNN10, ``models/pann.py``), each projected through a
+two-layer MLP into the joint space and L2-normalized ([B, 1, D] text
+embeddings, [B, D] audio embeddings); the contrastive heads
+(``text_transform``, ``audio_transform``, the two logit scales) are drawn
+so that the tree matches the JAX ``init_clap``, and nothing reads them.
+:func:`rerank_score` is the JAX ``_rerank_score``: the sinc resample to the
+CLAP rate as one strided conv over the phase bank, the repeat-pad clip
+fit, both embeddings and their cosine similarity, in f32 with TF32 off.
+:func:`audio_embedding_long` embeds audio longer than one clip window by
+window.
 
 Towers are looked up by ``CLAPConfig.tmodel`` / ``amodel`` in
-:data:`TEXT_TOWERS` and :data:`AUDIO_TOWERS` (the JAX registries' roberta
-and HTSAT entries); ``register_text_tower`` / ``register_audio_tower`` add
-variants, as the JAX registries' do. The bert, bart and transformer text
-towers and the PANN audio towers raise.
+:data:`TEXT_TOWERS` and :data:`AUDIO_TOWERS` (the JAX registries);
+``register_text_tower`` / ``register_audio_tower`` add variants, as the
+JAX registries' do.
 """
 
 from __future__ import annotations
@@ -26,23 +28,27 @@ import torch
 import torch.nn.functional as F
 
 from audioldm2_torch.config import CLAPConfig
-from audioldm2_torch.models import htsat, roberta
+from audioldm2_torch.models import clip_text, htsat, pann, roberta
 from audioldm2_torch.ops import nn
 from audioldm2_torch.ops.nn import full_f32
 from audioldm2_torch.params import Init
 from audioldm2_torch.utils.audio_io import resample, sinc_interp_hann_kernel
 
 # name: (config factory, width feeding the projection)
-TEXT_TOWERS: Dict[str, Tuple[Callable[[], roberta.RobertaConfig], int]] = {
+TEXT_TOWERS: Dict[str, Tuple[Callable[[], object], int]] = {
     "roberta": (roberta.RobertaConfig, 768),
+    "bert": (lambda: roberta.RobertaConfig(vocab_size=30522, max_position_embeddings=512,
+                                           type_vocab_size=2, pad_token_id=0), 768),
+    "bart": (lambda: roberta.RobertaConfig(max_position_embeddings=1026), 768),
+    "transformer": (clip_text.CLIPTextConfig, 512),
 }
-AUDIO_TOWERS: Dict[str, Tuple[Callable[[], htsat.HTSATConfig], int]] = {
+AUDIO_TOWERS: Dict[str, Tuple[Callable[[], object], int]] = {
     "HTSAT-tiny": (lambda: htsat.HTSATConfig(embed_dim=96, depths=(2, 2, 6, 2)), 768),
     "HTSAT-base": (htsat.HTSATConfig, 1024),
     "HTSAT-large": (lambda: htsat.HTSATConfig(embed_dim=256), 2048),
+    "PANN-14": (pann.PANNConfig, 2048),
+    "PANN-10": (lambda: pann.PANNConfig(variant="cnn10", embed_dim=1024), 1024),
 }
-
-_NOT_PORTED = ("bert", "bart", "transformer")
 
 
 def register_text_tower(name: str, cfg_factory, width: int) -> None:
@@ -54,44 +60,37 @@ def register_audio_tower(name: str, cfg_factory, width: int) -> None:
 
 
 def text_tower(cfg: CLAPConfig):
-    if cfg.tmodel in _NOT_PORTED or cfg.tmodel not in TEXT_TOWERS:
-        raise NotImplementedError(
-            f"CLAP text tower {cfg.tmodel!r} is not ported to audioldm2_torch "
-            f"(ported: {sorted(TEXT_TOWERS)}; ROADMAP queue 1 item 9)"
-        )
     factory, width = TEXT_TOWERS[cfg.tmodel]
     return factory(), width
 
 
 def audio_tower(cfg: CLAPConfig):
-    if cfg.amodel not in AUDIO_TOWERS:
-        raise NotImplementedError(
-            f"CLAP audio tower {cfg.amodel!r} is not ported to audioldm2_torch "
-            f"(ported: {sorted(AUDIO_TOWERS)}; PANN is ROADMAP queue 1 item 9)"
-        )
     factory, width = AUDIO_TOWERS[cfg.amodel]
     return factory(), width
 
 
+def _is_pann(cfg: CLAPConfig) -> bool:
+    return not cfg.amodel.startswith("HTSAT")
+
+
 def init_clap(ini: Init, cfg: CLAPConfig):
-    """The JAX ``init_clap`` tree. The audio branch and its projection are
-    drawn where the audio tower is ported (HTSAT); a CLAP with a PANN tower
-    gets its text side and heads only, which is all its text mode reads."""
+    """The JAX ``init_clap`` tree: both towers, both projections, the heads."""
     tcfg, twidth = text_tower(cfg)
+    acfg, awidth = audio_tower(cfg)
     d = cfg.embed_dim
-    tree = {
-        "text_branch": roberta.init_roberta(ini, tcfg),
+    text_branch = (clip_text.init_clip_text(ini, tcfg) if cfg.tmodel == "transformer"
+                   else roberta.init_roberta(ini, tcfg))
+    return {
+        "text_branch": text_branch,
         "text_projection": {"lin1": ini.linear(twidth, d), "lin2": ini.linear(d, d)},
         "text_transform": {"lin1": ini.linear(d, d), "lin2": ini.linear(d, d)},
         "audio_transform": {"lin1": ini.linear(d, d), "lin2": ini.linear(d, d)},
         "logit_scale_a": torch.tensor(float(np.log(1 / 0.07)), device=ini.device),
         "logit_scale_t": torch.tensor(float(np.log(1 / 0.07)), device=ini.device),
+        "audio_projection": {"lin1": ini.linear(awidth, d), "lin2": ini.linear(d, d)},
+        "audio_branch": (pann.init_pann(ini, acfg) if _is_pann(cfg)
+                         else htsat.init_htsat(ini, acfg)),
     }
-    if cfg.amodel in AUDIO_TOWERS:
-        acfg, awidth = audio_tower(cfg)
-        tree["audio_projection"] = {"lin1": ini.linear(awidth, d), "lin2": ini.linear(d, d)}
-        tree["audio_branch"] = htsat.init_htsat(ini, acfg)
-    return tree
 
 
 def _project(p, x):
@@ -104,17 +103,29 @@ def _normalize(x):
 
 def text_embedding(params, cfg: CLAPConfig, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor) -> torch.Tensor:
-    """RoBERTa pooler output -> MLP projection -> L2 norm; [B, 1, embed_dim]."""
+    """Text tower -> its pooling (RoBERTa's and BERT's pooler, BART's mean
+    over positions, the transformer's EOT features) -> MLP projection -> L2
+    norm; [B, 1, embed_dim]."""
     tcfg, _ = text_tower(cfg)
-    _, pooled = roberta.apply_roberta(params["text_branch"], tcfg, input_ids, attention_mask)
+    p = params["text_branch"]
+    if cfg.tmodel == "transformer":
+        pooled = clip_text.apply_clip_text(p, tcfg, input_ids)
+    elif cfg.tmodel == "bart":
+        pooled = roberta.apply_bart_encoder(p, tcfg, input_ids, attention_mask).mean(dim=1)
+    else:
+        _, pooled = roberta.apply_roberta(p, tcfg, input_ids, attention_mask,
+                                          bert_style=cfg.tmodel == "bert")
     return _normalize(_project(params["text_projection"], pooled))[:, None, :]
 
 
 def audio_embedding(params, cfg: CLAPConfig, waveform_48k: torch.Tensor) -> torch.Tensor:
-    """HTSAT embedding -> MLP projection -> L2 norm. waveform: [B, N] at the
-    CLAP rate; returns [B, embed_dim]."""
+    """Audio tower embedding -> MLP projection -> L2 norm. waveform: [B, N]
+    at the CLAP rate; returns [B, embed_dim]."""
     acfg, _ = audio_tower(cfg)
-    feats = htsat.encode(params["audio_branch"], waveform_48k, acfg)
+    if _is_pann(cfg):
+        feats = pann.encode(params["audio_branch"], waveform_48k, acfg)["embedding"]
+    else:
+        feats = htsat.encode(params["audio_branch"], waveform_48k, acfg)
     return _normalize(_project(params["audio_projection"], feats))
 
 
@@ -179,3 +190,42 @@ def rerank_score(params, cfg: CLAPConfig, orig_sr: int, wav: torch.Tensor,
         a = audio_embedding(params, cfg, prepare_clap_audio_device(wav.float(), orig_sr, cfg))
         t = text_embedding(params, cfg, ids, mask)[:, 0]
         return cos_similarity(a, t)
+
+
+def cos_similarity_waveform_text(params, cfg: CLAPConfig, wav, text: str, tokenizer,
+                                 sampling_rate: int) -> np.ndarray:
+    """The rerank scorer on host inputs: each row of ``wav`` ([B, N] or
+    [B, 1, N] at ``sampling_rate``) against ``text``; numpy [B]."""
+    wav = np.asarray(wav, np.float32)
+    if wav.ndim == 3:
+        wav = wav[:, 0]
+    ids, mask = tokenizer([text] * wav.shape[0])
+    dev = params["audio_projection"]["lin1"]["w"].device
+    return rerank_score(params, cfg, int(sampling_rate), torch.from_numpy(wav).to(dev),
+                        torch.as_tensor(ids, device=dev),
+                        torch.as_tensor(mask, device=dev)).cpu().numpy()
+
+
+def sliding_windows(wav: np.ndarray, clip_samples: int, hopsize: int) -> np.ndarray:
+    """[N] -> [n_windows, clip_samples]: a short clip tiled whole times and
+    zero-padded to one window; a long one in windows every ``hopsize``
+    samples plus the last ``clip_samples``."""
+    n = wav.shape[-1]
+    k = clip_samples // max(n, 1)
+    if k > 1:
+        wav = np.tile(wav, k)
+        n = wav.shape[-1]
+    if n <= clip_samples:
+        out = np.zeros((1, clip_samples), wav.dtype)
+        out[0, :n] = wav
+        return out
+    starts = range(0, n - clip_samples, min(hopsize, n))
+    return np.stack([wav[p:p + clip_samples] for p in starts] + [wav[-clip_samples:]])
+
+
+def audio_embedding_long(params, cfg: CLAPConfig, wav, hopsize: int = 240000) -> torch.Tensor:
+    """The audio embedding [n_windows, embed_dim] of each
+    :func:`sliding_windows` window of ``wav`` ([N] at the CLAP rate)."""
+    wins = sliding_windows(np.asarray(wav, np.float32), cfg.clip_samples, hopsize)
+    dev = params["audio_projection"]["lin1"]["w"].device
+    return audio_embedding(params, cfg, torch.from_numpy(wins).to(dev))

@@ -1,16 +1,19 @@
-"""RoBERTa-base text encoder (the CLAP text tower), in PyTorch.
+"""RoBERTa-base text encoder (the CLAP text tower) and its BERT and BART
+variants, in PyTorch.
 
-Port of ``audioldm2_tpu/models/roberta.py`` (``init_roberta``,
-``_encoder_stack``, ``apply_roberta``): post-LN blocks, the exact (erf)
-GELU, a tanh pooler over the first token, and RoBERTa position ids
-``cumsum(mask) * mask + padding_idx``. The attention is masked, so it
-takes the plain path on every device. The BERT and BART variants of the
-JAX module are not ported.
+Port of ``audioldm2_tpu/models/roberta.py``: post-LN blocks, the exact
+(erf) GELU, a tanh pooler over the first token, and RoBERTa position ids
+``cumsum(mask) * mask + padding_idx``; ``bert_style=True`` takes plain
+``arange`` positions and token-type ids (CLAP's "bert" tower);
+``apply_bart_encoder`` the BART encoder's learned positions at offset 2
+and no pooler (CLAP's "bart" tower). The attention is masked, so it takes
+the plain path on every device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -74,15 +77,33 @@ def _encoder_stack(params, cfg: RobertaConfig, x, attention_mask):
     return x
 
 
-def apply_roberta(params, cfg: RobertaConfig, input_ids: torch.Tensor,
-                  attention_mask: torch.Tensor):
-    """input_ids, attention_mask: [B, L]. Returns (sequence_output
-    [B, L, D], pooler_output [B, D])."""
+def apply_bart_encoder(params, cfg: RobertaConfig, input_ids: torch.Tensor,
+                       attention_mask: torch.Tensor) -> torch.Tensor:
+    """The BART encoder's last hidden state [B, L, D]: learned positions at
+    BART's offset of 2, the embedding LayerNorm, the shared post-LN blocks."""
     ids = input_ids.long()
-    mask = attention_mask.long()
-    position_ids = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
-    x = (params["word_embeddings"][ids] + params["position_embeddings"][position_ids]
-         + params["token_type_embeddings"][0])
+    position_ids = torch.arange(ids.shape[1], device=ids.device) + 2
+    x = params["word_embeddings"][ids] + params["position_embeddings"][position_ids]
+    x = nn.layer_norm(params["emb_ln"], x, cfg.layer_norm_eps)
+    return _encoder_stack(params, cfg, x, attention_mask)
+
+
+def apply_roberta(params, cfg: RobertaConfig, input_ids: torch.Tensor,
+                  attention_mask: torch.Tensor, bert_style: bool = False,
+                  token_type_ids: Optional[torch.Tensor] = None):
+    """input_ids, attention_mask: [B, L]. Returns (sequence_output
+    [B, L, D], pooler_output [B, D]). ``bert_style``: BERT's positions
+    ``0..L-1`` instead of RoBERTa's; ``token_type_ids`` [B, L] index the
+    token-type embeddings (None: type 0 everywhere)."""
+    ids = input_ids.long()
+    if bert_style:
+        position_ids = torch.arange(ids.shape[1], device=ids.device)
+    else:
+        mask = attention_mask.long()
+        position_ids = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
+    type_emb = (params["token_type_embeddings"][0] if token_type_ids is None
+                else params["token_type_embeddings"][token_type_ids.long()])
+    x = params["word_embeddings"][ids] + params["position_embeddings"][position_ids] + type_emb
     x = nn.layer_norm(params["emb_ln"], x, cfg.layer_norm_eps)
     x = _encoder_stack(params, cfg, x, attention_mask)
     pooled = torch.tanh(nn.linear(params["pooler"], x[:, 0]))

@@ -6,8 +6,9 @@ projected to 768-d, wrapped with learned per-source SOS/EOS tokens,
 concatenated and truncated to ``max_context - sequence_gen_length``; GPT-2
 then generates ``sequence_gen_length`` continuous tokens from a KV cache.
 The JAX ``lax.scan`` is a Python loop of ``sequence_gen_length`` steps.
-Nested conditioners outside ``sequence_input_keys`` (the AudioMAE spec of
-audioldm2-full) are neither drawn nor encoded.
+Every nested conditioner is drawn, as in JAX; those outside
+``sequence_input_keys`` (the AudioMAE spec of audioldm2-full and the
+speech families) feed no prefix, so generation never encodes them.
 """
 
 from __future__ import annotations
@@ -39,8 +40,15 @@ def init_sequence_gen(ini: Init, spec: ConditionerSpec):
         "input_linears": [ini.linear(dim, 768) for dim in sg.sequence_input_embed_dims],
         "cond": {},
     }
+    # the inputs from the tree's generator, each other nested spec from a
+    # fork of it: a spec that feeds no prefix then leaves the draws of every
+    # other leaf of a seeded tree as they are without it
+    inputs = {ns.name for ns in input_specs(spec)}
     for ns in input_specs(spec):
         params["cond"][ns.name] = conditioners.init_conditioner(ini, ns)
+    for ns in spec.nested:
+        if ns.name not in inputs:
+            params["cond"][ns.name] = conditioners.init_conditioner(ini.fork(ns.name), ns)
     return params
 
 

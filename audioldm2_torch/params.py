@@ -12,6 +12,7 @@ slow path the JAX package documents (``ops/nn.py:41-47``).
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Any, Dict
 
 import numpy as np
@@ -71,6 +72,14 @@ class Init:
         self.device = torch.device(device)
         self.nonzero = nonzero
 
+    def fork(self, name: str) -> "Init":
+        """An Init on a generator of its own, seeded from this one's seed and
+        ``name``. Drawing from the fork does not advance this generator, so
+        every leaf this one draws is what it would be without the fork."""
+        seed = (self.g.initial_seed() * 1_000_003 + zlib.crc32(name.encode())) % 2**63
+        return Init(torch.Generator(device=self.g.device).manual_seed(seed), self.device,
+                    self.nonzero)
+
     def _uniform(self, shape, bound: float) -> torch.Tensor:
         r = torch.rand(shape, generator=self.g, device=self.device, dtype=torch.float32)
         return r.mul_(2 * bound).sub_(bound)
@@ -85,12 +94,15 @@ class Init:
     def _kaiming(self, shape, fan_in: int) -> torch.Tensor:
         return self._uniform(shape, math.sqrt(1.0 / fan_in) * math.sqrt(3.0))
 
-    def conv(self, kh, kw, cin, cout, zero: bool = False) -> Dict[str, torch.Tensor]:
+    def conv(self, kh, kw, cin, cout, zero: bool = False,
+             bias: bool = True) -> Dict[str, torch.Tensor]:
         if zero and not self.nonzero:
             return {"w": self.zeros((kh, kw, cin, cout)), "b": self.zeros((cout,))}
         fan_in = kh * kw * cin
-        return {"w": self._kaiming((kh, kw, cin, cout), fan_in),
-                "b": self._kaiming((cout,), fan_in)}
+        p = {"w": self._kaiming((kh, kw, cin, cout), fan_in)}
+        if bias:
+            p["b"] = self._kaiming((cout,), fan_in)
+        return p
 
     def conv1d(self, k, cin, cout) -> Dict[str, torch.Tensor]:
         fan_in = k * cin
@@ -108,12 +120,10 @@ class Init:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 nonzero: bool = False) -> Dict:
-    """Random tree with the JAX ``pipeline.init_params`` structure for the
-    UNet, VAE, vocoder, conditioners and, when ``cfg.reranker_clap`` is
-    set, the DDPM-level CLAP reranker (HTSAT audio and RoBERTa text towers,
-    read by the rerank of ``n_candidate_gen_per_text > 1``). Not drawn,
-    since nothing ported reads them: a PANN audio tower of a text-mode CLAP
-    and nested conditioners that feed no sequence generator input."""
+    """Random tree with the JAX ``pipeline.init_params`` structure: the
+    UNet, VAE, vocoder, every conditioner (nested ones included) and, when
+    ``cfg.reranker_clap`` is set, the DDPM-level CLAP reranker read by the
+    rerank of ``n_candidate_gen_per_text > 1``."""
     from audioldm2_torch.models import clap, conditioners, unet, vae, vocoder
 
     ini = Init(generator, device, nonzero=nonzero)

@@ -16,6 +16,9 @@ CFG sampler (DDIM, PLMS or DDPM) -> VAE decode -> vocoder in
 ``diffusion.latent_diffusion``; for sr/inpainting also the log-mel
 (``ops.stft``) and the f32 VAE encode; with ``n_candidate_gen_per_text >
 1`` the CLAP rerank (``models.clap.rerank_score``) of the candidates.
+``AudioLDM2.make_batch(waveform=, fbank=)`` carries audio in: the kaldi
+fbank of the AudioMAE conditioner and the clip of a CLAP conditioner in
+audio embedding mode.
 
 Weights: ``build_model(ckpt_path)`` reads a reference monolithic ``.pth``
 through the port's converter (``convert.py``, ``convert_cond.py``,
@@ -45,7 +48,7 @@ from audioldm2_torch import params as params_m
 from audioldm2_torch.config import CLAPConfig, ModelConfig, default_audioldm_config
 from audioldm2_torch.diffusion.latent_diffusion import LatentDiffusionModel
 from audioldm2_torch.models import clap, conditioners
-from audioldm2_torch.ops.stft import MelSpectrogram
+from audioldm2_torch.ops.stft import KaldiFbank, MelSpectrogram
 from audioldm2_torch.utils import text as text_utils
 from audioldm2_torch.utils.audio_io import read_wav_file
 
@@ -114,17 +117,26 @@ class AudioLDM2:
             sampling_rate=pre.sampling_rate, mel_fmin=pre.mel_fmin, mel_fmax=pre.mel_fmax,
             device=self.device,
         )
+        self.kaldi = KaldiFbank(device=self.device)
         self.last_timings: Dict[str, float] = {}
         self.last_similarities: Optional[np.ndarray] = None  # the last rerank's, [B * n]
 
-    def make_batch(self, text: str, transcription: str = "",
-                   batchsize: int = 1) -> Dict[str, torch.Tensor]:
-        """Tokenize the prompt (and "" for the unconditional branch) with the
-        T5 tokenizer, where a conditioner needs it, and the CLAP tokenizer,
-        and, where a phoneme conditioner reads them, the transcription's VITS
-        phoneme ids ([batchsize, 310], "" when there is none), to
-        fixed-shape tensors on the model's device. A family without a
-        phoneme conditioner ignores the transcription, as in JAX."""
+    def make_batch(self, text: str, transcription: str = "", batchsize: int = 1,
+                   waveform: Optional[np.ndarray] = None,
+                   fbank: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """The batch of one request, as tensors on the model's device: the
+        prompt's (and ""'s, for the unconditional branch) T5 tokens, where a
+        conditioner needs them, and CLAP tokens; where a phoneme conditioner
+        reads them, the transcription's VITS phoneme ids ([batchsize, 310],
+        "" when there is none; a family without one ignores the
+        transcription, as in JAX); ``ta_kaldi_fbank`` [batchsize, 1024, 128],
+        AudioMAE's input, the normalized kaldi fbank of ``waveform`` (zeros
+        without one); where a CLAP conditioner embeds audio,
+        ``clap_waveform_48k`` [batchsize, clip_samples], ``waveform`` (at
+        the model's rate) resampled to the CLAP rate and fit to one clip
+        (zeros without one); ``fbank`` as given, in f32. A one-row
+        ``waveform`` ([N] or [1, N]) is tiled to ``batchsize`` for both
+        audio keys (JAX tiles it for the CLAP clip only)."""
         texts = [text] * batchsize
         arrays = {}
         for name, tok in (("t5", self.t5_tok), ("clap", self.clap_tok)):
@@ -137,7 +149,23 @@ class AudioLDM2:
         if self.phonemes:
             phonemes = text_utils.text_to_phonemes(transcription) if transcription else ""
             arrays["phoneme_idx"] = text_utils.phoneme_ids([phonemes] * batchsize)
-        return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+        wav = None
+        if waveform is not None:
+            wav = np.asarray(waveform, np.float32).reshape(-1, np.shape(waveform)[-1])
+            if wav.shape[0] == 1 and batchsize > 1:
+                wav = np.tile(wav, (batchsize, 1))
+        clap_cfg = _first_clap_cfg(self.cfg)
+        if any(s.kind == "clap" and s.clap.embed_mode == "audio" for s in self.cfg.conditioners):
+            arrays["clap_waveform_48k"] = (
+                np.zeros((batchsize, clap_cfg.clip_samples), np.float32) if wav is None else
+                clap.prepare_clap_audio(wav, self.cfg.preprocessing.sampling_rate, clap_cfg))
+        if fbank is not None:
+            arrays["fbank"] = np.asarray(fbank, np.float32)
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+        batch["ta_kaldi_fbank"] = (
+            torch.zeros((batchsize, 1024, 128), device=self.device) if wav is None
+            else self.kaldi.normalized(wav, target_length=1024))
+        return batch
 
 
 def seed_everything(seed: int, device="cuda") -> torch.Generator:

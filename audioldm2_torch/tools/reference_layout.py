@@ -12,7 +12,6 @@ state dict holds views of them (transposed, not copied), plus numpy arrays
 for what the tool makes itself. :func:`save_pth` writes it as ``torch.save``
 would write a reference checkpoint, each tensor contiguous.
 
-    tree = complete(tree, cfg)                    # draw what the port leaves out
     sd = reference_state_dict(tree, cfg)          # the reference's keys
     save_pth(path, sd)                            # {"state_dict": sd}
 
@@ -30,7 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from audioldm2_torch.config import AudioMAEConfig, ConditionerSpec, ModelConfig
+from audioldm2_torch.config import ConditionerSpec, ModelConfig
 
 
 def _t(x, *axes):
@@ -378,58 +377,10 @@ def conditioner(sd, p, spec: ConditionerSpec, prefix: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def audiomae_tree(cfg: AudioMAEConfig, rng: np.random.Generator) -> Dict:
-    """An AudioMAE encoder tree at ``cfg``'s shapes, every leaf drawn from
-    N(0, 0.02) in float32 (the JAX package's ``init_audiomae`` layout)."""
-    d, hidden = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
-    n_patches = (cfg.img_size[0] // cfg.patch_size) * (cfg.img_size[1] // cfg.patch_size)
-
-    def draw(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
-
-    def lin(cin, cout):
-        return {"w": draw(cin, cout), "b": draw(cout)}
-
-    def norm():
-        return {"scale": draw(d), "bias": draw(d)}
-
-    return {"audiomae": {
-        "patch_embed": {"w": draw(cfg.patch_size, cfg.patch_size, 1, d), "b": draw(d)},
-        "cls_token": draw(1, 1, d),
-        "pos_embed": draw(1, n_patches + 1, d),
-        "blocks": [{"norm1": norm(), "attn": {"qkv": lin(d, 3 * d), "proj": lin(d, d)},
-                    "norm2": norm(), "mlp": {"fc1": lin(d, hidden), "fc2": lin(hidden, d)}}
-                   for _ in range(cfg.depth)],
-        "norm": norm(),
-    }}
-
-
-def complete(tree: Dict, cfg: ModelConfig, seed: int = 0) -> Dict:
-    """``tree`` with the subtrees that a real checkpoint has and the port's
-    ``init_params`` does not draw: the nested AudioMAE encoder of a sequence
-    generator (no ported path encodes it), drawn by :func:`audiomae_tree`
-    from ``seed``. The rest is shared with ``tree``, not copied."""
-    rng = np.random.default_rng(seed)
-
-    def fill(p, spec: ConditionerSpec):
-        if spec.kind != "sequence_gen":
-            return p
-        cond = dict(p["cond"])
-        for ns in spec.nested:
-            if ns.name not in cond and ns.kind == "audiomae_pooled":
-                cond[ns.name] = audiomae_tree(ns.audiomae, rng)
-            elif ns.name in cond:
-                cond[ns.name] = fill(cond[ns.name], ns)
-        return {**p, "cond": cond}
-
-    return {**tree, "cond": {s.name: fill(tree["cond"][s.name], s) for s in cfg.conditioners}}
-
-
 def reference_state_dict(tree: Dict, cfg: ModelConfig, *, weight_norm: bool = False,
                          ema: bool = False, skip_keys: bool = False) -> Dict:
     """The reference ``LatentDiffusion.state_dict()`` layout of ``tree``
-    (which must hold every subtree the converters read: see
-    :func:`complete`).
+    (the port's drawn tree holds every subtree the converters read).
 
     ``weight_norm``: the vocoder's convs as ``weight_g``/``weight_v``
     (folding them back is exact to rounding only) instead of ``.weight``.

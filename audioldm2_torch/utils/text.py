@@ -5,9 +5,8 @@ The port's own copy of the tokenizers of ``audioldm2_tpu/utils/text.py``
 fallback with the same special ids), so both packages see the same ids,
 and of its VITS phoneme pipeline (``text_to_phonemes``, ``phoneme_ids``:
 espeak through ``phonemizer`` when it is installed, else the same cleaned
-graphemes). The CLIP-BPE tokenizer of CLAP's transformer text tower
-belongs to a tower the port does not have yet: ``clap_tokenizer`` raises
-for ``tmodel="transformer"``.
+graphemes). ``clap_tokenizer`` gives CLAP's transformer text tower the
+CLIP-BPE tokenizer of ``utils/bpe.py``.
 
 Reference behaviors mirrored:
 * T5: max_length=128, truncation (reference encoders/modules.py:173-181);
@@ -163,15 +162,27 @@ def bert_tokenizer(max_length: int = 512) -> TextTokenizer:
     return TextTokenizer("bert-base-uncased", 30522, max_length)
 
 
+class _ClipBPETokenizer:
+    """The CLIP BPE tokenizer with the (ids, mask) interface; the
+    transformer text tower ignores the mask (a causal mask, features at the
+    EOT position)."""
+
+    def __init__(self, context_length: int = 77):
+        from audioldm2_torch.utils import bpe
+
+        self.tok = bpe.SimpleTokenizer(context_length=context_length)
+
+    def __call__(self, texts: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+        ids = np.asarray(self.tok(texts), np.int32)
+        return ids, (ids != 0).astype(np.int32)
+
+
 def clap_tokenizer(clap_cfg) -> object:
     """Tokenizer matching the CLAP text tower variant
     (reference model.py:497-545: roberta/bert/bart use HF tokenizers,
     "transformer" uses the CLIP BPE tokenizer)."""
     if clap_cfg.tmodel == "transformer":
-        raise NotImplementedError(
-            "the CLIP-BPE tokenizer of CLAP's transformer text tower is not ported to "
-            "audioldm2_torch yet (ROADMAP queue 1 item 9: the transformer text tower)"
-        )
+        return _ClipBPETokenizer()
     if clap_cfg.tmodel == "bert":
         return bert_tokenizer(clap_cfg.text_max_length)
     # roberta and bart share the roberta-base vocab

@@ -9,10 +9,10 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           with one PLMS and one DDPM (1000-step) request besides DDIM;
   full    audioldm2-full (CLAP text tower, GPT-2 sequence generator, two
           cross-attention slots), bf16, text_to_audio (K1-K4, K6), built by
-          build_model(ckpt_path=) from a .pth of the drawn weights in the
-          reference's key layout (audioldm2_torch.tools.reference_layout,
-          with the nested AudioMAE encoder the port does not draw), every
-          loaded leaf equal to the written one;
+          build_model(ckpt_path=) from a .pth of the drawn weights (the
+          nested AudioMAE encoder among them) in the reference's key layout
+          (audioldm2_torch.tools.reference_layout), every loaded leaf equal
+          to the written one;
   sr      audioldm2-full through super_resolution_and_inpainting on a
           synthesized 10 s 16 kHz wav: log-mel, f32 VAE encode (K1 and K6
           in f32), masked DDIM at guidance 2.5;
@@ -31,6 +31,20 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
   tts     audioldm2-speech-gigaspeech (the VITS phoneme encoder and the CLAP
           text embedding feeding a 512-token GPT-2 sequence generator, one
           768-wide context slot), bf16, text_to_audio with a transcription;
+  clapaudio  audioldm_48k with its CLAP conditioner in embed_mode="audio"
+          (HTSAT-base; RoBERTa for the unconditional "" branch): a 10 s
+          48 kHz clip through make_batch("", waveform=), one batch-1 request
+          through model.ldm.generate (K1-K4, K6 as on the 48k path);
+  mae     audioldm2-full's UNet conditioned by the TTA generator's nested
+          audiomae_pooled(8, 8) spec and the t5 spec (the 8 pooled AudioMAE
+          tokens fill the 768-wide slot), on a 10 s 16 kHz clip through
+          make_batch("", waveform=): one batch-1 and one batch-2 request;
+          and, on the full path's loaded model, its nested AudioMAE once,
+          held against the CPU (the first read of those loaded weights);
+  towers  the CLAP towers PANN-14, PANN-10, BERT, BART and the CLIP-BPE
+          transformer at their published widths, batch 2, in f32, each held
+          against the CPU; then one request on audioldm_16k_crossattn_t5 at
+          3 candidates reranked by a PANN-14 + transformer CLAP;
   ab      the attention A/B entry point (audioldm2_torch.tools.
           ab_attn_variants) once: the plain version, K2, K7 (v6bd), K8 (v7)
           and scaled_dot_product_attention at the JAX tool's shapes;
@@ -97,9 +111,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      resource.getrusage, peak) and the device memory after the build, for
      the full and the full8 builds, with the card's name and power limit;
      requests on each path at the reference defaults (10 s, 200 steps,
-     guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 and large
-     paths (their median is the p50 latency), one on the full, sr, full8,
-     48k and tts paths, and one at batch 2 on each, with output checks (and,
+     guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 path (their
+     median is the p50 latency), one on the full, sr, full8, large, 48k,
+     tts and mae paths, and one at batch 2 on each (the clapaudio and towers
+     paths answer one batch-1 request), with output checks (and,
      on the paths with a sequence generator, the GPT-2 tokens finite and the
      CLAP text embedding of unit norm; the walls of the sequence generator
      and of the vocoder apart), no CUDA tensor reaching a plain version, no
@@ -108,9 +123,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      workspace allocated, and launch counts, reset to 0 just before the
      request, equal to the counts computed from the config (the sr path's
      VAE encode included); the PLMS and DDPM requests likewise, once each
-     at batch 1; on the large and 48k paths also the rerank: the
+     at batch 1; on the large, 48k and towers paths also the rerank: the
      similarities finite and in [-1, 1], the kept candidate the argmax of
-     each prompt's, the CLAP audio embeddings of unit norm.
+     each prompt's, the CLAP audio embeddings of unit norm. The audio-in
+     paths: clap_waveform_48k (1, 480000) and HTSAT's unit-norm embedding
+     of it (timed), the clapaudio request's launches equal to the 48k
+     path's; AudioMAE's tokens (b, 8, 768) timed at batch 1 and 2; each
+     tower and the loaded AudioMAE within AUDIO_IN_TOL (1e-4) of the CPU.
      After the t5 requests, the train path: the kernels at the step's f32
      shapes (the UNet at batch 4, the VAE encode of 4 mels) against their
      plain versions, beside their bounds and yardsticks (cuDNN's f32 conv
@@ -1409,18 +1428,16 @@ def _rss_gib():
 
 
 def write_checkpoint(tag, model, ckpt_dir: str):
-    """The model's drawn tree, completed as a real checkpoint has it (the
-    nested AudioMAE encoder, which the port does not draw, drawn by
-    tools/reference_layout from seed 0), in the reference's key layout,
-    torch.save'd as {"state_dict": ...}. Fails if the disk is short. Returns
-    (path, the completed tree on the card)."""
+    """The model's drawn tree (the nested AudioMAE encoder included), in the
+    reference's key layout, torch.save'd as {"state_dict": ...}. Fails if
+    the disk is short. Returns (path, the tree written)."""
     import shutil
 
     import torch
     from audioldm2_torch.tools import reference_layout
 
     cfg = model.cfg
-    full = _on_device(reference_layout.complete(model.ldm.params, cfg), model.device)
+    full = model.ldm.params
     def nbytes(tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1432,14 +1449,12 @@ def write_checkpoint(tag, model, ckpt_dir: str):
     def cond_clap_audio(k):  # the conditioner CLAP's, not the reranker's (which reads them)
         return k.startswith("/cond/") and re.search("/clap/audio_(branch|projection)/", k)
 
-    log(f"  checkpoint: {need / 1e9:.3f} GB of leaves, of which "
-        f"{(need - nbytes(_leaves(model.ldm.params))) / 1e9:.3f} GB filled (the nested AudioMAE "
-        f"encoder); {free / 1e9:.1f} GB free in {ckpt_dir}")
-    log("  read by no ported path (as in the JAX package's tree): the nested AudioMAE encoder "
-        f"{n_params(lambda k: '/crossattn_audiomae_pooled/' in k):.3f} M, the CLAP heads "
-        f"text_transform and audio_transform {n_params(lambda k: '_transform/' in k):.3f} M, the "
-        "text-mode conditioner CLAP's audio tower and projection "
-        f"{n_params(cond_clap_audio):.3f} M parameters")
+    log(f"  checkpoint: {need / 1e9:.3f} GB of leaves; {free / 1e9:.1f} GB free in {ckpt_dir}")
+    log("  read by no request of this path (as in the JAX package): the nested AudioMAE encoder "
+        f"{n_params(lambda k: '/crossattn_audiomae_pooled/' in k):.3f} M (read once by the mae "
+        "path's check on the loaded model), the CLAP heads text_transform and audio_transform "
+        f"{n_params(lambda k: '_transform/' in k):.3f} M, the text-mode conditioner CLAP's audio "
+        f"tower and projection {n_params(cond_clap_audio):.3f} M parameters")
     if free < need * 1.1 + 2**30:
         raise RuntimeError(f"path {tag}: {free / 1e9:.1f} GB free in {ckpt_dir}, the checkpoint "
                            f"needs {need / 1e9:.1f} GB (set TMPDIR to a larger disk)")
@@ -1622,7 +1637,7 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
 
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
            ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
-# the full, sr, full8, 48k and tts paths: one batch-1 and one batch-2
+# the full, sr, full8, large, 48k and tts paths: one batch-1 and one batch-2
 # request, so that the whole run keeps well inside its time on a slow host
 PROMPTS_SHORT = PROMPTS[2:]
 TRANSCRIPTION = "The quick brown fox jumps over the lazy dog, twice."
@@ -1722,6 +1737,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         launches["full"], e2e["full"] = phase_requests(
             "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
             "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+        e2e["full"]["loaded_audiomae_s"] = phase_mae_loaded(model, device)
         log("== requests on path sr: the same model through super_resolution_and_inpainting")
         with tempfile.TemporaryDirectory() as tmp:
             wav_path = write_wav(os.path.join(tmp, "in.wav"),
@@ -1748,7 +1764,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
     model = build("large", large_cfg, device)
     launches["large"], e2e["large"] = phase_requests(
         "large", model, t2a(model, n=3), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP")
+        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP", PROMPTS_SHORT)
     del model
 
     model = build("48k", k48_cfg, device)
@@ -1762,13 +1778,234 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP at batch 1, 1 at "
         "batch 2", PROMPTS_SHORT)
     del model
+    launches["clapaudio"], e2e["clapaudio"] = phase_clapaudio(k48_cfg, device, steps, duration,
+                                                              launches["48k"])
 
     model = build("tts", tts_cfg, device)
     launches["tts"], e2e["tts"] = phase_requests(
         "tts", model, t2a(model, transcription=TRANSCRIPTION), expect(model.cfg, steps), steps,
         duration, f"text_to_audio ddim, guidance 3.5, transcription {TRANSCRIPTION!r}",
         PROMPTS_SHORT)
+    del model
+    launches["mae"], e2e["mae"] = phase_mae(full_cfg, device, steps, duration)
+    launches["towers"], e2e["towers"] = phase_towers(t5_cfg, device, steps, duration, t2a)
     return launches, e2e
+
+
+# The audio-in paths (clapaudio, mae, towers). Each CLAP tower, and the
+# AudioMAE conditioner on the full path's loaded weights, runs on the card
+# in f32 with TF32 off and on CPU copies of the same leaves and inputs:
+# max|card - cpu| / max|cpu| <= AUDIO_IN_TOL.
+AUDIO_IN_TOL = 1e-4
+TOWER_PROMPTS = ["A dog barking in the distance.", "Rain on a tin roof."]
+TOWER_PAIRS = (("PANN-14", "bert"), ("PANN-10", "bart"), ("PANN-14", "transformer"))
+
+
+def synced_s(fn, reps: int = 3):
+    """(fn()'s first result, the median wall in seconds of ``reps`` more
+    calls), the device synchronized around each call."""
+    import torch
+
+    out = fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, sorted(walls)[len(walls) // 2]
+
+
+def card_against_cpu(tag, fn, params, inputs):
+    """fn(params, *inputs) on the card and on CPU copies of the same leaves
+    and inputs, in f32 with TF32 off; fails if the card's output is not
+    finite or is off the CPU's by more than AUDIO_IN_TOL. Returns (the
+    card's output, its median wall in seconds)."""
+    import torch
+    from audioldm2_torch.params import map_tree
+
+    with torch.inference_mode():
+        got, wall = synced_s(lambda: fn(params, *inputs))
+        want = fn(map_tree(lambda t: t.cpu(), params), *(t.cpu() for t in inputs))
+    d, r = rel_err(got.cpu(), want)
+    log(f"  {tag}: output {tuple(got.shape)}, card against CPU (same leaves, f32) max_abs_err "
+        f"{d:.3e} rel {r:.3e} (tol {AUDIO_IN_TOL:g}); {wall * 1e3:.2f} ms on the card")
+    if not bool(torch.isfinite(got).all()) or r > AUDIO_IN_TOL:
+        raise AssertionError(f"{tag}: not finite, or off the CPU's output by {r:.3e}")
+    return got, wall
+
+
+def audio_request(model, make_batch, steps: int, duration: float):
+    """request(bsz, n_steps, dur) of an audio-in path: make_batch(bsz) (the
+    pipeline's make_batch with a waveform), then model.ldm.generate at
+    guidance 3.5 and seed 42, as the JAX package's tests drive its audio
+    modes; [bsz, 1, N] float32, the stages in model.last_timings."""
+    import torch
+    from audioldm2_torch import pipeline
+
+    def request(bsz, n_steps=steps, dur=duration):
+        t0 = time.perf_counter()
+        batch = make_batch(bsz)
+        t1 = time.perf_counter()
+        gen = torch.Generator(device=model.device).manual_seed(42)
+        wav, _ = model.ldm.generate(batch, gen, n_gen=1, guidance=3.5, ddim_steps=n_steps,
+                                    latent_t_size=int(dur * model.cfg.latent_t_per_second))
+        pipeline._record_timings(model, dur, bsz, batch_s=t1 - t0,
+                                 generate_s=time.perf_counter() - t1)
+        return wav[:, None, :int(dur * model.cfg.preprocessing.sampling_rate)]
+    return request
+
+
+def _audiomae_spec(cfg):
+    """The nested audiomae_pooled spec of cfg's sequence generator."""
+    return next(ns for ns in cfg.conditioners[0].nested if ns.kind == "audiomae_pooled")
+
+
+def phase_clapaudio(k48_cfg, device, steps: int, duration: float, want_counts):
+    """audioldm_48k with its CLAP conditioner in embed_mode="audio": a 10 s
+    48 kHz clip through make_batch("", waveform=), HTSAT-base timed on it,
+    one batch-1 request whose launches must equal the 48k path's."""
+    import dataclasses
+
+    import torch
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.models import clap
+
+    spec = k48_cfg.conditioners[0]
+    spec = dataclasses.replace(spec, clap=dataclasses.replace(spec.clap, embed_mode="audio"))
+    cfg = dataclasses.replace(k48_cfg, conditioners=(spec,))
+    model = build("clapaudio (audioldm_48k, CLAP in embed_mode='audio')", cfg, device)
+    wav = chirp(cfg.preprocessing.sampling_rate, 10.0, seed=11)[None]
+    batch = model.make_batch("", waveform=wav)
+    clip = batch["clap_waveform_48k"]
+    if tuple(clip.shape) != (1, spec.clap.clip_samples):
+        raise AssertionError(f"clap_waveform_48k {tuple(clip.shape)}, expected (1, 480000)")
+    p = model.ldm.params["cond"][spec.name]["clap"]
+    with torch.inference_mode():
+        emb, htsat_s = synced_s(lambda: clap.audio_embedding(p, spec.clap, clip))
+    dev = (torch.linalg.vector_norm(emb, dim=-1) - 1.0).abs().max().item()
+    if tuple(emb.shape) != (1, spec.clap.embed_dim) or dev > 1e-4:
+        raise AssertionError(f"CLAP audio embedding {tuple(emb.shape)}, norm off 1 by {dev:.3e}")
+    log(f"  clap_waveform_48k {tuple(clip.shape)}; CLAP audio embedding (HTSAT-base, one 10 s "
+        f"clip, projection) {tuple(emb.shape)} of unit norm (off by {dev:.2e}): "
+        f"{htsat_s * 1e3:.2f} ms")
+    request = audio_request(model, lambda b: model.make_batch("", batchsize=b, waveform=wav),
+                            steps, duration)
+    request(1, 10, 2.5)  # warm up
+    wall, counts, _ = one_request(model, request, kernel_launches_per_generate(cfg, steps), 1,
+                                  duration, f"make_batch(waveform=) + generate, {steps} steps, "
+                                  "guidance 3.5")
+    if counts != want_counts:
+        raise AssertionError(f"clapaudio launches {counts} != the 48k path's {want_counts}")
+    log(f"  path clapaudio: batch-1 wall {wall:.3f} s; launches equal the 48k path's")
+    return counts, {"batch1_s": wall, "htsat_s": htsat_s}
+
+
+def phase_mae_loaded(model, device):
+    """The nested AudioMAE conditioner of the full path's loaded model, once
+    on a 10 s 16 kHz clip: its 8 pooled tokens on the card against the
+    same call on the CPU on the same leaves."""
+    from audioldm2_torch.models import conditioners
+
+    spec = _audiomae_spec(model.cfg)
+    sg = model.cfg.conditioners[0].name
+    p = model.ldm.params["cond"][sg]["cond"][spec.name]
+    n = sum(t.numel() for t in _leaves(p))
+    batch = model.make_batch("", waveform=chirp(16000, 10.0, seed=12)[None])
+    tokens, wall = card_against_cpu(
+        f"mae: the loaded nested AudioMAE ({n / 1e6:.3f} M parameters from the checkpoint), "
+        "batch 1", lambda q, fb: conditioners.encode(q, spec, {"ta_kaldi_fbank": fb})[1][0],
+        p, (batch["ta_kaldi_fbank"],))
+    if tuple(tokens.shape) != (1, 8, 768):
+        raise AssertionError(f"AudioMAE tokens {tuple(tokens.shape)}, expected (1, 8, 768)")
+    return wall
+
+
+def phase_mae(full_cfg, device, steps: int, duration: float):
+    """audioldm2-full's UNet conditioned by (the TTA generator's nested
+    audiomae_pooled(8, 8) spec, the t5 spec): the 8 pooled tokens x 768
+    fill the 768-wide slot. AudioMAE timed at batch 1 and 2, then one
+    batch-1 and one batch-2 request on a 10 s 16 kHz clip."""
+    import dataclasses
+
+    import torch
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.models import conditioners
+
+    spec = _audiomae_spec(full_cfg)
+    cfg = dataclasses.replace(full_cfg, conditioners=(spec, full_cfg.conditioners[1]))
+    model = build("mae (audioldm2-full, conditioners AudioMAE + T5)", cfg, device)
+    wav = chirp(cfg.preprocessing.sampling_rate, 10.0, seed=12)[None]
+    p = model.ldm.params["cond"][spec.name]
+    walls = {}
+    for b in (1, 2):
+        batch = model.make_batch("", batchsize=b, waveform=wav)
+        with torch.inference_mode():
+            (_, (tokens, _)), walls[f"audiomae_b{b}_s"] = synced_s(
+                lambda: conditioners.encode(p, spec, batch))
+        if tuple(tokens.shape) != (b, 8, 768) or not bool(torch.isfinite(tokens).all()):
+            raise AssertionError(f"AudioMAE tokens {tuple(tokens.shape)} not finite or mis-sized")
+        log(f"  AudioMAE (ViT-B/16, 1024 x 128 fbank, pooled to 8 tokens) at batch {b}: "
+            f"{walls[f'audiomae_b{b}_s'] * 1e3:.2f} ms")
+    request = audio_request(model, lambda b: model.make_batch("", batchsize=b, waveform=wav),
+                            steps, duration)
+    request(1, 10, 2.5)  # warm up
+    expected = kernel_launches_per_generate(cfg, steps)
+    launches = None
+    for b in (1, 2):
+        wall, counts, _ = one_request(model, request, expected, b, duration,
+                                      f"make_batch(waveform=) + generate, {steps} steps, "
+                                      "guidance 3.5")
+        launches = launches or counts
+        walls[f"batch{b}_s"] = wall
+    return launches, walls
+
+
+def phase_towers(t5_cfg, device, steps: int, duration: float, t2a):
+    """PANN-14, PANN-10, bert, bart and the CLIP-BPE transformer at their
+    published widths, batch 2, each held against the CPU; then one
+    text_to_audio request at 3 candidates on the t5 model reranked by a
+    PANN-14 + transformer CLAP."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from audioldm2_torch.config import CLAPConfig
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.models import clap
+    from audioldm2_torch.params import Init
+    from audioldm2_torch.utils import text as text_utils
+
+    log("== path towers: the CLAP towers at published width, batch 2, card against CPU")
+    g = torch.Generator(device=device).manual_seed(13)
+    wav = torch.from_numpy(np.stack([chirp(48000, 10.0, seed=s) for s in (13, 14)])).to(device)
+    walls = {}
+    for amodel, tmodel in TOWER_PAIRS:
+        cfg = CLAPConfig(amodel=amodel, tmodel=tmodel)
+        p = clap.init_clap(Init(g, device, nonzero=True), cfg)
+        if amodel not in walls:
+            _, walls[amodel] = card_against_cpu(
+                f"{amodel} audio embedding of two 10 s 48 kHz clips",
+                lambda q, w: clap.audio_embedding(q, cfg, w), p, (wav,))
+        ids, mask = (torch.as_tensor(a, device=device)
+                     for a in text_utils.clap_tokenizer(cfg)(TOWER_PROMPTS))
+        _, walls[tmodel] = card_against_cpu(
+            f"{tmodel} text embedding of two prompts ({ids.shape[1]} tokens)",
+            lambda q, i, m: clap.text_embedding(q, cfg, i, m), p, (ids, mask))
+        del p
+    cfg = dataclasses.replace(t5_cfg, reranker_clap=CLAPConfig(amodel="PANN-14",
+                                                               tmodel="transformer"))
+    model = build("towers (audioldm_16k_crossattn_t5, PANN-14 + transformer reranker)", cfg,
+                  device)
+    wall, counts, _ = one_request(
+        model, lambda b: t2a(model, n=3)(TOWER_PROMPTS[0], b, steps, duration),
+        kernel_launches_per_generate(cfg, steps), 1, duration,
+        f"text_to_audio ddim, {steps} steps, 3 candidates reranked by PANN-14 + transformer")
+    if model.last_similarities is None or model.last_similarities.shape != (3,):
+        raise AssertionError("the PANN-14 + transformer rerank did not score 3 candidates")
+    return counts, {**{f"{k}_s": v for k, v in walls.items()}, "batch1_s": wall,
+                    "rerank_s": model.last_timings["rerank_s"]}
 
 
 # The train path: make_full_train_step at full width in f32 (the step's own

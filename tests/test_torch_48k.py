@@ -115,12 +115,10 @@ def models():
 def test_init_params_structure_matches_jax():
     """init_params draws the JAX tree's keys and shapes (film_emb from 24
     to the 128-wide time embedding, ResBlock emb projections from the
-    doubled 256), less the PANN audio tower of the text-mode conditioner
-    CLAP, which no ported path reads."""
+    doubled 256), the text-mode conditioner CLAP's PANN audio tower and
+    projection included."""
     cfg = tiny_48k_config()
     jtree = jax.tree.map(np.asarray, jpipe.init_params(jax.random.PRNGKey(0), cfg))
-    clap = jtree["cond"]["film_clap_cond1"]["clap"]
-    del clap["audio_branch"], clap["audio_projection"]
     ttree = tparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert _flatten(ttree) == _flatten(jtree)
     assert tuple(ttree["unet"]["film_emb"]["w"].shape) == (24, 128)

@@ -271,26 +271,24 @@ def test_scale_factor_is_optional(tiny_tree):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_production_structure_without_memory(name):
     """At each family's published config: the tree build_model(device=
-    "meta") gives, as zero-stride numpy leaves, completed by the tool (the
-    nested AudioMAE encoder the port does not draw) and written in the
-    reference layout, converts in both packages to the same paths and
-    shapes, with docs/KEY_COVERAGE.md's leaf count."""
+    "meta") gives, as zero-stride numpy leaves (the nested AudioMAE encoder
+    among them) written in the reference layout, converts in both packages
+    to the same paths and shapes, with docs/KEY_COVERAGE.md's leaf count."""
     meta = at.build_model(model_name=name, device="meta").ldm.params
 
     def zeros(t):
         return np.broadcast_to(np.zeros((), torch.empty(0, dtype=t.dtype).numpy().dtype),
                                tuple(t.shape))
 
-    tree = rl.complete(jax.tree.map(zeros, meta, is_leaf=lambda x: isinstance(x, torch.Tensor)),
-                       tconfig.default_audioldm_config(name))
+    tree = jax.tree.map(zeros, meta, is_leaf=lambda x: isinstance(x, torch.Tensor))
     sd = numpy_sd(tree, jconfig.default_audioldm_config(name))
     got, want = both_convert(sd, jconfig.default_audioldm_config(name))
     g, w, t = flat(got), flat(want), flat(tree)
     assert sorted(g) == sorted(w) == sorted(t)
     assert all(np.shape(g[k]) == np.shape(w[k]) == np.shape(t[k]) for k in g)
     assert len(g) == KEY_COVERAGE_LEAVES[name]
-    n_filled = len([k for k in t if "crossattn_audiomae_pooled" in k])
-    assert n_filled == (0 if name in ("audioldm_48k", "audioldm_16k_crossattn_t5") else 150)
+    n_mae = len([k for k in t if "crossattn_audiomae_pooled" in k])
+    assert n_mae == (0 if name in ("audioldm_48k", "audioldm_16k_crossattn_t5") else 150)
 
 
 # ---------------------------------------------------------------------------
@@ -350,20 +348,19 @@ def test_int8_model_from_file_equals_model_from_params(tmp_path):
 @pytest.mark.parametrize("name", ["audioldm2-full", "audioldm2-speech-gigaspeech"])
 def test_port_drawn_tree_round_trips_through_a_file(name, tmp_path):
     """What chip_smoke.py does at full width, here narrowed: the port's own
-    drawn tree, completed and written by the tool, loads through
-    build_model(ckpt_path) leaf for leaf (torch.equal), the filled AudioMAE
-    encoder included, and the JAX package's loader reads the same file to
-    the same tree."""
+    drawn tree, written by the tool, loads through build_model(ckpt_path)
+    leaf for leaf (torch.equal), the nested AudioMAE encoder's 150 leaves
+    included, and the JAX package's loader reads the same file to the same
+    tree."""
     jcfg = narrow_config(name)
     cfg = tconfig.coerce(jcfg)
     drawn = at.build_model(config=cfg, device="cpu", seed=3, nonzero_init=True).ldm.params
     path = str(tmp_path / f"{name}.pth")
-    full = rl.complete(drawn, cfg, seed=4)
-    rl.save_pth(path, rl.reference_state_dict(full, cfg))
+    rl.save_pth(path, rl.reference_state_dict(drawn, cfg))
     loaded = at.build_model(path, config=cfg, device="cpu").ldm.params
-    want, got = flat(full), flat(loaded)
+    want, got = flat(drawn), flat(loaded)
     assert sorted(got) == sorted(want)
-    assert len(want) - len(flat(drawn)) == 150
+    assert len([k for k in want if "crossattn_audiomae_pooled" in k]) == 150
     for k, v in want.items():
         assert torch.equal(got[k], torch.as_tensor(v)) and got[k].is_contiguous(), k
     assert_trees_equal(jax.tree.map(lambda t: t.numpy(), loaded),

@@ -29,6 +29,7 @@ from audioldm2_torch import params as tparams
 from audioldm2_torch.models import clap as tclap
 from audioldm2_torch.models import conditioners as tcond
 from audioldm2_torch.models import gpt2 as tgpt2
+from audioldm2_torch.models import pann as tpann
 from audioldm2_torch.models import roberta as troberta
 from audioldm2_torch.models import sequence_gen as tsg
 from test_torch_models import _flatten, nonzero_tree
@@ -41,17 +42,23 @@ TINY_GPT2 = GPT2Config(n_embd=768, n_layer=1, n_head=4)
 TINY_ROBERTA = dict(hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32)
 
 
+TINY_PANN = dict(sample_rate=1600, window_size=64, hop_size=16, mel_bins=16, fmin=10.0,
+                 fmax=790.0, embed_dim=24, variant="cnn10", channels_override=(8, 16))
+
+
 def tiny_clap():
-    """tests/tiny.py's CLAP config, with its 1-layer RoBERTa text tower
-    registered in the port as in the JAX registry."""
+    """tests/tiny.py's CLAP config, with its 1-layer RoBERTa text tower and
+    its tiny PANN audio tower registered in the port as in the JAX
+    registry."""
     cfg = tiny_clap_config()
     tclap.register_text_tower("roberta-tiny", lambda: troberta.RobertaConfig(**TINY_ROBERTA), 16)
+    tclap.register_audio_tower("PANN-tiny", lambda: tpann.PANNConfig(**TINY_PANN), 24)
     return cfg
 
 
 def _seqgen_spec(max_context: int = 1024) -> ConditionerSpec:
     """seqgen[CLAP + T5] -> GPT-2, 8 tokens, with audioldm2-full's nested
-    AudioMAE spec (not an input, so neither drawn nor encoded)."""
+    AudioMAE spec (drawn, not an input, so never encoded by generation)."""
     clap = ConditionerSpec(name="film_clap_cond1", kind="clap", clap=tiny_clap())
     t5 = ConditionerSpec(name="crossattn_flan_t5", kind="flan_t5", flan_t5=TINY_T5)
     mae = ConditionerSpec(
@@ -141,8 +148,18 @@ def test_clap_text_embedding_matches_jax():
 
 
 def test_clap_refuses_unported_text_towers():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tclap.text_tower(dataclasses.replace(tiny_clap(), tmodel="bert"))
+    """Every text tower of the JAX registry is ported (bert among them); a
+    name in neither registry raises, in the lookup and in build_model."""
+    for name in ("roberta", "bert", "bart", "transformer"):
+        assert tclap.text_tower(dataclasses.replace(tiny_clap(), tmodel=name))[1] == \
+            jclap.text_tower(dataclasses.replace(tiny_clap(), tmodel=name))[1]
+    bad = dataclasses.replace(tiny_clap(), tmodel="gpt-neo")
+    with pytest.raises(KeyError):
+        tclap.text_tower(bad)
+    spec = ConditionerSpec(name="film_clap_cond1", kind="clap", clap=bad)
+    with pytest.raises(ValueError, match="unknown CLAP tower"):
+        at.build_model(config=dataclasses.replace(tiny_full_config(), conditioners=(spec,)),
+                       device="cpu")
 
 
 def test_gpt2_prefill_and_steps_match_forward_full():
@@ -215,15 +232,10 @@ def test_conditioner_matches_jax(kind):
 
 
 def test_init_params_structure_matches_jax():
-    """init_params draws the JAX tree's keys and shapes, less what no ported
-    path reads: the nested AudioMAE and the PANN audio tower (and its
-    projection) of the text-mode CLAP, whose tower is not ported."""
+    """init_params draws the JAX tree's keys and shapes, the nested AudioMAE
+    and the text-mode CLAP's PANN audio tower and projection included."""
     cfg = tiny_full_config()
     jtree = _np(jpipe.init_params(jax.random.PRNGKey(0), cfg))
-    sg = jtree["cond"]["crossattn_audiomae_generated"]
-    del sg["cond"]["crossattn_audiomae_pooled"]
-    clap = sg["cond"]["film_clap_cond1"]["clap"]
-    del clap["audio_branch"], clap["audio_projection"]
     ttree = tparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert _flatten(ttree) == _flatten(jtree)
 
@@ -240,7 +252,8 @@ def test_tiny_full_end_to_end_matches_jax(full_models):
     prompt = "a dog barking in the rain"
     jbatch = jmodel.make_batch(prompt, batchsize=2)
     tbatch = tmodel.make_batch(prompt, batchsize=2)
-    assert sorted(tbatch) == sorted(k for k in jbatch if k.startswith(("t5_", "clap_")))
+    assert sorted(tbatch) == sorted(k for k in jbatch
+                                    if k.startswith(("t5_", "clap_", "ta_kaldi_fbank")))
     for k, v in tbatch.items():
         np.testing.assert_array_equal(v.numpy(), jbatch[k])
     lt, steps, key = 16, 4, jax.random.PRNGKey(9)

@@ -42,7 +42,7 @@ from audioldm2_torch.models import htsat as thtsat
 from audioldm2_torch.models import roberta as troberta
 from audioldm2_torch.models import unet as tunet
 from audioldm2_torch.ops import KERNEL_NAMES
-from test_torch_full import TINY_ROBERTA, tiny_full_config
+from test_torch_full import TINY_PANN, TINY_ROBERTA, tiny_full_config
 from test_torch_int8 import JAX_OP_TOL, _quantized_trees
 from test_torch_models import _flatten, nonzero_tree
 from tiny import TINY_T5, tiny_clap_config
@@ -462,11 +462,12 @@ def test_large_rerank_does_not_import_jax():
     cfg = tconfig.coerce(tiny_large_config())
     code = (
         "import sys; import audioldm2_torch as at; from audioldm2_torch.config import *; "
-        "from audioldm2_torch.models import clap, htsat, roberta; "
+        "from audioldm2_torch.models import clap, htsat, pann, roberta; "
         f"clap.register_audio_tower({HTSAT_NAME!r}, lambda: htsat.HTSATConfig(**{TINY_HTSAT!r}), "
         f"{TINY_HTSAT['embed_dim'] * 2}); "
         f"clap.register_text_tower('roberta-tiny', lambda: roberta.RobertaConfig(**{TINY_ROBERTA!r}),"
         " 16); "
+        f"clap.register_audio_tower('PANN-tiny', lambda: pann.PANNConfig(**{TINY_PANN!r}), 24); "
         f"m = at.build_model(config={cfg!r}, device='cpu', seed=0, nonzero_init=True); "
         "w = at.text_to_audio(m, 'rain', ddim_steps=2, duration=0.32, duration_bucket=None); "
         "assert w.shape == (1, 1, 512) and m.last_similarities.shape == (3,); "

@@ -88,9 +88,9 @@ def test_text_to_audio_refuses_candidates_without_clap(tmodel):
 
 
 def _unported_config(what):
-    """A config with a part that is not ported yet: a CLAP conditioner in
-    audio embedding mode (ROADMAP queue 1 item 9) or an AudioMAE-pooled
-    conditioner (item 10)."""
+    """A config with a part that the port once refused: a CLAP conditioner
+    in audio embedding mode (ROADMAP queue 1 item 9) or an AudioMAE-pooled
+    conditioner (item 10); both are ported now."""
     import dataclasses
 
     from audioldm2_torch.config import AudioMAEConfig, ConditionerSpec
@@ -107,13 +107,26 @@ def _unported_config(what):
 
 @pytest.mark.parametrize("name", ["clap_audio_mode", "audiomae_pooled"])
 def test_build_model_refuses_unported_families(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        at.build_model(config=_unported_config(name), device="cpu")
+    """The once-unported families build (on "meta", shapes only) with their
+    conditioner's full tree; a kind the port does not know is refused."""
+    import dataclasses
+
+    cfg = _unported_config(name)
+    cond = at.build_model(config=cfg, device="meta").ldm.params["cond"]
+    if name == "clap_audio_mode":
+        assert cond["film_clap_cond1"]["clap"]["audio_projection"]["lin1"]["w"].shape == (1024, 512)
+    else:
+        mae = cond["crossattn_audiomae_pooled"]["audiomae"]
+        assert len(mae["blocks"]) == 12 and mae["pos_embed"].shape == (1, 513, 768)
+    unknown = dataclasses.replace(cfg.conditioners[0], kind="audiomae_cls")
+    with pytest.raises(ValueError, match="unknown conditioner kind"):
+        at.build_model(config=dataclasses.replace(cfg, conditioners=(unknown,)), device="meta")
 
 
 def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     """The full-width audioldm2-full tree, drawn on the meta device (shapes
-    only: its 1.62 B parameters would take 6.5 GB on the CPU); the tiny
+    only: its 1.71 B parameters, the nested AudioMAE's 85.6 M among them,
+    would take 6.8 GB on the CPU); the tiny
     tree's structure is held against JAX in test_torch_full.py. It carries
     the HTSAT-base + RoBERTa reranker CLAP (0.198 B) that the default
     n_candidate_gen_per_text = 3 reads; a transcription is accepted and
@@ -121,14 +134,17 @@ def test_build_model_builds_audioldm2_full_and_refuses_candidates():
     model = at.build_model(model_name="audioldm2-full", device="meta")
     p = model.ldm.params
     seqgen = p["cond"]["crossattn_audiomae_generated"]
-    assert sorted(seqgen["cond"]) == ["crossattn_flan_t5", "film_clap_cond1"]
+    assert sorted(seqgen["cond"]) == ["crossattn_audiomae_pooled", "crossattn_flan_t5",
+                                      "film_clap_cond1"]
     assert len(seqgen["gpt2"]["blocks"]) == 12
     assert seqgen["cond"]["film_clap_cond1"]["clap"]["text_projection"]["lin2"]["w"].shape == (
         512, 512)
     cross = p["unet"]["middle_block"]["cross_sts"]
     assert [st["blocks"][0]["attn2"]["to_k"]["w"].shape[0] for st in cross] == [768, 1024]
     n = sum(math.prod(shape) for shape in _flatten(p).values())
-    assert 1.6e9 < n < 1.65e9, n
+    assert 1.7e9 < n < 1.72e9, n
+    mae = _flatten(seqgen["cond"]["crossattn_audiomae_pooled"])
+    assert 8.5e7 < sum(math.prod(shape) for shape in mae.values()) < 8.6e7
     rr = sum(math.prod(shape) for shape in _flatten(p["reranker_clap"]).values())
     assert 1.9e8 < rr < 2.0e8, rr
     assert p["reranker_clap"]["audio_projection"]["lin1"]["w"].shape == (1024, 512)
@@ -230,16 +246,18 @@ def test_seed_everything_seeds_and_returns_a_generator():
 def test_build_model_builds_every_family_the_port_runs(name):
     """Each family the port runs builds at full width on the meta device
     (shapes only), with its parameter count in millions (the reranker's
-    198.5 M included); audioldm2-music-665k has audioldm2-full's tree and
+    198.5 M and, on the families with a sequence generator, the nested
+    AudioMAE's 85.6 M included); audioldm2-music-665k has audioldm2-full's
+    tree and
     the two speech families one tree (the phoneme encoder and the
     512-token generator in their conditioner)."""
     model = at.build_model(model_name=name, device="meta")
     assert model.cfg.name == name
     shapes = _flatten(model.ldm.params)
-    millions = {"audioldm_16k_crossattn_t5": 915.9, "audioldm2-full": 1624.1,
-                "audioldm2-music-665k": 1624.1, "audioldm2-full-large-1150k": 1995.2,
-                "audioldm_48k": 1073.5, "audioldm2-speech-gigaspeech": 862.4,
-                "audioldm2-speech-ljspeech": 862.4}
+    millions = {"audioldm_16k_crossattn_t5": 915.9, "audioldm2-full": 1709.7,
+                "audioldm2-music-665k": 1709.7, "audioldm2-full-large-1150k": 2080.8,
+                "audioldm_48k": 1073.5, "audioldm2-speech-gigaspeech": 948.0,
+                "audioldm2-speech-ljspeech": 948.0}
     assert round(sum(math.prod(s) for s in shapes.values()) / 1e5) / 10 == millions[name]
     if name == "audioldm2-music-665k":
         assert shapes == _flatten(at.build_model(device="meta").ldm.params)

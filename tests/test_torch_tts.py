@@ -64,7 +64,7 @@ def _phoneme_spec():
 def _tts_spec(max_context: int = 1024, gen_length: int = 512) -> ConditionerSpec:
     """The TTS sequence generator in miniature: CLAP + phonemes (192 -> 16
     wide) -> GPT-2, with the nested AudioMAE spec the shipped config carries
-    (not an input, so neither drawn nor encoded)."""
+    (drawn, not an input, so never encoded by generation)."""
     mae = ConditionerSpec(
         name="crossattn_audiomae_pooled", kind="audiomae_pooled",
         cond_stage_key="ta_kaldi_fbank",
@@ -226,14 +226,10 @@ def test_tts_sequence_gen_generates_512_tokens():
 
 def test_init_params_structure_matches_jax():
     """init_params draws the JAX tree's keys and shapes for the TTS family,
-    less what no ported path reads: the nested AudioMAE and the PANN audio
-    tower (and its projection) of the text-mode CLAP."""
+    the nested AudioMAE and the text-mode CLAP's PANN audio tower and
+    projection included."""
     cfg = tiny_tts_config()
     jtree = _np(jpipe.init_params(jax.random.PRNGKey(0), cfg))
-    sg = jtree["cond"]["crossattn_audiomae_generated"]
-    del sg["cond"]["crossattn_audiomae_pooled"]
-    clap = sg["cond"]["film_clap_cond1"]["clap"]
-    del clap["audio_branch"], clap["audio_projection"]
     ttree = tparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert _flatten(ttree) == _flatten(jtree)
 
