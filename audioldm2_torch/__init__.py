@@ -21,6 +21,11 @@ transformer) is ported.
 Training (``parallel.train``, ``parallel.ema``, ``utils.data``):
 make_full_train_step, make_train_step, AdamW, AudioDataset, DatasetConfig,
 the f32 latent-diffusion step with the hand kernels under autograd.
+
+Entry points: ``python -m audioldm2_torch`` (``cli.py``, the JAX CLI's
+flags; ``-d auto`` is the CUDA card) and the web demo
+``audioldm2_torch.app``. Editing: ``LatentDiffusionModel.edit`` over
+``diffusion.ddim.stochastic_encode`` and ``ddim_decode``.
 """
 
 from audioldm2_torch.config import CHECKPOINT_NAMES, default_audioldm_config

@@ -5,6 +5,10 @@ alpha_prev, sigma) rows from ``schedule.make_ddim_params``, walked in
 descending t as a Python loop. Guidance is one batched model call with the
 unconditional half first and the conditional half second.
 
+``stochastic_encode`` and ``ddim_decode`` are the audio-to-audio editing
+pair (JAX ``ddim.py:136-186``): diffuse a clean latent to a DDIM-subset
+step, then denoise it deterministically under new conditioning.
+
 Randomness comes from an explicit ``torch.Generator``. JAX's threefry and
 torch's Philox never give the same numbers, so ``x_T``, the per-step
 ``noise`` and the inpainting blend's ``mask_noise`` can be injected to feed
@@ -123,3 +127,40 @@ def ddim_sample(
                 img.shape, generator=generator, device=img.device, dtype=torch.float32)
             img = img + float(sigma) * n
     return img
+
+
+def stochastic_encode(x0: torch.Tensor, t_index: int, schedule: DiffusionSchedule,
+                      num_steps: int = 200, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      use_original_steps: bool = False) -> torch.Tensor:
+    """Diffuse a clean latent forward to DDIM-subset step ``t_index``:
+    sqrt(a) * x0 + sqrt(1 - a) * noise, with a the subset's alpha (eta 0)
+    or, under ``use_original_steps``, the raw schedule's at DDPM timestep
+    ``t_index``. ``noise`` is injected, or drawn from ``generator``."""
+    t_index = int(t_index)
+    if use_original_steps:
+        sqrt_a = schedule.sqrt_alphas_cumprod.astype(np.float32)[t_index]
+        sqrt_1ma = schedule.sqrt_one_minus_alphas_cumprod.astype(np.float32)[t_index]
+    else:
+        _, alphas, _, _ = make_ddim_params(schedule, num_steps, eta=0.0)
+        # f32 square roots of the f32 subset alphas, as the JAX package takes them
+        sqrt_a = np.sqrt(alphas)[t_index]
+        sqrt_1ma = np.sqrt(np.float32(1.0) - alphas)[t_index]
+    if noise is None:
+        if generator is None:
+            raise ValueError("stochastic_encode: pass noise or a generator to draw it from")
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    return float(sqrt_a) * x0 + float(sqrt_1ma) * noise.to(x0)
+
+
+def ddim_decode(eps_fn: EpsFn, x_latent: torch.Tensor, schedule: DiffusionSchedule,
+                t_start: int, num_steps: int = 200) -> torch.Tensor:
+    """Denoise a :func:`stochastic_encode`-d latent from DDIM-subset step
+    ``t_start`` down to x_0: ``ddim_sample`` at eta 0 over the first
+    ``t_start`` subset steps, descending, from ``x_latent``. Deterministic:
+    it draws nothing, so it takes no generator and refuses a missing
+    latent (JAX ``ddim.py:90``)."""
+    if x_latent is None:
+        raise ValueError("ddim_decode needs the encoded latent x_latent")
+    return ddim_sample(eps_fn, x_latent.shape, schedule, num_steps=num_steps, eta=0.0,
+                       x_T=x_latent, t_start=int(t_start), device=x_latent.device)

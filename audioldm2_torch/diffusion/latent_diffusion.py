@@ -9,6 +9,8 @@ Cross-attention K/V, the fused self-attention QKV weights and, in the int8
 serving mode, the quantized UNet weights are built once per call, outside
 the step loop. The samplers are DDIM, PLMS and ancestral DDPM, each with the
 inpainting mask blend; the VAE encoder runs on the uncast f32 weights.
+``LatentDiffusionModel.edit`` is the audio-to-audio pair of
+``ddim.stochastic_encode`` and ``ddim.ddim_decode`` on an encoded latent.
 """
 
 from __future__ import annotations
@@ -93,6 +95,38 @@ def prepare_unet(params, cfg: ModelConfig, contexts_c):
     return unet_p, cross_kv
 
 
+def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
+    """The conditioning encoded once and the per-call UNet transforms done
+    once; returns (eps_fn over a [B * n_gen] latent, B * n_gen). With
+    guidance != 1 each eps call is one UNet forward over the stacked
+    [2 * B * n_gen] CFG batch. Each UNet call sits
+    in a ``torch.profiler.record_function("unet")`` range, which a trace
+    reads (``utils.profiling``)."""
+    (y, contexts, masks), bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
+    cdtype = compute_dtype(cfg)
+    contexts_c = [c.to(cdtype) for c in contexts]
+    y_c = y.to(cdtype) if y is not None else None
+    unet_p, cross_kv = prepare_unet(params, cfg, contexts_c)
+
+    def model_fn(x, t):
+        with torch.profiler.record_function("unet"):
+            eps = unet.apply_unet(unet_p, cfg.unet, x.to(cdtype), t, context_list=contexts_c,
+                                  context_mask_list=masks, y=y_c, cross_kv=cross_kv)
+        return eps.float()
+
+    return (ddim.cfg_eps_fn(model_fn, guidance) if cfg_on else model_fn), bsz
+
+
+def decode_latent(params, cfg: ModelConfig, z: torch.Tensor):
+    """x_0 latents (scale_factor * z) -> (waveform [B, N], mel [B, T, M, 1]),
+    float32: the VAE decode and the vocoder in the compute dtype."""
+    cdtype = compute_dtype(cfg)
+    z = z / params["scale_factor"]
+    mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
+    wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder, mel[..., 0])
+    return wav.float(), mel.float()
+
+
 def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
                    latent_t_size: int, n_gen: int, guidance: float, ddim_steps: int,
                    ddim_eta: float, generator: Optional[torch.Generator], use_mask: bool,
@@ -101,21 +135,9 @@ def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
                    mask_noise: Optional[torch.Tensor] = None):
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r} (ddim|plms|ddpm)")
-    (y, contexts, masks), bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
+    eps_fn, bsz = guided_eps_fn(params, cfg, batch, n_gen, guidance)
     device = params["scale_factor"].device
     shape = (bsz, latent_t_size, cfg.latent_f_size, cfg.latent_channels)
-    cdtype = compute_dtype(cfg)
-
-    contexts_c = [c.to(cdtype) for c in contexts]
-    y_c = y.to(cdtype) if y is not None else None
-    unet_p, cross_kv = prepare_unet(params, cfg, contexts_c)
-
-    def model_fn(x, t):
-        eps = unet.apply_unet(unet_p, cfg.unet, x.to(cdtype), t, context_list=contexts_c,
-                              context_mask_list=masks, y=y_c, cross_kv=cross_kv)
-        return eps.float()
-
-    eps_fn = ddim.cfg_eps_fn(model_fn, guidance) if cfg_on else model_fn
     inpaint = {}
     if use_mask:
         inpaint = dict(mask=_tile(batch["inpaint_mask"].float(), n_gen),
@@ -128,10 +150,7 @@ def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
     else:
         z = ddim.ddim_sample(eps_fn, shape, schedule, num_steps=ddim_steps, eta=ddim_eta,
                              noise=noise, **common)
-    z = z / params["scale_factor"]
-    mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
-    wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder, mel[..., 0])
-    return wav.float(), mel.float()
+    return decode_latent(params, cfg, z)
 
 
 class LatentDiffusionModel:
@@ -183,6 +202,27 @@ class LatentDiffusionModel:
                                   n_gen, float(guidance), int(ddim_steps), float(ddim_eta),
                                   generator, bool(use_mask), str(sampler), x_T=x_T, noise=noise,
                                   mask_noise=mask_noise)
+        return wav.cpu().numpy(), mel.cpu().numpy()
+
+    @torch.inference_mode()
+    def edit(self, batch: Dict, generator: Optional[torch.Generator], z0: torch.Tensor,
+             t_enc: int, ddim_steps: int = 200, guidance: float = 3.5,
+             noise: Optional[torch.Tensor] = None):
+        """Audio-to-audio editing: diffuse the encoded latent ``z0`` [B, T,
+        F, C] (``encode_mel``'s output) to DDIM-subset step ``t_enc`` of
+        ``ddim_steps`` (``ddim.stochastic_encode``; ``noise`` injected or
+        drawn from ``generator``), denoise it over the first ``t_enc``
+        subset steps under ``batch``'s conditioning at ``guidance``
+        (``ddim.ddim_decode``), then decode. Returns (waveform [B, N], mel
+        [B, T, M, 1]) as float32 numpy arrays; ``t_enc`` UNet forwards."""
+        z0 = z0.float()
+        eps_fn, bsz = guided_eps_fn(self.params, self.cfg, batch, 1, float(guidance))
+        if bsz != z0.shape[0]:
+            raise ValueError(f"edit: the batch conditions {bsz} latents, z0 has {z0.shape[0]}")
+        z_t = ddim.stochastic_encode(z0, t_enc, self.schedule, ddim_steps, noise=noise,
+                                     generator=generator)
+        z = ddim.ddim_decode(eps_fn, z_t, self.schedule, t_enc, ddim_steps)
+        wav, mel = decode_latent(self.params, self.cfg, z)
         return wav.cpu().numpy(), mel.cpu().numpy()
 
 

@@ -92,3 +92,10 @@ def step(params, cfg: GPT2Config, emb: torch.Tensor, cache: KVCache, cache_mask:
         x = x + _attn(blk["attn"], q, cache.k[i], cache.v[i], keep)
         x = x + _mlp(blk["mlp"], nn.layer_norm(blk["ln_2"], x, cfg.layer_norm_epsilon))
     return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)[:, 0], cache
+
+
+def forward_full(params, cfg: GPT2Config, embeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The cache-free forward over the whole sequence (the reference's GPT-2
+    call): prefill with a cache of exactly the sequence's length; returns
+    the hidden states [B, L, D]. The oracle of the KV-cached generator."""
+    return prefill(params, cfg, embeds, mask, cache_len=embeds.shape[1])[0]

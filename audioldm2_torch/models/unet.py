@@ -8,6 +8,11 @@ context slot. The ResBlock bodies, the LN-fused projections, the GEGLU
 output and the self-attention go through the dispatch points of
 ``ops.nn``, which launch the Hopper kernels on CUDA tensors.
 
+The legacy QKV attention block and the EncoderUNet half-UNet classifier
+(JAX ``unet.py:448-558``; no shipped config instantiates either) reuse the
+ResBlock (K1); the block's self-attention goes through ``nn.attention``
+(K2) and the classifier's out_norm + SiLU through K6.
+
 The int8 serving mode (``quantize_st_linears``, ``quantize_resblock_convs``,
 JAX ``unet.py:294-349``) swaps weights for int8 ones with the same
 predicates; the dispatch points then launch the int8 kernels.
@@ -316,6 +321,125 @@ def apply_unet(params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Tensor
 
     h = nn.group_norm_silu(params["out_norm"], h, eps=GN_EPS_RES)
     return nn.conv2d(params["out_conv"], h)
+
+
+# ---------------------------------------------------------------------------
+# Legacy QKV attention block (the reference's AttentionBlock with
+# QKVAttention / QKVAttentionLegacy) and the EncoderUNet classifier
+# ---------------------------------------------------------------------------
+
+
+def init_legacy_attention_block(ini: Init, channels: int, num_heads: int = 1,
+                                num_head_channels: int = -1):
+    """``num_heads`` is a non-array leaf of the tree, where JAX puts it."""
+    if num_head_channels != -1:
+        num_heads = channels // num_head_channels
+    return {
+        "num_heads": num_heads,
+        "norm": ini.norm(channels),
+        "qkv": ini.conv1d(1, channels, channels * 3),
+        "proj_out": ini.conv1d(1, channels, channels, zero=True),
+    }
+
+
+def apply_legacy_attention_block(p, x: torch.Tensor, new_order: bool = False) -> torch.Tensor:
+    """x: [B, T, F, C] (or [B, S, C]) -> x + attention over all positions.
+    ``new_order`` splits the qkv channels into thirds first, then heads
+    (QKVAttention); otherwise heads first, then thirds of each head's 3d
+    channels (QKVAttentionLegacy). Unmasked self-attention: K2 on CUDA."""
+    b, c = x.shape[0], x.shape[-1]
+    xs = x.reshape(b, -1, c)
+    heads = p["num_heads"]
+    d = c // heads
+    qkv = nn.conv1d(p["qkv"], nn.group_norm(p["norm"], xs), padding=0)  # [B, S, 3C]
+    if new_order:
+        q, k, v = (nn.split_heads(t, heads) for t in torch.chunk(qkv, 3, dim=-1))
+    else:
+        q, k, v = torch.split(qkv.reshape(b, -1, heads, 3 * d), d, dim=-1)
+    out = nn.conv1d(p["proj_out"], nn.merge_heads(nn.attention(q, k, v)), padding=0)
+    return (xs + out).reshape(x.shape)
+
+
+def init_encoder_unet(ini: Init, cfg: UNetConfig, pool: str = "adaptive"):
+    """The EncoderUNet tree, JAX's keys and shapes (``pool`` a string leaf).
+    Only the adaptive pooling head exists, as in JAX."""
+    if pool != "adaptive":
+        raise ValueError(f"EncoderUNet pool {pool!r}: only 'adaptive' is implemented")
+    mc = cfg.model_channels
+    emb_dim = cfg.time_embed_dim
+    p = {
+        "pool": pool,
+        "time_embed": {
+            "lin1": ini.linear(mc, emb_dim),
+            "lin2": ini.linear(emb_dim, emb_dim),
+        },
+    }
+    blocks = [{"conv": ini.conv(3, 3, cfg.in_channels, mc)}]
+    ch, ds = mc, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            blk = {"res": _resblock_init(ini, ch, mult * mc, emb_dim)}
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                blk["attn"] = init_legacy_attention_block(
+                    ini, ch, num_head_channels=cfg.num_head_channels)
+            blocks.append(blk)
+        if level != len(cfg.channel_mult) - 1:
+            blocks.append({"downsample": ini.conv(3, 3, ch, ch)})
+            ds *= 2
+    p["input_blocks"] = blocks
+    p["middle_block"] = {
+        "res1": _resblock_init(ini, ch, ch, emb_dim),
+        "attn": init_legacy_attention_block(ini, ch, num_head_channels=cfg.num_head_channels),
+        "res2": _resblock_init(ini, ch, ch, emb_dim),
+    }
+    p["out_norm"] = ini.norm(ch)
+    p["out_conv"] = ini.conv(1, 1, ch, cfg.out_channels, zero=True)
+    return p
+
+
+def apply_encoder_unet(params, cfg: UNetConfig, x: torch.Tensor,
+                       timesteps: torch.Tensor) -> torch.Tensor:
+    """x: [B, T, F, C]; timesteps: [B] -> logits [B, out_channels]
+    (GroupNorm + SiLU, the mean over all positions, a 1x1 conv)."""
+    t_emb = nn.timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
+    emb = nn.linear(params["time_embed"]["lin1"], t_emb)
+    emb = nn.linear(params["time_embed"]["lin2"], nn.silu(emb))
+    h = x
+    for blk in params["input_blocks"]:
+        if "conv" in blk:
+            h = nn.conv2d(blk["conv"], h)
+        elif "downsample" in blk:
+            h = nn.conv2d(blk["downsample"], h, stride=(2, 2), padding=1)
+        else:
+            h = _resblock(blk["res"], h, emb)
+            if "attn" in blk:
+                h = apply_legacy_attention_block(blk["attn"], h)
+    mid = params["middle_block"]
+    h = _resblock(mid["res1"], h, emb)
+    h = apply_legacy_attention_block(mid["attn"], h)
+    h = _resblock(mid["res2"], h, emb)
+    h = nn.group_norm_silu(params["out_norm"], h, eps=GN_EPS_RES)
+    h = h.mean(dim=(1, 2), keepdim=True)  # AdaptiveAvgPool2d((1, 1))
+    return nn.conv2d(params["out_conv"], h)[:, 0, 0, :]
+
+
+def kernel_launches_per_encoder_forward(cfg: UNetConfig) -> dict:
+    """Kernel launches of one apply_encoder_unet call: two K1 per ResBlock,
+    one K2 per legacy attention block whose head_dim the kernel takes, one
+    K6 (out_norm)."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    res = len(cfg.channel_mult) * cfg.num_res_blocks + 2
+    attn, ds = 1, 1  # the middle block's
+    for level in range(len(cfg.channel_mult)):
+        if ds in cfg.attention_resolutions:
+            attn += cfg.num_res_blocks
+        if level != len(cfg.channel_mult) - 1:
+            ds *= 2
+    counts["gn_silu_conv3x3"] = 2 * res
+    counts["flash_self_attention"] = attn if cfg.num_head_channels in (32, 64, 128) else 0
+    counts["group_norm_silu"] = 1
+    return counts
 
 
 _QUANT_KEYS = ("to_qkv", "to_q", "to_out", "proj_in", "proj_out")

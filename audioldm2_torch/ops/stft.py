@@ -1,14 +1,17 @@
 """Audio frontend of the sr/inpainting path: STFT magnitude, the Slaney mel
-filterbank and the log-mel fbank, in PyTorch.
+filterbank and the log-mel fbank, in PyTorch; and the inverse STFT with
+Griffin-Lim phase recovery.
 
-Port of ``audioldm2_tpu/ops/stft.py:30-199`` (which imports jax, so the
-port has its own copy of the numpy bases; a test holds them equal). The
+Port of ``audioldm2_tpu/ops/stft.py`` (which imports jax, so the port has
+its own copy of the numpy bases; a test holds them equal). The
 bases are built once on the host in float64 and stored as float32. The
 STFT reflect-pads by filter_length // 2 on each side, frames the signal at
 stride ``hop`` and multiplies the frames by the windowed real-DFT basis;
 the mel projection is a second matmul and the log clamps at 1e-5. Both
 matmuls run in full f32 (no TF32): the log of small magnitudes amplifies
-any truncation.
+any truncation. The inverse overlap-adds the frames of the windowed
+pseudo-inverse basis as one stride-``hop`` transposed conv, also in full
+f32, and divides by the squared window's envelope floored at 1e-8.
 """
 
 from __future__ import annotations
@@ -224,3 +227,97 @@ class KaldiFbank:
         else:
             fb = fb[:, :target_length]
         return (fb - self.NORM_MEAN) / (self.NORM_STD * 2.0)
+
+
+# ---------------------------------------------------------------------------
+# Inverse STFT and Griffin-Lim (JAX stft.py:329-430)
+# ---------------------------------------------------------------------------
+
+
+def inverse_stft_basis(filter_length: int, win_length: int) -> np.ndarray:
+    """Windowed pseudo-inverse synthesis basis [filter_length, 2 * nfreq]
+    (the reference's pinv(scale * basis) times filter_length / hop: the two
+    scales cancel)."""
+    cutoff = filter_length // 2 + 1
+    n = np.arange(filter_length, dtype=np.float64)
+    k = np.arange(cutoff, dtype=np.float64)[:, None]
+    angle = -2.0 * np.pi * k * n / filter_length
+    inv = np.linalg.pinv(np.concatenate([np.cos(angle), np.sin(angle)], axis=0))  # [N, 2c]
+    pad = (filter_length - win_length) // 2
+    window = np.zeros(filter_length, dtype=np.float64)
+    window[pad:pad + win_length] = hann_window_periodic(win_length)
+    return (inv * window[:, None]).astype(np.float32)
+
+
+def window_sumsquare(win_length: int, filter_length: int, hop: int,
+                     n_frames: int) -> np.ndarray:
+    """The squared window overlap-added over ``n_frames`` frames at stride
+    ``hop``: [filter_length + hop * (n_frames - 1)] float32."""
+    n = filter_length + hop * (n_frames - 1)
+    x = np.zeros(n, dtype=np.float64)
+    pad = (filter_length - win_length) // 2
+    win = np.zeros(filter_length)
+    win[pad:pad + win_length] = hann_window_periodic(win_length) ** 2
+    for i in range(n_frames):
+        s = i * hop
+        x[s:min(n, s + filter_length)] += win[:max(0, min(filter_length, n - s))]
+    return x.astype(np.float32)
+
+
+def frame_signal(wav: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """[B, N] -> [B, T, frame_length] frames at stride ``hop`` (no padding; a
+    view)."""
+    return wav.unfold(-1, frame_length, hop)
+
+
+def istft(magnitude: torch.Tensor, phase: torch.Tensor, filter_length: int, hop: int,
+          win_length: int) -> torch.Tensor:
+    """magnitude, phase: [B, nfreq, T] -> waveform [B, hop * (T - 1)]
+    (filter_length // 2 trimmed at each end), float32."""
+    rec = torch.cat([magnitude * torch.cos(phase), magnitude * torch.sin(phase)], dim=1)
+    inv = torch.from_numpy(inverse_stft_basis(filter_length, win_length)).to(rec.device)
+    with full_f32():  # y[t * hop + n] += sum_c rec[c, t] * inv[n, c]
+        y = F.conv_transpose1d(rec, inv.t()[:, None, :], stride=hop)[:, 0]
+    env = torch.from_numpy(window_sumsquare(win_length, filter_length, hop,
+                                            rec.shape[-1])).to(y.device)
+    y = y / torch.clamp(env, min=1e-8)
+    half = filter_length // 2
+    return y[:, half:-half]
+
+
+def stft_full(wav: torch.Tensor, basis: torch.Tensor, filter_length: int,
+              hop: int):
+    """(magnitude, phase), each [B, nfreq, T], as the reference STFT's
+    transform: reflect padding, the windowed DFT basis in full f32, the
+    magnitude floored at sqrt(1e-12), the phase atan2(imag, real)."""
+    pad = filter_length // 2
+    wav = F.pad(wav[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    with full_f32():
+        spec = torch.matmul(frame_signal(wav, filter_length, hop), basis)
+    nfreq = basis.shape[1] // 2
+    real, imag = spec[..., :nfreq], spec[..., nfreq:]
+    mag = torch.sqrt(torch.clamp(real * real + imag * imag, min=1e-12))
+    return mag.transpose(1, 2), torch.atan2(imag, real).transpose(1, 2)
+
+
+def griffin_lim(magnitude: torch.Tensor, filter_length: int, hop: int, win_length: int,
+                n_iters: int = 30, phase: torch.Tensor = None,
+                generator: torch.Generator = None) -> torch.Tensor:
+    """Phase recovery by alternating projections: ``n_iters`` rounds of
+    istft then stft_full, keeping the given magnitude [B, nfreq, T] and the
+    new phase (cut or zero-padded to T frames); returns the waveform. The
+    initial phase is ``phase``, or uniform in [-pi, pi) from ``generator``
+    on the magnitude's device (one of the two is required)."""
+    if phase is None:
+        if generator is None:
+            raise ValueError("griffin_lim: pass the initial phase or a generator to draw it from")
+        phase = torch.rand(magnitude.shape, generator=generator, device=magnitude.device,
+                           dtype=torch.float32) * (2 * np.pi) - np.pi
+    basis = torch.from_numpy(stft_basis(filter_length, win_length)).to(magnitude.device)
+    frames = phase.shape[-1]
+    for _ in range(n_iters):
+        signal = istft(magnitude, phase, filter_length, hop, win_length)
+        _, new_phase = stft_full(signal, basis, filter_length, hop)
+        t = min(new_phase.shape[-1], frames)
+        phase = F.pad(new_phase[..., :t], (0, frames - t))
+    return istft(magnitude, phase, filter_length, hop, win_length)

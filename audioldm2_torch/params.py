@@ -104,7 +104,9 @@ class Init:
             p["b"] = self._kaiming((cout,), fan_in)
         return p
 
-    def conv1d(self, k, cin, cout) -> Dict[str, torch.Tensor]:
+    def conv1d(self, k, cin, cout, zero: bool = False) -> Dict[str, torch.Tensor]:
+        if zero and not self.nonzero:
+            return {"w": self.zeros((k, cin, cout)), "b": self.zeros((cout,))}
         fan_in = k * cin
         return {"w": self._kaiming((k, cin, cout), fan_in), "b": self._kaiming((cout,), fan_in)}
 

@@ -1,8 +1,8 @@
 """Host-side wav IO and resampling (scipy-based; no torchaudio/librosa/soundfile).
 
-The port's own copy of ``audioldm2_tpu/utils/audio_io.py``: the numpy
-resampler is the host path (the JAX package's optional native engine is
-not used). Reproduces the reference's wav loading semantics (reference
+The port's own copy of ``audioldm2_tpu/utils/audio_io.py``: the resampler
+runs in the host C++ library (``utils.native``) where it is built, as the
+JAX package's does, and in numpy otherwise. Reproduces the reference's wav loading semantics (reference
 ``utilities/audio/tools.py:9-40``): load, mono, resample to the target rate,
 mean-subtract, peak-normalize to 0.5, pad/cut to the segment length.
 ``sinc_interp_hann_kernel`` also feeds the CLAP rerank's device resample.
@@ -81,16 +81,24 @@ def _resample_sinc_np(x: np.ndarray, kernel: np.ndarray, orig: int, new: int,
 
 
 def resample(waveform: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Reference-matching resample (torchaudio sinc_interp_hann defaults),
-    as the numpy phase-bank matmul."""
+    """Reference-matching resample (torchaudio sinc_interp_hann defaults):
+    the native phase-bank resampler when the host library is built, the
+    numpy phase-bank matmul otherwise."""
     if orig_sr == target_sr:
         return waveform
+    from audioldm2_torch.utils import native
+
     kernel, orig, new, width = sinc_interp_hann_kernel(orig_sr, target_sr)
+    if native.available():
+        return native.resample_sinc(waveform, kernel, orig, new, width)
     return _resample_sinc_np(np.asarray(waveform, np.float32), kernel, orig, new, width)
 
 
 def normalize_wav(waveform: np.ndarray) -> np.ndarray:
-    """Mean-subtract then scale to 0.5 peak (reference tools.py:22-25)."""
+    """Mean-subtract then scale to 0.5 peak (reference tools.py:22-25), in
+    numpy as the JAX package's: ``native.normalize_wav`` (its mean in
+    double) differs in the last bit, and the data pipeline's batches are
+    held bitwise to JAX's."""
     waveform = waveform - np.mean(waveform)
     waveform = waveform / (np.max(np.abs(waveform)) + 1e-8)
     return (waveform * 0.5).astype(np.float32)
@@ -161,3 +169,15 @@ def save_wave(
 def text_to_filename(text: str) -> str:
     return text.replace(" ", "_").replace("'", "_").replace('"', "_")
 
+
+
+def get_duration(fname: str) -> float:
+    """Clip duration in seconds (reference utils.py:21-25)."""
+    sr, data = wavfile.read(fname)
+    return data.shape[0] / float(sr)
+
+
+def get_bit_depth(fname: str) -> int:
+    """Sample bit depth (reference utils.py:28-31)."""
+    _, data = wavfile.read(fname)
+    return data.dtype.itemsize * 8

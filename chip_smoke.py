@@ -56,7 +56,31 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           EMA update after each: the VAE encode (K1, K6 in f32) and the
           conditioning under torch.no_grad(), the UNet's K1, K2, K3, K4 and
           K6 under autograd (ops.autograd: kernel forward, plain-version
-          recompute backward).
+          recompute backward);
+  native  the host C++ audio library (audioldm2_torch/csrc/host, g++ -O3
+          -march=native into _build/): the resampler 48k -> 16k and 16k -> 48k
+          on 10 s and normalize_wav against the numpy path, both timed;
+  griffinlim  30 Griffin-Lim rounds (ops.stft.griffin_lim, injected phase)
+          on a 10 s 16 kHz chirp's magnitude (1024 / 160 / 1024), card
+          against CPU in f32;
+  encoder the EncoderUNet classifier (no shipped config instantiates it) at
+          the t5 UNet's widths, in_channels 8, out_channels 10, on the t5
+          latent [2, 256, 16, 8]: K1, K2 (the legacy attention blocks), K6;
+  edit    audioldm_16k_crossattn_t5: a 10 s 16 kHz chirp read and encoded as
+          the sr path does (log-mel, f32 VAE encode: K1, K6 in f32),
+          ddim.stochastic_encode to t_enc = 100 of 200, ddim.ddim_decode
+          under a new prompt at guidance 3.5 (CFG batch 2: K1-K4, K6), VAE
+          decode, vocoder (LatentDiffusionModel.edit);
+  profile utils.profiling.trace (torch.profiler, CUDA activity) around one
+          batch-1 t5 request of 20 DDIM steps: the op table, the device's
+          busy share, the UNet's device time and TF/s (ops.flops);
+  app     audioldm2_torch.app.text2audio(model_name=
+          "audioldm_crossattn_flant5") at n = 3 and the app's 200 steps,
+          through the app's model cache;
+  cli     python -m audioldm2_torch (-d auto) in a subprocess on the t5
+          family at the CLI's defaults (n = 3, CFG batch 6, the rerank): one
+          generation and one --mode sr_inpainting -f request on a 10 s
+          48 kHz chirp (the native resampler to 16 kHz).
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -111,10 +135,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      resource.getrusage, peak) and the device memory after the build, for
      the full and the full8 builds, with the card's name and power limit;
      requests on each path at the reference defaults (10 s, 200 steps,
-     guidance 3.5, or 2.5 for sr): three at batch 1 on the t5 path (their
-     median is the p50 latency), one on the full, sr, full8, large, 48k,
-     tts and mae paths, and one at batch 2 on each (the clapaudio and towers
-     paths answer one batch-1 request), with output checks (and,
+     guidance 3.5, or 2.5 for sr): one at batch 1 on the t5 path (its
+     wall is the p50 latency), one on the full, sr, full8, large, 48k,
+     tts and mae paths, and one at batch 2 on the t5, full, sr, 48k, tts and
+     mae paths (the clapaudio and towers paths answer one batch-1 request),
+     with output checks (and,
      on the paths with a sequence generator, the GPT-2 tokens finite and the
      CLAP text embedding of unit norm; the walls of the sequence generator
      and of the vocoder apart), no CUDA tensor reaching a plain version, no
@@ -145,6 +170,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      K4 and K6, no f32 K1 call on the shared core, the EMA of one leaf
      against its ramp formula; the step's wall, forward, backward and
      optimizer device times (CUDA events) and peak memory.
+  6. the entry points and the last single-device modules: the native,
+     griffinlim, encoder, edit, profile, app and cli paths above. native:
+     the resamplers within NATIVE_RESAMPLE_TOL (1e-6) and normalize_wav
+     within NATIVE_NORMALIZE_TOL (1e-7) of numpy; griffinlim: card within
+     GL_ONE_ROUND_TOL (1e-4) of the CPU after one round and GL_TOL (2e-3)
+     after 30 (relative to the peak); encoder: kernels against all-plain
+     within 2e-2 (bf16) and 1e-4 (f32), launches equal to
+     unet.kernel_launches_per_encoder_forward; edit: the request's launches
+     equal to 100 UNet forwards, one VAE encode and one decode, and the f32
+     latent after t_enc = 5 steps on injected noise within 1e-4 of the
+     all-plain one; profile: the op table's top 25 (the kernels named), the
+     union of the device ops' intervals over the traced window, the 20
+     "unet" ranges' device time against ops.flops.unet_step_flops and
+     989 TF/s; app: the rendered artifact,
+     one model build for two get_model calls; cli: each wav at 16 kHz,
+     160000 samples, finite, non-zero, within [-1, 1], the process on the
+     card, its wall. The edit, profile and app requests go through the
+     same request checks as phase 5.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -1637,21 +1680,28 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
 
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
            ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
-# the full, sr, full8, large, 48k and tts paths: one batch-1 and one batch-2
-# request, so that the whole run keeps well inside its time on a slow host
+# Depth, so that the whole run keeps well inside its time on a slow host:
+# the t5 path one batch-1 and one batch-2 request; the full, sr, 48k and tts
+# paths one and one; the full8 and large paths one batch-1 request (full8's
+# kernels are the full path's int8 siblings at the same shapes, and the
+# large path's batch-1 request at 3 candidates runs its UNet at CFG batch 6,
+# above a batch-2 request's 4)
+PROMPTS_T5 = PROMPTS[:1] + PROMPTS[3:]
 PROMPTS_SHORT = PROMPTS[2:]
+PROMPTS_ONE = PROMPTS[2:3]
 TRANSCRIPTION = "The quick brown fox jumps over the lazy dog, twice."
 
 
 def phase_requests(tag, model, request, expected, steps: int, duration: float, label: str,
                    prompts=None):
     """A short warm-up request (allocator, cuDNN plans, lazy module state),
-    then the batch-1 requests and the batch-2 request of ``prompts`` (PROMPTS
-    by default) through ``request(prompt, batchsize, steps, duration)``;
-    returns the launch counts of the first request and the timings."""
+    then the batch-1 requests and any batch-2 request of ``prompts``
+    (PROMPTS_T5 by default) through ``request(prompt, batchsize, steps,
+    duration)``; returns the launch counts of the first request and the
+    timings."""
     request("warm up", 1, 10, 2.5)
     launches, walls, stage_walls = None, {1: [], 2: []}, {}
-    for prompt, bsz in prompts or PROMPTS:
+    for prompt, bsz in prompts or PROMPTS_T5:
         wall, counts, stages = one_request(model, lambda b: request(prompt, b, steps, duration),
                                            expected, bsz, duration, f"{label}, {steps} steps")
         launches = launches or counts
@@ -1659,9 +1709,10 @@ def phase_requests(tag, model, request, expected, steps: int, duration: float, l
         for k, v in stages.items():
             stage_walls.setdefault(k, []).append(round(v, 4))
     p50 = sorted(walls[1])[len(walls[1]) // 2]
-    s_audio = duration * 2 / walls[2][0]
+    s_audio = duration * 2 / walls[2][0] if walls[2] else None
     log(f"  path {tag} end to end ({duration} s clips, {steps} steps): p50 latency at batch 1 "
-        f"{p50:.3f} s over {len(walls[1])} requests; {s_audio:.3f} s-audio/s at batch 2")
+        f"{p50:.3f} s over {len(walls[1])} requests"
+        + (f"; {s_audio:.3f} s-audio/s at batch 2" if s_audio else "; no batch-2 request"))
     return launches, {"p50_s": p50, "s_audio_per_s": s_audio, "batch1_s": walls[1],
                       "batch2_s": walls[2], **stage_walls}
 
@@ -1757,14 +1808,14 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         model = load_checkpoint("full8", path, full_cfg, device, weight_quant="int8")
         launches["full8"], e2e["full8"] = phase_requests(
             "full8", model, t2a(model), expect(model.cfg, steps), steps, duration,
-            "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+            "text_to_audio ddim, guidance 3.5", PROMPTS_ONE)
         del model
     log(f"  checkpoint {os.path.basename(path)} deleted")
 
     model = build("large", large_cfg, device)
     launches["large"], e2e["large"] = phase_requests(
         "large", model, t2a(model, n=3), expect(model.cfg, steps), steps, duration,
-        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP", PROMPTS_SHORT)
+        "text_to_audio ddim, guidance 3.5, 3 candidates reranked by CLAP", PROMPTS_ONE)
     del model
 
     model = build("48k", k48_cfg, device)
@@ -2293,6 +2344,475 @@ def phase_train(model, device):
                       "max_abs_err": {k: v["max_abs_err"] for k, v in stats.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the entry points and the last single-device modules (cli, edit,
+# encoder, griffinlim, native, profile, app)
+# ---------------------------------------------------------------------------
+
+# Griffin-Lim on the card against the CPU, f32, the same injected phase:
+# max|card - cpu| / max|cpu| after one round and after GL_ROUNDS. Each round
+# feeds the last one's phase, so the transforms' f32 summation-order
+# differences grow with the rounds (the port against JAX on the CPU: 2.0e-6
+# after 1 round, 2.6e-5 after 20, 4.0e-4 after 30, tests/test_torch_stft_inverse.py).
+GL_ROUNDS = 30
+GL_ONE_ROUND_TOL = 1e-4
+GL_TOL = 2e-3
+# The native resamplers (double accumulators, FMA contraction under
+# -march=native) against the numpy phase-bank matmul (f32): the JAX
+# package's tests/test_resample.py bound; normalize_wav's mean in double
+# against numpy's f32 pairwise sum.
+NATIVE_RESAMPLE_TOL = 1e-6
+NATIVE_NORMALIZE_TOL = 1e-7
+EDIT_PROMPT = "A violin melody in a large hall."
+EDIT_CHECK_STEPS = 5  # the f32 trajectory held against the all-plain one
+PROFILE_STEPS = 20
+PROFILE_TOP = 25
+CLI_TIMEOUT_S = 600
+# Trace names of the kernels (the CUDA functions' names, demangled)
+TRACE_LABELS = (("gn_stats_kernel", "K1/K1q statistics pass"),
+                ("gn_silu_conv_kernel", "K1 (conv)"),
+                ("flash_attn_bf16_kernel", "K2 (bf16 flash core)"),
+                ("flash_attn_f32_kernel", "K2 (f32)"),
+                ("row_block_matmul_bf16_kernel", "K3/K4 (row block)"),
+                ("group_norm_silu_kernel", "K6"),
+                ("gemm_prologue_kernel", "shared GEMM core"),
+                ("splitk_reduce_kernel", "split-K reduce"))
+
+
+def trace_label(name: str) -> str:
+    for key, label in TRACE_LABELS:
+        if key in name:
+            return label
+    return "-"
+
+
+def phase_native():
+    """The host C++ library built from the port's copy of the source; the
+    resampler 48k -> 16k and 16k -> 48k on 10 s and normalize_wav against
+    the numpy path, both timed (host walls)."""
+    import numpy as np
+    from audioldm2_torch.utils import audio_io, native
+
+    log("== path native: the host C++ audio library (audioldm2_torch/csrc/host)")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the host audio library did not build: {native.build_error()}")
+    log(f"  built and loaded {native.library_path().name} in {time.perf_counter() - t0:.2f} s "
+        f"(g++ {' '.join(native.CXX_FLAGS)})")
+
+    def walls(fn, reps=5):
+        out = fn()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return out, sorted(times)[reps // 2]
+
+    out = {}
+    for a, b in ((48000, 16000), (16000, 48000)):
+        x = chirp(a, 10.0, seed=a)
+        kernel, orig, new, width = audio_io.sinc_interp_hann_kernel(a, b)
+        got, t_nat = walls(lambda: native.resample_sinc(x, kernel, orig, new, width))
+        want, t_np = walls(lambda: audio_io._resample_sinc_np(x, kernel, orig, new, width))
+        err = float(np.abs(got - want).max())
+        log(f"  resample {a} -> {b} Hz, 10 s ({x.shape[0]} -> {got.shape[0]} samples): native "
+            f"{t_nat * 1e3:.2f} ms, numpy {t_np * 1e3:.2f} ms (host walls, median of 5); "
+            f"max_abs_err {err:.3e} (tol {NATIVE_RESAMPLE_TOL:g})")
+        if got.shape != want.shape or err > NATIVE_RESAMPLE_TOL:
+            raise AssertionError(f"native resample {a} -> {b} off the numpy path by {err:.3e}")
+        out[f"resample_{a}_{b}"] = {"native_ms": t_nat * 1e3, "numpy_ms": t_np * 1e3,
+                                    "max_abs_err": err}
+    x = 0.3 * chirp(16000, 10.0, seed=3) + 0.01
+    got, t_nat = walls(lambda: native.normalize_wav(x))
+
+    def numpy_normalize():
+        y = x - np.mean(x)
+        return (0.5 * y / (np.max(np.abs(y)) + 1e-8)).astype(np.float32)
+
+    want, t_np = walls(numpy_normalize)
+    err = float(np.abs(got - want).max())
+    log(f"  normalize_wav, 10 s at 16 kHz: native {t_nat * 1e3:.3f} ms, numpy {t_np * 1e3:.3f} ms; "
+        f"max_abs_err {err:.3e} (tol {NATIVE_NORMALIZE_TOL:g})")
+    if err > NATIVE_NORMALIZE_TOL:
+        raise AssertionError(f"native normalize_wav off the numpy path by {err:.3e}")
+    out["normalize"] = {"native_ms": t_nat * 1e3, "numpy_ms": t_np * 1e3, "max_abs_err": err}
+    return out
+
+
+def phase_griffinlim(device):
+    """griffin_lim on the STFT magnitude of a 10 s 16 kHz chirp (1024 / 160
+    / 1024), the initial phase injected, card against CPU in f32."""
+    import numpy as np
+    import torch
+    from audioldm2_torch.ops import stft
+
+    log(f"== path griffinlim: {GL_ROUNDS} Griffin-Lim rounds on a 10 s 16 kHz chirp "
+        "(1024 / 160 / 1024), card against CPU, f32")
+    f, h, w = 1024, 160, 1024
+    wav = torch.from_numpy(chirp(16000, 10.0, seed=9)[None])
+    mag, _ = stft.stft_full(wav, torch.from_numpy(stft.stft_basis(f, w)), f, h)
+    phase = torch.from_numpy(np.random.default_rng(9).uniform(
+        -np.pi, np.pi, tuple(mag.shape)).astype(np.float32))
+    def run(dev, rounds):
+        t0 = time.perf_counter()
+        y = stft.griffin_lim(mag.to(dev), f, h, w, n_iters=rounds, phase=phase.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return y.cpu(), time.perf_counter() - t0
+
+    run(device, 1)  # warm-up (cuDNN plans)
+    out = {}
+    for rounds, tol in ((1, GL_ONE_ROUND_TOL), (GL_ROUNDS, GL_TOL)):
+        got, t_card = run(device, rounds)
+        want, t_cpu = run("cpu", rounds)
+        d, r = rel_err(got, want)
+        log(f"  {rounds} round(s), magnitude {tuple(mag.shape)} -> waveform {tuple(got.shape)}: "
+            f"card {t_card:.3f} s, CPU {t_cpu:.3f} s (walls); card against CPU max_abs_err "
+            f"{d:.3e} rel {r:.3e} (tol {tol:g})")
+        if not bool(torch.isfinite(got).all()) or r > tol:
+            raise AssertionError(f"griffin_lim ({rounds} rounds): card off the CPU by {r:.3e}")
+        out[f"rounds_{rounds}"] = {"card_s": t_card, "cpu_s": t_cpu, "rel_err": r}
+    return out
+
+
+def phase_encoder(t5_cfg, device):
+    """The EncoderUNet classifier at the t5 UNet's widths (in_channels 8,
+    out_channels 10; no shipped config instantiates it) on the t5 latent
+    [2, 256, 16, 8], kernels against the all-plain path in bf16 and f32,
+    its launches against kernel_launches_per_encoder_forward."""
+    import dataclasses
+
+    import torch
+    from audioldm2_torch import ops
+    from audioldm2_torch.models import unet
+    from audioldm2_torch.params import Init, cast_floating
+
+    ucfg = dataclasses.replace(t5_cfg.unet, in_channels=t5_cfg.latent_channels, out_channels=10)
+    shape = (2, t5_cfg.latent_t_size, t5_cfg.latent_f_size, t5_cfg.latent_channels)
+    log(f"== path encoder: EncoderUNet classifier (model_channels {ucfg.model_channels}, "
+        f"channel_mult {ucfg.channel_mult}, attention_resolutions {ucfg.attention_resolutions}, "
+        f"num_head_channels {ucfg.num_head_channels}, 8 -> 10), latent {list(shape)}; no "
+        "shipped config instantiates it")
+    g = torch.Generator(device=device).manual_seed(15)
+    p32 = unet.init_encoder_unet(Init(g, device, nonzero=True), ucfg)
+    x = torch.randn(shape, generator=g, device=device)
+    t = torch.tensor([981, 17], dtype=torch.int32, device=device)
+    want_counts = unet.kernel_launches_per_encoder_forward(ucfg)
+    counts, out = None, {}
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        p = cast_floating(p32, dt)
+
+        def fwd():
+            return unet.apply_encoder_unet(p, ucfg, x.to(dt), t)
+
+        with torch.inference_mode():
+            with patched_dispatch("plain"):
+                want = fwd().float()
+                plain_ms = cuda_ms(fwd, target_ms=100.0, max_reps=10)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with plain_versions_forbidden():
+                got = fwd().float()
+            torch.cuda.synchronize()
+            counts = counts or ops.launch_counts()
+            kern_ms = cuda_ms(fwd, target_ms=100.0, max_reps=10)
+        d, r = rel_err(got, want)
+        log(f"  {dt}: logits {tuple(got.shape)}, kernels against all-plain max_abs_err {d:.3e} "
+            f"rel {r:.3e} (tol {tol:g}); kernels {kern_ms:.3f} ms, all-plain {plain_ms:.3f} ms")
+        if not bool(torch.isfinite(got).all()) or r > tol:
+            raise AssertionError(f"EncoderUNet {dt}: kernels disagree with the plain path")
+        out[str(dt).split(".")[-1]] = {"ms": kern_ms, "plain_ms": plain_ms, "rel_err": r}
+    log(f"    launches (bf16 forward) {counts}")
+    if counts != want_counts:
+        raise AssertionError(f"EncoderUNet launches {counts} != {want_counts}")
+    return counts, out
+
+
+def edit_request(model, wav_path: str, t_enc: int, steps: int, duration: float):
+    """request(bsz) of the edit path: the wav read and turned into the
+    log-mel as the sr path does, the f32 VAE encode, stochastic_encode to
+    DDIM-subset step t_enc of ``steps``, ddim_decode under EDIT_PROMPT at
+    guidance 3.5 (CFG batch 2), the VAE decode and the vocoder."""
+    import torch
+    import audioldm2_torch as at
+    from audioldm2_torch import pipeline
+
+    cfg = model.cfg
+    pre = cfg.preprocessing
+    frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+
+    def request(bsz):
+        gen = torch.Generator(device=model.device).manual_seed(42)
+        t0 = time.perf_counter()
+        wav_in = at.read_wav_file(wav_path, frames * pre.hop_length, target_sr=pre.sampling_rate)
+        mel = model.mel.fbank(wav_in, target_length=frames)[..., None].repeat(bsz, 1, 1, 1)
+        z0 = model.ldm.encode_mel(gen, mel)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wav, _ = model.ldm.edit(model.make_batch(EDIT_PROMPT, batchsize=bsz), gen, z0, t_enc,
+                                ddim_steps=steps, guidance=3.5)
+        pipeline._record_timings(model, duration, bsz, encode_s=t1 - t0,
+                                 edit_s=time.perf_counter() - t1)
+        return wav[:, None, :int(duration * pre.sampling_rate)]
+    return request
+
+
+def edit_trajectory_check(model, wav_path: str, steps: int, duration: float):
+    """At t_enc = EDIT_CHECK_STEPS in f32 on injected noise: the latent after
+    stochastic_encode and ddim_decode through the kernels against the
+    all-plain one, within F32_TOL."""
+    import dataclasses
+
+    import torch
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion import ddim
+    from audioldm2_torch.diffusion.latent_diffusion import guided_eps_fn
+
+    cfg32 = dataclasses.replace(model.cfg, compute_dtype="float32")
+    pre = cfg32.preprocessing
+    frames = int(duration * cfg32.latent_t_per_second * cfg32.vae.downsample_factor)
+    g = torch.Generator(device=model.device).manual_seed(5)
+    with torch.inference_mode():
+        wav_in = at.read_wav_file(wav_path, frames * pre.hop_length, target_sr=pre.sampling_rate)
+        z0 = model.ldm.encode_mel(g, model.mel.fbank(wav_in, target_length=frames)[..., None])
+        noise = torch.randn(z0.shape, generator=g, device=z0.device)
+        batch = model.make_batch(EDIT_PROMPT, batchsize=1)
+
+        def trajectory():
+            eps_fn, _ = guided_eps_fn(model.ldm.params, cfg32, batch, 1, 3.5)
+            z_t = ddim.stochastic_encode(z0, EDIT_CHECK_STEPS, model.ldm.schedule, steps,
+                                         noise=noise)
+            return ddim.ddim_decode(eps_fn, z_t, model.ldm.schedule, EDIT_CHECK_STEPS, steps)
+
+        got = trajectory()
+        with patched_dispatch("plain"):
+            want = trajectory()
+    torch.cuda.synchronize()
+    d, r = rel_err(got, want)
+    moved = rel_err(want, z0)[1]
+    log(f"  edit trajectory, t_enc = {EDIT_CHECK_STEPS} of {steps}, f32, injected noise: latent "
+        f"{tuple(got.shape)} kernels against all-plain max_abs_err {d:.3e} rel {r:.3e} (tol "
+        f"{F32_TOL:g}); the steps moved the latent by {moved:.3e} of its peak")
+    if not bool(torch.isfinite(got).all()) or r > F32_TOL:
+        raise AssertionError(f"edit trajectory: kernels disagree with the plain path ({r:.3e})")
+    return r
+
+
+def phase_edit(model, wav_path: str, steps: int, duration: float):
+    """The edit path on the t5 model: one batch-1 request (stochastic_encode
+    to t_enc = steps / 2, ddim_decode, decode) with its launches equal to
+    t_enc UNet forwards plus one VAE encode and one decode, then the f32
+    trajectory check."""
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+
+    t_enc = steps // 2
+    log(f"== path edit: audioldm_16k_crossattn_t5, a 10 s 16 kHz chirp encoded (log-mel, f32 VAE "
+        f"encode), stochastic_encode to t_enc = {t_enc} of {steps}, ddim_decode under "
+        f"{EDIT_PROMPT!r} at guidance 3.5")
+    request = edit_request(model, wav_path, t_enc, steps, duration)
+    request(1)  # warm-up
+    wall, counts, _ = one_request(model, request,
+                                  kernel_launches_per_generate(model.cfg, t_enc, encode=True), 1,
+                                  duration, f"edit, t_enc {t_enc} of {steps}")
+    rel = edit_trajectory_check(model, wav_path, steps, duration)
+    return counts, {"wall_s": wall, "t_enc": t_enc, "f32_trajectory_rel_err": rel,
+                    **{k: v for k, v in model.last_timings.items()}}
+
+
+def phase_profile(model, device, duration: float):
+    """One batch-1 request of PROFILE_STEPS DDIM steps (CFG batch 2) with the
+    request checks, then the same request inside utils.profiling.trace: the
+    op table, the device's busy share, the UNet's device time (the sampler's
+    "unet" ranges) and its TF/s (ops.flops)."""
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.ops import flops
+    from audioldm2_torch.utils import profiling
+
+    cfg = model.cfg
+    log(f"== path profile: torch.profiler over one batch-1 request of {PROFILE_STEPS} DDIM steps "
+        f"(CFG batch 2, {duration} s) on audioldm_16k_crossattn_t5")
+
+    def request(b):
+        return at.text_to_audio(model, "Rain on a tin roof.", seed=42, ddim_steps=PROFILE_STEPS,
+                                duration=duration, batchsize=b, n_candidate_gen_per_text=1)
+
+    request(1)  # warm-up
+    wall, counts, _ = one_request(model, request, kernel_launches_per_generate(cfg, PROFILE_STEPS),
+                                  1, duration, f"text_to_audio ddim, {PROFILE_STEPS} steps "
+                                  "(profiler off)")
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with profiling.trace(log_dir):
+            wav = request(1)
+        traced_s = time.perf_counter() - t0
+        table = profiling.op_table(log_dir, PROFILE_TOP)
+        busy_ms, window_ms = profiling.busy_share(log_dir)
+        unet_ms, unet_ranges = profiling.range_device_ms(log_dir, "unet")
+        trace_mb = sum(os.path.getsize(os.path.join(log_dir, n))
+                       for n in os.listdir(log_dir)) / 2**20
+    if wav.shape != (1, 1, int(duration * cfg.preprocessing.sampling_rate)):
+        raise AssertionError(f"profiled request returned {wav.shape}")
+    log(f"  traced request: wall {traced_s:.3f} s with the profiler's stop and export, trace "
+        f"{trace_mb:.1f} MB; top {len(table)} device ops by total time over the request:")
+    for name, ms in table:
+        log(f"    {ms:10.3f} ms  {trace_label(name):24s} {name[:110]}")
+    if not table or busy_ms <= 0:
+        raise AssertionError("the trace holds no device op")
+    log(f"  device busy share: {busy_ms:.3f} ms of device ops (their union) over the {window_ms:.3f}"
+        f" ms traced window = {busy_ms / window_ms:.4f} (profiler on); over the untraced request's "
+        f"wall {wall * 1e3:.3f} ms = {busy_ms / (wall * 1e3):.4f}")
+    step_flops = flops.unet_step_flops(cfg, 2, cfg.latent_t_size)
+    if unet_ranges != PROFILE_STEPS or unet_ms <= 0:
+        raise AssertionError(f"the trace holds {unet_ranges} 'unet' ranges with {unet_ms} ms of "
+                             f"device time; expected {PROFILE_STEPS}")
+    per_step = unet_ms / PROFILE_STEPS
+    tflops = step_flops / per_step / 1e9
+    log(f"  UNet in the trace: {unet_ranges} forwards, {unet_ms:.3f} ms of device time, "
+        f"{per_step:.3f} ms a step; {step_flops / 1e12:.4f} TFLOP a step (ops.flops."
+        f"unet_step_flops, CFG batch 2) -> {tflops:.1f} TF/s, {tflops / 989:.4f} of 989 TF/s "
+        f"(bf16 dense peak); {nvidia_smi_line()}")
+    return counts, {"busy_ms": busy_ms, "window_ms": window_ms, "busy_share": busy_ms / window_ms,
+                    "busy_share_untraced_wall": busy_ms / (wall * 1e3),
+                    "unet_ms_per_step": per_step, "unet_step_tflop": step_flops / 1e12,
+                    "unet_tflops": tflops, "traced_wall_s": traced_s, "wall_s": wall,
+                    "top": [[n, ms] for n, ms in table[:10]]}
+
+
+def phase_app(t5_cfg, device, duration: float):
+    """audioldm2_torch.app.text2audio once with model_name
+    "audioldm_crossattn_flant5" (the t5 preset), 3 candidates, the app's 200
+    steps; the model cache builds once and a second get_model returns it."""
+    import dataclasses
+
+    import numpy as np
+    from audioldm2_torch import app, pipeline
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+
+    name = "audioldm_crossattn_flant5"
+    log(f"== path app: audioldm2_torch.app.text2audio(model_name={name!r}, n_candidates=3), "
+        "200 DDIM steps")
+    builds, rendered = [], []
+    real_build, real_render = pipeline.build_model, app.render_outputs
+
+    def counting_build(*a, **kw):
+        builds.append(kw.get("model_name"))
+        return real_build(*a, **kw)
+
+    def recording_render(sr, waveform):
+        rendered.append((sr, waveform))
+        return real_render(sr, waveform)
+
+    pipeline.build_model, app.render_outputs = counting_build, recording_render
+    try:
+        t0 = time.perf_counter()
+        model = app.get_model(name)
+        log(f"  get_model (build): {time.perf_counter() - t0:.2f} s")
+        if model.cfg != dataclasses.replace(t5_cfg, name=name):
+            raise AssertionError(f"{name} did not resolve to the t5 preset")
+        out = []
+
+        def request(b):
+            out.append(app.text2audio("A cat is meowing for attention.", duration=duration,
+                                      guidance_scale=3.5, random_seed=45, n_candidates=3,
+                                      model_name=name))
+            return rendered[-1][1]
+
+        wall, counts, _ = one_request(model, request, kernel_launches_per_generate(model.cfg, 200),
+                                      1, duration, "app.text2audio, 200 steps, 3 candidates")
+        again = app.get_model(name)
+    finally:
+        pipeline.build_model, app.render_outputs = real_build, real_render
+    if again is not model or builds != [name]:
+        raise AssertionError(f"the app's model cache built {builds}, and the second get_model "
+                             f"returned {'the same' if again is model else 'another'} object")
+    art = out[0]
+    if isinstance(art, tuple):
+        sr, pcm = art
+        n = int(duration * 16000)
+        if sr != 16000 or pcm.dtype != np.int16 or pcm.shape != (n,) or not np.abs(pcm).max():
+            raise AssertionError(f"render_outputs gave ({sr}, {pcm.dtype} {pcm.shape})")
+        log(f"  rendered: ({sr}, int16 {pcm.shape}) audio (no ffmpeg for a video)")
+    else:
+        if not (isinstance(art, str) and os.path.getsize(art) > 0):
+            raise AssertionError(f"render_outputs gave {art!r}")
+        log(f"  rendered: video {art} ({os.path.getsize(art)} bytes)")
+    log(f"  the second get_model({name!r}) returned the same object; build_model ran once")
+    app.MODELS.model = None  # free the card for the next path
+    return counts, {"wall_s": wall, **model.last_timings}
+
+
+def phase_cli(steps: int, duration: float, tmp: str):
+    """python -m audioldm2_torch in a subprocess (-d auto, the kernels of
+    _build/ already built): one generation request on
+    audioldm_16k_crossattn_t5 at the CLI defaults (10 s, guidance 3.5, n = 3
+    with the CLAP rerank), one --mode sr_inpainting -f request on a 10 s
+    48 kHz chirp (resampled to 16 kHz by the native library). Each wav:
+    16 kHz, 160000 samples, finite, non-zero, within [-1, 1]."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    log(f"== path cli: python -m audioldm2_torch (-d auto), {T5_MODEL}, {steps} steps, n = 3")
+    in48 = write_wav(os.path.join(tmp, "chirp48k.wav"), 48000, duration)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    prompt = "A dog barking in the distance"
+    runs = {"generation": ["-t", prompt],
+            "sr_inpainting": ["--mode", "sr_inpainting", "-f", in48, "-t", prompt]}
+    out = {}
+    for mode, extra in runs.items():
+        save = os.path.join(tmp, f"cli_{mode}")
+        cmd = [sys.executable, "-m", "audioldm2_torch", *extra, "--model_name", T5_MODEL,
+               "--ddim_steps", str(steps), "-dur", str(duration), "-s", save]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"CLI {mode} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        line = next((ln for ln in res.stdout.splitlines() if ln.startswith("audioldm2_torch:")),
+                    "")
+        if f"{T5_MODEL} on cuda" not in line:
+            raise AssertionError(f"CLI {mode} did not report running on the card: {line!r}")
+        wavs = [os.path.join(d, n) for d, _, names in os.walk(save) for n in names]
+        if len(wavs) != 1 or os.path.basename(wavs[0]) != f"{prompt}.wav":
+            raise AssertionError(f"CLI {mode} wrote {wavs}")
+        sr, data = wavfile.read(wavs[0])
+        x = data.astype(np.float32) / 32768.0
+        if sr != 16000 or x.shape != (int(duration * 16000),) or not np.isfinite(x).all() or \
+                not np.abs(x).max() > 0 or np.abs(x).max() > 1.0:
+            raise AssertionError(f"CLI {mode} wav: rate {sr}, shape {x.shape}, peak "
+                                 f"{np.abs(x).max()}")
+        log(f"  {mode}: subprocess wall {wall:.2f} s (process start, model build, kernels "
+            f"loaded, request, wav written); {line}; wrote {os.path.relpath(wavs[0], tmp)} "
+            f"({sr} Hz, {x.shape[0]} samples, rms {float(np.sqrt(np.mean(x ** 2))):.4f})")
+        out[mode] = {"wall_s": wall}
+    return out
+
+
+def phase_6(t5_cfg, device, steps: int, duration: float):
+    """The paths of the entry points and the last single-device modules;
+    returns ({path: launch counts}, {path: timings})."""
+    import torch
+
+    log("== phase 6: the entry points and the last single-device modules")
+    launches, e2e = {}, {}
+    e2e["native"] = phase_native()
+    e2e["griffinlim"] = phase_griffinlim(device)
+    launches["encoder"], e2e["encoder"] = phase_encoder(t5_cfg, device)
+    model = build("edit and profile", t5_cfg, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav16 = write_wav(os.path.join(tmp, "chirp16k.wav"), 16000, duration)
+        launches["edit"], e2e["edit"] = phase_edit(model, wav16, steps, duration)
+        launches["profile"], e2e["profile"] = phase_profile(model, device, duration)
+        del model
+        torch.cuda.empty_cache()
+        launches["app"], e2e["app"] = phase_app(t5_cfg, device, duration)
+        torch.cuda.empty_cache()
+        e2e["cli"] = phase_cli(steps, duration, tmp)
+    return launches, e2e
+
+
 def _leaves(tree):
     import torch
 
@@ -2429,6 +2949,9 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
 
     launches, e2e = phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps,
                             duration)
+    more_launches, more_e2e = phase_6(t5_cfg, device, steps, duration)
+    launches.update(more_launches)
+    e2e.update(more_e2e)
     for name, err in e2e["train"]["max_abs_err"].items():  # the f32 train-step shapes'
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     return stats, launches, e2e

@@ -164,7 +164,8 @@ def test_clap_refuses_unported_text_towers():
 
 def test_gpt2_prefill_and_steps_match_forward_full():
     """prefill, then three KV-cached steps, each against JAX's prefill and
-    its cache-free forward over the grown sequence (a pad mid-prefix)."""
+    the cache-free forward over the grown sequence, JAX's and the port's
+    (a pad mid-prefix)."""
     tree = _np(jgpt2.init_gpt2(jax.random.PRNGKey(3), TINY_GPT2))
     p = tparams.from_jax_tree(tree)
     rng = np.random.default_rng(3)
@@ -187,6 +188,25 @@ def test_gpt2_prefill_and_steps_match_forward_full():
         want = jgpt2.forward_full(tree, TINY_GPT2, jnp.asarray(seq[:, :length + i + 1]),
                                   jnp.asarray(full_mask))
         _close(g, np.asarray(want)[:, -1])
+        own = tgpt2.forward_full(p, TINY_GPT2, torch.from_numpy(seq[:, :length + i + 1]),
+                                 torch.from_numpy(full_mask))
+        _close(g, own[:, -1])
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_gpt2_forward_full_matches_jax(pad):
+    tree = _np(jgpt2.init_gpt2(jax.random.PRNGKey(5), TINY_GPT2))
+    rng = np.random.default_rng(5)
+    seq = rng.standard_normal((2, 9, 768)).astype(np.float32)
+    mask = np.ones((2, 9), np.float32)
+    if pad:
+        mask[0, 3:5] = 0.0
+        mask[1, -2:] = 0.0
+    want = jgpt2.forward_full(tree, TINY_GPT2, jnp.asarray(seq), jnp.asarray(mask))
+    got = tgpt2.forward_full(tparams.from_jax_tree(tree), TINY_GPT2, torch.from_numpy(seq),
+                             torch.from_numpy(mask))
+    assert got.shape == (2, 9, 768)
+    _close(got, want)
 
 
 @pytest.mark.parametrize("max_context", [1024, 22])

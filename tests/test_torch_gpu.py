@@ -1100,3 +1100,143 @@ def test_int8_kernels_refuse_autograd_on_the_card(cuda):
         lnmm_kernel.int8_matmul(x, wq, ws, ws)
     with torch.no_grad():
         assert lnmm_kernel.int8_matmul(x, wq, ws, ws).shape == (2, 10, 128)
+
+
+# ---------------------------------------------------------------------------
+# The entry points' modules on the card: DDIM stochastic_encode and
+# ddim_decode, the EncoderUNet and its legacy attention block, the inverse
+# STFT and Griffin-Lim, and the host audio library on the card's machine
+# ---------------------------------------------------------------------------
+
+# a tiny UNet whose self-attention takes K2 (head_dim 32)
+TINY_K2_UNET = dict(in_channels=4, out_channels=4, model_channels=64, num_res_blocks=1,
+                    attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32,
+                    context_dims=(32,))
+
+
+def _rel(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("t_start", [1, 6, 10])
+def test_stochastic_encode_and_ddim_decode_on_the_card_match_cpu(cuda, t_start):
+    """A tiny UNet (K1, K2, K3, K4, K6 on the card) denoised from
+    stochastic_encode's latent by ddim_decode, f32: card against CPU."""
+    from audioldm2_torch.config import UNetConfig
+    from audioldm2_torch.diffusion import ddim
+    from audioldm2_torch.diffusion.schedule import DiffusionSchedule
+    from audioldm2_torch.models import unet
+    from audioldm2_torch.params import Init, map_tree
+
+    ucfg = UNetConfig(**TINY_K2_UNET)
+    p_cpu = unet.init_unet(Init(torch.Generator().manual_seed(0), "cpu", nonzero=True), ucfg)
+    g = torch.Generator().manual_seed(1)
+    x0, noise = (torch.randn((2, 16, 8, 4), generator=g) for _ in range(2))
+    ctx = torch.randn((2, 7, 32), generator=g)
+    mask = torch.ones((2, 7))
+    sched = DiffusionSchedule.create()
+    outs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), p_cpu)
+        c, m = ctx.to(dev), mask.to(dev)
+
+        def eps(x, t):
+            return unet.apply_unet(p, ucfg, x, t, [c], [m])
+
+        with torch.inference_mode():
+            z_t = ddim.stochastic_encode(x0.to(dev), t_start - 1, sched, 10, noise=noise.to(dev))
+            outs.append((z_t, ddim.ddim_decode(eps, z_t, sched, t_start, 10)))
+    assert _rel(outs[1][0], outs[0][0]) <= 1e-6
+    assert torch.isfinite(outs[1][1]).all() and _rel(outs[1][1], outs[0][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("new_order", [False, True])
+def test_legacy_attention_block_on_the_card(cuda, new_order):
+    """The legacy block's self-attention is K2 on the card (strided q, k, v
+    in the legacy order): f32 against the CPU, bf16 against the plain path."""
+    from audioldm2_torch.models import unet
+    from audioldm2_torch.params import Init, cast_floating, map_tree
+    from chip_smoke import patched_dispatch
+
+    p = unet.init_legacy_attention_block(Init(torch.Generator().manual_seed(2), "cpu",
+                                              nonzero=True), 256, num_head_channels=32)
+    x = torch.randn((2, 32, 8, 256), generator=torch.Generator().manual_seed(3))
+    pc = map_tree(lambda t: t.to(cuda), p)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = unet.apply_legacy_attention_block(pc, x.to(cuda), new_order=new_order)
+        want = unet.apply_legacy_attention_block(p, x, new_order=new_order)
+    assert ops.launch_counts()["flash_self_attention"] == 1
+    assert _rel(got, want) <= TOL[torch.float32]
+    pb = cast_floating(pc, torch.bfloat16)
+    with torch.inference_mode():
+        got = unet.apply_legacy_attention_block(pb, x.to(cuda, torch.bfloat16), new_order=new_order)
+        with patched_dispatch("plain"):
+            want = unet.apply_legacy_attention_block(pb, x.to(cuda, torch.bfloat16),
+                                                     new_order=new_order)
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_encoder_unet_on_the_card_matches_the_plain_path(cuda, dt):
+    """The EncoderUNet with K1, K2 and K6 against the all-plain path on the
+    card, its launches against the formula."""
+    from audioldm2_torch.config import UNetConfig
+    from audioldm2_torch.models import unet
+    from audioldm2_torch.params import Init, cast_floating
+    from chip_smoke import patched_dispatch
+
+    ucfg = UNetConfig(**{**TINY_K2_UNET, "out_channels": 10})
+    p = cast_floating(unet.init_encoder_unet(
+        Init(torch.Generator(device=cuda).manual_seed(4), cuda, nonzero=True), ucfg), dt)
+    x = torch.randn((2, 32, 16, 4), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(dt)
+    t = torch.tensor([981, 5], device=cuda)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = unet.apply_encoder_unet(p, ucfg, x, t)
+        counts = ops.launch_counts()
+        with patched_dispatch("plain"):
+            want = unet.apply_encoder_unet(p, ucfg, x, t)
+    assert counts == unet.kernel_launches_per_encoder_forward(ucfg)
+    assert counts["flash_self_attention"] == 2
+    _check(got, want, dt)
+
+
+@pytest.mark.parametrize("f,h,w", [(1024, 160, 1024), (64, 16, 64)])
+def test_istft_and_griffin_lim_on_the_card_match_cpu(cuda, f, h, w):
+    from audioldm2_torch.ops import stft
+
+    n = h * 200
+    t = torch.arange(n) / n
+    wav = (0.5 * torch.sin(2 * np.pi * (30 + 3000 * t) * t))[None].float()
+    basis = torch.from_numpy(stft.stft_basis(f, w))
+    mag, ph = stft.stft_full(wav, basis, f, h)
+    mag_c, ph_c = stft.stft_full(wav.to(cuda), basis.to(cuda), f, h)
+    assert _rel(mag_c, mag) <= 1e-5
+    assert _rel(stft.istft(mag.to(cuda), ph.to(cuda), f, h, w), stft.istft(mag, ph, f, h, w)) <= 1e-5
+    phase = torch.rand(mag.shape, generator=torch.Generator().manual_seed(6)) * 6.283 - 3.1415
+    got = stft.griffin_lim(mag.to(cuda), f, h, w, n_iters=5, phase=phase.to(cuda))
+    want = stft.griffin_lim(mag, f, h, w, n_iters=5, phase=phase)
+    assert torch.isfinite(got).all() and _rel(got, want) <= 1e-4
+    drawn = stft.griffin_lim(mag.to(cuda), f, h, w, n_iters=1,
+                             generator=torch.Generator(device=cuda).manual_seed(0))
+    assert drawn.is_cuda and drawn.shape == want.shape
+
+
+def test_host_audio_library_builds_on_the_cards_machine(cuda):
+    """The port's copy of the C++ resampler builds with g++ on the card's
+    machine and equals the numpy path (1e-6, the JAX package's bound)."""
+    from audioldm2_torch.utils import audio_io, native
+
+    assert native.available(), native.build_error()
+    x = np.random.default_rng(7).standard_normal((2, 48000)).astype(np.float32)
+    for a, b in ((48000, 16000), (16000, 48000)):
+        kernel, orig, new, width = audio_io.sinc_interp_hann_kernel(a, b)
+        np.testing.assert_allclose(native.resample_sinc(x, kernel, orig, new, width),
+                                   audio_io._resample_sinc_np(x, kernel, orig, new, width),
+                                   atol=1e-6)
+    want = x[0] - np.mean(x[0])
+    want = (0.5 * want / (np.max(np.abs(want)) + 1e-8)).astype(np.float32)
+    np.testing.assert_allclose(native.normalize_wav(x[0]), want, atol=1e-7)
