@@ -289,16 +289,23 @@ enum class RowPass { LN, GEGLU, COPY };
 // only int8): then the ring holds int8 tiles, each converted once into one
 // of two bf16 staging tiles that the products read, and the per-column
 // scale wscale multiplies the f32 sums in the epilogue.
-template <RowPass PASS, int BM, int BN, typename TW = bf16>
+//
+// TR: the residual's and the output's type. bf16, or float for K4's
+// f32-residual mode (bf16 h and w, the residual read and the sum written in
+// f32, no rounding): the tensor-parallel K4, whose per-rank sums are added
+// over the ranks in f32 and rounded once after that.
+template <RowPass PASS, int BM, int BN, typename TW = bf16, typename TR = bf16>
 __global__ void __launch_bounds__(LT_THREADS)
 row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
                              const void* __restrict__ beta, const TW* __restrict__ w,
                              const float* __restrict__ wscale,
                              const void* __restrict__ bias, bool p16,
-                             const bf16* __restrict__ residual, bf16* __restrict__ out, int M,
+                             const TR* __restrict__ residual, TR* __restrict__ out, int M,
                              int C, int N, float eps, int strip_tiles, int stages) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
+  constexpr bool F32_OUT = std::is_same<TR, float>::value;
   static_assert(Q || PASS != RowPass::COPY, "the copy pass is K5's, whose weight is int8");
+  static_assert(!F32_OUT || (PASS == RowPass::GEGLU && !Q), "the f32 output is K4's alone");
   constexpr int THREADS = LT_THREADS;
   // warps that run products: one per 16 x 32 slice of the tile, at most all;
   // in a smaller tile the others only copy and form A
@@ -668,6 +675,21 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
         for (int half = 0; half < 2; ++half) {
           uint32_t v[4];
           const int row = m0 + wm * WM + mi * 16 + half * 8 + g;
+          if constexpr (F32_OUT) {  // + bias + residual in f32, stored as f32 pairs
+            if (row < M) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int rc = nb + j * 8 + 2 * t;
+                if (rc < N) {
+                  const float2 r2 = *reinterpret_cast<const float2*>(residual + (size_t)row * N + rc);
+                  *reinterpret_cast<float2*>(out + (size_t)row * N + rc) =
+                      make_float2(acc[mi][j][2 * half] + bv[j][0] + r2.x,
+                                  acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
+                }
+              }
+            }
+            continue;
+          }
           if constexpr (PASS == RowPass::GEGLU) {  // (* wscale) + bias + residual in f32, one rounding
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -774,13 +796,13 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   }
 }
 
-template <RowPass PASS, int BM, int BN, typename TW = bf16>
+template <RowPass PASS, int BM, int BN, typename TW = bf16, typename TR = bf16>
 static int row_block_launch(const void* x, const void* gamma, const void* beta, const void* w,
                             const void* bias, bool p16, const void* residual, void* out, int M,
                             int C, int N, float eps, int strip_tiles, int stages,
                             cudaStream_t stream, int splits = 1, const void* wscale = nullptr) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
-  auto kern = row_block_matmul_bf16_kernel<PASS, BM, BN, TW>;
+  auto kern = row_block_matmul_bf16_kernel<PASS, BM, BN, TW, TR>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -801,10 +823,11 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
   if (smem > (size_t)LT_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int n_tiles = (N + BN - 1) / BN;
   dim3 grid((n_tiles + strip_tiles - 1) / strip_tiles, (M + BM - 1) / BM, splits);
-  const bf16 *px = static_cast<const bf16*>(x), *pr = static_cast<const bf16*>(residual);
+  const bf16* px = static_cast<const bf16*>(x);
+  const TR* pr = static_cast<const TR*>(residual);
   const TW* pw = static_cast<const TW*>(w);
   const float* ps = static_cast<const float*>(wscale);
-  bf16* po = static_cast<bf16*>(out);
+  TR* po = static_cast<TR*>(out);
   if (splits == 1) {
     kern<<<grid, LT_THREADS, smem, stream>>>(px, gamma, beta, pw, ps, bias, p16, pr, po, M, C,
                                              N, eps, strip_tiles, stages);
@@ -831,16 +854,16 @@ static int row_block_launch(const void* x, const void* gamma, const void* beta, 
 // K4's, K4q's and K5's (bm, bn): (64, 128), (64, 64), (32, 128), (32, 64),
 // (16, 128), (16, 64), 256 threads each (the smaller tiles run their products
 // on 4 or 2 warps).
-template <RowPass PASS, typename TW>
+template <RowPass PASS, typename TW, typename TR = bf16>
 static int thin_tile_launch(int bm, int bn, const void* x, const void* w, const void* bias,
                             bool p16, const void* residual, void* out, int M, int C, int N,
                             int strip_tiles, int stages, cudaStream_t s, int splits,
                             const void* wscale) {
 #define A2K_THIN(BM_, BN_)                                                                     \
   if (bm == BM_ && bn == BN_)                                                                  \
-    return row_block_launch<PASS, BM_, BN_, TW>(x, nullptr, nullptr, w, bias, p16, residual, \
-                                                out, M, C, N, 0.f, strip_tiles, stages, s,     \
-                                                splits, wscale);
+    return row_block_launch<PASS, BM_, BN_, TW, TR>(x, nullptr, nullptr, w, bias, p16,       \
+                                                    residual, out, M, C, N, 0.f, strip_tiles, \
+                                                    stages, s, splits, wscale);
   A2K_THIN(64, 128)
   A2K_THIN(64, 64)
   A2K_THIN(32, 128)
@@ -924,6 +947,21 @@ int a2k_ln_matmul_q_bf16(const void* x, const void* gamma, const void* beta, con
   return (int)cudaErrorInvalidValue;
 }
 
+// The argument checks of K4 in bf16 (both modes).
+static int geglu_bf16_args_ok(const void* h, const void* w, const void* bias, int param_dtype,
+                              const void* residual, const void* out, int M, int F, int N,
+                              int strip_tiles, int stages, int splits) {
+  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 7) || strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1) || bias == nullptr ||
+      residual == nullptr || splits < 1 || splits > 8 || (splits > 1 && strip_tiles != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(residual) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
 // K4 in bf16 with its launch plan: out = residual + (a * gelu(g)) . w + bias
 // for h = [a | g]. h: bf16 [M, 2F]; w: bf16 [F, N]; bias: [N], f32
 // (param_dtype 0) or bf16 (1), read as stored; residual, out: bf16 [M, N]. F
@@ -935,18 +973,27 @@ int a2k_ln_matmul_q_bf16(const void* x, const void* gamma, const void* beta, con
 int a2k_geglu_matmul_bf16(const void* h, const void* w, const void* bias, int param_dtype,
                           const void* residual, void* out, int M, int F, int N, int bm, int bn,
                           int strip_tiles, int stages, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 7) || strip_tiles < 1 || stages < 2 ||
-      stages > 12 || (param_dtype != 0 && param_dtype != 1) || bias == nullptr ||
-      residual == nullptr || splits < 1 || splits > 8 || (splits > 1 && strip_tiles != 1))
-    return (int)cudaErrorInvalidValue;
-  const bool p16 = param_dtype == 1;
-  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(residual) |
-       reinterpret_cast<uintptr_t>(out)) & 15)
-    return (int)cudaErrorMisalignedAddress;
+  const int rc = geglu_bf16_args_ok(h, w, bias, param_dtype, residual, out, M, F, N,
+                                    strip_tiles, stages, splits);
+  if (rc) return rc;
   return a2k::thin_tile_launch<a2k::RowPass::GEGLU, a2k::bf16>(
-      bm, bn, h, w, bias, p16, residual, out, M, F, N, strip_tiles, stages, s, splits, nullptr);
+      bm, bn, h, w, bias, param_dtype == 1, residual, out, M, F, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, nullptr);
+}
+
+// K4's f32-residual mode (the tensor-parallel K4): as a2k_geglu_matmul_bf16
+// with residual and out f32 [M, N]: out = residual + (a * gelu(g)) . w + bias
+// summed in f32 and stored unrounded.
+int a2k_geglu_matmul_bf16_f32res(const void* h, const void* w, const void* bias,
+                                 int param_dtype, const void* residual, void* out, int M, int F,
+                                 int N, int bm, int bn, int strip_tiles, int stages, int splits,
+                                 void* stream) {
+  const int rc = geglu_bf16_args_ok(h, w, bias, param_dtype, residual, out, M, F, N,
+                                    strip_tiles, stages, splits);
+  if (rc) return rc;
+  return a2k::thin_tile_launch<a2k::RowPass::GEGLU, a2k::bf16, float>(
+      bm, bn, h, w, bias, param_dtype == 1, residual, out, M, F, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, nullptr);
 }
 
 // K4q in bf16 with its launch plan: as a2k_geglu_matmul_bf16 with wq: int8

@@ -11,6 +11,9 @@ the step loop. The samplers are DDIM, PLMS and ancestral DDPM, each with the
 inpainting mask blend; the VAE encoder runs on the uncast f32 weights.
 ``LatentDiffusionModel.edit`` is the audio-to-audio pair of
 ``ddim.stochastic_encode`` and ``ddim.ddim_decode`` on an encoded latent.
+On a dp x tp mesh (``parallel.serve.ShardedGenerator``) each rank runs
+``_generate_impl`` on its rows and its tp slices of the UNet and T5, with
+the whole batch's draws (``ddim_draws``) cut to its rows.
 """
 
 from __future__ import annotations
@@ -125,6 +128,25 @@ def decode_latent(params, cfg: ModelConfig, z: torch.Tensor):
     mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
     wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder, mel[..., 0])
     return wav.float(), mel.float()
+
+
+def ddim_draws(schedule: DiffusionSchedule, shape, ddim_steps: int, ddim_eta: float,
+               generator: torch.Generator, device):
+    """(x_T, noise [ddim_steps, *shape]): the initial latent and the per-step
+    DDIM noise drawn from ``generator`` in the order ``ddim.ddim_sample``
+    draws them (x_T, then each step with sigma != 0 in loop order; zeros
+    where sigma is 0). Generating on a mesh draws the whole batch's on
+    every rank and gives each dp rank its rows, so the waveforms do not
+    depend on dp, and at dp 1 they equal ``generate``'s for the same
+    generator state."""
+    from audioldm2_torch.diffusion.schedule import make_ddim_params
+
+    sigmas = make_ddim_params(schedule, ddim_steps, ddim_eta)[3][::-1]
+    x_T = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    noise = torch.stack([
+        torch.randn(shape, generator=generator, device=device, dtype=torch.float32) if s != 0
+        else torch.zeros(shape, device=device) for s in sigmas])
+    return x_T, noise
 
 
 def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,

@@ -6,6 +6,9 @@ relative-position bias held by block 0 and shared by every block, and the
 gated-gelu feed-forward with the tanh-approximate gelu (not the exact-erf
 gelu of the UNet's GEGLU). Attention carries a mask and a bias, so it
 takes the plain path on every device, as XLA does in the JAX package.
+An encoder whose leaves are tp-split (``parallel.mesh.shard_params``)
+computes on the rank's heads and d_ff columns, with Megatron's collectives
+(``parallel.collectives``); one nested in another conditioner stays whole.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from audioldm2_torch.config import FlanT5Config
 from audioldm2_torch.ops import nn
+from audioldm2_torch.parallel import collectives as tp
 from audioldm2_torch.params import Init
 
 
@@ -76,12 +80,32 @@ def init_t5_encoder(ini: Init, cfg: FlanT5Config):
     }
 
 
-def _t5_attention(p, x, position_bias, mask, cfg: FlanT5Config):
-    q = nn.split_heads(nn.linear(p["q"], x), cfg.num_heads)
-    k = nn.split_heads(nn.linear(p["k"], x), cfg.num_heads)
-    v = nn.split_heads(nn.linear(p["v"], x), cfg.num_heads)
+def _local_heads(params, cfg: FlanT5Config) -> int:
+    """The heads this rank holds: all of them, or, with the encoder's
+    leaves tp-split (``parallel.mesh.shard_params``; a T5 nested in another
+    conditioner stays whole and computes replicated), num_heads / tp."""
+    return params["blocks"][0]["attn"]["q"]["w"].shape[1] // cfg.d_kv
+
+
+def _t5_attention(p, x, position_bias, mask, cfg: FlanT5Config, heads: int):
+    """Under tp: q/k/v split by column (this rank's heads), o by row."""
+    x = tp.copy_to_tp(x) if heads < cfg.num_heads else x
+    q = nn.split_heads(nn.linear(p["q"], x), heads)
+    k = nn.split_heads(nn.linear(p["k"], x), heads)
+    v = nn.split_heads(nn.linear(p["v"], x), heads)
     out = nn.attention(q, k, v, mask=mask, bias=position_bias, scale=1.0)
-    return nn.linear(p["o"], nn.merge_heads(out))
+    o = tp.row_parallel_linear if heads < cfg.num_heads else nn.linear
+    return o(p["o"], nn.merge_heads(out))
+
+
+def _t5_ff(p, h, cfg: FlanT5Config, split: bool):
+    """Under tp: wi_0/wi_1 split by column, wo by row."""
+    h = tp.copy_to_tp(h) if split else h
+    if cfg.gated_act:
+        u = nn.gelu_tanh(nn.linear(p["wi_0"], h)) * nn.linear(p["wi_1"], h)
+    else:
+        u = torch.relu(nn.linear(p["wi_0"], h))
+    return (tp.row_parallel_linear if split else nn.linear)(p["wo"], u)
 
 
 def apply_t5_encoder(params, cfg: FlanT5Config, input_ids: torch.Tensor,
@@ -91,18 +115,14 @@ def apply_t5_encoder(params, cfg: FlanT5Config, input_ids: torch.Tensor,
     x = params["token_embed"][input_ids.long()]
     L = input_ids.shape[1]
     buckets = torch.as_tensor(position_bias_table_index(L, L, cfg), device=x.device).long()
-    table = params["blocks"][0]["rel_bias"]  # [num_buckets, H]
+    table = params["blocks"][0]["rel_bias"]  # [num_buckets, H], whole on every rank
+    heads = _local_heads(params, cfg)
+    if heads < cfg.num_heads:  # this rank's heads' columns
+        table = tp.copy_to_tp(table)[:, tp.tp_rank() * heads:(tp.tp_rank() + 1) * heads]
     position_bias = table[buckets].permute(2, 0, 1)[None]  # [1, H, L, L]
     for blk in params["blocks"]:
         h = nn.rms_norm(blk["ln1"], x, cfg.layer_norm_epsilon)
-        x = x + _t5_attention(blk["attn"], h, position_bias, attention_mask, cfg)
+        x = x + _t5_attention(blk["attn"], h, position_bias, attention_mask, cfg, heads)
         h = nn.rms_norm(blk["ln2"], x, cfg.layer_norm_epsilon)
-        if cfg.gated_act:
-            ff = nn.linear(
-                blk["ff"]["wo"],
-                nn.gelu_tanh(nn.linear(blk["ff"]["wi_0"], h)) * nn.linear(blk["ff"]["wi_1"], h),
-            )
-        else:
-            ff = nn.linear(blk["ff"]["wo"], torch.relu(nn.linear(blk["ff"]["wi_0"], h)))
-        x = x + ff
+        x = x + _t5_ff(blk["ff"], h, cfg, blk["ff"]["wo"]["w"].shape[0] < cfg.d_ff)
     return nn.rms_norm(params["final_ln"], x, cfg.layer_norm_epsilon)

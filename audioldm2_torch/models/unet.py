@@ -16,6 +16,12 @@ ResBlock (K1); the block's self-attention goes through ``nn.attention``
 The int8 serving mode (``quantize_st_linears``, ``quantize_resblock_convs``,
 JAX ``unet.py:294-349``) swaps weights for int8 ones with the same
 predicates; the dispatch points then launch the int8 kernels.
+
+Under a dp x tp mesh (``parallel.collectives.tensor_parallel``, with the
+rank's slices from ``parallel.mesh.shard_params``) the spatial
+transformers split Megatron-style: q/k/v and the GEGLU projection by
+column, to_out and the FF's output by row, summed over tp in f32 and
+rounded once; the rest computes replicated.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from audioldm2_torch.config import UNetConfig
 from audioldm2_torch.ops import KERNEL_NAMES, nn, quant
+from audioldm2_torch.parallel import collectives as tp
 from audioldm2_torch.params import Init
 
 GN_EPS_RES = 1e-5
@@ -159,32 +166,46 @@ def _resblock(p, x, emb):
     return skip + h
 
 
+def _ln_linear(p_norm, p_lin, x):
+    """A column-parallel LN-fused projection: under tp, x and the LN
+    parameters (whole on every rank) pass Megatron's "f", so that their
+    gradients sum over the tp ranks' column slices."""
+    if tp.tp_size() > 1:
+        p_norm = {k: tp.copy_to_tp(v) for k, v in p_norm.items()}
+        x = tp.copy_to_tp(x)
+    return nn.ln_linear(p_norm, p_lin, x, LN_EPS)
+
+
 def _cross_attention(p, p_norm, x, context, mask, num_heads, kv=None):
+    """Under tp (``parallel.collectives``) ``p`` holds this rank's heads:
+    to_q/to_k/to_v (or the fused to_qkv) by column, to_out by row, and
+    ``num_heads`` counts this rank's."""
     if kv is None and context is None and "to_qkv" in p:
-        q, k, v = torch.chunk(nn.ln_linear(p_norm, p["to_qkv"], x, LN_EPS), 3, dim=-1)
+        q, k, v = torch.chunk(_ln_linear(p_norm, p["to_qkv"], x), 3, dim=-1)
         q, k, v = (nn.split_heads(t, num_heads) for t in (q, k, v))
     elif kv is not None or context is not None:
-        q = nn.split_heads(nn.ln_linear(p_norm, p["to_q"], x, LN_EPS), num_heads)
+        q = nn.split_heads(_ln_linear(p_norm, p["to_q"], x), num_heads)
         if kv is not None:
             k, v = kv
         else:
+            context = tp.copy_to_tp(context)
             k = nn.split_heads(nn.linear(p["to_k"], context), num_heads)
             v = nn.split_heads(nn.linear(p["to_v"], context), num_heads)
     else:
-        xn = nn.layer_norm(p_norm, x, LN_EPS)
+        xn = tp.copy_to_tp(nn.layer_norm(p_norm, x, LN_EPS))
         q = nn.split_heads(nn.linear(p["to_q"], xn), num_heads)
         k = nn.split_heads(nn.linear(p["to_k"], xn), num_heads)
         v = nn.split_heads(nn.linear(p["to_v"], xn), num_heads)
     cross = context is not None or kv is not None
     out = nn.attention(q, k, v, mask=mask if cross else None)
-    return nn.linear(p["to_out"], nn.merge_heads(out))
+    return tp.row_parallel_linear(p["to_out"], nn.merge_heads(out))
 
 
 def _st_block(p, x, context, mask, num_heads, kv=None):
     x = x + _cross_attention(p["attn1"], p["norm1"], x, None, None, num_heads)
     x = x + _cross_attention(p["attn2"], p["norm2"], x, context, mask, num_heads, kv=kv)
-    h = nn.ln_linear(p["norm3"], p["ff"]["proj_in"], x, LN_EPS)
-    return nn.geglu_ff_out(p["ff"]["proj_out"], h, x)
+    h = _ln_linear(p["norm3"], p["ff"]["proj_in"], x)  # [a_r | gate_r] under tp
+    return tp.row_parallel_geglu(p["ff"]["proj_out"], h, x)
 
 
 def _spatial_transformer(p, x, context, mask, num_heads, kvs=None):
@@ -199,7 +220,7 @@ def _spatial_transformer(p, x, context, mask, num_heads, kvs=None):
 
 
 def _run_sts(blk, h, contexts, masks, cfg: UNetConfig, kv_iter=None):
-    num_heads = h.shape[-1] // cfg.num_head_channels
+    num_heads = h.shape[-1] // cfg.num_head_channels // tp.tp_size()
     h = _spatial_transformer(blk["self_st"], h, None, None, num_heads)
     for i, st in enumerate(blk["cross_sts"]):
         ctx = contexts[i] if i < len(contexts) else None

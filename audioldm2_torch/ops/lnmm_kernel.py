@@ -181,7 +181,10 @@ def _ln_bf16(name, x, ln_scale, ln_bias, w, bias, eps, ws=None):
 def _geglu(name, h, w, ws, bias, residual):
     h = h.contiguous()
     residual = residual.contiguous()
-    _build.require_cuda(name, h, residual)
+    _build.require_cuda(name, h)
+    _build.require_cuda(name, residual)  # h's dtype, or f32 (checked below)
+    if residual.device != h.device:
+        raise ValueError(f"{name}: residual on {residual.device}, h on {h.device}")
     f2 = h.shape[-1]
     f = f2 // 2
     if f2 % 2:
@@ -192,6 +195,10 @@ def _geglu(name, h, w, ws, bias, residual):
         raise ValueError(f"{name}: residual {tuple(residual.shape)} is not [..., {n}]")
     if bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
+    f32_res = h.dtype == BF16 and residual.dtype == torch.float32
+    if residual.dtype != h.dtype and not (f32_res and ws is None):
+        raise ValueError(f"{name}: a {residual.dtype} residual with {h.dtype} h (the f32 "
+                         "residual is bf16 K4's mode alone)")
     out = torch.empty_like(residual)
     if h.dtype == BF16 and m:
         plan = _build.geglu_matmul_plan(m, f, n, _build.sm_count(h.device.index or 0),
@@ -202,12 +209,17 @@ def _geglu(name, h, w, ws, bias, residual):
                     plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits,
                     _build.stream_of(h))
             lib = _build.lib()
-            if ws is None:
-                rc = lib.a2k_geglu_matmul_bf16(h.data_ptr(), w.data_ptr(), *tail)
-            else:
+            if ws is not None:
                 rc = lib.a2k_geglu_matmul_q_bf16(h.data_ptr(), w.data_ptr(), ws.data_ptr(), *tail)
+            elif f32_res:
+                rc = lib.a2k_geglu_matmul_bf16_f32res(h.data_ptr(), w.data_ptr(), *tail)
+            else:
+                rc = lib.a2k_geglu_matmul_bf16(h.data_ptr(), w.data_ptr(), *tail)
             _build.check(rc, name)
             return out
+    if f32_res:
+        raise ValueError(f"{name}: K4's f32-residual mode has no plan at M={m}, F={f}, N={n} "
+                         "(or unaligned operands)")
     return _geglu_shared_core(name, h, w, ws, bias, residual, out)
 
 
@@ -247,7 +259,9 @@ def ln_matmul(x: torch.Tensor, ln_scale, ln_bias, w, bias: Optional[torch.Tensor
 
 def geglu_matmul(h: torch.Tensor, w, bias, residual: torch.Tensor) -> torch.Tensor:
     """h: [..., 2F] (value | gate); w: [F, N]; residual: [..., N]; returns
-    residual + (a * gelu(g)) @ w + bias in residual.dtype."""
+    residual + (a * gelu(g)) @ w + bias in residual.dtype. With bf16 h and
+    an f32 residual (the f32-residual mode, which the tensor-parallel FF
+    takes) the sum is returned in f32, unrounded."""
     if not h.is_cuda:
         return geglu_matmul_plain(h, w, bias, residual)
     if autograd.needs_grad(h, w, bias, residual):

@@ -16,6 +16,8 @@ f32, and divides by the squared window's envelope floored at 1e-8.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -270,17 +272,27 @@ def frame_signal(wav: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor
     return wav.unfold(-1, frame_length, hop)
 
 
+@functools.lru_cache(maxsize=8)
+def _synthesis(filter_length: int, win_length: int, hop: int, n_frames: int,
+               device: torch.device):
+    """istft's loop-invariant tensors on ``device``, built once per geometry:
+    the synthesis kernel [2 * nfreq, 1, filter_length] (the pseudo-inverse
+    basis, a float64 pinv on the host) and the clamped window envelope.
+    Griffin-Lim calls istft once a round with the same geometry."""
+    inv = torch.from_numpy(inverse_stft_basis(filter_length, win_length)).to(device)
+    env = torch.from_numpy(window_sumsquare(win_length, filter_length, hop, n_frames)).to(device)
+    return inv.t()[:, None, :], torch.clamp(env, min=1e-8)
+
+
 def istft(magnitude: torch.Tensor, phase: torch.Tensor, filter_length: int, hop: int,
           win_length: int) -> torch.Tensor:
     """magnitude, phase: [B, nfreq, T] -> waveform [B, hop * (T - 1)]
     (filter_length // 2 trimmed at each end), float32."""
     rec = torch.cat([magnitude * torch.cos(phase), magnitude * torch.sin(phase)], dim=1)
-    inv = torch.from_numpy(inverse_stft_basis(filter_length, win_length)).to(rec.device)
+    kernel, env = _synthesis(filter_length, win_length, hop, rec.shape[-1], rec.device)
     with full_f32():  # y[t * hop + n] += sum_c rec[c, t] * inv[n, c]
-        y = F.conv_transpose1d(rec, inv.t()[:, None, :], stride=hop)[:, 0]
-    env = torch.from_numpy(window_sumsquare(win_length, filter_length, hop,
-                                            rec.shape[-1])).to(y.device)
-    y = y / torch.clamp(env, min=1e-8)
+        y = F.conv_transpose1d(rec, kernel, stride=hop)[:, 0]
+    y = y / env
     half = filter_length // 2
     return y[:, half:-half]
 

@@ -24,15 +24,21 @@ JAX signature ``step(params, opt_state, batch, ...) -> (params, opt_state,
 loss)``, but updates the leaves of ``params`` in place and returns the
 same tree and optimizer.
 
-The dp x tp shardings of the JAX package (``parallel/mesh.py``,
-``train.dryrun``) are not ported.
+On a dp x tp mesh (``parallel.mesh``), ``make_train_step(..., mesh=)``
+is JAX's sharded step with the collectives written out: each rank holds its
+tp slices of the UNet (``mesh.shard_params``) and its dp rows of the batch,
+the forward and backward run under ``collectives.tensor_parallel`` (whose
+"f" and "g" keep the gradients of the replicated leaves whole on every tp
+rank), and the gradients are averaged over dp before the optimizer step.
+:func:`dryrun` runs one such step on a tiny UNet in ``n`` ranks and holds
+it against the single-process step.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,6 +48,7 @@ from audioldm2_torch.config import ModelConfig, UNetConfig
 from audioldm2_torch.diffusion.schedule import DiffusionSchedule
 from audioldm2_torch.models import unet as unet_m
 from audioldm2_torch.ops.nn import full_f32
+from audioldm2_torch.parallel import collectives
 from audioldm2_torch.params import map_tree
 
 
@@ -106,19 +113,29 @@ def diffusion_loss(params, cfg: UNetConfig, schedule_consts, batch, generator=No
     return torch.mean(torch.square(eps - noise))
 
 
-def _minimize(opt_state: torch.optim.Optimizer, loss_fn):
-    """One optimizer step on loss_fn(): forward and backward in full f32."""
+def _minimize(opt_state: torch.optim.Optimizer, loss_fn, mesh=None):
+    """One optimizer step on loss_fn(): forward and backward in full f32.
+    On a ``mesh`` the forward and backward run on its tp slices, and the
+    gradients and the returned loss are averaged over dp."""
     opt_state.zero_grad(set_to_none=True)
-    with full_f32():
+    with full_f32(), collectives.tensor_parallel(mesh):
         loss = loss_fn()
         loss.backward()
+    loss = loss.detach()
+    if mesh is not None and mesh.dp > 1:
+        grads = [p.grad for group in opt_state.param_groups for p in group["params"]]
+        collectives.mean_over_dp(grads + [loss], mesh)
     opt_state.step()
-    return loss.detach()
+    return loss
 
 
-def make_train_step(cfg: UNetConfig, schedule: DiffusionSchedule, optimizer: AdamW):
+def make_train_step(cfg: UNetConfig, schedule: DiffusionSchedule, optimizer: AdamW,
+                    mesh=None):
     """step(params, opt_state, batch, generator=None, *, t=None, noise=None)
-    -> (params, opt_state, loss), with opt_state = optimizer.init(params)."""
+    -> (params, opt_state, loss), with opt_state = optimizer.init(params).
+    On a ``mesh``: params are the rank's slices (``mesh.shard_params(...,
+    prefix=("unet",))``), batch, t and noise its dp rows, and the loss the
+    mean over dp."""
     consts = {}
 
     def train_step(params, opt_state, batch, generator=None, *, t=None, noise=None):
@@ -126,7 +143,7 @@ def make_train_step(cfg: UNetConfig, schedule: DiffusionSchedule, optimizer: Ada
         if dev not in consts:
             consts[dev] = schedule_consts(schedule, dev)
         loss = _minimize(opt_state, lambda: diffusion_loss(params, cfg, consts[dev], batch,
-                                                           generator, t=t, noise=noise))
+                                                           generator, t=t, noise=noise), mesh)
         return params, opt_state, loss
 
     return train_step
@@ -201,3 +218,119 @@ def clap_contrastive_loss(audio_emb: torch.Tensor, text_emb: torch.Tensor, logit
     logits = logit_scale * audio_emb @ text_emb.t()
     labels = torch.arange(logits.shape[0], device=logits.device)
     return (F.cross_entropy(logits, labels) + F.cross_entropy(logits.t(), labels)) / 2.0
+
+
+# ---------------------------------------------------------------------------
+# The sharded dry run (JAX train.py:66-110)
+# ---------------------------------------------------------------------------
+
+DRYRUN_TOL = 1e-5  # loss (absolute) and every updated leaf (relative, in norm)
+# Adam divides each gradient element by its magnitude plus eps, so at
+# optax's eps 1e-8 its first step is lr * sign(g). The biases and the time
+# embedding's projections that feed a GroupNorm have an exact gradient of
+# zero and a computed one of rounding noise (1e-11), whose signs no two
+# summation orders share; the dry run steps at eps 1e-3, as the train
+# tests hold the step to optax's (an element's step is then about
+# lr * g / 1e-3, continuous in g).
+DRYRUN_ADAM_EPS = 1e-3
+
+
+def dryrun_unet_config() -> UNetConfig:
+    """JAX's dry-run UNet: ch 32, mult (1, 2), one attention level, heads of
+    16, a 32-wide context."""
+    return UNetConfig(in_channels=4, out_channels=4, model_channels=32, num_res_blocks=1,
+                      attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=16,
+                      context_dims=(32,))
+
+
+def dryrun_step(mesh) -> dict:
+    """One sharded AdamW step (lr 1e-4, eps DRYRUN_ADAM_EPS) of the dry-run UNet on this rank's
+    mesh: weights drawn from seed 0 (every leaf non-zero), a global batch
+    of 2 * dp latents [16, 8, 4] with a 6-token context and the step's t
+    and noise drawn from seed 1, each rank's dp rows of them. Rank 0 also
+    takes the single-process step on the whole batch and draws; every rank
+    gathers the updated slices, and the record holds the loss of both and
+    the worst leaf's relative difference (rank 0's)."""
+    from audioldm2_torch.parallel import mesh as mesh_lib
+    from audioldm2_torch.params import Init
+
+    dev = mesh.device
+    cfg = dryrun_unet_config()
+    schedule = DiffusionSchedule.create()
+    optimizer = AdamW(1e-4, eps=DRYRUN_ADAM_EPS)
+    whole = unet_m.init_unet(Init(torch.Generator(device=dev).manual_seed(0), dev, nonzero=True),
+                             cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b = 2 * mesh.dp
+    batch = {"latent": torch.randn((b, 16, 8, 4), generator=g, device=dev),
+             "context": torch.randn((b, 6, 32), generator=g, device=dev),
+             "context_mask": torch.ones((b, 6), device=dev)}
+    t = torch.randint(0, schedule.num_timesteps, (b,), generator=g, device=dev)
+    noise = torch.randn((b, 16, 8, 4), generator=g, device=dev)
+
+    params = map_tree(lambda x: x.detach().clone(),
+                      mesh_lib.shard_params(whole, mesh, prefix=("unet",)))
+    opt_state = optimizer.init(params)
+    rows = {k: mesh_lib.batch_sharding(mesh, v) for k, v in batch.items()}
+    step = make_train_step(cfg, schedule, optimizer, mesh=mesh)
+    params, _, loss = step(params, opt_state, rows, t=mesh_lib.batch_sharding(mesh, t),
+                           noise=mesh_lib.batch_sharding(mesh, noise))
+    got = mesh_lib.gather_params(map_tree(lambda x: x.detach(), params), mesh, prefix=("unet",))
+    out = {"rank": mesh.rank, "mesh": (mesh.dp, mesh.tp), "loss": float(loss),
+           "n_sharded": mesh_lib.sharded_leaf_count({"unet": whole})}
+    if mesh.rank == 0:
+        ref = map_tree(lambda x: x.detach().clone(), whole)
+        ref_state = optimizer.init(ref)
+        ref, _, ref_loss = make_train_step(cfg, schedule, optimizer)(ref, ref_state, batch, t=t,
+                                                                     noise=noise)
+        worst, where = 0.0, None
+        flat_ref = dict(mesh_lib.leaves_with_paths(ref))
+        for path, leaf in mesh_lib.leaves_with_paths(got):
+            want = flat_ref[path].detach()
+            rel = float((leaf - want).norm() / want.norm().clamp_min(1e-30))
+            if rel > worst:
+                worst, where = rel, ".".join(map(str, path))
+        out.update(ref_loss=float(ref_loss), leaf_rel=worst, worst_leaf=where,
+                   n_leaves=len(flat_ref))
+    return out
+
+
+def _dryrun_rank(rank: int, world: int, tps, device, backend: str):
+    from audioldm2_torch.parallel.mesh import make_mesh
+
+    return [dryrun_step(make_mesh(world, tp=tp, backend=backend, device=device)) for tp in tps]
+
+
+def dryrun(n_devices: int, tp=None, *, device: Optional[str] = None,
+           backend: Optional[str] = None, timeout: float = 600.0) -> list:
+    """``n_devices`` ranks (``parallel.launch.spawn``), one sharded AdamW
+    step of the dry-run UNet on the dp x tp mesh (``tp``: 2 when n is even,
+    as JAX's; or a sequence of tp values, each layout run in turn in the
+    same ranks), at batch 2 * dp, the tp collectives autograd-aware and the
+    gradients averaged over dp. Asserts what JAX's asserts (a finite loss)
+    and more: the loss within DRYRUN_TOL of the single-process step on the
+    same global batch and draws, and every updated leaf within DRYRUN_TOL
+    relative (in norm). ``device``: "cuda" (default) or "cpu"; ``backend``:
+    "nccl" on cards, "gloo" on the CPU by default. Returns rank 0's record
+    of each layout."""
+    from audioldm2_torch.parallel import launch
+
+    if tp is None:
+        tp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    tps = (tp,) if isinstance(tp, int) else tuple(tp)
+    device = device or "cuda"
+    backend = backend or ("nccl" if device.startswith("cuda") else "gloo")
+    ranks = launch.spawn(_dryrun_rank, n_devices, (tps, device, backend), backend=backend,
+                         timeout=timeout)
+    records = ranks[0]
+    for i, rec in enumerate(records):
+        losses = [r[i]["loss"] for r in ranks]
+        assert np.isfinite(rec["loss"]), rec
+        assert max(losses) == min(losses), f"the ranks' losses differ: {losses}"
+        assert rec["mesh"][1] == 1 or rec["n_sharded"] > 0, rec
+        assert abs(rec["loss"] - rec["ref_loss"]) <= DRYRUN_TOL, rec
+        assert rec["leaf_rel"] <= DRYRUN_TOL, rec
+        print(f"dryrun ok: mesh {rec['mesh']} (dp x tp), one train step, loss={rec['loss']:.6f} "
+              f"(single process {rec['ref_loss']:.6f}), worst leaf {rec['worst_leaf']} "
+              f"{rec['leaf_rel']:.2e} relative")
+    return records

@@ -80,7 +80,19 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
   cli     python -m audioldm2_torch (-d auto) in a subprocess on the t5
           family at the CLI's defaults (n = 3, CFG batch 6, the rerank): one
           generation and one --mode sr_inpainting -f request on a 10 s
-          48 kHz chirp (the native resampler to 16 kHz).
+          48 kHz chirp (the native resampler to 16 kHz);
+  multi   audioldm2_torch.parallel: ShardedGenerator on a one-process mesh
+          (dp 1 x tp 1) on the t5 path's model, one 10 s request, bit for
+          bit model.ldm.generate's under cudnn.deterministic; then, as two
+          ranks on the one card over gloo (launch.spawn; NCCL refuses two
+          ranks on one device), serve.dryrun_infer(2): the t5 family at
+          full width sharded tp 2 (the UNet's and T5's attention and FF
+          split Megatron-style: K2 at half the heads, K3 at half of N, K4
+          at half of F in its f32-residual mode), one 1.25 s request of 2
+          DDIM steps, and in each rank a full-width UNet forward at the 10 s
+          latent and CFG batch 2 on its slices and K6 in both processes at
+          once; then train.dryrun(2) at dp 2 and at tp 2 (one sharded AdamW
+          step of JAX's dry-run UNet against one process).
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -188,6 +200,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      160000 samples, finite, non-zero, within [-1, 1], the process on the
      card, its wall. The edit, profile and app requests go through the
      same request checks as phase 5.
+  7. the multi path (its dp 1 request runs in phase 5, after the t5
+     path's samplers, on the same weights): the dp 1 waveform equal to
+     model.ldm.generate's bit for bit, its launches the config's; in each
+     tp 2 rank the generate's launches equal to the unsharded generate's
+     (every kernel launches as often, at narrower shapes), the waveform
+     one per dp rank, at least 1.25 s, finite; K6 within 2e-2 of its
+     plain version; the tp 2 UNet eps within max(2e-2, 1.25 x the bf16
+     floor) of the tp 1 eps (phase 4's bound); each rank's wall and peak
+     device memory printed; the train dry runs' loss within 1e-5 and
+     every updated leaf within 1e-5 relative of one process. Phase 3
+     holds K2, K3 and K4 at one tp 2 rank's shapes of the t5 UNet against
+     their plain versions (K4 in its f32-residual mode to 1e-4) beside
+     the tp 1 rows.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -673,7 +698,8 @@ def kernel_work(name, args):
     if name in ("ln_matmul", "ln_matmul_q", "int8_matmul", "geglu_matmul", "geglu_matmul_q"):
         w = args[1] if name.startswith(("int8", "geglu")) else args[3]
         k, n = w.shape
-        return sum(map(nbytes, args)) + rows * n * x.element_size(), 2 * rows * k * n, kind
+        out = args[3] if name.startswith("geglu") else x  # K4 writes the residual's type
+        return sum(map(nbytes, args)) + rows * n * out.element_size(), 2 * rows * k * n, kind
     if name == "group_norm_silu":  # stats, normalize, affine and SiLU: ~10 f32 ops an element
         return sum(map(nbytes, args)) + nbytes(x), 10 * x.numel(), "f32"
     raise ValueError(f"no work model for {name}")
@@ -1330,6 +1356,78 @@ def phase_ragged(stats, device):
         f"after three copies {copied:.4f} ms")
 
 
+# The tensor-parallel slice of the multi path: the ranks of one UNet replica
+TP = 2
+
+
+def _cut_cols(t, parts: int, r: int):
+    """Rank r's columns of t [..., N] whose N is ``parts`` equal blocks,
+    each cut over TP ([q_r | k_r | v_r], [a_r | gate_r])."""
+    import torch
+
+    blocks = torch.chunk(t, parts, dim=-1)
+    return torch.cat([torch.chunk(b, TP, dim=-1)[r] for b in blocks], dim=-1).contiguous()
+
+
+def tp_rank_args(name, args):
+    """A t5 UNet call's arguments as tp rank 0 of the multi path gets them
+    (parallel.mesh.shard_params): K2 its heads; K3 its columns of the fused
+    QKV (N = 3C), of attn2's q (N = C) and of the GEGLU projection (N =
+    8C, [a_0 | gate_0]); K4 its [a_0 | gate_0] of h and rows of w in the
+    f32-residual mode, with the bias and the residual (which the other
+    ranks replace by zeros)."""
+    r = 0
+    if name == "flash_self_attention":
+        q, k, v, scale = args
+        h = q.shape[2] // TP
+        return tuple(t[:, :, r * h:(r + 1) * h].contiguous() for t in (q, k, v)) + (scale,)
+    if name == "ln_matmul":
+        x, gamma, beta, w, b, eps = args
+        parts = {3: 3, 1: 1, 8: 2}[w.shape[1] // w.shape[0]]
+        return (x, gamma, beta, _cut_cols(w, parts, r),
+                None if b is None else _cut_cols(b, parts, r), eps)
+    if name == "geglu_matmul":
+        h, w, b, res = args
+        f = w.shape[0] // TP
+        return _cut_cols(h, 2, r), w[r * f:(r + 1) * f].contiguous(), b, res.float()
+    raise ValueError(f"{name} is not split under tp")
+
+
+def phase_tp_shapes(first, counts, stats):
+    """K2, K3 and K4 at the shapes one rank of the multi path's tp 2 UNet
+    gives them (the t5 UNet forward's recorded calls cut as tp_rank_args
+    cuts them; each rank launches as many calls as the unsharded UNet), against
+    their plain versions, timed beside the tp 1 rows; K4 in its
+    f32-residual mode, held to F32_TOL (both versions sum bf16 products in
+    f32). The errors join the kernels' records; returns {name: per-rank
+    stats}, which belong to no tp 1 forward."""
+    import torch
+
+    failures = []
+    tp_stats = {}
+    for sig, args in first.items():
+        name = sig[0]
+        if name not in ("flash_self_attention", "ln_matmul", "geglu_matmul"):
+            continue
+        rank_args = tp_rank_args(name, args)
+        f32_out = name == "geglu_matmul"
+        tol = F32_TOL if f32_out else BF16_TOL
+        st = tp_stats.setdefault(name, new_stats())
+        res = check_kernel(name, rank_args, tol,
+                           f"tp {TP} rank 0 {'f32-residual ' if f32_out else ''}"
+                           f"{describe(signature(name, rank_args))} x{counts[sig]}", failures)
+        add_call(st, name, rank_args, counts[sig], *res)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], res[0])
+    if failures:
+        raise AssertionError(f"kernel checks failed: {failures}")
+    for name, st in tp_stats.items():
+        lib = "" if st["library_ms"] is None else f", library call {st['library_ms']:.3f} ms"
+        log(f"  {name} at tp {TP} (one rank): {st['shapes']} shapes, one forward: kernel "
+            f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms"
+            f"{lib}; at tp 1 kernel {stats[name]['ms']:.3f} ms (the UNet's share of it)")
+    return tp_stats
+
+
 def phase_variants(large_first, device):
     """K7 and K8 against their plain versions: the A/B tool's four shapes in
     bf16 (one call each: these make the record's times and bound), one f32
@@ -1396,7 +1494,8 @@ def unet_eps(cfg, unet_f32, cond, device, dt, plain: bool = False):
         p, kv = prepare_unet({"unet": unet_f32}, dcfg, c)
         eps = unet.apply_unet(p, cfg.unet, x.to(dt), t, c, masks,
                               y=None if y is None else y.to(dt), cross_kv=kv).float()
-    torch.cuda.synchronize()
+    if eps.is_cuda:
+        torch.cuda.synchronize()
     if not bool(torch.isfinite(eps).all()):
         raise AssertionError(f"UNet forward ({'plain' if plain else 'kernels'}, {dt}) "
                              "is not finite")
@@ -1773,6 +1872,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
             expect(model.cfg, steps, sampler), 1, duration,
             f"text_to_audio {sampler}, {steps if sampler == 'plms' else 'all 1000'} steps")
         e2e[f"t5_{sampler}"] = {"wall_s": wall}
+    launches["multi_dp1"], e2e["multi_dp1"] = phase_multi_dp1(model, steps, duration)
     # the train path takes the same drawn weights last: it updates them
     launches["train"], e2e["train"] = phase_train(model, device)
     del model
@@ -2813,6 +2913,174 @@ def phase_6(t5_cfg, device, steps: int, duration: float):
     return launches, e2e
 
 
+# The multi path: one request through ShardedGenerator on a one-process
+# mesh (bit-identical to model.ldm.generate under cudnn.deterministic),
+# then dryrun_infer(2) and train.dryrun(2) as two ranks on one card over
+# gloo (NCCL refuses two ranks on one device)
+MULTI_PROMPT = PROMPTS[0][0]
+MULTI_SEED = 42
+MULTI_K6_SHAPE = (2, 1024, 64, 128)  # the t5 VAE decoder's norm_out at batch 2: re-read mode
+MULTI_TIMEOUT_S = 600.0
+
+
+def phase_multi_dp1(model, steps: int, duration: float):
+    """ShardedGenerator at dp 1 x tp 1 on the t5 path's model, one request,
+    against model.ldm.generate on the same prompt and seed, both under
+    cudnn.deterministic: the waveforms must be equal bit for bit. The
+    request's launches (reset just before, read just after) must equal the
+    config's count, no CUDA tensor may reach a plain version and no bf16
+    call the shared core."""
+    import numpy as np
+    import torch
+    from audioldm2_torch import ops
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.parallel.serve import ShardedGenerator
+
+    log(f"== path multi, dp 1 x tp 1: ShardedGenerator against model.ldm.generate, one "
+        f"{duration} s request of {steps} steps, cudnn.deterministic ({nvidia_smi_line()})")
+    latent_t = int(duration * model.cfg.latent_t_per_second)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = ShardedGenerator(model)
+        on_core, work = {}, {}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_versions_forbidden(), shared_core_bf16_counted(on_core), \
+                workspaces_counted(work):
+            got = gen.generate([MULTI_PROMPT], MULTI_SEED, duration=duration, ddim_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        want, _ = model.ldm.generate(
+            model.make_batch(MULTI_PROMPT, batchsize=1),
+            torch.Generator(device=model.device).manual_seed(MULTI_SEED), latent_t,
+            ddim_steps=steps)
+        ldm_wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    expected = kernel_launches_per_generate(model.cfg, steps)
+    log(f"  ShardedGenerator wall {wall:.3f} s, model.ldm.generate wall {ldm_wall:.3f} s; "
+        f"waveform {got.shape}, max |a - b| {float(np.abs(got - want).max()):.3e}")
+    log(f"    launches {counts}")
+    if on_core or work["workspaces"]:
+        raise AssertionError(f"shared-core calls {on_core} or {work['workspaces']} split-K "
+                             "workspaces in the multi request")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if got.shape != want.shape or not np.isfinite(got).all() or not np.array_equal(got, want):
+        raise AssertionError("ShardedGenerator at dp 1 x tp 1 is not model.ldm.generate bit for "
+                             "bit")
+    return counts, {"wall_s": wall, "ldm_generate_wall_s": ldm_wall, "bit_identical": True}
+
+
+def multi_rank_check(gen, mesh):
+    """Run in each rank of the multi path's dryrun_infer(2), after its
+    generate: one full-width UNet forward at the 10 s latent and CFG batch
+    2 on the rank's tp slices (bf16, kernels); K6 at MULTI_K6_SHAPE in both
+    processes at once (each its own per-(device, stream) barrier words)
+    against its plain version; on rank 0 the tp 1 forward on the whole
+    UNet, and its all-plain bf16 and f32 forwards (the phase-4 floor)."""
+    import torch
+    import torch.distributed as dist
+    from audioldm2_torch.ops import groupnorm_kernel
+    from audioldm2_torch.parallel import collectives
+
+    torch.backends.cudnn.allow_tf32 = False  # as in the main process: an f32 oracle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, dev = gen.model.cfg, mesh.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    cond = _ctx_inputs(cfg, dev, torch.Generator(device=dev).manual_seed(7))
+    out = {}
+    t0 = time.perf_counter()
+    with collectives.tensor_parallel(mesh):
+        eps = unet_eps(cfg, gen.params["unet"], cond, dev, bf16)
+    out["tp_forward_s"] = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(13)
+    c = MULTI_K6_SHAPE[-1]
+    x = torch.randn(MULTI_K6_SHAPE, generator=g, device=dev).to(bf16)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    dist.barrier()
+    with torch.inference_mode():
+        k6 = groupnorm_kernel.group_norm_silu(x, gamma, beta, 32, 1e-6)
+        k6_plain = groupnorm_kernel.group_norm_silu_plain(x, gamma, beta, 32, 1e-6)
+    out["k6_rel_err"] = rel_err(k6, k6_plain)[1]
+    if mesh.rank == 0:
+        whole = gen.model.ldm.params["unet"]
+        tp1 = unet_eps(cfg, whole, cond, dev, bf16)
+        plain = unet_eps(cfg, whole, cond, dev, bf16, plain=True)
+        ref = unet_eps(cfg, whole, cond, dev, f32, plain=True)
+        out.update(floor=rel_err(plain, ref)[1], tp_vs_tp1=rel_err(eps, tp1),
+                   tp1_vs_plain=rel_err(tp1, plain), eps_shape=tuple(eps.shape),
+                   eps_max=float(tp1.abs().max()))
+    return out
+
+
+def phase_multi(t5_cfg, device):
+    """dryrun_infer(2) at tp 2 (the t5 family at full width, one 1.25 s
+    request of 2 DDIM steps) with multi_rank_check in its ranks, then
+    train.dryrun(2) at dp 2 and at tp 2; both as two ranks on one card over
+    gloo. Each rank's launches of the generate must equal the config's
+    count (a tp rank launches every kernel the unsharded generate does, at
+    narrower shapes); the tp 2 eps must lie within max(BF16_TOL,
+    FLOOR_FACTOR x the bf16 floor) of the tp 1 eps. Returns the launches
+    summed over the ranks and the timings."""
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.parallel import serve, train
+
+    log(f"== path multi: dryrun_infer(2) at tp 2 and train.dryrun(2) at dp 2 and tp 2, two "
+        f"ranks on one card over gloo ({nvidia_smi_line()})")
+    t0 = time.perf_counter()
+    records = serve.dryrun_infer(2, device=device, backend="gloo", check=multi_rank_check,
+                                 cfg=t5_cfg, timeout=MULTI_TIMEOUT_S)
+    infer_s = time.perf_counter() - t0
+    expected = kernel_launches_per_generate(t5_cfg, 2)
+    total = dict.fromkeys(expected, 0)
+    e2e = {"dryrun_infer_s": infer_s, "ranks": []}
+    for r in records:
+        chk = r["check"]
+        log(f"  rank {r['rank']} mesh {r['mesh']} (dp x tp), {r['n_sharded']} tp-sharded leaves: "
+            f"build {r['build_s']:.3f} s, generate wall {r['wall_s']:.3f} s, peak device memory "
+            f"{r.get('max_memory_gib', float('nan')):.3f} GiB, tp 2 UNet forward "
+            f"{chk['tp_forward_s']:.3f} s, K6 {MULTI_K6_SHAPE} against plain rel "
+            f"{chk['k6_rel_err']:.3e}")
+        log(f"    launches {r['launches']}")
+        if r["launches"] != expected:
+            raise AssertionError(f"rank {r['rank']}: launches {r['launches']} != {expected}")
+        if chk["k6_rel_err"] > BF16_TOL:
+            raise AssertionError(f"rank {r['rank']}: K6 off its plain version by "
+                                 f"{chk['k6_rel_err']:.3e}")
+        for k, v in r["launches"].items():
+            total[k] += v
+        e2e["ranks"].append({k: r.get(k) for k in ("rank", "wall_s", "build_s",
+                                                   "max_memory_gib")})
+    chk = records[0]["check"]
+    tol = max(BF16_TOL, FLOOR_FACTOR * chk["floor"])
+    d, rel = chk["tp_vs_tp1"]
+    log(f"  tp 2 UNet eps {chk['eps_shape']} against tp 1: max_abs_err {d:.3e} rel {rel:.3e} "
+        f"(tol {tol:.3e} = max({BF16_TOL:g}, {FLOOR_FACTOR:g} x the bf16 floor "
+        f"{chk['floor']:.3e})); tp 1 kernels against all-plain rel {chk['tp1_vs_plain'][1]:.3e}; "
+        f"|eps| max {chk['eps_max']:.3e}")
+    if rel > tol:
+        raise AssertionError(f"tp 2 eps off tp 1 by {rel:.3e} > {tol:.3e}")
+    t0 = time.perf_counter()
+    for rec in train.dryrun(2, tp=(1, 2), device=device, backend="gloo",
+                            timeout=MULTI_TIMEOUT_S):
+        log(f"  train dry run {rec['mesh']} (dp x tp): loss {rec['loss']:.6f}, single process "
+            f"{rec['ref_loss']:.6f}, worst updated leaf {rec['worst_leaf']} {rec['leaf_rel']:.3e} "
+            f"relative (tol {train.DRYRUN_TOL:g})")
+        e2e[f"train_{rec['mesh'][0]}x{rec['mesh'][1]}"] = {
+            "loss": rec["loss"], "ref_loss": rec["ref_loss"], "leaf_rel": rec["leaf_rel"]}
+    e2e["train_dryrun_s"] = time.perf_counter() - t0
+    e2e.update(tp_vs_tp1_rel=rel, tol=tol, floor=chk["floor"])
+    log(f"  multi path: dryrun_infer {infer_s:.3f} s, train dry runs "
+        f"{e2e['train_dryrun_s']:.3f} s (walls, ranks' start and build included)")
+    return total, e2e
+
+
 def _leaves(tree):
     import torch
 
@@ -2848,6 +3116,9 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     stats = phase_kernels(t5_first, t5_counts, offset_check=True)
     log("  -- K6 at the VAE decoder's norm_out, batches " + ", ".join(map(str, DECODE_BATCHES)))
     phase_k6_batches(t5_first, stats)
+    log(f"  -- multi path: K2, K3, K4 at one tp {TP} rank's shapes of the t5 UNet (K4 in its "
+        "f32-residual mode)")
+    tp_stats = phase_tp_shapes(*discover_calls(t5_cfg, t5_unet, None, t5_cond, device), stats)
     del vae_p, t5_first
     log("  -- K1-K4 at ragged and halo shapes, K2 on strided q, k, v")
     phase_ragged(stats, device)
@@ -2952,6 +3223,10 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     more_launches, more_e2e = phase_6(t5_cfg, device, steps, duration)
     launches.update(more_launches)
     e2e.update(more_e2e)
+    launches["multi"], e2e["multi"] = phase_multi(t5_cfg, device)
+    e2e["multi"]["tp_rank_kernels"] = {
+        name: {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")}
+        for name, st in tp_stats.items()}
     for name, err in e2e["train"]["max_abs_err"].items():  # the f32 train-step shapes'
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     return stats, launches, e2e

@@ -291,6 +291,22 @@ def test_geglu_matmul_kernel_reads_bf16_parameters(cuda, M, F, N):
     _check(lnmm_kernel.geglu_matmul(*args), lnmm_kernel.geglu_matmul_plain(*args), dt)
 
 
+@pytest.mark.parametrize("M,F,N", [(2048, 512, 256), (512, 768, 384), (128, 1280, 640),
+                                   (6144, 512, 256), (100, 520, 136)])
+def test_geglu_matmul_f32_residual_kernel(cuda, M, F, N):
+    """K4's f32-residual mode, a tp 2 rank's FF out (the t5 UNet's three
+    shapes, the large UNet's T = 1024 level at CFG batch 6, and a ragged
+    one): bf16 h and w, an f32 residual, the f32 sum against the plain
+    version's, to the f32 bound (both sum bf16 products in f32)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for bias_dt in (torch.float32, torch.bfloat16):
+        args = (_rand(g, (M, 2 * F), torch.bfloat16, cuda),
+                _rand(g, (F, N), torch.bfloat16, cuda, scale=F ** -0.5),
+                _rand(g, (N,), bias_dt, cuda), _rand(g, (M, N), torch.float32, cuda))
+        _check(lnmm_kernel.geglu_matmul(*args), lnmm_kernel.geglu_matmul_plain(*args),
+               torch.float32)
+
+
 def _int8(g, shape, device):
     wq = torch.randint(-127, 128, shape, generator=g, device=device).to(torch.int8)
     ws = torch.rand(shape[-1], generator=g, device=device) * 0.01 + 1e-3

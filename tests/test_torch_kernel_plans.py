@@ -1129,3 +1129,56 @@ def test_timing_tool_sums_the_f32_encode_and_k6():
         assert sums[tag]["k6_held_ms"] == pytest.approx(0.02)
         assert sums[tag]["k6_yardstick_held_ms"] == pytest.approx(0.025)
     assert "k1f32_whole_held_ms" not in sums["t5"] and "k3_held_ms" not in sums["t5"]
+
+
+def _tp2_rank_shapes():
+    """The K3 and K4 shapes one rank of a tp 2 mesh gives the kernels on
+    the t5 and large UNets at CFG batch 2 and 6: N / 2 (K3), F / 2 (K4)."""
+    ln, geglu = set(), set()
+    for name in CONFIGS:
+        cfg = at.default_audioldm_config(name)
+        for batch in (2, 6):
+            args = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+            ln |= {(m, c, n // 2) for m, c, n in unet.ln_matmul_shapes(*args)}
+            geglu |= {(m, f // 2, n) for m, f, n in unet.geglu_matmul_shapes(*args)}
+    return sorted(ln), sorted(geglu)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+def test_plans_take_every_tp2_rank_shape(sms):
+    """A tp 2 rank's K3 and K4 calls have plans: K4's f32-residual mode,
+    which the row-parallel FF takes, has no shared-core fallback."""
+    ln, geglu = _tp2_rank_shapes()
+    assert (2048, 256, 384) in ln and (128, 1280, 640) in geglu
+    assert all(_build.ln_matmul_plan(m, c, n, sms) is not None for m, c, n in ln)
+    assert all(_build.geglu_matmul_plan(m, f, n, sms) is not None for m, f, n in geglu)
+
+
+_REQUIRE_CUDA = _build.require_cuda  # the wrappers' own checks, before any fixture patches them
+
+
+def test_k4_f32_residual_mode_reaches_its_entry(as_if_on_the_card, monkeypatch):
+    """bf16 h and w with an f32 residual (a tp rank's K4) pass the
+    wrapper's own device and dtype checks and reach
+    a2k_geglu_matmul_bf16_f32res, which writes the f32 sum; K4q and an f32
+    residual with a plan-less shape are refused rather than sent to a
+    kernel that reads another type."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+
+    monkeypatch.setattr(_build, "require_cuda", _REQUIRE_CUDA)
+
+    bf16 = torch.bfloat16
+    h, w = torch.zeros(2048, 2 * 512, dtype=bf16), torch.zeros(512, 256, dtype=bf16)
+    bias, res = torch.zeros(256, dtype=bf16), torch.zeros(2048, 256)
+    out = lk.geglu_matmul(h, w, bias, res)
+    assert out.dtype == torch.float32 and out.shape == (2048, 256)
+    args = as_if_on_the_card.calls["a2k_geglu_matmul_bf16_f32res"]
+    assert args[:6] == (h.data_ptr(), w.data_ptr(), bias.data_ptr(), 1, res.data_ptr(),
+                        out.data_ptr())
+    assert "a2k_geglu_matmul_bf16" not in as_if_on_the_card.calls
+    wq, ws = torch.zeros(512, 256, dtype=torch.int8), torch.ones(256)
+    with pytest.raises(ValueError, match="f32 residual"):
+        lk.geglu_matmul_q(h, wq, ws, bias, res)
+    with pytest.raises(ValueError, match="no plan"):
+        lk.geglu_matmul(torch.zeros(4, 2 * 20, dtype=bf16), torch.zeros(20, 12, dtype=bf16),
+                        torch.zeros(12, dtype=bf16), torch.zeros(4, 12))
