@@ -102,7 +102,11 @@
 // products instead of every warp after them (4-10% faster there, measured;
 // not on the 16-row tiles, where it was 1-5% slower). No workspace, one
 // launch. They replace the shared core's K4q and K5, which
-// split K through a workspace and a second launch.
+// split K through a workspace and a second launch. Under tensor parallelism
+// (parallel/collectives.py) K4q takes K4's f32-residual mode and K5 an
+// f32-output mode: the same kernel with TR = float, which writes the f32 sum
+// (* wscale, + bias and residual where given) unrounded, so that the ranks'
+// sums are added in f32 and rounded once.
 //
 // K3 in f32, K3q, K4q and K5 in f32 (and at shapes their plans decline), and
 // K4 in f32 are the shared GEMM core (common.cuh) with a prologue: K3's block
@@ -290,10 +294,11 @@ enum class RowPass { LN, GEGLU, COPY };
 // of two bf16 staging tiles that the products read, and the per-column
 // scale wscale multiplies the f32 sums in the epilogue.
 //
-// TR: the residual's and the output's type. bf16, or float for K4's
-// f32-residual mode (bf16 h and w, the residual read and the sum written in
-// f32, no rounding): the tensor-parallel K4, whose per-rank sums are added
-// over the ranks in f32 and rounded once after that.
+// TR: the residual's and the output's type. bf16, or float for the
+// tensor-parallel modes, whose per-rank sums are added over the ranks in f32
+// and rounded once after that: K4's and K4q's f32-residual mode (bf16 h, the
+// residual read and the sum written in f32, no rounding) and K5's f32-output
+// mode (the product * wscale (+ bias) written in f32, no rounding).
 template <RowPass PASS, int BM, int BN, typename TW = bf16, typename TR = bf16>
 __global__ void __launch_bounds__(LT_THREADS)
 row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ gamma,
@@ -305,7 +310,7 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
   constexpr bool Q = std::is_same<TW, int8_t>::value;
   constexpr bool F32_OUT = std::is_same<TR, float>::value;
   static_assert(Q || PASS != RowPass::COPY, "the copy pass is K5's, whose weight is int8");
-  static_assert(!F32_OUT || (PASS == RowPass::GEGLU && !Q), "the f32 output is K4's alone");
+  static_assert(!F32_OUT || PASS != RowPass::LN, "the f32 output is K4's, K4q's and K5's");
   constexpr int THREADS = LT_THREADS;
   // warps that run products: one per 16 x 32 slice of the tile, at most all;
   // in a smaller tile the others only copy and form A
@@ -675,16 +680,27 @@ row_block_matmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict_
         for (int half = 0; half < 2; ++half) {
           uint32_t v[4];
           const int row = m0 + wm * WM + mi * 16 + half * 8 + g;
-          if constexpr (F32_OUT) {  // + bias + residual in f32, stored as f32 pairs
+          if constexpr (F32_OUT) {  // (* wscale) + bias (+ residual) in f32, stored as f32 pairs
             if (row < M) {
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
                 const int rc = nb + j * 8 + 2 * t;
                 if (rc < N) {
-                  const float2 r2 = *reinterpret_cast<const float2*>(residual + (size_t)row * N + rc);
-                  *reinterpret_cast<float2*>(out + (size_t)row * N + rc) =
-                      make_float2(acc[mi][j][2 * half] + bv[j][0] + r2.x,
-                                  acc[mi][j][2 * half + 1] + bv[j][1] + r2.y);
+                  float y0 = acc[mi][j][2 * half], y1 = acc[mi][j][2 * half + 1];
+                  if constexpr (Q) {
+                    y0 = fmaf(y0, sv[j][0], bv[j][0]);
+                    y1 = fmaf(y1, sv[j][1], bv[j][1]);
+                  } else {
+                    y0 += bv[j][0];
+                    y1 += bv[j][1];
+                  }
+                  if constexpr (PASS == RowPass::GEGLU) {
+                    const float2 r2 =
+                        *reinterpret_cast<const float2*>(residual + (size_t)row * N + rc);
+                    y0 += r2.x;
+                    y1 += r2.y;
+                  }
+                  *reinterpret_cast<float2*>(out + (size_t)row * N + rc) = make_float2(y0, y1);
                 }
               }
             }
@@ -996,6 +1012,23 @@ int a2k_geglu_matmul_bf16_f32res(const void* h, const void* w, const void* bias,
       static_cast<cudaStream_t>(stream), splits, nullptr);
 }
 
+// The argument checks of K4q in bf16 (both modes).
+static int geglu_q_bf16_args_ok(const void* h, const void* wq, const void* wscale,
+                                const void* bias, int param_dtype, const void* residual,
+                                const void* out, int M, int F, int N, int strip_tiles, int stages,
+                                int splits) {
+  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 15) || strip_tiles < 1 || stages < 2 ||
+      stages > 12 || (param_dtype != 0 && param_dtype != 1) || wscale == nullptr ||
+      bias == nullptr || residual == nullptr || splits < 1 || splits > 8 ||
+      (splits > 1 && strip_tiles != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(wq) |
+       reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(residual) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
 // K4q in bf16 with its launch plan: as a2k_geglu_matmul_bf16 with wq: int8
 // [F, N] (N a multiple of 16) and wscale: f32 [N], out = residual + (a *
 // gelu(g)) . wq * wscale + bias; stages: 2 to 12 int8 W tiles in the ring
@@ -1004,19 +1037,27 @@ int a2k_geglu_matmul_q_bf16(const void* h, const void* wq, const void* wscale, c
                             int param_dtype, const void* residual, void* out, int M, int F, int N,
                             int bm, int bn, int strip_tiles, int stages, int splits,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || F <= 0 || N <= 0 || (F & 7) || (N & 15) || strip_tiles < 1 || stages < 2 ||
-      stages > 12 || (param_dtype != 0 && param_dtype != 1) || wscale == nullptr ||
-      bias == nullptr || residual == nullptr || splits < 1 || splits > 8 ||
-      (splits > 1 && strip_tiles != 1))
-    return (int)cudaErrorInvalidValue;
-  const bool p16 = param_dtype == 1;
-  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(wq) |
-       reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
-       reinterpret_cast<uintptr_t>(residual) | reinterpret_cast<uintptr_t>(out)) & 15)
-    return (int)cudaErrorMisalignedAddress;
+  const int rc = geglu_q_bf16_args_ok(h, wq, wscale, bias, param_dtype, residual, out, M, F, N,
+                                      strip_tiles, stages, splits);
+  if (rc) return rc;
   return a2k::thin_tile_launch<a2k::RowPass::GEGLU, int8_t>(
-      bm, bn, h, wq, bias, p16, residual, out, M, F, N, strip_tiles, stages, s, splits, wscale);
+      bm, bn, h, wq, bias, param_dtype == 1, residual, out, M, F, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, wscale);
+}
+
+// K4q's f32-residual mode (the tensor-parallel K4q): as
+// a2k_geglu_matmul_q_bf16 with residual and out f32 [M, N]: out = residual +
+// (a * gelu(g)) . wq * wscale + bias summed in f32 and stored unrounded.
+int a2k_geglu_matmul_q_bf16_f32res(const void* h, const void* wq, const void* wscale,
+                                   const void* bias, int param_dtype, const void* residual,
+                                   void* out, int M, int F, int N, int bm, int bn,
+                                   int strip_tiles, int stages, int splits, void* stream) {
+  const int rc = geglu_q_bf16_args_ok(h, wq, wscale, bias, param_dtype, residual, out, M, F, N,
+                                      strip_tiles, stages, splits);
+  if (rc) return rc;
+  return a2k::thin_tile_launch<a2k::RowPass::GEGLU, int8_t, float>(
+      bm, bn, h, wq, bias, param_dtype == 1, residual, out, M, F, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, wscale);
 }
 
 // K5 in bf16 with its launch plan: out = x . wq * wscale + bias, x: bf16
@@ -1025,21 +1066,45 @@ int a2k_geglu_matmul_q_bf16(const void* h, const void* wq, const void* wscale, c
 // out: bf16 [M, N]; all pointers 16-byte aligned. bm, bn, strip_tiles,
 // stages (int8 tiles) and splits as for K4q; K is bounded only by the shared
 // memory its row block takes.
-int a2k_int8_matmul_bf16(const void* x, const void* wq, const void* wscale, const void* bias,
-                         int param_dtype, void* out, int M, int K, int N, int bm, int bn,
-                         int strip_tiles, int stages, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+static int int8_bf16_args_ok(const void* x, const void* wq, const void* wscale,
+                             const void* bias, int param_dtype, const void* out, int M, int K,
+                             int N, int strip_tiles, int stages, int splits) {
   if (M <= 0 || K <= 0 || N <= 0 || (K & 7) || (N & 15) || strip_tiles < 1 || stages < 2 ||
       stages > 12 || (param_dtype != 0 && param_dtype != 1) || wscale == nullptr ||
       splits < 1 || splits > 8 || (splits > 1 && strip_tiles != 1))
     return (int)cudaErrorInvalidValue;
-  const bool p16 = param_dtype == 1;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
        reinterpret_cast<uintptr_t>(wscale) | reinterpret_cast<uintptr_t>(bias) |
        reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+int a2k_int8_matmul_bf16(const void* x, const void* wq, const void* wscale, const void* bias,
+                         int param_dtype, void* out, int M, int K, int N, int bm, int bn,
+                         int strip_tiles, int stages, int splits, void* stream) {
+  const int rc = int8_bf16_args_ok(x, wq, wscale, bias, param_dtype, out, M, K, N, strip_tiles,
+                                   stages, splits);
+  if (rc) return rc;
   return a2k::thin_tile_launch<a2k::RowPass::COPY, int8_t>(
-      bm, bn, x, wq, bias, p16, nullptr, out, M, K, N, strip_tiles, stages, s, splits, wscale);
+      bm, bn, x, wq, bias, param_dtype == 1, nullptr, out, M, K, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, wscale);
+}
+
+// K5's f32-output mode (the tensor-parallel K5, the row-parallel to_out): as
+// a2k_int8_matmul_bf16 with out f32 [M, N]: out = x . wq * wscale + bias
+// summed in f32 and stored unrounded (the tp callers pass a null bias and add
+// it after the sum over the ranks).
+int a2k_int8_matmul_bf16_f32out(const void* x, const void* wq, const void* wscale,
+                                const void* bias, int param_dtype, void* out, int M, int K, int N,
+                                int bm, int bn, int strip_tiles, int stages, int splits,
+                                void* stream) {
+  const int rc = int8_bf16_args_ok(x, wq, wscale, bias, param_dtype, out, M, K, N, strip_tiles,
+                                   stages, splits);
+  if (rc) return rc;
+  return a2k::thin_tile_launch<a2k::RowPass::COPY, int8_t, float>(
+      bm, bn, x, wq, bias, param_dtype == 1, nullptr, out, M, K, N, strip_tiles, stages,
+      static_cast<cudaStream_t>(stream), splits, wscale);
 }
 
 // x: [M, C]; gamma, beta: f32 [C]; w: [C, N]; bias: f32 [N] or null; out: [M, N];

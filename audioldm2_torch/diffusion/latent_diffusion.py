@@ -89,7 +89,10 @@ def prepare_unet(params, cfg: ModelConfig, contexts_c):
     """The per-call UNet transforms, in the JAX package's order: the cast
     to the compute dtype, the cross K/V, the fused self-attention QKV, then
     (``weight_quant="int8"``) the int8 ST linears and ResBlock convs, whose
-    scales come from the cast weights and stay f32."""
+    scales come from the cast weights and stay f32. Under tp (inside
+    ``parallel.collectives.tensor_parallel``, on the rank's slices) the
+    int8 leaves are the whole weights' quantization cut to the rank's
+    slices (``unet.quantize_st_linears``: one all-reduce a call)."""
     unet_p = cast_floating(params["unet"], compute_dtype(cfg))
     cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
     unet_p = unet.fuse_self_qkv(unet_p)

@@ -21,7 +21,11 @@ Under a dp x tp mesh (``parallel.collectives.tensor_parallel``, with the
 rank's slices from ``parallel.mesh.shard_params``) the spatial
 transformers split Megatron-style: q/k/v and the GEGLU projection by
 column, to_out and the FF's output by row, summed over tp in f32 and
-rounded once; the rest computes replicated.
+rounded once; the rest computes replicated. In the int8 serving mode each
+rank quantizes its slices as the whole weight's quantization would cut
+them (``quantize_st_linears``): int8 columns with their scales for a
+column split, int8 rows with the whole weight's scales for a row split;
+the ResBlock convs are whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from audioldm2_torch.config import UNetConfig
 from audioldm2_torch.ops import KERNEL_NAMES, nn, quant
 from audioldm2_torch.parallel import collectives as tp
+from audioldm2_torch.parallel.mesh import split_axis
 from audioldm2_torch.params import Init
 
 GN_EPS_RES = 1e-5
@@ -474,20 +479,50 @@ def _conv_quantizable(cin: int, cout: int) -> bool:
     return cin % 128 == 0 and cout % 128 == 0
 
 
+def _whole_shape(path, w, tp_size: int):
+    """(K, N) of the whole weight of which ``w`` is a tp rank's slice."""
+    shape = list(w.shape)
+    axis = split_axis(("unet",) + path + ("w",), w)
+    if axis is not None:
+        shape[axis] *= tp_size
+    return shape
+
+
 def quantize_st_linears(params):
     """int8-quantize the spatial-transformer matmul weights read every
     step (``_QUANT_KEYS`` under attn1, attn2 or ff, K and N multiples of
     128). to_k/to_v stay: the cross K/V are precomputed once per call.
-    Apply after fuse_self_qkv and precompute_cross_kv, once per call."""
+    Apply after fuse_self_qkv and precompute_cross_kv, once per call.
+
+    Under tp (``parallel.collectives.tensor_parallel``) ``params`` holds
+    the rank's slices and every rank quantizes its own, as the whole tree's
+    quantization would cut them: the predicate takes the whole weight's
+    shape (N x tp for a column-split leaf, K x tp for a row-split one), so
+    the same leaves go int8 at every tp; a column split (the fused QKV,
+    to_q, the GEGLU proj_in) holds whole columns, whose scales are already
+    the whole weight's; a row split (to_out, the FF's proj_out) takes each
+    column's absmax as the max over the tp ranks' rows, all of the call's
+    row-split leaves in one all-reduce of their concatenation. The int8
+    values and scales then equal the whole quantization's slices bit for
+    bit."""
+    tp_size = tp.tp_size()
 
     def pred(path, p):
         if not path or path[-1] not in _QUANT_KEYS:
             return False
         if not any(seg in ("attn1", "attn2", "ff") for seg in path):
             return False
-        return _st_linear_quantizable(*p["w"].shape)
+        return _st_linear_quantizable(*_whole_shape(path, p["w"], tp_size))
 
-    return quant.quantize_tree(params, pred)
+    def whole_absmax(linears):
+        rows = {path: p["w"] for path, p in linears.items()
+                if split_axis(("unet",) + path + ("w",), p["w"]) == 0}
+        if not rows:
+            return {}
+        flat = tp.max_over_tp(torch.cat([w.float().abs().amax(0) for w in rows.values()]))
+        return dict(zip(rows, torch.split(flat, [w.shape[1] for w in rows.values()])))
+
+    return quant.quantize_tree(params, pred, whole_absmax if tp_size > 1 else None)
 
 
 def quantize_resblock_convs(params):
@@ -556,14 +591,16 @@ def _ladder_slots(cfg: UNetConfig, c: int):
 
 
 def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
-                     weight_quant: Optional[str] = None) -> dict:
+                     weight_quant: Optional[str] = None, tp: int = 1) -> dict:
     """{(M, C, N): calls} of the K3 launches of one unquantized apply_unet
     call on a [batch, latent_t, latent_f] latent: per transformer block the
     fused QKV (N = 3C), attn2's LN-fused projection and the GEGLU proj_in
     (N = 8C), with M = batch x the ladder's tokens. The calls sum to
     kernel_launches_per_forward(cfg)["ln_matmul"]. With weight_quant
     "int8": those of the K3q launches of a quantized forward, which sum to
-    kernel_launches_per_forward(cfg, "int8")["ln_matmul_q"]."""
+    kernel_launches_per_forward(cfg, "int8")["ln_matmul_q"]. With ``tp``:
+    one tp rank's, N / tp (the projections split by column; the
+    quantization predicate takes the whole N)."""
     q = weight_quant == "int8"
     shapes: dict = {}
     _, ladders, ladder_ds = _layout(cfg)
@@ -572,7 +609,7 @@ def ln_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
         for attn2_n, _ in _ladder_slots(cfg, c):
             for n in (3 * c, attn2_n, 8 * c):
                 if n is not None and (not q or _st_linear_quantizable(c, n)):
-                    key = (m, c, n)
+                    key = (m, c, n // tp)
                     shapes[key] = shapes.get(key, 0) + cfg.transformer_depth
     return shapes
 
@@ -599,40 +636,46 @@ def conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
 
 
 def geglu_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
-                        weight_quant: Optional[str] = None) -> dict:
+                        weight_quant: Optional[str] = None, tp: int = 1) -> dict:
     """{(M, F, N): calls} of the K4 launches of one unquantized apply_unet
     call: per transformer block the GEGLU proj_out, h [M, 2F] with F = 4C,
     onto N = C, M = batch x the ladder's tokens. The calls sum to
     kernel_launches_per_forward(cfg)["geglu_matmul"]. With weight_quant
     "int8": those of the K4q launches of a quantized forward, which sum to
-    kernel_launches_per_forward(cfg, "int8")["geglu_matmul_q"]."""
+    kernel_launches_per_forward(cfg, "int8")["geglu_matmul_q"]. With ``tp``:
+    one tp rank's, F / tp (the proj_out split by row, in the f32-residual
+    mode; the quantization predicate takes the whole F)."""
     q = weight_quant == "int8"
     shapes: dict = {}
     _, ladders, ladder_ds = _layout(cfg)
     for c, ds in zip(ladders, ladder_ds):
         if q and not _st_linear_quantizable(4 * c, c):
             continue
-        key = (batch * (latent_t // ds) * (latent_f // ds), 4 * c, c)
+        key = (batch * (latent_t // ds) * (latent_f // ds), 4 * c // tp, c)
         calls = len(_ladder_slots(cfg, c)) * cfg.transformer_depth
         shapes[key] = shapes.get(key, 0) + calls
     return shapes
 
 
-def int8_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+def int8_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int,
+                       tp: int = 1) -> dict:
     """{(M, K, N): calls} of the K5 launches of one quantized apply_unet
     call (weight_quant "int8"): per transformer block the attn1 and attn2
     to_out projections, and a None slot's to_q, all [M, C] onto C where the
     quantization predicate takes C, M = batch x the ladder's tokens. The
-    calls sum to kernel_launches_per_forward(cfg, "int8")["int8_matmul"]."""
+    calls sum to kernel_launches_per_forward(cfg, "int8")["int8_matmul"].
+    With ``tp``: one tp rank's, to_out at K = C / tp (split by row, in the
+    f32-output mode) and the None slot's to_q at N = C / tp (by column)."""
     shapes: dict = {}
     _, ladders, ladder_ds = _layout(cfg)
     for c, ds in zip(ladders, ladder_ds):
         if not _st_linear_quantizable(c, c):
             continue
-        key = (batch * (latent_t // ds) * (latent_f // ds), c, c)
+        m = batch * (latent_t // ds) * (latent_f // ds)
         for attn2_n, _ in _ladder_slots(cfg, c):
-            calls = (2 + (attn2_n is None)) * cfg.transformer_depth
-            shapes[key] = shapes.get(key, 0) + calls
+            for key, calls in (((m, c // tp, c), 2), ((m, c, c // tp), attn2_n is None)):
+                if calls:
+                    shapes[key] = shapes.get(key, 0) + calls * cfg.transformer_depth
     return shapes
 
 
@@ -670,7 +713,11 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
     head_dim the kernel takes runs K2 (attn1 everywhere, attn2 in the
     self-ST). A ``None`` slot's attn2 is self-attention without the fused
     projection, as in JAX: a plain LayerNorm, to_q (K5 when quantized),
-    plain to_k and to_v, and K2. K6 for the final GroupNorm+SiLU."""
+    plain to_k and to_v, and K2. K6 for the final GroupNorm+SiLU.
+
+    A tp rank launches the same: every call at its narrower slice (the
+    shape functions' ``tp``), the int8 predicates on the whole weights'
+    shapes, the convs whole."""
     q = weight_quant == "int8"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts["group_norm_silu"] = 1  # out_norm

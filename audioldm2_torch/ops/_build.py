@@ -65,7 +65,10 @@ SIGNATURES = {
     "a2k_geglu_matmul_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_geglu_matmul_bf16_f32res": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_geglu_matmul_q_bf16": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_geglu_matmul_q_bf16_f32res": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _P],
     "a2k_int8_matmul_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "a2k_int8_matmul_bf16_f32out": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _I, _I, _P],
     "a2k_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],

@@ -19,6 +19,13 @@ w_bytes=1)``, ``geglu_matmul_plan(..., w_bytes=1)``, ``int8_matmul_plan``;
 K5's pass only copies x's rows); in f32, or at a shape or an alignment a
 plan does not take, the shared GEMM core.
 
+The tensor-parallel products (``parallel.collectives``) sum each rank's
+part in f32 and round once: K4 and K4q take an f32 residual and return
+the f32 sum unrounded (their f32-residual mode), K5 returns its f32
+product unrounded with ``out_dtype=torch.float32`` (its f32-output mode).
+These modes run only on the row-block kernel: where its plan declines the
+shape they raise, never reaching the shared core.
+
 Each wrapper takes the plain version for CPU tensors and the kernel for
 CUDA tensors; the ``*_plain`` functions are the oracles. A CUDA call that
 autograd must record (``autograd.needs_grad``) goes through
@@ -83,17 +90,19 @@ def ln_matmul_q_plain(x, ln_scale, ln_bias, wq, ws, bias=None, eps: float = 1e-5
 def geglu_matmul_q_plain(h, wq, ws, bias, residual):
     """geglu_matmul with an int8 weight (``_geglu_matmul_kernel`` with
     w_scale): the gate product rounded to bf16 whatever h's dtype, an f32
-    product, * ws + bias + residual, one rounding to residual.dtype."""
+    product, * ws + bias + residual, one rounding to residual.dtype (none
+    for an f32 residual: the f32-residual mode)."""
     a, gate = torch.chunk(h.float(), 2, dim=-1)
     u = (a * _nn.gelu(gate)).to(BF16).float()
     return (_scaled(u @ wq.float(), ws, bias) + residual.float()).to(residual.dtype)
 
 
-def int8_matmul_plain(x, wq, ws, bias=None):
+def int8_matmul_plain(x, wq, ws, bias=None, out_dtype=None):
     """x @ dequant(wq) + bias as ``_matmul_kernel``: x is not rounded (the
     int8 values are exact in any float type), an f32 product, * ws + bias,
-    one rounding to x.dtype."""
-    return _scaled(x.float() @ wq.float(), ws, bias).to(x.dtype)
+    one rounding to ``out_dtype`` (x.dtype by default; none for float32:
+    the f32-output mode)."""
+    return _scaled(x.float() @ wq.float(), ws, bias).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,9 +205,9 @@ def _geglu(name, h, w, ws, bias, residual):
     if bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
     f32_res = h.dtype == BF16 and residual.dtype == torch.float32
-    if residual.dtype != h.dtype and not (f32_res and ws is None):
+    if residual.dtype != h.dtype and not f32_res:
         raise ValueError(f"{name}: a {residual.dtype} residual with {h.dtype} h (the f32 "
-                         "residual is bf16 K4's mode alone)")
+                         "residual is bf16 K4's and K4q's mode alone)")
     out = torch.empty_like(residual)
     if h.dtype == BF16 and m:
         plan = _build.geglu_matmul_plan(m, f, n, _build.sm_count(h.device.index or 0),
@@ -209,7 +218,10 @@ def _geglu(name, h, w, ws, bias, residual):
                     plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits,
                     _build.stream_of(h))
             lib = _build.lib()
-            if ws is not None:
+            if ws is not None and f32_res:
+                rc = lib.a2k_geglu_matmul_q_bf16_f32res(h.data_ptr(), w.data_ptr(),
+                                                        ws.data_ptr(), *tail)
+            elif ws is not None:
                 rc = lib.a2k_geglu_matmul_q_bf16(h.data_ptr(), w.data_ptr(), ws.data_ptr(), *tail)
             elif f32_res:
                 rc = lib.a2k_geglu_matmul_bf16_f32res(h.data_ptr(), w.data_ptr(), *tail)
@@ -218,7 +230,7 @@ def _geglu(name, h, w, ws, bias, residual):
             _build.check(rc, name)
             return out
     if f32_res:
-        raise ValueError(f"{name}: K4's f32-residual mode has no plan at M={m}, F={f}, N={n} "
+        raise ValueError(f"{name}: the f32-residual mode has no plan at M={m}, F={f}, N={n} "
                          "(or unaligned operands)")
     return _geglu_shared_core(name, h, w, ws, bias, residual, out)
 
@@ -289,7 +301,9 @@ def ln_matmul_q(x: torch.Tensor, ln_scale, ln_bias, wq, ws,
 
 def geglu_matmul_q(h: torch.Tensor, wq, ws, bias, residual: torch.Tensor) -> torch.Tensor:
     """h: [..., 2F]; wq: int8 [F, N]; ws: f32 [N]; residual: [..., N];
-    returns residual + (a * gelu(g)) @ dequant(wq) + bias in residual.dtype."""
+    returns residual + (a * gelu(g)) @ dequant(wq) + bias in residual.dtype.
+    With bf16 h and an f32 residual (the f32-residual mode, which the
+    tensor-parallel FF takes) the sum is returned in f32, unrounded."""
     if not h.is_cuda:
         return geglu_matmul_q_plain(h, wq, ws, bias, residual)
     if autograd.needs_grad(h, ws, bias, residual):
@@ -299,11 +313,14 @@ def geglu_matmul_q(h: torch.Tensor, wq, ws, bias, residual: torch.Tensor) -> tor
     return out
 
 
-def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: [..., K]; wq: int8 [K, N]; ws: f32 [N]; returns
-    x @ dequant(wq) + bias in x.dtype."""
+    x @ dequant(wq) + bias in ``out_dtype`` (x.dtype by default). With bf16
+    x and ``out_dtype=torch.float32`` (the f32-output mode, which the
+    tensor-parallel to_out takes) the product is returned in f32, unrounded."""
     if not x.is_cuda:
-        return int8_matmul_plain(x, wq, ws, bias)
+        return int8_matmul_plain(x, wq, ws, bias, out_dtype)
     if autograd.needs_grad(x, ws, bias):
         autograd.refuse_grad("int8_matmul")
     name = "int8_matmul"
@@ -316,16 +333,26 @@ def int8_matmul(x: torch.Tensor, wq, ws, bias: Optional[torch.Tensor] = None) ->
     dev = x.device
     if bias is not None and bias.shape != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{n}]")
-    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=x.dtype)
+    out_dtype = out_dtype or x.dtype
+    f32_out = x.dtype == BF16 and out_dtype == torch.float32
+    if out_dtype != x.dtype and not f32_out:
+        raise ValueError(f"{name}: a {out_dtype} output of {x.dtype} x (the f32 output is "
+                         "bf16 K5's mode alone)")
+    out = torch.empty((*x.shape[:-1], n), device=dev, dtype=out_dtype)
     plan = (_build.int8_matmul_plan(m, k, n, _build.sm_count(dev.index or 0))
             if x.dtype == BF16 and m else None)
     (b,), param_code = _build.params_as_stored(dev, bias)
     if plan is not None and _build.aligned16(x, wq, ws, b, out):
-        _build.check(_build.lib().a2k_int8_matmul_bf16(
+        entry = (_build.lib().a2k_int8_matmul_bf16_f32out if f32_out
+                 else _build.lib().a2k_int8_matmul_bf16)
+        _build.check(entry(
             x.data_ptr(), wq.data_ptr(), ws.data_ptr(), _ptr(b), param_code, out.data_ptr(),
             m, k, n, plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits,
             _build.stream_of(x),
         ), name)
+    elif f32_out:
+        raise ValueError(f"{name}: the f32-output mode has no plan at M={m}, K={k}, N={n} "
+                         "(or unaligned operands)")
     else:  # f32, or a shape or an alignment the plan declines
         _int8_shared_core(name, x, wq, ws, bias, out)
     int8_matmul.launches += 1

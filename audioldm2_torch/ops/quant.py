@@ -19,8 +19,8 @@ from __future__ import annotations
 import torch
 
 
-def _absmax_quantize(w32: torch.Tensor, dims):
-    s = w32.abs().amax(dim=dims) / 127.0
+def _absmax_quantize(w32: torch.Tensor, dims, absmax=None):
+    s = (w32.abs().amax(dim=dims) if absmax is None else absmax) / 127.0
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(w32 / s), -127.0, 127.0).to(torch.int8)
     return q, s
@@ -36,33 +36,56 @@ def dequantize(p) -> torch.Tensor:
     return p["wq"].float() * p["ws"]
 
 
-def quantize_linear_dict(p):
-    """{"w": [K, N], ...} -> {"wq", "ws", ...}; a dict without a 2-D "w"
-    (or anything else) is returned unchanged."""
-    if not isinstance(p, dict) or "w" not in p or p["w"].dim() != 2:
-        return p
-    q, s = quantize_weight(p["w"])
+def _quantized_linear(p, absmax=None):
+    q, s = _absmax_quantize(p["w"].float(), 0, absmax)
     out = {k: v for k, v in p.items() if k != "w"}
     out["wq"], out["ws"] = q, s
     return out
 
 
-def quantize_tree(tree, should_quantize=None):
+def quantize_linear_dict(p):
+    """{"w": [K, N], ...} -> {"wq", "ws", ...}; a dict without a 2-D "w"
+    (or anything else) is returned unchanged."""
+    if not isinstance(p, dict) or "w" not in p or p["w"].dim() != 2:
+        return p
+    return _quantized_linear(p)
+
+
+def _default_pred(path, p):
+    k, n = p["w"].shape
+    return k % 128 == 0 and n % 128 == 0
+
+
+def _eligible_linears(tree, pred, path: tuple = ()):
+    """(path, linear dict) of every linear dict ({"w": 2-D}) that ``pred``
+    keeps, in the tree's key order; a kept dict is not searched further."""
+    if isinstance(tree, dict):
+        w = tree.get("w")
+        if isinstance(w, torch.Tensor) and w.dim() == 2 and pred(path, tree):
+            yield path, tree
+            return
+        for k, v in tree.items():
+            yield from _eligible_linears(v, pred, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _eligible_linears(v, pred, path + (i,))
+
+
+def quantize_tree(tree, should_quantize=None, whole_absmax=None):
     """Convert every eligible linear dict ({"w": 2-D}, optional bias) of a
     parameter tree. ``should_quantize(path, leaf_dict)`` vetoes individual
-    linears; the default keeps those whose K and N are multiples of 128."""
-
-    def default_pred(path, p):
-        k, n = p["w"].shape
-        return k % 128 == 0 and n % 128 == 0
-
-    pred = should_quantize or default_pred
+    linears; the default keeps those whose K and N are multiples of 128.
+    ``whole_absmax({path: linear dict})``, given the eligible linears in
+    walk order, returns {path: column absmax [N]} for those whose scale is
+    not taken from their own rows (a tp rank's row slice takes the whole
+    weight's: ``models.unet.quantize_st_linears``)."""
+    linears = dict(_eligible_linears(tree, should_quantize or _default_pred))
+    absmax = whole_absmax(linears) if whole_absmax else {}
 
     def walk(node, path):
+        if path in linears:
+            return _quantized_linear(node, absmax.get(path))
         if isinstance(node, dict):
-            w = node.get("w")
-            if isinstance(w, torch.Tensor) and w.dim() == 2 and pred(path, node):
-                return quantize_linear_dict(node)
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))

@@ -65,16 +65,18 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def all_reduce(x: torch.Tensor, mesh, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``'s ranks, as a new tensor."""
+def all_reduce(x: torch.Tensor, mesh, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the elementwise max) of ``x`` over
+    ``group``'s ranks, as a new tensor."""
     import torch.distributed as dist
 
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if _staged(x, mesh):
         h = _to_host(x)
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=red, group=group)
         return h.to(x.device, non_blocking=False)
     y = x.clone()
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=red, group=group)
     return y
 
 
@@ -139,6 +141,15 @@ def copy_to_tp(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return _CopyToTP.apply(x)
 
 
+def max_over_tp(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over tp (no autograd; ``x`` itself
+    outside ``tensor_parallel``): the int8 quantization's column absmax of
+    a row-split weight, all of a call's leaves in one concatenation."""
+    if _ACTIVE is None:
+        return x
+    return all_reduce(x, _ACTIVE, _ACTIVE.tp_group, op="max")
+
+
 def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     """Megatron's "g": the sum of ``x`` over tp (identity backward)."""
     if _ACTIVE is None:
@@ -153,33 +164,36 @@ def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_int8(p, name: str) -> None:
-    if "wq" in p:
-        raise NotImplementedError(f"{name}: the int8 serving mode does not run under tp > 1")
-
-
 def row_parallel_linear(p, x: torch.Tensor) -> torch.Tensor:
-    """``nn.linear(p, x)`` with ``p["w"]`` split by rows over tp and ``x``
-    the matching columns: each rank's x @ w in f32, summed over tp, plus
-    the bias (added after the sum, on every rank), one rounding to
-    x.dtype."""
+    """``nn.linear(p, x)`` with ``p["w"]`` (or the int8 ``p["wq"]``, whose
+    scale ``p["ws"]`` is the whole weight's) split by rows over tp and
+    ``x`` the matching columns: each rank's x @ w in f32 (int8: K5 in its
+    f32-output mode, * ws), summed over tp, plus the bias (added after the
+    sum, on every rank), one rounding to x.dtype."""
     if _ACTIVE is None:
         return nn.linear(p, x)
-    _refuse_int8(p, "row_parallel_linear")
-    y = reduce_from_tp(F.linear(x.float(), p["w"].float().t()))
+    if "wq" in p:
+        part = lnmm_kernel.int8_matmul(x, p["wq"], p["ws"], None, out_dtype=torch.float32)
+        y = all_reduce(part, _ACTIVE, _ACTIVE.tp_group)  # the int8 kernels refuse autograd
+    else:
+        y = reduce_from_tp(F.linear(x.float(), p["w"].float().t()))
     if p.get("b") is not None:
         y = y + p["b"].float()
     return y.to(x.dtype)
 
 
-def _geglu_partial_sum(h, w, bias, residual):
-    """The tp sum of K4 on this rank's [a_r | gate_r] and w rows, bias and
-    residual added by tp rank 0 only, in f32 (K4's f32-residual mode), one
-    rounding to residual.dtype after the sum."""
+def _geglu_partial_sum(h, w, bias, residual, ws=None):
+    """The tp sum of K4 (K4q with the int8 ``w`` and its whole-weight scale
+    ``ws``) on this rank's [a_r | gate_r] and w rows, bias and residual
+    added by tp rank 0 only, in f32 (the f32-residual mode), one rounding
+    to residual.dtype after the sum."""
     first = tp_rank() == 0
     b = bias if first else torch.zeros_like(bias)
     r = residual.float() if first else torch.zeros(residual.shape, device=residual.device)
-    part = lnmm_kernel.geglu_matmul(h, w, b, r)
+    if ws is None:
+        part = lnmm_kernel.geglu_matmul(h, w, b, r)
+    else:
+        part = lnmm_kernel.geglu_matmul_q(h, w, ws, b, r)
     return all_reduce(part, _ACTIVE, _ACTIVE.tp_group).to(residual.dtype)
 
 
@@ -220,12 +234,14 @@ class _RowParallelGeglu(torch.autograd.Function):
 
 def row_parallel_geglu(p_lin, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     """``nn.geglu_ff_out(p_lin, h, residual)`` with h = [a_r | gate_r] this
-    rank's GEGLU columns and ``p_lin["w"]`` its rows: K4 per rank in its
-    f32-residual mode, the bias and the residual added by one rank, summed
-    over tp in f32, rounded once."""
+    rank's GEGLU columns and ``p_lin["w"]`` (or the int8 ``p_lin["wq"]``
+    with the whole weight's ``p_lin["ws"]``) its rows: K4 (K4q) per rank in
+    its f32-residual mode, the bias and the residual added by one rank,
+    summed over tp in f32, rounded once."""
     if _ACTIVE is None:
         return nn.geglu_ff_out(p_lin, h, residual)
-    _refuse_int8(p_lin, "row_parallel_geglu")
+    if "wq" in p_lin:  # the int8 kernels refuse autograd
+        return _geglu_partial_sum(h, p_lin["wq"], p_lin["b"], residual, p_lin["ws"])
     if autograd.needs_grad(h, p_lin["w"], p_lin["b"], residual):
         return _RowParallelGeglu.apply(h, p_lin["w"], p_lin["b"], residual)
     return _geglu_partial_sum(h, p_lin["w"], p_lin["b"], residual)

@@ -19,6 +19,13 @@ leaf the rules match (the CLAP towers, GPT-2 and the conditioners nested in
 the sequence generator) stays whole on each rank, and its module computes
 replicated; the output is the same either way.
 
+The rules split the stored float weights. The int8 serving mode quantizes
+once a call, after the split (``models.unet.quantize_st_linears``, which
+asks :func:`split_axis` how each leaf was cut): a column-split leaf's int8
+slice keeps its columns' scales, a row-split leaf's takes the whole
+weight's scales (a max all-reduce over tp), so every rank holds the slices
+of the whole tree's quantization.
+
 The backend is the caller's: ``make_mesh`` never swaps one for another.
 NCCL refuses two ranks on one device, so with more ranks than cards it
 raises unless the caller asked for gloo.
@@ -217,6 +224,16 @@ def _rebuild(tree, fn, prefix: tuple = ()):
 def _sharded(path, leaf) -> Optional[Spec]:
     spec = param_spec(path, leaf)
     return spec if "tp" in spec and tp_computed(path) and isinstance(leaf, torch.Tensor) else None
+
+
+def split_axis(path: Sequence, leaf) -> Optional[int]:
+    """The axis along which :func:`shard_params` cuts the leaf at ``path``
+    (in a whole model tree), or None where every rank holds it whole. The
+    UNet's fused self-attention QKV (``to_qkv``, which ``models.unet.
+    fuse_self_qkv`` makes once a call from the rank's q, k and v slices)
+    splits as the column-split q, k and v it was fused from."""
+    spec = _sharded(tuple("to_q" if k == "to_qkv" else k for k in path), leaf)
+    return None if spec is None else spec.index("tp")
 
 
 def shard_params(tree, mesh: Mesh, prefix: tuple = ()):

@@ -6,7 +6,14 @@ candidates splits over ``dp``: each dp rank generates its rows of the
 inside the rank, and the waveforms are gathered over dp so that every rank
 returns all of them. ``tp > 1`` also splits the UNet's and the FLAN-T5
 encoder's attention and FF weights Megatron-style (``parallel.mesh``), so
-one prompt's UNet step spreads over tp ranks.
+one prompt's UNet step spreads over tp ranks. In the int8 serving mode
+(``weight_quant="int8"``) each rank quantizes its slices once a call as the
+whole weights' quantization would cut them, as JAX quantizes the global
+arrays inside its jitted generate: int8 column slices with their scales
+(the fused QKV, attn2's to_q, the GEGLU proj_in: K3q at N / tp), int8 row
+slices with the whole weight's scales (to_out: K5, the FF's proj_out: K4q,
+each in its f32 mode, summed over tp and rounded once), the ResBlock convs
+whole (K1q).
 
 The initial latent and the per-step noise do not depend on dp: every rank
 draws the whole batch's from the same seed, as JAX draws one global x_T and
@@ -43,9 +50,6 @@ class ShardedGenerator:
                 raise RuntimeError(
                     "tp>1 requested but the sharding rules (parallel/mesh.param_spec) matched "
                     "0 tensors — the param-tree key names drifted from the spec table")
-            if model.cfg.weight_quant == "int8":
-                raise NotImplementedError("ShardedGenerator: the int8 serving mode does not "
-                                          "run under tp > 1")
             self.params = shard_params(model.ldm.params, self.mesh)
         else:
             self.n_sharded = 0

@@ -91,8 +91,12 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           at half of F in its f32-residual mode), one 1.25 s request of 2
           DDIM steps, and in each rank a full-width UNet forward at the 10 s
           latent and CFG batch 2 on its slices and K6 in both processes at
-          once; then train.dryrun(2) at dp 2 and at tp 2 (one sharded AdamW
-          step of JAX's dry-run UNet against one process).
+          once; the same in the int8 serving mode (multi8: each rank's int8
+          slices quantized from the whole weights, K1q whole, K3q at half
+          of N, K4q at half of F in its f32-residual mode, K5 at half of K
+          in its f32-output mode); then train.dryrun(2) at dp 2 and at tp 2
+          (one sharded AdamW step of JAX's dry-run UNet against one
+          process).
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -208,11 +212,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      one per dp rank, at least 1.25 s, finite; K6 within 2e-2 of its
      plain version; the tp 2 UNet eps within max(2e-2, 1.25 x the bf16
      floor) of the tp 1 eps (phase 4's bound); each rank's wall and peak
-     device memory printed; the train dry runs' loss within 1e-5 and
-     every updated leaf within 1e-5 relative of one process. Phase 3
-     holds K2, K3 and K4 at one tp 2 rank's shapes of the t5 UNet against
-     their plain versions (K4 in its f32-residual mode to 1e-4) beside
-     the tp 1 rows.
+     device memory printed; the same for the int8 serving mode, whose
+     ranks must each launch K1q, K3q, K4q and K5 and whose int8 tp 2 eps
+     is held to max(2e-2, 1.25 x the int8 forward's bf16 floor) of the
+     int8 tp 1 eps; no call of a rank's tp forward on the shared GEMM
+     core; the train dry runs' loss within 1e-5 and every updated leaf
+     within 1e-5 relative of one process. Phase 3 holds K2, K3 and K4 at
+     one tp 2 rank's shapes of the t5 UNet against their plain versions
+     (K4 in its f32-residual mode to 1e-4) beside the tp 1 rows, and K3q,
+     K4q (f32-residual mode, to 1e-4) and K5 (f32-output mode, to 1e-4)
+     at one tp 2 rank's shapes of the t5 int8 UNet beside the uncut
+     calls, none of them on the shared core.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -698,8 +708,15 @@ def kernel_work(name, args):
     if name in ("ln_matmul", "ln_matmul_q", "int8_matmul", "geglu_matmul", "geglu_matmul_q"):
         w = args[1] if name.startswith(("int8", "geglu")) else args[3]
         k, n = w.shape
-        out = args[3] if name.startswith("geglu") else x  # K4 writes the residual's type
-        return sum(map(nbytes, args)) + rows * n * out.element_size(), 2 * rows * k * n, kind
+        # K4 and K4q write the residual's type (their last argument); K5 in
+        # its f32-output mode (out_dtype, its fifth) f32
+        if name.startswith("geglu"):
+            out_bytes = args[-1].element_size()
+        elif name == "int8_matmul" and len(args) > 4 and args[4] is not None:
+            out_bytes = torch.empty((), dtype=args[4]).element_size()
+        else:
+            out_bytes = x.element_size()
+        return sum(map(nbytes, args)) + rows * n * out_bytes, 2 * rows * k * n, kind
     if name == "group_norm_silu":  # stats, normalize, affine and SiLU: ~10 f32 ops an element
         return sum(map(nbytes, args)) + nbytes(x), 10 * x.numel(), "f32"
     raise ValueError(f"no work model for {name}")
@@ -1375,7 +1392,14 @@ def tp_rank_args(name, args):
     QKV (N = 3C), of attn2's q (N = C) and of the GEGLU projection (N =
     8C, [a_0 | gate_0]); K4 its [a_0 | gate_0] of h and rows of w in the
     f32-residual mode, with the bias and the residual (which the other
-    ranks replace by zeros)."""
+    ranks replace by zeros). The int8 forward's, as its quantization cuts
+    them (models.unet.quantize_st_linears: the whole weights' int8 values
+    and scales): K3q the same columns of wq, ws and the bias; K4q K4's cut
+    with the whole ws; K5, the t5 UNet's to_out projections, its columns of
+    x and rows of wq with the whole ws, no bias (added after the sum over
+    tp) and the f32 output."""
+    import torch
+
     r = 0
     if name == "flash_self_attention":
         q, k, v, scale = args
@@ -1390,42 +1414,78 @@ def tp_rank_args(name, args):
         h, w, b, res = args
         f = w.shape[0] // TP
         return _cut_cols(h, 2, r), w[r * f:(r + 1) * f].contiguous(), b, res.float()
+    if name == "ln_matmul_q":
+        x, gamma, beta, wq, ws, b, eps = args
+        parts = {3: 3, 1: 1, 8: 2}[wq.shape[1] // wq.shape[0]]
+        return (x, gamma, beta, _cut_cols(wq, parts, r), _cut_cols(ws, parts, r),
+                None if b is None else _cut_cols(b, parts, r), eps)
+    if name == "geglu_matmul_q":
+        h, wq, ws, b, res = args
+        f = wq.shape[0] // TP
+        return _cut_cols(h, 2, r), wq[r * f:(r + 1) * f].contiguous(), ws, b, res.float()
+    if name == "int8_matmul":
+        x, wq, ws = args[:3]
+        k = wq.shape[0] // TP
+        return (_cut_cols(x, 1, r), wq[r * k:(r + 1) * k].contiguous(), ws, None,
+                torch.float32)
     raise ValueError(f"{name} is not split under tp")
 
 
-def phase_tp_shapes(first, counts, stats):
-    """K2, K3 and K4 at the shapes one rank of the multi path's tp 2 UNet
+# The kernels a tp rank calls at its slices in bf16 and in the int8 serving
+# mode, and those whose tp mode writes its f32 sum unrounded (held to F32_TOL)
+TP_BF16 = ("flash_self_attention", "ln_matmul", "geglu_matmul")
+TP_INT8 = ("ln_matmul_q", "geglu_matmul_q", "int8_matmul")
+TP_F32_OUT = {"geglu_matmul": "f32-residual ", "geglu_matmul_q": "f32-residual ",
+              "int8_matmul": "f32-output "}
+
+
+def phase_tp_shapes(first, counts, stats, names=TP_BF16, tp1_too: bool = False):
+    """The kernels at the shapes one rank of the multi path's tp 2 UNet
     gives them (the t5 UNet forward's recorded calls cut as tp_rank_args
-    cuts them; each rank launches as many calls as the unsharded UNet), against
-    their plain versions, timed beside the tp 1 rows; K4 in its
-    f32-residual mode, held to F32_TOL (both versions sum bf16 products in
-    f32). The errors join the kernels' records; returns {name: per-rank
-    stats}, which belong to no tp 1 forward."""
+    cuts them; each rank launches as many calls as the unsharded UNet),
+    against their plain versions, timed beside the tp 1 rows: K2, K3 and
+    K4 or, on the int8 forward's calls, K3q, K4q and K5 (``names``). K4 and K4q in
+    their f32-residual mode and K5 in its f32-output mode are held to
+    F32_TOL (both versions sum the same products in f32, unrounded). A bf16
+    call that reaches the shared GEMM core fails the phase (the f32 modes
+    raise where their plan declines). With ``tp1_too`` the uncut calls are
+    checked and timed too (the int8 t5 forward has no tp 1 rows in phase
+    3). The errors join the kernels' records; returns {name: per-rank
+    stats} and {name: tp 1 stats}, which belong to no tp 1 forward."""
     import torch
 
-    failures = []
-    tp_stats = {}
-    for sig, args in first.items():
-        name = sig[0]
-        if name not in ("flash_self_attention", "ln_matmul", "geglu_matmul"):
-            continue
-        rank_args = tp_rank_args(name, args)
-        f32_out = name == "geglu_matmul"
-        tol = F32_TOL if f32_out else BF16_TOL
-        st = tp_stats.setdefault(name, new_stats())
-        res = check_kernel(name, rank_args, tol,
-                           f"tp {TP} rank 0 {'f32-residual ' if f32_out else ''}"
-                           f"{describe(signature(name, rank_args))} x{counts[sig]}", failures)
-        add_call(st, name, rank_args, counts[sig], *res)
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], res[0])
+    failures, on_core = [], {}
+    tp_stats, tp1_stats = {}, {}
+    with shared_core_bf16_counted(on_core):
+        for sig, args in first.items():
+            name = sig[0]
+            if name not in names:
+                continue
+            if tp1_too:
+                st1 = tp1_stats.setdefault(name, new_stats())
+                res = check_kernel(name, args, BF16_TOL,
+                                   f"tp 1 {describe(sig)} x{counts[sig]}", failures)
+                add_call(st1, name, args, counts[sig], *res)
+            rank_args = tp_rank_args(name, args)
+            f32_out = name in TP_F32_OUT
+            st = tp_stats.setdefault(name, new_stats())
+            res = check_kernel(name, rank_args, F32_TOL if f32_out else BF16_TOL,
+                               f"tp {TP} rank 0 {TP_F32_OUT.get(name, '')}"
+                               f"{describe(signature(name, rank_args))} x{counts[sig]}", failures)
+            add_call(st, name, rank_args, counts[sig], *res)
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], res[0])
+    if on_core:
+        failures.append(f"bf16 calls on the shared GEMM core {on_core}")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     for name, st in tp_stats.items():
         lib = "" if st["library_ms"] is None else f", library call {st['library_ms']:.3f} ms"
+        tp1 = tp1_stats.get(name, stats[name])
         log(f"  {name} at tp {TP} (one rank): {st['shapes']} shapes, one forward: kernel "
             f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms"
-            f"{lib}; at tp 1 kernel {stats[name]['ms']:.3f} ms (the UNet's share of it)")
-    return tp_stats
+            f"{lib}; at tp 1 kernel {tp1['ms']:.3f} ms, bound {tp1['bound_ms']:.3f} ms "
+            f"(the UNet's share of it)")
+    return tp_stats, tp1_stats
 
 
 def phase_variants(large_first, device):
@@ -2979,7 +3039,10 @@ def phase_multi_dp1(model, steps: int, duration: float):
 def multi_rank_check(gen, mesh):
     """Run in each rank of the multi path's dryrun_infer(2), after its
     generate: one full-width UNet forward at the 10 s latent and CFG batch
-    2 on the rank's tp slices (bf16, kernels); K6 at MULTI_K6_SHAPE in both
+    2 on the rank's tp slices (bf16, kernels; in the int8 serving mode the
+    rank's int8 slices, quantized from the whole weights), counting the
+    calls that reach the shared GEMM core and the split-K workspaces; K6 at
+    MULTI_K6_SHAPE in both
     processes at once (each its own per-(device, stream) barrier words)
     against its plain version; on rank 0 the tp 1 forward on the whole
     UNet, and its all-plain bf16 and f32 forwards (the phase-4 floor)."""
@@ -2993,11 +3056,13 @@ def multi_rank_check(gen, mesh):
     cfg, dev = gen.model.cfg, mesh.device
     bf16, f32 = torch.bfloat16, torch.float32
     cond = _ctx_inputs(cfg, dev, torch.Generator(device=dev).manual_seed(7))
-    out = {}
+    out, on_core, work = {}, {}, {}
     t0 = time.perf_counter()
-    with collectives.tensor_parallel(mesh):
+    with collectives.tensor_parallel(mesh), shared_core_bf16_counted(on_core), \
+            workspaces_counted(work):
         eps = unet_eps(cfg, gen.params["unet"], cond, dev, bf16)
     out["tp_forward_s"] = time.perf_counter() - t0
+    out["on_core"], out["workspaces"] = on_core, work["workspaces"]
     g = torch.Generator(device=dev).manual_seed(13)
     c = MULTI_K6_SHAPE[-1]
     x = torch.randn(MULTI_K6_SHAPE, generator=g, device=dev).to(bf16)
@@ -3019,25 +3084,27 @@ def multi_rank_check(gen, mesh):
     return out
 
 
-def phase_multi(t5_cfg, device):
-    """dryrun_infer(2) at tp 2 (the t5 family at full width, one 1.25 s
-    request of 2 DDIM steps) with multi_rank_check in its ranks, then
-    train.dryrun(2) at dp 2 and at tp 2; both as two ranks on one card over
-    gloo. Each rank's launches of the generate must equal the config's
-    count (a tp rank launches every kernel the unsharded generate does, at
-    narrower shapes); the tp 2 eps must lie within max(BF16_TOL,
-    FLOOR_FACTOR x the bf16 floor) of the tp 1 eps. Returns the launches
-    summed over the ranks and the timings."""
+def multi_infer(cfg, device):
+    """dryrun_infer(2) at tp 2 on ``cfg`` (the t5 family at full width, one
+    1.25 s request of 2 DDIM steps) with multi_rank_check in its ranks. Each
+    rank's launches of the generate must equal the config's count (a tp
+    rank launches every kernel the unsharded generate does, at narrower
+    shapes), and in the int8 serving mode K1q, K3q, K4q and K5 must each
+    launch; the rank's tp forward must put no call on the shared core and
+    allocate no split-K workspace; the tp 2 eps must lie within
+    max(BF16_TOL, FLOOR_FACTOR x the bf16 floor) of the tp 1 eps. Returns
+    the launches summed over the ranks and the timings."""
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
-    from audioldm2_torch.parallel import serve, train
+    from audioldm2_torch.parallel import serve
 
-    log(f"== path multi: dryrun_infer(2) at tp 2 and train.dryrun(2) at dp 2 and tp 2, two "
-        f"ranks on one card over gloo ({nvidia_smi_line()})")
     t0 = time.perf_counter()
     records = serve.dryrun_infer(2, device=device, backend="gloo", check=multi_rank_check,
-                                 cfg=t5_cfg, timeout=MULTI_TIMEOUT_S)
+                                 cfg=cfg, timeout=MULTI_TIMEOUT_S)
     infer_s = time.perf_counter() - t0
-    expected = kernel_launches_per_generate(t5_cfg, 2)
+    expected = kernel_launches_per_generate(cfg, 2)
+    int8 = ("gn_silu_conv3x3_q", "ln_matmul_q", "geglu_matmul_q", "int8_matmul")
+    if cfg.weight_quant == "int8" and not all(expected[k] for k in int8):
+        raise AssertionError(f"the int8 config launches no {int8}: {expected}")
     total = dict.fromkeys(expected, 0)
     e2e = {"dryrun_infer_s": infer_s, "ranks": []}
     for r in records:
@@ -3050,6 +3117,9 @@ def phase_multi(t5_cfg, device):
         log(f"    launches {r['launches']}")
         if r["launches"] != expected:
             raise AssertionError(f"rank {r['rank']}: launches {r['launches']} != {expected}")
+        if chk["on_core"] or chk["workspaces"]:
+            raise AssertionError(f"rank {r['rank']}: shared-core calls {chk['on_core']} or "
+                                 f"{chk['workspaces']} split-K workspaces in the tp forward")
         if chk["k6_rel_err"] > BF16_TOL:
             raise AssertionError(f"rank {r['rank']}: K6 off its plain version by "
                                  f"{chk['k6_rel_err']:.3e}")
@@ -3066,6 +3136,25 @@ def phase_multi(t5_cfg, device):
         f"|eps| max {chk['eps_max']:.3e}")
     if rel > tol:
         raise AssertionError(f"tp 2 eps off tp 1 by {rel:.3e} > {tol:.3e}")
+    e2e.update(tp_vs_tp1_rel=rel, tol=tol, floor=chk["floor"])
+    return total, e2e
+
+
+def phase_multi(t5_cfg, device):
+    """multi_infer on the t5 family in bf16 and in the int8 serving mode,
+    then train.dryrun(2) at dp 2 and at tp 2; all as two ranks on one card
+    over gloo. Returns the launches summed over the ranks of each dry run
+    ({"multi": bf16 and train-free, "multi8": int8}) and the timings."""
+    import dataclasses
+
+    from audioldm2_torch.parallel import train
+
+    log(f"== path multi: dryrun_infer(2) at tp 2 in bf16 and int8, and train.dryrun(2) at dp 2 "
+        f"and tp 2, two ranks on one card over gloo ({nvidia_smi_line()})")
+    total, e2e = multi_infer(t5_cfg, device)
+    log(f"  -- the int8 serving mode (weight_quant=\"int8\"): K1q, K3q, K4q (f32-residual "
+        f"mode) and K5 (f32-output mode) on each rank's int8 slices ({nvidia_smi_line()})")
+    total8, e2e["int8"] = multi_infer(dataclasses.replace(t5_cfg, weight_quant="int8"), device)
     t0 = time.perf_counter()
     for rec in train.dryrun(2, tp=(1, 2), device=device, backend="gloo",
                             timeout=MULTI_TIMEOUT_S):
@@ -3075,10 +3164,10 @@ def phase_multi(t5_cfg, device):
         e2e[f"train_{rec['mesh'][0]}x{rec['mesh'][1]}"] = {
             "loss": rec["loss"], "ref_loss": rec["ref_loss"], "leaf_rel": rec["leaf_rel"]}
     e2e["train_dryrun_s"] = time.perf_counter() - t0
-    e2e.update(tp_vs_tp1_rel=rel, tol=tol, floor=chk["floor"])
-    log(f"  multi path: dryrun_infer {infer_s:.3f} s, train dry runs "
+    log(f"  multi path: dryrun_infer {e2e['dryrun_infer_s']:.3f} s (bf16), "
+        f"{e2e['int8']['dryrun_infer_s']:.3f} s (int8), train dry runs "
         f"{e2e['train_dryrun_s']:.3f} s (walls, ranks' start and build included)")
-    return total, e2e
+    return {"multi": total, "multi8": total8}, e2e
 
 
 def _leaves(tree):
@@ -3118,7 +3207,8 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     phase_k6_batches(t5_first, stats)
     log(f"  -- multi path: K2, K3, K4 at one tp {TP} rank's shapes of the t5 UNet (K4 in its "
         "f32-residual mode)")
-    tp_stats = phase_tp_shapes(*discover_calls(t5_cfg, t5_unet, None, t5_cond, device), stats)
+    tp_stats, _ = phase_tp_shapes(*discover_calls(t5_cfg, t5_unet, None, t5_cond, device),
+                                  stats)
     del vae_p, t5_first
     log("  -- K1-K4 at ragged and halo shapes, K2 on strided q, k, v")
     phase_ragged(stats, device)
@@ -3133,6 +3223,11 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     int8 = {s: a for s, a in first.items() if s[0] not in stats}
     stats.update(phase_kernels(int8, counts, offset_check=False))
     del first, int8
+    log(f"  -- multi8 path: K3q, K4q (f32-residual mode) and K5 (f32-output mode) at one tp {TP} "
+        "rank's shapes of the t5 int8 UNet, beside the uncut calls")
+    t5_8cfg = dataclasses.replace(t5_cfg, weight_quant="int8")
+    tp8_stats, tp18_stats = phase_tp_shapes(
+        *discover_calls(t5_8cfg, t5_unet, None, t5_cond, device), stats, TP_INT8, tp1_too=True)
     log("  -- large path: K1-K4, K6 on the large-1150k UNet at CFG batch 6 (K2 also on the "
         "None slot's attn2)")
     large_unet = unet.init_unet(ini, large_cfg.unet)
@@ -3223,10 +3318,14 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     more_launches, more_e2e = phase_6(t5_cfg, device, steps, duration)
     launches.update(more_launches)
     e2e.update(more_e2e)
-    launches["multi"], e2e["multi"] = phase_multi(t5_cfg, device)
-    e2e["multi"]["tp_rank_kernels"] = {
-        name: {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")}
-        for name, st in tp_stats.items()}
+    multi_launches, e2e["multi"] = phase_multi(t5_cfg, device)
+    launches.update(multi_launches)
+    keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")
+    e2e["multi"]["tp_rank_kernels"] = {name: {k: st[k] for k in keys}
+                                       for name, st in tp_stats.items()}
+    e2e["multi"]["int8"]["tp_rank_kernels"] = {
+        name: {**{k: st[k] for k in keys}, "tp1": {k: tp18_stats[name][k] for k in keys}}
+        for name, st in tp8_stats.items()}
     for name, err in e2e["train"]["max_abs_err"].items():  # the f32 train-step shapes'
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     return stats, launches, e2e

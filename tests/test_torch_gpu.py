@@ -507,6 +507,37 @@ def test_int8_matmul_bf16_kernel(cuda, M, K, N, with_bias):
     _check(got, lnmm_kernel.int8_matmul_plain(*args), torch.bfloat16)
 
 
+@pytest.mark.parametrize("M,F,N", [(2048, 512, 256), (512, 768, 384), (128, 1280, 640),
+                                   (6144, 512, 256), (100, 520, 144)])
+def test_geglu_matmul_q_f32_residual_kernel(cuda, M, F, N):
+    """K4q's f32-residual mode, a tp 2 rank's int8 FF out (the t5 UNet's
+    three slices, the large UNet's T = 1024 level at CFG batch 6, a ragged
+    one): the f32 sum against the plain version's, one launch of its own
+    entry, to the f32 bound (both sum the same bf16 products in f32)."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    h, wq, ws, b, res = _k4q_args(g, M, F, N, cuda)
+    args = (h, wq, ws, b, res.float())
+    with _entries_counted() as calls:
+        got = lnmm_kernel.geglu_matmul_q(*args)
+    assert calls == {"a2k_geglu_matmul_q_bf16_f32res": 1} and got.dtype == torch.float32
+    _check(got, lnmm_kernel.geglu_matmul_q_plain(*args), torch.float32)
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 128, 256), (512, 192, 384), (128, 320, 640),
+                                   (6144, 128, 256), (77, 200, 144)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_matmul_f32_output_kernel(cuda, M, K, N, with_bias):
+    """K5's f32-output mode, a tp 2 rank's int8 to_out (the t5 UNet's three
+    slices, the large UNet's T = 1024 level, a ragged one): the unrounded
+    f32 product against the plain version's, one launch of its own entry."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    args = _k5_args(g, M, K, N, cuda, with_bias)
+    with _entries_counted() as calls:
+        got = lnmm_kernel.int8_matmul(*args, out_dtype=torch.float32)
+    assert calls == {"a2k_int8_matmul_bf16_f32out": 1} and got.dtype == torch.float32
+    _check(got, lnmm_kernel.int8_matmul_plain(*args, out_dtype=torch.float32), torch.float32)
+
+
 @pytest.mark.parametrize("M,F,N", [(128, 2560, 632), (50, 256, 200)])
 def test_int8_n_no_multiple_of_16_takes_the_shared_core(cuda, M, F, N):
     """The int8 ring copies 16 bytes a row: bf16 K4q and K5 with N no

@@ -1154,14 +1154,81 @@ def test_plans_take_every_tp2_rank_shape(sms):
     assert all(_build.geglu_matmul_plan(m, f, n, sms) is not None for m, f, n in geglu)
 
 
+def _tp2_int8_rank_shapes():
+    """The K3q, K4q and K5 shapes one rank of a tp 2 mesh gives the int8
+    kernels (the shape functions' tp=2) on every family's UNet at CFG batch
+    2 and 6."""
+    k3q, k4q, k5 = set(), set(), set()
+    for name in CONFIGS:
+        cfg = at.default_audioldm_config(name)
+        for batch in (2, 6):
+            args = (cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+            k3q |= set(unet.ln_matmul_shapes(*args, weight_quant="int8", tp=2))
+            k4q |= set(unet.geglu_matmul_shapes(*args, weight_quant="int8", tp=2))
+            k5 |= set(unet.int8_matmul_shapes(*args, tp=2))
+    return sorted(k3q), sorted(k4q), sorted(k5)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_tp2_int8_rank_shapes_are_the_whole_ones_cut(name):
+    """A tp 2 rank launches as many K3q, K4q and K5 calls as the unsharded
+    int8 forward (the predicate takes the whole weights' shapes), each at
+    its slice: K3q at N / 2, K4q at F / 2, K5's to_out at K / 2 and a None
+    slot's to_q at N / 2; the launch counts do not change with tp."""
+    cfg = at.default_audioldm_config(name)
+    size = (cfg.unet, 2, cfg.latent_t_size, cfg.latent_f_size)
+    launches = unet.kernel_launches_per_forward(cfg.unet, "int8")
+    for fn, kw, kernel in ((unet.ln_matmul_shapes, {"weight_quant": "int8"}, "ln_matmul_q"),
+                           (unet.geglu_matmul_shapes, {"weight_quant": "int8"}, "geglu_matmul_q"),
+                           (unet.int8_matmul_shapes, {}, "int8_matmul")):
+        whole, rank = fn(*size, **kw), fn(*size, **kw, tp=2)
+        assert sum(whole.values()) == sum(rank.values()) == launches[kernel]
+        cut = {}
+        for (m, k, n), calls in whole.items():
+            if fn is unet.ln_matmul_shapes:
+                keys = [(m, k, n // 2)]
+            elif fn is unet.geglu_matmul_shapes:
+                keys = [(m, k // 2, n)]
+            else:
+                keys = [(m, k // 2, n), (m, k, n // 2)]
+            for key in keys:
+                cut[key] = cut.get(key, 0) + calls
+        assert set(rank) <= set(cut)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+def test_plans_take_every_tp2_int8_rank_shape(sms):
+    """A tp 2 rank's K3q, K4q and K5 calls have plans: K4q's f32-residual
+    and K5's f32-output modes have no shared-core fallback, and a bf16 K3q
+    call on the shared core fails chip_smoke.py. The t5 family's slices
+    (N = 192, 320, 576, 960; F = 512, 768, 1280; K = 128, 192, 320) are
+    among them."""
+    k3q, k4q, k5 = _tp2_int8_rank_shapes()
+    assert {(2048, 256, 384), (512, 384, 576), (512, 384, 192), (128, 640, 960),
+            (128, 640, 320)} <= set(k3q)
+    assert {(2048, 512, 256), (512, 768, 384), (128, 1280, 640)} <= set(k4q)
+    assert {(2048, 128, 256), (512, 192, 384), (128, 320, 640)} <= set(k5)
+    for m, c, n in k3q:
+        plan = _build.ln_matmul_plan(m, c, n, sms, w_bytes=1)
+        assert plan is not None, (m, c, n)
+    for m, f, n in k4q:
+        _check_thin_q_plan(_build.geglu_matmul_plan(m, f, n, sms, w_bytes=1), m, f, n, sms,
+                           _build.GEGLU_TILES)
+    for m, k, n in k5:
+        _check_thin_q_plan(_build.int8_matmul_plan(m, k, n, sms), m, k, n, sms,
+                           _build.GEGLU_TILES)
+
+
 _REQUIRE_CUDA = _build.require_cuda  # the wrappers' own checks, before any fixture patches them
 
 
 def test_k4_f32_residual_mode_reaches_its_entry(as_if_on_the_card, monkeypatch):
     """bf16 h and w with an f32 residual (a tp rank's K4) pass the
     wrapper's own device and dtype checks and reach
-    a2k_geglu_matmul_bf16_f32res, which writes the f32 sum; K4q and an f32
-    residual with a plan-less shape are refused rather than sent to a
+    a2k_geglu_matmul_bf16_f32res, which writes the f32 sum; K4q with an f32
+    residual (a tp rank's int8 FF) reaches a2k_geglu_matmul_q_bf16_f32res;
+    a residual of another type than h outside the mode, and an f32
+    residual with a plan-less shape, are refused rather than sent to a
     kernel that reads another type."""
     from audioldm2_torch.ops import lnmm_kernel as lk
 
@@ -1177,8 +1244,52 @@ def test_k4_f32_residual_mode_reaches_its_entry(as_if_on_the_card, monkeypatch):
                         out.data_ptr())
     assert "a2k_geglu_matmul_bf16" not in as_if_on_the_card.calls
     wq, ws = torch.zeros(512, 256, dtype=torch.int8), torch.ones(256)
+    out_q = lk.geglu_matmul_q(h, wq, ws, bias, res)
+    assert out_q.dtype == torch.float32 and out_q.shape == (2048, 256)
+    args = as_if_on_the_card.calls["a2k_geglu_matmul_q_bf16_f32res"]
+    plan = _build.geglu_matmul_plan(2048, 512, 256, SMS, w_bytes=1)
+    assert args[:7] == (h.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), 1,
+                        res.data_ptr(), out_q.data_ptr())
+    assert args[7:15] == (2048, 512, 256, plan.bm, plan.bn, plan.strip_tiles, plan.stages,
+                          plan.splits)
+    assert "a2k_geglu_matmul_q_bf16" not in as_if_on_the_card.calls
     with pytest.raises(ValueError, match="f32 residual"):
-        lk.geglu_matmul_q(h, wq, ws, bias, res)
+        lk.geglu_matmul_q(h.float(), wq, ws, bias, res.to(bf16))
     with pytest.raises(ValueError, match="no plan"):
         lk.geglu_matmul(torch.zeros(4, 2 * 20, dtype=bf16), torch.zeros(20, 12, dtype=bf16),
                         torch.zeros(12, dtype=bf16), torch.zeros(4, 12))
+    with pytest.raises(ValueError, match="no plan"):
+        lk.geglu_matmul_q(torch.zeros(4, 2 * 64, dtype=bf16), torch.zeros(64, 24, dtype=torch.int8),
+                          torch.ones(24), torch.zeros(24, dtype=bf16), torch.zeros(4, 24))
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_k5_f32_output_mode_reaches_its_entry(as_if_on_the_card, monkeypatch, with_bias):
+    """bf16 x with out_dtype=torch.float32 (a tp rank's int8 to_out) passes
+    the wrapper's checks and reaches a2k_int8_matmul_bf16_f32out with the
+    plan's launch arguments, which writes the f32 product; another output
+    type, and the mode at a plan-less shape, are refused (never the shared
+    core)."""
+    from audioldm2_torch.ops import lnmm_kernel as lk
+
+    monkeypatch.setattr(_build, "require_cuda", _REQUIRE_CUDA)
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    m, k, n = 128, 320, 640
+    x = torch.zeros(m, k, dtype=bf16)
+    wq, ws = torch.zeros(k, n, dtype=torch.int8), torch.ones(n)
+    bias = torch.ones(n, dtype=bf16) if with_bias else None
+    out = lk.int8_matmul(x, wq, ws, bias, out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    args = lib.calls.pop("a2k_int8_matmul_bf16_f32out")
+    plan = _build.int8_matmul_plan(m, k, n, SMS)
+    assert args[:6] == (x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        bias.data_ptr() if with_bias else None, 1, out.data_ptr())
+    assert args[6:14] == (m, k, n, plan.bm, plan.bn, plan.strip_tiles, plan.stages, plan.splits)
+    assert not lib.calls
+    with pytest.raises(ValueError, match="f32 output"):
+        lk.int8_matmul(x, wq, ws, bias, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="no plan"):
+        lk.int8_matmul(torch.zeros(4, 20, dtype=bf16), torch.zeros(20, 24, dtype=torch.int8),
+                       torch.ones(24), None, out_dtype=torch.float32)
+    assert not lib.calls
