@@ -59,9 +59,9 @@ def assemble_unet_inputs(outputs):
 
 
 def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
-    """Encode every conditioner; returns ((y, contexts, masks), B * n_gen,
-    cfg_on): the UNet inputs stacked (uncond || cond * n_gen) for a
-    [2 * B * n_gen] CFG batch, or the cond inputs alone when guidance == 1."""
+    """Encode every conditioner; returns ((y, contexts, masks), B * n_gen):
+    the UNet inputs stacked (uncond || cond * n_gen) for a [2 * B * n_gen]
+    CFG batch, or the cond inputs alone when guidance == 1."""
     cond = [conditioners.encode(params["cond"][s.name], s, batch) for s in cfg.conditioners]
     kind, v = cond[0]
     bsz = (v[0] if kind == "crossattn" else v).shape[0] * n_gen
@@ -72,7 +72,7 @@ def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: f
 
     cond = [tile(*c) for c in cond]
     if guidance == 1.0:
-        return assemble_unet_inputs(cond), bsz, False
+        return assemble_unet_inputs(cond), bsz
     stacked = []
     for s, (kind, vc) in zip(cfg.conditioners, cond):
         kind_u, vu = conditioners.unconditional(params["cond"][s.name], s, batch, bsz)
@@ -82,7 +82,7 @@ def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: f
         else:
             squeeze = (lambda e: e[:, 0] if e.dim() == 3 else e)  # noqa: E731
             stacked.append((kind, torch.cat([squeeze(vu), squeeze(vc)])))
-    return assemble_unet_inputs(stacked), bsz, True
+    return assemble_unet_inputs(stacked), bsz
 
 
 def prepare_unet(params, cfg: ModelConfig, contexts_c):
@@ -108,7 +108,14 @@ def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
     [2 * B * n_gen] CFG batch. Each UNet call sits
     in a ``torch.profiler.record_function("unet")`` range, which a trace
     reads (``utils.profiling``)."""
-    (y, contexts, masks), bsz, cfg_on = encode_conditioning(params, cfg, batch, n_gen, guidance)
+    (y, contexts, masks), bsz = encode_conditioning(params, cfg, batch, n_gen, guidance)
+    return conditioned_eps_fn(params, cfg, y, contexts, masks, guidance), bsz
+
+
+def conditioned_eps_fn(params, cfg: ModelConfig, y, contexts, masks, guidance: float):
+    """eps_fn on given UNet inputs (``encode_conditioning``'s, stacked
+    uncond || cond when ``guidance`` != 1), the per-call UNet transforms
+    done once."""
     cdtype = compute_dtype(cfg)
     contexts_c = [c.to(cdtype) for c in contexts]
     y_c = y.to(cdtype) if y is not None else None
@@ -120,7 +127,7 @@ def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
                                   context_mask_list=masks, y=y_c, cross_kv=cross_kv)
         return eps.float()
 
-    return (ddim.cfg_eps_fn(model_fn, guidance) if cfg_on else model_fn), bsz
+    return ddim.cfg_eps_fn(model_fn, guidance) if guidance != 1.0 else model_fn
 
 
 def decode_latent(params, cfg: ModelConfig, z: torch.Tensor):

@@ -38,6 +38,8 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
+from audioldm2_torch.params import leaves_with_paths  # noqa: F401  (the package's tree walk)
+
 Spec = Tuple[Optional[str], ...]
 
 
@@ -161,19 +163,6 @@ def param_spec(path: Sequence, leaf) -> Spec:
     if ".ff.proj_out." in name or ".ff.wo." in name:
         return spec_for_linear(col=False)
     return ()
-
-
-def leaves_with_paths(tree, prefix: tuple = ()):
-    """(path, leaf) of every non-container, non-None node of a tree of
-    dicts and lists, in key order (JAX's flattening order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from leaves_with_paths(tree[k], prefix + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from leaves_with_paths(v, prefix + (i,))
-    elif tree is not None:
-        yield prefix, tree
 
 
 def sharded_leaf_count(params) -> int:

@@ -169,7 +169,7 @@ def full_diffusion_loss(params, cfg: ModelConfig, schedule_consts, batch, genera
     with torch.no_grad() if train_unet_only else contextlib.nullcontext():
         mean, logvar = vae_m.encode_moments(params["vae"], cfg.vae, batch["fbank"].float())
         z = vae_m.sample_posterior(mean, logvar, generator=generator, noise=posterior_noise)
-        (y, contexts, masks), _, _ = encode_conditioning(params, cfg, batch, 1, 1.0)
+        (y, contexts, masks), _ = encode_conditioning(params, cfg, batch, 1, 1.0)
     x0 = params["scale_factor"] * z
     t, noise, x_noisy = _noised(schedule_consts, x0, generator, t, noise)
     eps = unet_m.apply_unet(unet_m.fuse_self_qkv(params["unet"]), cfg.unet, x_noisy, t,

@@ -7,10 +7,14 @@ leaf, which is how both packages get the same weights. :func:`init_params`
 draws a tree of the same structure directly on the device with a
 ``torch.Generator``: drawing ~0.8 B values with numpy on the host is the
 slow path the JAX package documents (``ops/nn.py:41-47``).
+:func:`draw_tree` fills the same structure with numpy values keyed by each
+leaf's path, which any machine rebuilds without JAX (:func:`tree_digest`).
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import math
 import zlib
 from typing import Any, Dict
@@ -118,6 +122,126 @@ class Init:
 
     def norm(self, c) -> Dict[str, torch.Tensor]:
         return {"scale": torch.ones((c,), device=self.device), "bias": self.zeros((c,))}
+
+
+# The draw keyed by leaf path (draw_tree): one pool of uniform values from
+# PCG64's raw stream, which numpy keeps stable across versions, converted
+# with exact arithmetic only, so every machine fills it alike. Its odd length
+# keeps a leaf's rows from lining up with the pool's period.
+DRAW_POOL_SIZE = (1 << 22) + 1
+DRAW_ONE_NAMES = frozenset({"scale", "var", "scale_factor"})
+DRAW_SMALL_STD = 0.05
+
+
+@functools.lru_cache(maxsize=2)
+def _draw_pool(seed: int) -> np.ndarray:
+    """DRAW_POOL_SIZE float32 values, uniform on [-sqrt 3, sqrt 3) (mean 0,
+    variance 1): the top 24 bits k of each raw 64-bit word as
+    ((k + 0.5) / 2**23 - 1) * sqrt 3."""
+    raw = np.random.PCG64(np.random.SeedSequence([int(seed), 0xA2D7])).random_raw(
+        DRAW_POOL_SIZE)
+    u = ((raw >> np.uint64(40)).astype(np.float64) + 0.5) / float(1 << 23) - 1.0
+    return (u * math.sqrt(3.0)).astype(np.float32)
+
+
+def draw_leaf(seed: int, path: str, shape) -> np.ndarray:
+    """The float32 values of the leaf at ``path`` ("unet/out_conv/w") of
+    ``shape``: a cyclic copy of the seed's pool from an offset hashed from
+    (path, shape), scaled by the leaf's role:
+
+    - two or more dimensions (a weight; the JAX layouts put the output
+      features last): std 1 / sqrt(fan_in), fan_in the product of all but
+      the last dimension, so each layer keeps its activations O(1);
+    - a multiplicative scale (a norm's ``scale``, a running ``var``, the
+      latent ``scale_factor``): 1 + 0.05 x (mean 1, always positive);
+    - any other vector or scalar (biases, running means, logit scales):
+      0.05 x.
+
+    No leaf is all zero, so the UNet's zero-initialized output convs and
+    ``proj_out`` leaves (see :class:`Init`) are live."""
+    shape = tuple(int(s) for s in shape)
+    pool = _draw_pool(seed)
+    n = math.prod(shape)
+    digest = hashlib.sha256(f"{path}|{shape}".encode()).digest()
+    off = int.from_bytes(digest[:8], "little") % pool.size
+    out = np.empty(n, np.float32)
+    first = min(n, pool.size - off)
+    out[:first] = pool[off:off + first]
+    filled = first
+    while filled < n:
+        c = min(pool.size, n - filled)
+        out[filled:filled + c] = pool[:c]
+        filled += c
+    if len(shape) >= 2:
+        out *= np.float32(1.0 / math.sqrt(math.prod(shape[:-1])))
+    elif path.rsplit("/", 1)[-1] in DRAW_ONE_NAMES:
+        out *= np.float32(DRAW_SMALL_STD)
+        out += np.float32(1.0)
+    else:
+        out *= np.float32(DRAW_SMALL_STD)
+    return out.reshape(shape)
+
+
+def leaves_with_paths(tree: Any, prefix: tuple = ()):
+    """(path, leaf) of every non-container, non-None node of a tree of
+    dicts, lists and tuples, the path a tuple of keys and indices, in sorted
+    key order (JAX's flattening order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_paths(v, prefix + (i,))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def tree_paths(tree: Any):
+    """(path, leaf) of every leaf, the keys and list indices joined by "/"."""
+    for path, leaf in leaves_with_paths(tree):
+        yield "/".join(map(str, path)), leaf
+
+
+def fill_tree(tree: Any, seed: int = 0, prefix: str = "") -> Any:
+    """A copy of ``tree`` (any nest of dicts, lists and tuples over arrays or
+    tensors: numpy, JAX, torch, ``"meta"``) with each floating leaf replaced
+    by :func:`draw_leaf`'s numpy values at its path and shape; other leaves
+    pass through."""
+    if isinstance(tree, dict):
+        return {k: fill_tree(v, seed, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fill_tree(v, seed, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    dtype = getattr(tree, "dtype", None)
+    floating = (dtype.is_floating_point if isinstance(dtype, torch.dtype)
+                else dtype is not None and np.dtype(dtype).kind == "f")
+    return draw_leaf(seed, prefix, tree.shape) if floating else tree
+
+
+def draw_tree(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """The parameter tree of ``cfg`` as numpy float32 arrays in the JAX
+    package's keys and layouts, every value a function of (seed, the leaf's
+    path, its shape) alone (:func:`draw_leaf`): numpy only, no torch or JAX
+    random state, at memory-copy speed. The same tree feeds both packages
+    (``audioldm2_tpu.pipeline.AudioLDM2(cfg, tree)`` and
+    ``build_model(params=tree)``), and any machine rebuilds it to the same
+    :func:`tree_digest`. The structure is the port's own init on the
+    ``"meta"`` device (shapes only)."""
+    return fill_tree(init_params(cfg, torch.Generator().manual_seed(0), "meta"), seed)
+
+
+def tree_digest(tree: Any) -> str:
+    """SHA-256 over the leaves in sorted path order: each leaf's path, shape,
+    dtype and bytes (numpy, JAX or CPU torch leaves)."""
+    h = hashlib.sha256()
+    for path, leaf in sorted(tree_paths(tree), key=lambda pl: pl[0]):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        a = np.ascontiguousarray(np.asarray(leaf))
+        h.update(f"{path}|{a.shape}|{a.dtype.str}|".encode())
+        h.update(memoryview(a).cast("B"))
+    return h.hexdigest()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,

@@ -38,7 +38,7 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
   mae     audioldm2-full's UNet conditioned by the TTA generator's nested
           audiomae_pooled(8, 8) spec and the t5 spec (the 8 pooled AudioMAE
           tokens fill the 768-wide slot), on a 10 s 16 kHz clip through
-          make_batch("", waveform=): one batch-1 and one batch-2 request;
+          make_batch("", waveform=): one batch-1 request;
           and, on the full path's loaded model, its nested AudioMAE once,
           held against the CPU (the first read of those loaded weights);
   towers  the CLAP towers PANN-14, PANN-10, BERT, BART and the CLIP-BPE
@@ -96,7 +96,16 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           of N, K4q at half of F in its f32-residual mode, K5 at half of K
           in its f32-output mode); then train.dryrun(2) at dp 2 and at tp 2
           (one sharded AdamW step of JAX's dry-run UNet against one
-          process).
+          process);
+  golden  the five cases of the full-width golden that the JAX package
+          made on the CPU in f32 (audioldm2_torch/assets/
+          golden_fullwidth.npz, audioldm2_torch.tools.golden_parity):
+          t5_headline (audioldm_16k_crossattn_t5, 200 steps), full, large,
+          k48 (3 candidates and the CLAP rerank) and tts (with a
+          transcription), 10 steps each, 10.24 s; each tree drawn with
+          numpy (params.draw_tree) to the stored digest, each request from
+          the stored x_T at eta 0 through model.ldm.generate, in f32, in
+          bf16 and (full) in the int8 serving mode.
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -153,8 +162,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      requests on each path at the reference defaults (10 s, 200 steps,
      guidance 3.5, or 2.5 for sr): one at batch 1 on the t5 path (its
      wall is the p50 latency), one on the full, sr, full8, large, 48k,
-     tts and mae paths, and one at batch 2 on the t5, full, sr, 48k, tts and
-     mae paths (the clapaudio and towers paths answer one batch-1 request),
+     tts and mae paths, and one at batch 2 on the t5, 48k and tts paths
+     (the clapaudio and towers paths answer one batch-1 request),
      with output checks (and,
      on the paths with a sequence generator, the GPT-2 tokens finite and the
      CLAP text embedding of unit norm; the walls of the sequence generator
@@ -223,6 +232,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      K4q (f32-residual mode, to 1e-4) and K5 (f32-output mode, to 1e-4)
      at one tp 2 rank's shapes of the t5 int8 UNet beside the uncut
      calls, none of them on the shared core.
+  8. the golden path: the batch's ids equal to the golden's; in f32 (TF32
+     off) each case within its mel MAE limit (golden_parity.f32_limit: 4x
+     the port's CPU reading, under the round's bar of 1e-3) and k48's pick
+     the golden's, and two controls over that limit: the same request with
+     the UNet's weights rounded to TF32 (what a 1xTF32 K1, K3 or K4 would
+     read) and with TF32 on for cuBLAS and cuDNN; the launches of each generate equal to the
+     config's (every kernel it predicts launched), no CUDA tensor in a
+     plain version, no shared-core call (the f32 K3 and K4 run on the
+     shared core, as in the train step, and their split-K workspaces are
+     counted; bf16 and int8 requests allocate none); printed: the
+     GPT-2 sequence, each context slot, y, the latent, the mel (MAE, max),
+     the waveform and the CLAP scores against the golden, and each stage on
+     the golden's own input (the first step's eps at x_T on t5_headline,
+     the VAE decode of the golden latent, the vocoder on the golden mel);
+     in bf16 and, on full, in int8, under cudnn.deterministic, the same
+     request through the kernels and through the plain versions (the
+     floor), the kernels' mel MAE held to FLOOR_FACTOR (1.25) x the
+     floor's.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Tolerances: max|kernel - plain| / max|plain| <= 2e-2 in bf16 and <= 1e-4
@@ -1840,11 +1867,12 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
            ("A violin melody in a large hall.", 1), ("Waves crashing on rocks.", 2)]
 # Depth, so that the whole run keeps well inside its time on a slow host:
-# the t5 path one batch-1 and one batch-2 request; the full, sr, 48k and tts
-# paths one and one; the full8 and large paths one batch-1 request (full8's
-# kernels are the full path's int8 siblings at the same shapes, and the
+# the t5 path one batch-1 and one batch-2 request; the 48k and tts paths one
+# and one; the full, sr, mae, full8 and large paths one batch-1 request
+# (full8's kernels are the full path's int8 siblings at the same shapes, the
 # large path's batch-1 request at 3 candidates runs its UNet at CFG batch 6,
-# above a batch-2 request's 4)
+# above a batch-2 request's 4, and the golden path serves audioldm2-full
+# again in f32, bf16 and int8)
 PROMPTS_T5 = PROMPTS[:1] + PROMPTS[3:]
 PROMPTS_SHORT = PROMPTS[2:]
 PROMPTS_ONE = PROMPTS[2:3]
@@ -1947,7 +1975,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
         del written
         launches["full"], e2e["full"] = phase_requests(
             "full", model, t2a(model), expect(model.cfg, steps), steps, duration,
-            "text_to_audio ddim, guidance 3.5", PROMPTS_SHORT)
+            "text_to_audio ddim, guidance 3.5", PROMPTS_ONE)
         e2e["full"]["loaded_audiomae_s"] = phase_mae_loaded(model, device)
         log("== requests on path sr: the same model through super_resolution_and_inpainting")
         with tempfile.TemporaryDirectory() as tmp:
@@ -1962,7 +1990,7 @@ def phase_5(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, d
 
             launches["sr"], e2e["sr"] = phase_requests(
                 "sr", model, sr_request, expect(model.cfg, steps, encode=True), steps,
-                duration, "super_resolution_and_inpainting, guidance 2.5", PROMPTS_SHORT)
+                duration, "super_resolution_and_inpainting, guidance 2.5", PROMPTS_ONE)
         del model
 
         model = load_checkpoint("full8", path, full_cfg, device, weight_quant="int8")
@@ -2137,7 +2165,7 @@ def phase_mae(full_cfg, device, steps: int, duration: float):
     """audioldm2-full's UNet conditioned by (the TTA generator's nested
     audiomae_pooled(8, 8) spec, the t5 spec): the 8 pooled tokens x 768
     fill the 768-wide slot. AudioMAE timed at batch 1 and 2, then one
-    batch-1 and one batch-2 request on a 10 s 16 kHz clip."""
+    batch-1 request on a 10 s 16 kHz clip."""
     import dataclasses
 
     import torch
@@ -2162,14 +2190,9 @@ def phase_mae(full_cfg, device, steps: int, duration: float):
     request = audio_request(model, lambda b: model.make_batch("", batchsize=b, waveform=wav),
                             steps, duration)
     request(1, 10, 2.5)  # warm up
-    expected = kernel_launches_per_generate(cfg, steps)
-    launches = None
-    for b in (1, 2):
-        wall, counts, _ = one_request(model, request, expected, b, duration,
-                                      f"make_batch(waveform=) + generate, {steps} steps, "
-                                      "guidance 3.5")
-        launches = launches or counts
-        walls[f"batch{b}_s"] = wall
+    walls["batch1_s"], launches, _ = one_request(
+        model, request, kernel_launches_per_generate(cfg, steps), 1, duration,
+        f"make_batch(waveform=) + generate, {steps} steps, guidance 3.5")
     return launches, walls
 
 
@@ -3176,6 +3199,189 @@ def _leaves(tree):
     return (leaf for _, leaf in _paths(tree) if isinstance(leaf, torch.Tensor))
 
 
+# the golden case that also runs in the int8 serving mode
+GOLDEN_INT8_CASES = ("full",)
+
+
+@contextlib.contextmanager
+def tf32_allowed(allow: bool):
+    """TF32 for cuBLAS's matmuls and cuDNN's convs on (``allow``) or off
+    inside the block."""
+    import torch
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def tf32_weights(tree):
+    """``tree`` with each f32 leaf of two or more dimensions rounded to TF32
+    (10 mantissa bits, to nearest even): the weight operand that a K1, K3 or
+    K4 quietly multiplying in 1xTF32 would read."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tf32_weights(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tf32_weights(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32 and tree.dim() >= 2:
+        i = tree.contiguous().view(torch.int32)
+        return ((i + ((i >> 13) & 1) + 0xFFF) & ~0x1FFF).view(torch.float32)
+    return tree
+
+
+def golden_request(model, name: str, golden, expected, stages: bool):
+    """golden_parity.run on ``model`` with the launch counts set to 0 just
+    before its generate and read just after, under the request checks of
+    phase 5 (no CUDA tensor in a plain version, no call on the shared core,
+    no split-K workspace in bf16; f32's are counted); the counts must equal
+    ``expected``. Returns the distances and the counts."""
+    import torch
+    from audioldm2_torch import ops
+    from audioldm2_torch.tools import golden_parity as gp
+
+    on_core, work, counts = {}, {}, {}
+
+    @contextlib.contextmanager
+    def counted():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with plain_versions_forbidden(), shared_core_bf16_counted(on_core), \
+                workspaces_counted(work):
+            yield
+        torch.cuda.synchronize()
+        counts.update(ops.launch_counts())
+
+    d = gp.run(model, name, golden, around_generate=counted, stages=stages)
+    d["workspaces"] = work["workspaces"]
+    # f32 K3 and K4 run on the shared GEMM core, whose split-K allocates a
+    # workspace (as in the train step); a served bf16 or int8 request allocates none
+    bf16 = model.cfg.compute_dtype == "bfloat16"
+    if on_core or (bf16 and work["workspaces"]):
+        raise AssertionError(f"golden {name}: shared-core calls {on_core} or "
+                             f"{work['workspaces']} split-K workspaces")
+    if counts != expected:
+        missing = [k for k, v in expected.items() if v and not counts[k]]
+        raise AssertionError(f"golden {name}: launch counts {counts} != expected {expected} "
+                             f"(never launched: {missing})")
+    return d, counts
+
+
+def _golden_line(tag: str, d) -> str:
+    keys = ("seq_rel", "ctx0_rel", "ctx1_rel", "y_rel", "eps0_rel", "eps0_unet_rel",
+            "latent_rel", "mel_mae", "mel_max", "wav_mae", "decode_mel_mae", "vocoder_wav_mae",
+            "scores_max", "workspaces")
+    parts = [f"{k} {d[k]}" if isinstance(d[k], int) else f"{k} {d[k]:.3e}"
+             for k in keys if k in d]
+    if "same_pick" in d:
+        parts.append(f"pick {d['pick']} (same: {d['same_pick']})")
+    return f"    {tag}: generate {d['generate_s']:.3f} s; " + ", ".join(parts)
+
+
+def phase_golden(device):
+    """Every case of the full-width golden (audioldm2_torch.tools.
+    golden_parity; made by the JAX package on the CPU in f32): the tree
+    drawn with numpy to the stored digest, then the request in f32 (TF32
+    off) through the kernels, held to the case's mel MAE limit
+    (golden_parity.f32_limit) and the same pick, with every kernel the
+    config predicts launching as often as it predicts, and two controls (the
+    UNet's weights rounded to TF32; TF32 on for cuBLAS and cuDNN) that must
+    fail that limit; then in bf16, and ``full`` in the int8 serving mode, under
+    cudnn.deterministic, each held to FLOOR_FACTOR x its floor (the
+    all-plain request's mel MAE in the same mode). Returns the launches of
+    each request and the distances."""
+    import dataclasses
+
+    import torch
+    from audioldm2_torch import params as params_m
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+    from audioldm2_torch.pipeline import AudioLDM2
+    from audioldm2_torch.tools import golden_parity as gp
+
+    log(f"== path golden: the port against the JAX package's full-width golden "
+        f"({os.path.relpath(gp.GOLDEN, REPO)}) ({nvidia_smi_line()})")
+    golden = gp.load()
+    launches, e2e = {}, {}
+    for name, case in gp.CASES.items():
+        cfg = gp.case_config(case)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tree = params_m.draw_tree(cfg, golden[name]["meta"]["tree_seed"])
+        draw_s = time.perf_counter() - t0
+        model = gp.build(name, device, golden, tree=tree)
+        del tree
+        torch.cuda.synchronize()
+        log(f"  -- {name}: {case.family}, {case.steps} steps, n = {case.n_gen}, latent "
+            f"{golden[name]['meta']['latent_t']}: draw_tree {draw_s:.2f} s, digest and build "
+            f"{time.perf_counter() - t0 - draw_s:.2f} s (digest equal to the golden's)")
+        res = {}
+        d, counts = golden_request(model, name, golden,
+                                   kernel_launches_per_generate(cfg, case.steps), stages=True)
+        log(_golden_line("f32", d))
+        log(f"      launches {counts}")
+        log(f"      f32 mel MAE {d['mel_mae']:.3e} against the case's limit "
+            f"{gp.f32_limit(name):g} (the bar {gp.MEL_MAE_TOL:g})")
+        if not gp.f32_ok(d):
+            raise AssertionError(f"golden {name} f32: mel MAE {d['mel_mae']:.3e} (limit "
+                                 f"{gp.f32_limit(name):g}) or pick {d.get('pick')} differs")
+        res["f32"] = d
+        launches[f"golden_{name}"] = counts
+        # two controls that must fail the case's limit: the UNet's weights at
+        # TF32 (what a K1, K3 or K4 quietly in 1xTF32 would read), and TF32 on
+        # for cuBLAS and cuDNN (the plain ops that do not turn it off themselves)
+        tf32_unet = AudioLDM2(cfg, {**model.ldm.params,
+                                    "unet": tf32_weights(model.ldm.params["unet"])}, device)
+        controls = [("tf32_weights", tf32_unet, False), ("tf32_on", model, True)]
+        if not torch.cuda.is_available():  # a rehearsal on the CPU, which has no TF32
+            controls.pop()
+        for tag, ctl, allow in controls:
+            with tf32_allowed(allow):
+                c = gp.run(ctl, name, golden, stages=False)
+            log(_golden_line(f"control {tag}", c))
+            log(f"      control {tag} mel MAE {c['mel_mae']:.3e}: "
+                f"{c['mel_mae'] / gp.f32_limit(name):.2f} x the case's limit, "
+                f"{c['mel_mae'] / gp.MEL_MAE_TOL:.2f} x the bar")
+            if gp.f32_ok(c):
+                raise AssertionError(f"golden {name}: the {tag} control passes the f32 limit "
+                                     f"{gp.f32_limit(name):g} (mel MAE {c['mel_mae']:.3e})")
+            res[f"control_{tag}"] = c
+        del tf32_unet, controls, ctl
+        modes = [("bf16", dataclasses.replace(cfg, compute_dtype="bfloat16"))]
+        if name in GOLDEN_INT8_CASES:
+            modes.append(("int8", dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                                       weight_quant="int8")))
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for tag, mcfg in modes:
+                m = AudioLDM2(mcfg, model.ldm.params, device)
+                d, counts = golden_request(m, name, golden,
+                                           kernel_launches_per_generate(mcfg, case.steps),
+                                           stages=False)
+                with patched_dispatch("plain"):
+                    floor = gp.run(m, name, golden, stages=False)
+                bound = FLOOR_FACTOR * floor["mel_mae"]
+                log(_golden_line(tag, d))
+                log(_golden_line(f"{tag} all-plain (the floor)", floor))
+                log(f"      {tag} mel MAE {d['mel_mae']:.3e} against {FLOOR_FACTOR:g} x "
+                    f"the floor {floor['mel_mae']:.3e} = {bound:.3e}; launches {counts}")
+                if not d["mel_mae"] <= bound:
+                    raise AssertionError(f"golden {name} {tag}: mel MAE {d['mel_mae']:.3e} > "
+                                         f"{bound:.3e}")
+                res[tag] = d
+                res[f"{tag}_floor"] = floor
+                res[f"{tag}_bound"] = bound
+                launches[f"golden_{name}_{tag}"] = counts
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        e2e[name] = res
+        del model
+    return launches, e2e
+
+
 def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, duration: float):
     """Phases 2-5 at the configs' widths on ``device``; returns the
     per-kernel stats of phase 3 and the launch counts of the first request
@@ -3320,6 +3526,8 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     e2e.update(more_e2e)
     multi_launches, e2e["multi"] = phase_multi(t5_cfg, device)
     launches.update(multi_launches)
+    golden_launches, e2e["golden"] = phase_golden(device)
+    launches.update(golden_launches)
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")
     e2e["multi"]["tp_rank_kernels"] = {name: {k: st[k] for k in keys}
                                        for name, st in tp_stats.items()}

@@ -140,9 +140,11 @@ def test_conditioning_assembly_matches_jax(models, guidance, n_gen):
     jb = jmodel.make_batch("a duck quacks", batchsize=2)
     tb = tmodel.make_batch("a duck quacks", batchsize=2)
     (jy, jctx, jmask), jbsz, jon = jld.encode_conditioning(tree, cfg, jb, n_gen, guidance)
-    (ty, tctx, tmask), tbsz, ton = tld.encode_conditioning(tmodel.ldm.params, tmodel.cfg, tb,
-                                                           n_gen, guidance)
-    assert (tctx, tmask, tbsz, ton) == ([], [], jbsz, jon) and jctx == [] and jmask == []
+    (ty, tctx, tmask), tbsz = tld.encode_conditioning(tmodel.ldm.params, tmodel.cfg, tb, n_gen,
+                                                      guidance)
+    # the port's CFG switch (conditioned_eps_fn) is guidance != 1, as JAX's cfg_on
+    assert (tctx, tmask, tbsz, guidance != 1.0) == ([], [], jbsz, jon)
+    assert jctx == [] and jmask == []
     rows = 2 * n_gen * (2 if guidance != 1.0 else 1)
     assert tuple(ty.shape) == (rows, 24)
     assert _rel(ty, jy) <= TOL
