@@ -85,20 +85,26 @@ def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: f
     return assemble_unet_inputs(stacked), bsz
 
 
-def prepare_unet(params, cfg: ModelConfig, contexts_c):
-    """The per-call UNet transforms, in the JAX package's order: the cast
-    to the compute dtype, the cross K/V, the fused self-attention QKV, then
-    (``weight_quant="int8"``) the int8 ST linears and ResBlock convs, whose
-    scales come from the cast weights and stay f32. Under tp (inside
+def served_unet(unet_p, cfg: ModelConfig):
+    """The UNet tree a request runs, from the one cast to the compute
+    dtype: the fused self-attention QKV, then (``weight_quant="int8"``) the
+    int8 ST linears and ResBlock convs, whose scales come from the cast
+    weights and stay f32. Under tp (inside
     ``parallel.collectives.tensor_parallel``, on the rank's slices) the
     int8 leaves are the whole weights' quantization cut to the rank's
     slices (``unet.quantize_st_linears``: one all-reduce a call)."""
-    unet_p = cast_floating(params["unet"], compute_dtype(cfg))
-    cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
     unet_p = unet.fuse_self_qkv(unet_p)
     if cfg.weight_quant == "int8":
         unet_p = unet.quantize_resblock_convs(unet.quantize_st_linears(unet_p))
-    return unet_p, cross_kv
+    return unet_p
+
+
+def prepare_unet(params, cfg: ModelConfig, contexts_c):
+    """The per-call UNet transforms, in the JAX package's order: the cast
+    to the compute dtype, the cross K/V, then :func:`served_unet`."""
+    unet_p = cast_floating(params["unet"], compute_dtype(cfg))
+    cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
+    return served_unet(unet_p, cfg), cross_kv
 
 
 def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):

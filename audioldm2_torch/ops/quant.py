@@ -20,7 +20,10 @@ import torch
 
 
 def _absmax_quantize(w32: torch.Tensor, dims, absmax=None):
-    s = (w32.abs().amax(dim=dims) if absmax is None else absmax) / 127.0
+    absmax = w32.abs().amax(dim=dims) if absmax is None else absmax
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which leaves some scales one ulp off float32 division
+    s = absmax / torch.full_like(absmax, 127.0)
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(w32 / s), -127.0, 127.0).to(torch.int8)
     return q, s

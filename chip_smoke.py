@@ -97,15 +97,22 @@ width (the full, sr and full8 paths serve them from a checkpoint file):
           in its f32-output mode); then train.dryrun(2) at dp 2 and at tp 2
           (one sharded AdamW step of JAX's dry-run UNet against one
           process);
-  golden  the five cases of the full-width golden that the JAX package
+  golden  the eleven cases of the full-width golden that the JAX package
           made on the CPU in f32 (audioldm2_torch/assets/
           golden_fullwidth.npz, audioldm2_torch.tools.golden_parity):
           t5_headline (audioldm_16k_crossattn_t5, 200 steps), full, large,
           k48 (3 candidates and the CLAP rerank) and tts (with a
-          transcription), 10 steps each, 10.24 s; each tree drawn with
-          numpy (params.draw_tree) to the stored digest, each request from
-          the stored x_T at eta 0 through model.ldm.generate, in f32, in
-          bf16 and (full) in the int8 serving mode.
+          transcription); sr_large (bench's sr request on large-1150k: the
+          f32 VAE encode of a 440 Hz sine's fbank, the 40-60% latent mask,
+          guidance 2.5), edit_t5 (two chirps encoded at batch 2, noised to
+          step 10 of 20, decoded under a new prompt), plms_t5, mae_full
+          (audioldm2-full's UNet on AudioMAE + T5, two chirps, CFG batch
+          4), clapaudio_48k (CLAP embedding a 10 s 48 kHz chirp) and
+          full_int8 (audioldm2-full with int8 weights in f32); 10 steps
+          each, 10.24 s; each tree drawn once with numpy
+          (params.draw_tree) to the stored digest, each request from the
+          stored x_T and draws at eta 0, in f32, in bf16 and (full,
+          full_int8) in the int8 serving mode.
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: card name and power limit, torch/CUDA versions, the kernels'
@@ -234,11 +241,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      calls, none of them on the shared core.
   8. the golden path: the batch's ids equal to the golden's; in f32 (TF32
      off) each case within its mel MAE limit (golden_parity.f32_limit: 4x
-     the port's CPU reading, under the round's bar of 1e-3) and k48's pick
-     the golden's, and two controls over that limit: the same request with
-     the UNet's weights rounded to TF32 (what a 1xTF32 K1, K3 or K4 would
-     read) and with TF32 on for cuBLAS and cuDNN; the launches of each generate equal to the
-     config's (every kernel it predicts launched), no CUDA tensor in a
+     the port's CPU reading, under the round's bar of 1e-3; full_int8
+     under twice JAX's own one-ulp spread), sr_large's and edit_t5's
+     encode within its z0_rel limit, full_int8's served int8 UNet tree
+     JAX's (digest and int8 leaf count), k48's pick the golden's; on the
+     five text-to-audio cases two controls over the mel limit: the same
+     request with the UNet's weights rounded to TF32 (what a 1xTF32 K1, K3
+     or K4 would read) and with TF32 on for cuBLAS and cuDNN; on sr_large
+     and edit_t5 the encode with the VAE's weights rounded to TF32 (what a
+     1xTF32 f32 K1 would read) over the z0_rel limit; the launches of each
+     request (the encode and the generate) equal to the config's (every
+     kernel it predicts launched), no CUDA tensor in a
      plain version, no shared-core call (the f32 K3 and K4 run on the
      shared core, as in the train step, and their split-K workspaces are
      counted; bf16 and int8 requests allocate none); printed: the
@@ -246,7 +259,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the waveform and the CLAP scores against the golden, and each stage on
      the golden's own input (the first step's eps at x_T on t5_headline,
      the VAE decode of the golden latent, the vocoder on the golden mel);
-     in bf16 and, on full, in int8, under cudnn.deterministic, the same
+     in bf16 and, on full and full_int8, in int8, under
+     cudnn.deterministic, the same
      request through the kernels and through the plain versions (the
      floor), the kernels' mel MAE held to FLOOR_FACTOR (1.25) x the
      floor's.
@@ -1129,15 +1143,11 @@ def discover_calls(cfg, unet_f32, vae_p, cond, device):
 
 
 def chirp(sr: int, seconds: float, seed: int = 0):
-    """A 10 s-style test signal: a linear chirp over most of the band plus
-    noise, peak 0.5, float32 numpy [N]."""
-    import numpy as np
+    """A 10 s-style test signal: golden_parity.chirp, a linear chirp over
+    most of the band plus noise, peak 0.5, float32 numpy [N]."""
+    from audioldm2_torch.tools.golden_parity import chirp as golden_chirp
 
-    t = np.arange(int(sr * seconds)) / sr
-    f0, f1 = 0.01 * sr, 0.45 * sr
-    x = np.sin(2 * np.pi * (f0 * t + (f1 - f0) * t ** 2 / (2 * seconds)))
-    x = x + 0.1 * np.random.default_rng(seed).standard_normal(t.shape)
-    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+    return golden_chirp(sr, seconds, seed)
 
 
 def encoder_mel(cfg, device, duration: float):
@@ -2105,15 +2115,13 @@ def phase_clapaudio(k48_cfg, device, steps: int, duration: float, want_counts):
     """audioldm_48k with its CLAP conditioner in embed_mode="audio": a 10 s
     48 kHz clip through make_batch("", waveform=), HTSAT-base timed on it,
     one batch-1 request whose launches must equal the 48k path's."""
-    import dataclasses
-
     import torch
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
     from audioldm2_torch.models import clap
+    from audioldm2_torch.tools.golden_parity import variant_config
 
-    spec = k48_cfg.conditioners[0]
-    spec = dataclasses.replace(spec, clap=dataclasses.replace(spec.clap, embed_mode="audio"))
-    cfg = dataclasses.replace(k48_cfg, conditioners=(spec,))
+    cfg = variant_config(k48_cfg, "clapaudio")
+    spec = cfg.conditioners[0]
     model = build("clapaudio (audioldm_48k, CLAP in embed_mode='audio')", cfg, device)
     wav = chirp(cfg.preprocessing.sampling_rate, 10.0, seed=11)[None]
     batch = model.make_batch("", waveform=wav)
@@ -2166,14 +2174,13 @@ def phase_mae(full_cfg, device, steps: int, duration: float):
     audiomae_pooled(8, 8) spec, the t5 spec): the 8 pooled tokens x 768
     fill the 768-wide slot. AudioMAE timed at batch 1 and 2, then one
     batch-1 request on a 10 s 16 kHz clip."""
-    import dataclasses
-
     import torch
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
     from audioldm2_torch.models import conditioners
+    from audioldm2_torch.tools.golden_parity import variant_config
 
-    spec = _audiomae_spec(full_cfg)
-    cfg = dataclasses.replace(full_cfg, conditioners=(spec, full_cfg.conditioners[1]))
+    cfg = variant_config(full_cfg, "mae")
+    spec = cfg.conditioners[0]
     model = build("mae (audioldm2-full, conditioners AudioMAE + T5)", cfg, device)
     wav = chirp(cfg.preprocessing.sampling_rate, 10.0, seed=12)[None]
     p = model.ldm.params["cond"][spec.name]
@@ -3199,8 +3206,11 @@ def _leaves(tree):
     return (leaf for _, leaf in _paths(tree) if isinstance(leaf, torch.Tensor))
 
 
-# the golden case that also runs in the int8 serving mode
-GOLDEN_INT8_CASES = ("full",)
+# the golden cases that also run in the int8 serving mode
+GOLDEN_INT8_CASES = ("full", "full_int8")
+# the golden cases whose f32 request runs the two UNet controls (an encoding
+# case runs the encode's control instead)
+GOLDEN_UNET_CONTROL_CASES = ("t5_headline", "full", "large", "k48", "tts")
 
 
 @contextlib.contextmanager
@@ -3235,10 +3245,11 @@ def tf32_weights(tree):
 
 def golden_request(model, name: str, golden, expected, stages: bool):
     """golden_parity.run on ``model`` with the launch counts set to 0 just
-    before its generate and read just after, under the request checks of
-    phase 5 (no CUDA tensor in a plain version, no call on the shared core,
-    no split-K workspace in bf16; f32's are counted); the counts must equal
-    ``expected``. Returns the distances and the counts."""
+    before its request (the encode and the generate) and read just after,
+    under the request checks of phase 5 (no CUDA tensor in a plain version,
+    no call on the shared core, no split-K workspace in bf16; f32's are
+    counted); the counts must equal ``expected``. Returns the distances and
+    the counts."""
     import torch
     from audioldm2_torch import ops
     from audioldm2_torch.tools import golden_parity as gp
@@ -3255,7 +3266,7 @@ def golden_request(model, name: str, golden, expected, stages: bool):
         torch.cuda.synchronize()
         counts.update(ops.launch_counts())
 
-    d = gp.run(model, name, golden, around_generate=counted, stages=stages)
+    d = gp.run(model, name, golden, around_request=counted, stages=stages)
     d["workspaces"] = work["workspaces"]
     # f32 K3 and K4 run on the shared GEMM core, whose split-K allocates a
     # workspace (as in the train step); a served bf16 or int8 request allocates none
@@ -3270,86 +3281,146 @@ def golden_request(model, name: str, golden, expected, stages: bool):
     return d, counts
 
 
+def golden_expected_launches(cfg, case):
+    """The kernel launches of one request of a golden case: the sampler's
+    UNet forwards (``t_enc`` on edit), one VAE decode and, on sr and edit,
+    the f32 VAE encode."""
+    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
+
+    steps = case.t_enc if case.mode == "edit" else case.steps
+    return kernel_launches_per_generate(cfg, steps, case.sampler, encode=case.mode != "generate")
+
+
 def _golden_line(tag: str, d) -> str:
-    keys = ("seq_rel", "ctx0_rel", "ctx1_rel", "y_rel", "eps0_rel", "eps0_unet_rel",
-            "latent_rel", "mel_mae", "mel_max", "wav_mae", "decode_mel_mae", "vocoder_wav_mae",
-            "scores_max", "workspaces")
+    keys = ("mel_in_max", "fbank_max", "z0_rel", "z_t_rel", "seq_rel", "ctx0_rel", "ctx1_rel",
+            "y_rel", "eps0_rel", "eps0_unet_rel", "latent_rel", "mel_mae", "mel_max", "wav_mae",
+            "decode_mel_mae", "vocoder_wav_mae", "scores_max", "int8_leaves", "workspaces")
     parts = [f"{k} {d[k]}" if isinstance(d[k], int) else f"{k} {d[k]:.3e}"
              for k in keys if k in d]
     if "same_pick" in d:
         parts.append(f"pick {d['pick']} (same: {d['same_pick']})")
-    return f"    {tag}: generate {d['generate_s']:.3f} s; " + ", ".join(parts)
+    return f"    {tag}: request {d['generate_s']:.3f} s; " + ", ".join(parts)
+
+
+def golden_order(golden):
+    """The golden's cases, those on one tree (the stored tree digest) next
+    to each other, so that each tree is drawn once; the stored order
+    otherwise."""
+    trees = {}
+    for name, g in golden.items():
+        trees.setdefault(g["meta"]["tree_digest"], []).append(name)
+    return [name for names in trees.values() for name in names]
 
 
 def phase_golden(device):
     """Every case of the full-width golden (audioldm2_torch.tools.
     golden_parity; made by the JAX package on the CPU in f32): the tree
-    drawn with numpy to the stored digest, then the request in f32 (TF32
+    drawn with numpy to the stored digest once for the cases that share it,
+    then each case's request (generate, PLMS, sr with the stored mask and
+    draws, the edit's encode and decode, the audio-in batches) in f32 (TF32
     off) through the kernels, held to the case's mel MAE limit
-    (golden_parity.f32_limit) and the same pick, with every kernel the
-    config predicts launching as often as it predicts, and two controls (the
-    UNet's weights rounded to TF32; TF32 on for cuBLAS and cuDNN) that must
-    fail that limit; then in bf16, and ``full`` in the int8 serving mode, under
+    (golden_parity.f32_limit), the encode's limit (z0_limit) and the same
+    pick, with every kernel the config predicts launching as often as it
+    predicts (the encode's f32 K1 and K6 among them on sr and edit) and, on
+    full_int8, the served int8 UNet tree's digest JAX's; on the five
+    text-to-audio cases two controls (the UNet's weights rounded to TF32;
+    TF32 on for cuBLAS and cuDNN) and on sr and edit one (the VAE's weights
+    rounded to TF32, the encode alone) that must fail those limits; then in
+    bf16, and full and full_int8 in the int8 serving mode, under
     cudnn.deterministic, each held to FLOOR_FACTOR x its floor (the
     all-plain request's mel MAE in the same mode). Returns the launches of
-    each request and the distances."""
+    each request and the distances, with the phase's wall."""
     import dataclasses
 
     import torch
     from audioldm2_torch import params as params_m
-    from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
     from audioldm2_torch.pipeline import AudioLDM2
     from audioldm2_torch.tools import golden_parity as gp
 
+    t_phase = time.perf_counter()
     log(f"== path golden: the port against the JAX package's full-width golden "
         f"({os.path.relpath(gp.GOLDEN, REPO)}) ({nvidia_smi_line()})")
     golden = gp.load()
     launches, e2e = {}, {}
-    for name, case in gp.CASES.items():
+    base, tree_digest = None, None
+    for name in golden_order(golden):
+        case, meta = gp.CASES[name], golden[name]["meta"]
         cfg = gp.case_config(case)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        tree = params_m.draw_tree(cfg, golden[name]["meta"]["tree_seed"])
-        draw_s = time.perf_counter() - t0
-        model = gp.build(name, device, golden, tree=tree)
-        del tree
+        if meta["tree_digest"] != tree_digest:
+            del base
+            torch.cuda.empty_cache()
+            tree = params_m.draw_tree(cfg, meta["tree_seed"])
+            draw_s = time.perf_counter() - t0
+            base = gp.build(name, device, golden, tree=tree)
+            tree_digest = meta["tree_digest"]
+            del tree
+            drawn = f"draw_tree {draw_s:.2f} s, digest and build " \
+                    f"{time.perf_counter() - t0 - draw_s:.2f} s (digest equal to the golden's)"
+        else:  # the tree already drawn, held to this case's config digest
+            if gp.config_digest(dataclasses.replace(cfg, weight_quant=None)) \
+                    != meta["config_digest"]:
+                raise AssertionError(f"golden {name}: the port's config is not the golden's")
+            drawn = "the tree of the case before"
+        model = AudioLDM2(cfg, base.ldm.params, device)
         torch.cuda.synchronize()
-        log(f"  -- {name}: {case.family}, {case.steps} steps, n = {case.n_gen}, latent "
-            f"{golden[name]['meta']['latent_t']}: draw_tree {draw_s:.2f} s, digest and build "
-            f"{time.perf_counter() - t0 - draw_s:.2f} s (digest equal to the golden's)")
+        log(f"  -- {name}: {case.family}{f' ({case.variant})' if case.variant else ''}, "
+            f"{case.mode}, {case.sampler}, {case.steps} steps"
+            f"{f' (t_enc {case.t_enc})' if case.mode == 'edit' else ''}, batch "
+            f"{case.batchsize}, n = {case.n_gen}, latent {meta['latent_t']}"
+            f"{', int8 weights' if case.weight_quant else ''}: {drawn}")
         res = {}
-        d, counts = golden_request(model, name, golden,
-                                   kernel_launches_per_generate(cfg, case.steps), stages=True)
+        d, counts = golden_request(model, name, golden, golden_expected_launches(cfg, case),
+                                   stages=True)
+        limit = gp.f32_limit(name, d.get("int8_ulp_mel_mae"))
         log(_golden_line("f32", d))
         log(f"      launches {counts}")
-        log(f"      f32 mel MAE {d['mel_mae']:.3e} against the case's limit "
-            f"{gp.f32_limit(name):g} (the bar {gp.MEL_MAE_TOL:g})")
+        log(f"      f32 mel MAE {d['mel_mae']:.3e} against the case's limit {limit:g}"
+            + (f"; z0_rel {d['z0_rel']:.3e} against {gp.z0_limit(name):g}" if "z0_rel" in d
+               else "")
+            + (f"; the int8 UNet's {d['int8_leaves']} int8 leaves and digest JAX's"
+               if "int8_leaves" in d else ""))
         if not gp.f32_ok(d):
             raise AssertionError(f"golden {name} f32: mel MAE {d['mel_mae']:.3e} (limit "
-                                 f"{gp.f32_limit(name):g}) or pick {d.get('pick')} differs")
+                                 f"{limit:g}), z0_rel {d.get('z0_rel')} or pick "
+                                 f"{d.get('pick')} differs")
         res["f32"] = d
         launches[f"golden_{name}"] = counts
-        # two controls that must fail the case's limit: the UNet's weights at
-        # TF32 (what a K1, K3 or K4 quietly in 1xTF32 would read), and TF32 on
-        # for cuBLAS and cuDNN (the plain ops that do not turn it off themselves)
-        tf32_unet = AudioLDM2(cfg, {**model.ldm.params,
-                                    "unet": tf32_weights(model.ldm.params["unet"])}, device)
-        controls = [("tf32_weights", tf32_unet, False), ("tf32_on", model, True)]
-        if not torch.cuda.is_available():  # a rehearsal on the CPU, which has no TF32
-            controls.pop()
+        controls = []
+        if name in GOLDEN_UNET_CONTROL_CASES:
+            # what a K1, K3 or K4 quietly in 1xTF32 would read, and TF32 on
+            # for cuBLAS and cuDNN (the plain ops that do not turn it off)
+            tf32_unet = AudioLDM2(cfg, {**model.ldm.params,
+                                        "unet": tf32_weights(model.ldm.params["unet"])}, device)
+            controls = [("tf32_weights", tf32_unet, False), ("tf32_on", model, True)]
+            if not torch.cuda.is_available():  # a rehearsal on the CPU, which has no TF32
+                controls.pop()
         for tag, ctl, allow in controls:
             with tf32_allowed(allow):
                 c = gp.run(ctl, name, golden, stages=False)
             log(_golden_line(f"control {tag}", c))
             log(f"      control {tag} mel MAE {c['mel_mae']:.3e}: "
-                f"{c['mel_mae'] / gp.f32_limit(name):.2f} x the case's limit, "
+                f"{c['mel_mae'] / limit:.2f} x the case's limit, "
                 f"{c['mel_mae'] / gp.MEL_MAE_TOL:.2f} x the bar")
             if gp.f32_ok(c):
                 raise AssertionError(f"golden {name}: the {tag} control passes the f32 limit "
-                                     f"{gp.f32_limit(name):g} (mel MAE {c['mel_mae']:.3e})")
+                                     f"{limit:g} (mel MAE {c['mel_mae']:.3e})")
             res[f"control_{tag}"] = c
-        del tf32_unet, controls, ctl
-        modes = [("bf16", dataclasses.replace(cfg, compute_dtype="bfloat16"))]
+        if case.mode != "generate":
+            # the f32 K1 of the encode quietly in 1xTF32 would read these
+            tf32_vae = AudioLDM2(cfg, {**model.ldm.params,
+                                       "vae": tf32_weights(model.ldm.params["vae"])}, device)
+            z0_rel = gp.encode_distance(tf32_vae, name, golden)
+            log(f"    control tf32_vae_weights: z0_rel {z0_rel:.3e}, "
+                f"{z0_rel / gp.z0_limit(name):.2f} x the case's limit {gp.z0_limit(name):g}")
+            if not z0_rel >= gp.z0_limit(name):
+                raise AssertionError(f"golden {name}: the TF32 encode control passes the z0 "
+                                     f"limit {gp.z0_limit(name):g} ({z0_rel:.3e})")
+            res["control_tf32_vae_weights_z0_rel"] = z0_rel
+            del tf32_vae
+        del controls
+        modes = [("bf16", dataclasses.replace(cfg, compute_dtype="bfloat16", weight_quant=None))]
         if name in GOLDEN_INT8_CASES:
             modes.append(("int8", dataclasses.replace(cfg, compute_dtype="bfloat16",
                                                        weight_quant="int8")))
@@ -3358,8 +3429,7 @@ def phase_golden(device):
         try:
             for tag, mcfg in modes:
                 m = AudioLDM2(mcfg, model.ldm.params, device)
-                d, counts = golden_request(m, name, golden,
-                                           kernel_launches_per_generate(mcfg, case.steps),
+                d, counts = golden_request(m, name, golden, golden_expected_launches(mcfg, case),
                                            stages=False)
                 with patched_dispatch("plain"):
                     floor = gp.run(m, name, golden, stages=False)
@@ -3379,6 +3449,9 @@ def phase_golden(device):
             torch.backends.cudnn.deterministic = prev
         e2e[name] = res
         del model
+    del base
+    e2e["phase_s"] = time.perf_counter() - t_phase
+    log(f"  path golden: {len(golden)} cases in {e2e['phase_s']:.1f} s")
     return launches, e2e
 
 

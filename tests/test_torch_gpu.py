@@ -1287,3 +1287,23 @@ def test_host_audio_library_builds_on_the_cards_machine(cuda):
     want = x[0] - np.mean(x[0])
     want = (0.5 * want / (np.max(np.abs(want)) + 1e-8)).astype(np.float32)
     np.testing.assert_allclose(native.normalize_wav(x[0]), want, atol=1e-7)
+
+
+def test_int8_quantization_on_the_card_is_the_cpus_bit_for_bit(cuda):
+    """quantize_weight and quantize_conv3x3_dict on the card give the CPU's
+    int8 values and scales bit for bit (float32 division, half to even), on
+    absmax values whose reciprocal product is not their quotient."""
+    from audioldm2_torch.ops import quant
+
+    g = torch.Generator().manual_seed(19)
+    w = torch.randn((1280, 640), generator=g)
+    wc = torch.randn((3, 3, 256, 384), generator=g)
+    for got, want in ((quant.quantize_weight(w.to(cuda)), quant.quantize_weight(w)),
+                      (quant.quantize_conv3x3_dict({"w": wc.to(cuda), "b": wc[0, 0, 0]}),
+                       quant.quantize_conv3x3_dict({"w": wc, "b": wc[0, 0, 0]}))):
+        got = got.values() if isinstance(got, dict) else got
+        want = want.values() if isinstance(want, dict) else want
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    s = w.abs().amax(0)
+    assert not torch.equal((s.to(cuda) / 127.0).cpu(), s / 127.0)  # what the scalar divisor gave
