@@ -1,0 +1,263 @@
+"""The conditioning stages of the reference: the tokenizers, FLAN-T5's
+encoder, RoBERTa and CLAP's text embedding, and the GPT-2 sequence
+generator.
+
+A frozen copy of ``audioldm2_torch/utils/text.py`` (the hash fallback
+tokenizer, the only one without a tokenizer cache), ``models/t5.py``,
+``models/roberta.py``, the text half of ``models/clap.py``,
+``models/gpt2.py``, ``models/sequence_gen.py`` and
+``models/conditioners.py``, in float32. The sequence generator runs GPT-2
+over the whole sequence at every step, with no KV cache.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from a2bench.reference import nn
+from a2bench.reference.config import (CLAPConfig, ConditionerSpec, FlanT5Config, GPT2Config,
+                                      ModelConfig, RobertaConfig, text_tower)
+
+# special ids of each tokenizer family (public HF constants)
+SPECIALS = {
+    "google/flan-t5-large": dict(vocab_size=32128, pad_id=0, eos_id=1, bos_id=None),
+    "roberta-base": dict(vocab_size=50265, pad_id=1, eos_id=2, bos_id=0),
+}
+
+
+def tokenize(family: str, texts: List[str], max_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The deterministic word-hash tokenizer: ([B, max_length] ids, mask)."""
+    sp = SPECIALS[family]
+    ids = np.full((len(texts), max_length), sp["pad_id"], np.int32)
+    mask = np.zeros((len(texts), max_length), np.int32)
+    prefix = [] if sp["bos_id"] is None else [sp["bos_id"]]
+    for b, text in enumerate(texts):
+        words = re.findall(r"\w+|[^\w\s]", text.lower())
+        toks = prefix + [200 + int.from_bytes(hashlib.md5(w.encode()).digest()[:4], "little")
+                         % (sp["vocab_size"] - 200) for w in words]
+        toks = toks[: max_length - 1] + [sp["eos_id"]]
+        ids[b, : len(toks)] = toks
+        mask[b, : len(toks)] = 1
+    return ids, mask
+
+
+# --- FLAN-T5 encoder ---------------------------------------------------------
+
+
+def _t5_buckets(length: int, cfg: FlanT5Config) -> np.ndarray:
+    rel = np.arange(length)[None, :] - np.arange(length)[:, None]
+    nb = cfg.relative_attention_num_buckets // 2
+    ret = (rel > 0).astype(np.int32) * nb
+    n = np.abs(rel)
+    max_exact = nb // 2
+    large = max_exact + (np.log(np.maximum(n, 1) / max_exact)
+                         / np.log(cfg.relative_attention_max_distance / max_exact)
+                         * (nb - max_exact)).astype(np.int32)
+    return ret + np.where(n < max_exact, n, np.minimum(large, nb - 1))
+
+
+def t5_encode(params, cfg: FlanT5Config, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] ids and mask -> the final hidden states [B, L, d_model]."""
+    x = params["token_embed"][ids.long()].float()
+    buckets = torch.as_tensor(_t5_buckets(ids.shape[1], cfg), device=x.device).long()
+    bias = params["blocks"][0]["rel_bias"].float()[buckets].permute(2, 0, 1)[None]
+    eps = cfg.layer_norm_epsilon
+    for blk in params["blocks"]:
+        h = nn.rms_norm(blk["ln1"], x, eps)
+        a = blk["attn"]
+        q, k, v = (nn.split_heads(nn.linear(a[n], h), cfg.num_heads) for n in ("q", "k", "v"))
+        x = x + nn.linear(a["o"], nn.merge_heads(nn.attention(q, k, v, mask=mask, bias=bias,
+                                                              scale=1.0)))
+        h = nn.rms_norm(blk["ln2"], x, eps)
+        f = blk["ff"]
+        u = nn.gelu_tanh(nn.linear(f["wi_0"], h)) * nn.linear(f["wi_1"], h)
+        x = x + nn.linear(f["wo"], u)
+    return nn.rms_norm(params["final_ln"], x, eps)
+
+
+# --- RoBERTa and CLAP's text embedding ---------------------------------------
+
+
+def roberta_pooled(params, cfg: RobertaConfig, ids: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """RoBERTa's pooler output [B, D]."""
+    ids = ids.long()
+    m = mask.long()
+    positions = torch.cumsum(m, dim=1) * m + cfg.pad_token_id
+    x = (params["word_embeddings"][ids] + params["position_embeddings"][positions]
+         + params["token_type_embeddings"][0]).float()
+    x = nn.layer_norm(params["emb_ln"], x, cfg.layer_norm_eps)
+    for layer in params["layers"]:
+        a = layer["attn"]
+        q, k, v = (nn.split_heads(nn.linear(a[n], x), cfg.num_heads) for n in ("q", "k", "v"))
+        att = nn.linear(a["out"], nn.merge_heads(nn.attention(q, k, v, mask=mask)))
+        x = nn.layer_norm(a["ln"], x + att, cfg.layer_norm_eps)
+        f = layer["ff"]
+        h = nn.linear(f["output"], nn.gelu(nn.linear(f["intermediate"], x)))
+        x = nn.layer_norm(f["ln"], x + h, cfg.layer_norm_eps)
+    return torch.tanh(nn.linear(params["pooler"], x[:, 0]))
+
+
+def project(p, x):
+    return nn.linear(p["lin2"], torch.relu(nn.linear(p["lin1"], x)))
+
+
+def normalize(x):
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def clap_text(params, cfg: CLAPConfig, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The L2-normalized CLAP text embedding [B, embed_dim]."""
+    tcfg, _ = text_tower(cfg)
+    return normalize(project(params["text_projection"],
+                             roberta_pooled(params["text_branch"], tcfg, ids, mask)))
+
+
+# --- GPT-2 sequence generator --------------------------------------------------
+
+
+def gpt2_hidden(params, cfg: GPT2Config, embeds: torch.Tensor, mask: torch.Tensor):
+    """GPT-2 over the whole sequence: hidden states [B, L, D] (positions from
+    the mask's running count, causal attention over valid keys)."""
+    length = embeds.shape[1]
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0).long()
+    x = embeds.float() + params["wpe"][positions].float()
+    causal = torch.tril(torch.ones((length, length), dtype=torch.bool, device=x.device))
+    keep = causal[None, None] & mask.bool()[:, None, None, :]
+    eps = cfg.layer_norm_epsilon
+    for blk in params["blocks"]:
+        h = nn.layer_norm(blk["ln_1"], x, eps)
+        q, k, v = (nn.split_heads(t, cfg.n_head)
+                   for t in torch.chunk(nn.linear(blk["attn"]["c_attn"], h), 3, dim=-1))
+        x = x + nn.linear(blk["attn"]["c_proj"], nn.merge_heads(nn.attention(q, k, v,
+                                                                             mask=keep)))
+        h = nn.layer_norm(blk["ln_2"], x, eps)
+        x = x + nn.linear(blk["mlp"]["c_proj"], nn.gelu_tanh(nn.linear(blk["mlp"]["c_fc"], h)))
+    return nn.layer_norm(params["ln_f"], x, eps)
+
+
+def sequence_generate(params, spec: ConditionerSpec, batch: Dict) -> torch.Tensor:
+    """The generated tokens [B, sequence_gen_length, 768]: GPT-2 continues
+    the SOS/condition/EOS prefix of each input condition, one token a step."""
+    sg = spec.sequence_gen
+    nested = {ns.name: ns for ns in spec.nested}
+    seqs, masks = [], []
+    for i, key in enumerate(sg.sequence_input_keys):
+        kind, val = encode(params["cond"][key], nested[key], batch)
+        if kind == "film":
+            emb = val[:, None, :]
+            m = torch.ones(emb.shape[:2], device=emb.device)
+        else:
+            emb, m = val
+        emb = nn.linear(params["input_linears"][i], emb)
+        b = emb.shape[0]
+        one = torch.ones((b, 1), device=emb.device)
+        seqs.append(torch.cat([params["sos"][i].float().expand(b, 1, 768), emb,
+                               params["eos"][i].float().expand(b, 1, 768)], dim=1))
+        masks.append(torch.cat([one, m.float(), one], dim=1))
+    max_len = sg.max_context - sg.sequence_gen_length
+    seq = torch.cat(seqs, dim=1)[:, :max_len]
+    mask = torch.cat(masks, dim=1)[:, :max_len]
+    b, l_pre, _ = seq.shape
+    idx = torch.arange(l_pre, device=seq.device)
+    last = (idx[None, :] * mask.long()).amax(dim=1)
+    rows = torch.arange(b, device=seq.device)
+    g = gpt2_hidden(params["gpt2"], sg.gpt2, seq, mask)[rows, last]
+    tokens = [g]
+    for i in range(1, sg.sequence_gen_length):
+        seq = torch.cat([seq, g[:, None, :]], dim=1)
+        mask = torch.cat([mask, torch.ones((b, 1), device=seq.device)], dim=1)
+        g = gpt2_hidden(params["gpt2"], sg.gpt2, seq, mask)[:, -1]
+        tokens.append(g)
+    return torch.stack(tokens, dim=1)
+
+
+# --- the conditioners ---------------------------------------------------------
+
+
+def encode(params, spec: ConditionerSpec, batch: Dict):
+    """("crossattn", (ctx, mask)) or ("film", emb [B, D]) of one conditioner
+    on the batch's ``t5_*`` / ``clap_*`` ids and masks."""
+    if spec.kind == "flan_t5":
+        ctx = t5_encode(params["t5"], spec.flan_t5, batch["t5_ids"], batch["t5_mask"])
+        return "crossattn", (ctx, batch["t5_mask"].float())
+    if spec.kind == "clap":
+        return "film", clap_text(params["clap"], spec.clap, batch["clap_ids"],
+                                 batch["clap_mask"])
+    if spec.kind == "sequence_gen":
+        tokens = sequence_generate(params, spec, batch)
+        return "crossattn", (tokens, torch.ones(tokens.shape[:2], device=tokens.device))
+    raise ValueError(f"conditioner kind {spec.kind!r} is not in the reference")
+
+
+def unconditional(params, spec: ConditionerSpec, batch: Dict):
+    """The unconditional branch of one conditioner, for one row."""
+    if spec.kind == "flan_t5":
+        ctx = t5_encode(params["t5"], spec.flan_t5, batch["t5_uncond_ids"],
+                        batch["t5_uncond_mask"])
+        return "crossattn", (ctx, batch["t5_uncond_mask"].float())
+    if spec.kind == "clap":
+        return "film", clap_text(params["clap"], spec.clap, batch["clap_uncond_ids"],
+                                 batch["clap_uncond_mask"])
+    if spec.kind == "sequence_gen":
+        dev = batch["clap_ids"].device
+        zeros = torch.zeros((1, spec.sequence_gen.sequence_gen_length, 768), device=dev)
+        return "crossattn", (zeros, torch.ones(zeros.shape[:2], device=dev))
+    raise ValueError(f"conditioner kind {spec.kind!r} is not in the reference")
+
+
+def token_batch(cfg: ModelConfig, text: str, device) -> Dict[str, torch.Tensor]:
+    """The prompt's and ""'s token ids and masks, one row each."""
+    t5_len = _t5_max_length(cfg.conditioners)
+    clap_len = _first_clap(cfg.conditioners).text_max_length
+    out = {}
+    for name, family, length in (("t5", "google/flan-t5-large", t5_len),
+                                 ("clap", "roberta-base", clap_len)):
+        if length is None:
+            continue
+        ids, mask = tokenize(family, [text], length)
+        uids, umask = tokenize(family, [""], length)
+        out.update({f"{name}_ids": ids, f"{name}_mask": mask, f"{name}_uncond_ids": uids,
+                    f"{name}_uncond_mask": umask})
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def _walk(specs):
+    for s in specs:
+        yield s
+        yield from _walk(s.nested)
+
+
+def _t5_max_length(specs):
+    for s in _walk(specs):
+        if s.kind == "flan_t5":
+            return s.flan_t5.max_length
+    return None
+
+
+def _first_clap(specs) -> CLAPConfig:
+    for s in _walk(specs):
+        if s.kind == "clap":
+            return s.clap
+    return CLAPConfig()
+
+
+def conditioning(params, cfg: ModelConfig, text: str, device):
+    """The UNet inputs of one prompt: (y [2, D] or None, contexts
+    [[2, L, D]], masks [[2, L]]), the unconditional row first."""
+    batch = token_batch(cfg, text, device)
+    y, contexts, masks = None, [], []
+    for spec in cfg.conditioners:
+        kind, vc = encode(params["cond"][spec.name], spec, batch)
+        _, vu = unconditional(params["cond"][spec.name], spec, batch)
+        if kind == "film":
+            y = torch.cat([vu, vc])
+        else:
+            contexts.append(torch.cat([vu[0], vc[0]]))
+            masks.append(torch.cat([vu[1], vc[1]]))
+    return y, contexts, masks

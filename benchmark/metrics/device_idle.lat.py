@@ -1,0 +1,8 @@
+"""device_idle.lat: one minus the device's busy share of the traced
+request (the profiler's device ops), %."""
+
+from a2bench import window
+
+
+def read(w):
+    return window.device_idle(w)
