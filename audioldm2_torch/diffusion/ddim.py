@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from audioldm2_torch.diffusion.schedule import DiffusionSchedule, make_ddim_params
+from audioldm2_torch.utils import profiling
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -103,30 +104,34 @@ def ddim_sample(
     the model call). t_start: run only the first ``t_start`` subset steps
     (descending). noise: optional [n_steps, *shape] per-step noise for the
     sigma term, mask_noise: optional [n_steps, *x0.shape] q-sample noise of
-    the blend, both in loop order and drawn from ``generator`` when None."""
+    the blend, both in loop order and drawn from ``generator`` when None.
+    The trajectory runs in a ``"sampler"`` span, each step in a
+    ``"sampler.step"`` range (``utils.profiling``)."""
     ts, alphas, alphas_prev, sigmas = make_ddim_params(schedule, num_steps, eta)
     if t_start is not None:
         ts, alphas, alphas_prev, sigmas = (a[:t_start] for a in (ts, alphas, alphas_prev, sigmas))
     rows = list(zip(ts[::-1], alphas[::-1], alphas_prev[::-1], sigmas[::-1]))
     check_steps(len(rows), noise=noise, mask_noise=mask_noise)
 
-    img = initial_latent(shape, x_T, generator, device)
-    blend = MaskBlend(schedule, mask, x0, mask_noise, generator, img.device)
-    b = img.shape[0]
-    one = np.float32(1.0)
-    for i, (t, a_t, a_prev, sigma) in enumerate(rows):
-        img = blend(img, int(t), i)
-        tb = torch.full((b,), int(t), dtype=torch.int32, device=img.device)
-        e_t = eps_fn(img, tb)
-        # coefficients in float32, as the JAX scan computes them
-        pred_x0 = (img - float(np.sqrt(one - a_t)) * e_t) / float(np.sqrt(a_t))
-        dir_coef = np.sqrt(np.maximum(one - a_prev - sigma * sigma, np.float32(0.0)))
-        img = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
-        if sigma != 0:
-            n = noise[i].to(img) if noise is not None else torch.randn(
-                img.shape, generator=generator, device=img.device, dtype=torch.float32)
-            img = img + float(sigma) * n
-    return img
+    with profiling.span("sampler"):
+        img = initial_latent(shape, x_T, generator, device)
+        blend = MaskBlend(schedule, mask, x0, mask_noise, generator, img.device)
+        b = img.shape[0]
+        one = np.float32(1.0)
+        for i, (t, a_t, a_prev, sigma) in enumerate(rows):
+            with profiling.step("sampler.step"):
+                img = blend(img, int(t), i)
+                tb = torch.full((b,), int(t), dtype=torch.int32, device=img.device)
+                e_t = eps_fn(img, tb)
+                # coefficients in float32, as the JAX scan computes them
+                pred_x0 = (img - float(np.sqrt(one - a_t)) * e_t) / float(np.sqrt(a_t))
+                dir_coef = np.sqrt(np.maximum(one - a_prev - sigma * sigma, np.float32(0.0)))
+                img = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
+                if sigma != 0:
+                    n = noise[i].to(img) if noise is not None else torch.randn(
+                        img.shape, generator=generator, device=img.device, dtype=torch.float32)
+                    img = img + float(sigma) * n
+        return img
 
 
 def stochastic_encode(x0: torch.Tensor, t_index: int, schedule: DiffusionSchedule,

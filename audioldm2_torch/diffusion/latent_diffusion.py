@@ -28,6 +28,7 @@ from audioldm2_torch.diffusion import ddim, ddpm_ancestral, plms
 from audioldm2_torch.models import conditioners, unet, vae, vocoder
 from audioldm2_torch.ops.nn import full_f32
 from audioldm2_torch.params import cast_floating
+from audioldm2_torch.utils import profiling
 
 SAMPLERS = ("ddim", "plms", "ddpm")
 
@@ -62,27 +63,28 @@ def encode_conditioning(params, cfg: ModelConfig, batch, n_gen: int, guidance: f
     """Encode every conditioner; returns ((y, contexts, masks), B * n_gen):
     the UNet inputs stacked (uncond || cond * n_gen) for a [2 * B * n_gen]
     CFG batch, or the cond inputs alone when guidance == 1."""
-    cond = [conditioners.encode(params["cond"][s.name], s, batch) for s in cfg.conditioners]
-    kind, v = cond[0]
-    bsz = (v[0] if kind == "crossattn" else v).shape[0] * n_gen
+    with profiling.span("conditioning"):
+        cond = [conditioners.encode(params["cond"][s.name], s, batch) for s in cfg.conditioners]
+        kind, v = cond[0]
+        bsz = (v[0] if kind == "crossattn" else v).shape[0] * n_gen
 
-    def tile(kind, v):
-        return (kind, (_tile(v[0], n_gen), _tile(v[1], n_gen)) if kind == "crossattn"
-                else _tile(v, n_gen))
+        def tile(kind, v):
+            return (kind, (_tile(v[0], n_gen), _tile(v[1], n_gen)) if kind == "crossattn"
+                    else _tile(v, n_gen))
 
-    cond = [tile(*c) for c in cond]
-    if guidance == 1.0:
-        return assemble_unet_inputs(cond), bsz
-    stacked = []
-    for s, (kind, vc) in zip(cfg.conditioners, cond):
-        kind_u, vu = conditioners.unconditional(params["cond"][s.name], s, batch, bsz)
-        assert kind_u == kind
-        if kind == "crossattn":
-            stacked.append((kind, (torch.cat([vu[0], vc[0]]), torch.cat([vu[1], vc[1]]))))
-        else:
-            squeeze = (lambda e: e[:, 0] if e.dim() == 3 else e)  # noqa: E731
-            stacked.append((kind, torch.cat([squeeze(vu), squeeze(vc)])))
-    return assemble_unet_inputs(stacked), bsz
+        cond = [tile(*c) for c in cond]
+        if guidance == 1.0:
+            return assemble_unet_inputs(cond), bsz
+        stacked = []
+        for s, (kind, vc) in zip(cfg.conditioners, cond):
+            kind_u, vu = conditioners.unconditional(params["cond"][s.name], s, batch, bsz)
+            assert kind_u == kind
+            if kind == "crossattn":
+                stacked.append((kind, (torch.cat([vu[0], vc[0]]), torch.cat([vu[1], vc[1]]))))
+            else:
+                squeeze = (lambda e: e[:, 0] if e.dim() == 3 else e)  # noqa: E731
+                stacked.append((kind, torch.cat([squeeze(vu), squeeze(vc)])))
+        return assemble_unet_inputs(stacked), bsz
 
 
 def served_unet(unet_p, cfg: ModelConfig):
@@ -102,18 +104,26 @@ def served_unet(unet_p, cfg: ModelConfig):
 def prepare_unet(params, cfg: ModelConfig, contexts_c):
     """The per-call UNet transforms, in the JAX package's order: the cast
     to the compute dtype, the cross K/V, then :func:`served_unet`."""
-    unet_p = cast_floating(params["unet"], compute_dtype(cfg))
-    cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
-    return served_unet(unet_p, cfg), cross_kv
+    with profiling.span("prepare_unet"):
+        unet_p = cast_floating(params["unet"], compute_dtype(cfg))
+        cross_kv = unet.precompute_cross_kv(unet_p, cfg.unet, contexts_c)
+        return served_unet(unet_p, cfg), cross_kv
 
 
 def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
     """The conditioning encoded once and the per-call UNet transforms done
     once; returns (eps_fn over a [B * n_gen] latent, B * n_gen). With
     guidance != 1 each eps call is one UNet forward over the stacked
-    [2 * B * n_gen] CFG batch. Each UNet call sits
-    in a ``torch.profiler.record_function("unet")`` range, which a trace
-    reads (``utils.profiling``)."""
+    [2 * B * n_gen] CFG batch.
+
+    Spans (``utils.profiling``): the encoding runs in a ``"conditioning"``
+    span and the transforms in a ``"prepare_unet"`` one; each UNet call
+    sits in a ``record_function("unet")`` range, inside the sampler's
+    ``"sampler.step"`` range of its step. A trace reads the ranges (the
+    benchmark's ``unet_roofline`` counts the ``"unet"`` ones, its
+    ``step_idle_ms`` the device's idle time inside the steps); inside a
+    request the spans' device times go to ``model.last_timings``
+    (``conditioning_device_s``, ``prepare_unet_device_s``)."""
     (y, contexts, masks), bsz = encode_conditioning(params, cfg, batch, n_gen, guidance)
     return conditioned_eps_fn(params, cfg, y, contexts, masks, guidance), bsz
 
@@ -140,10 +150,13 @@ def decode_latent(params, cfg: ModelConfig, z: torch.Tensor):
     """x_0 latents (scale_factor * z) -> (waveform [B, N], mel [B, T, M, 1]),
     float32: the VAE decode and the vocoder in the compute dtype."""
     cdtype = compute_dtype(cfg)
-    z = z / params["scale_factor"]
-    mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
-    wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder, mel[..., 0])
-    return wav.float(), mel.float()
+    with profiling.span("vae.decode"):
+        z = z / params["scale_factor"]
+        mel = vae.decode(cast_floating(params["vae"], cdtype), cfg.vae, z.to(cdtype))
+    with profiling.span("vocoder"):
+        wav = vocoder.apply_vocoder(cast_floating(params["vocoder"], cdtype), cfg.vocoder,
+                                    mel[..., 0])
+        return wav.float(), mel.float()
 
 
 def ddim_draws(schedule: DiffusionSchedule, shape, ddim_steps: int, ddim_eta: float,
@@ -208,10 +221,10 @@ class LatentDiffusionModel:
         f32 VAE encoder (uncast weights, no TF32). ``noise`` fixes the
         posterior draw [B, T/f, M/f, embed_dim]; else it comes from
         ``generator``."""
-        with full_f32():
+        with profiling.span("vae.encode"), full_f32():
             mean, logvar = vae.encode_moments(self.params["vae"], self.cfg.vae, mel.float())
             z = vae.sample_posterior(mean, logvar, generator=generator, noise=noise)
-        return self.params["scale_factor"] * z
+            return self.params["scale_factor"] * z
 
     @torch.inference_mode()
     def generate(self, batch: Dict, generator: Optional[torch.Generator], latent_t_size: int,
@@ -240,7 +253,8 @@ class LatentDiffusionModel:
                                   n_gen, float(guidance), int(ddim_steps), float(ddim_eta),
                                   generator, bool(use_mask), str(sampler), x_T=x_T, noise=noise,
                                   mask_noise=mask_noise)
-        return wav.cpu().numpy(), mel.cpu().numpy()
+        with profiling.span("to_host"):
+            return wav.cpu().numpy(), mel.cpu().numpy()
 
     @torch.inference_mode()
     def edit(self, batch: Dict, generator: Optional[torch.Generator], z0: torch.Tensor,
@@ -261,7 +275,8 @@ class LatentDiffusionModel:
                                      generator=generator)
         z = ddim.ddim_decode(eps_fn, z_t, self.schedule, t_enc, ddim_steps)
         wav, mel = decode_latent(self.params, self.cfg, z)
-        return wav.cpu().numpy(), mel.cpu().numpy()
+        with profiling.span("to_host"):
+            return wav.cpu().numpy(), mel.cpu().numpy()
 
 
 def unet_forwards(cfg: ModelConfig, ddim_steps: int, sampler: str = "ddim") -> int:

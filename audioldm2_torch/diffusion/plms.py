@@ -17,6 +17,7 @@ import torch
 
 from audioldm2_torch.diffusion.schedule import DiffusionSchedule, make_ddim_params
 from audioldm2_torch.diffusion.ddim import EpsFn, MaskBlend, check_steps, initial_latent
+from audioldm2_torch.utils import profiling
 
 
 def plms_sample(
@@ -41,31 +42,36 @@ def plms_sample(
     ts_next = np.concatenate([ts[1:], np.zeros(1, np.int32)])
     check_steps(len(ts), mask_noise=mask_noise)
 
-    img = initial_latent(shape, x_T, generator, device)
-    blend = MaskBlend(schedule, mask, x0, mask_noise, generator, img.device)
-    b = img.shape[0]
-    one = np.float32(1.0)
+    with profiling.span("sampler"):
+        img = initial_latent(shape, x_T, generator, device)
+        blend = MaskBlend(schedule, mask, x0, mask_noise, generator, img.device)
+        b = img.shape[0]
+        one = np.float32(1.0)
 
-    def x_prev(x, e, a_t, a_prev):
-        pred_x0 = (x - float(np.sqrt(one - a_t)) * e) / float(np.sqrt(a_t))
-        dir_coef = np.sqrt(np.maximum(one - a_prev, np.float32(0.0)))
-        return float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e
+        def x_prev(x, e, a_t, a_prev):
+            pred_x0 = (x - float(np.sqrt(one - a_t)) * e) / float(np.sqrt(a_t))
+            dir_coef = np.sqrt(np.maximum(one - a_prev, np.float32(0.0)))
+            return float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e
 
-    old_eps = []  # the last three eps, oldest first
-    for i, (t, t_next, a_t, a_prev) in enumerate(zip(ts, ts_next, alphas, alphas_prev)):
-        img = blend(img, int(t), i)
-        e_t = eps_fn(img, torch.full((b,), int(t), dtype=torch.int32, device=img.device))
-        if i == 0:
-            e_next = eps_fn(x_prev(img, e_t, a_t, a_prev),
-                            torch.full((b,), int(t_next), dtype=torch.int32, device=img.device))
-            e_prime = (e_t + e_next) / 2.0
-        elif i == 1:
-            e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
-        elif i == 2:
-            e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
-        else:
-            e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
-                       - 9.0 * old_eps[-3]) / 24.0
-        img = x_prev(img, e_prime, a_t, a_prev)
-        old_eps = (old_eps + [e_t])[-3:]
-    return img
+        old_eps = []  # the last three eps, oldest first
+        for i, (t, t_next, a_t, a_prev) in enumerate(zip(ts, ts_next, alphas, alphas_prev)):
+            with profiling.step("sampler.step"):
+                img = blend(img, int(t), i)
+                e_t = eps_fn(img, torch.full((b,), int(t), dtype=torch.int32, device=img.device))
+            if i == 0:
+                # the second model call of the first step: a step range of its own
+                with profiling.step("sampler.step"):
+                    e_next = eps_fn(x_prev(img, e_t, a_t, a_prev),
+                                    torch.full((b,), int(t_next), dtype=torch.int32,
+                                               device=img.device))
+                    e_prime = (e_t + e_next) / 2.0
+            elif i == 1:
+                e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
+            elif i == 2:
+                e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
+            else:
+                e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
+                           - 9.0 * old_eps[-3]) / 24.0
+            img = x_prev(img, e_prime, a_t, a_prev)
+            old_eps = (old_eps + [e_t])[-3:]
+        return img

@@ -38,7 +38,7 @@ import random
 import sys
 import time
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ from audioldm2_torch.config import CLAPConfig, ModelConfig, default_audioldm_con
 from audioldm2_torch.diffusion.latent_diffusion import LatentDiffusionModel
 from audioldm2_torch.models import clap, conditioners
 from audioldm2_torch.ops.stft import KaldiFbank, MelSpectrogram
+from audioldm2_torch.utils import profiling
 from audioldm2_torch.utils import text as text_utils
 from audioldm2_torch.utils.audio_io import read_wav_file
 
@@ -119,6 +120,7 @@ class AudioLDM2:
         )
         self.kaldi = KaldiFbank(device=self.device)
         self.last_timings: Dict[str, float] = {}
+        self.last_spans: List[profiling.Span] = []  # the last request's (utils.profiling)
         self.last_similarities: Optional[np.ndarray] = None  # the last rerank's, [B * n]
 
     def make_batch(self, text: str, transcription: str = "", batchsize: int = 1,
@@ -137,35 +139,36 @@ class AudioLDM2:
         (zeros without one); ``fbank`` as given, in f32. A one-row
         ``waveform`` ([N] or [1, N]) is tiled to ``batchsize`` for both
         audio keys (JAX tiles it for the CLAP clip only)."""
-        texts = [text] * batchsize
-        arrays = {}
-        for name, tok in (("t5", self.t5_tok), ("clap", self.clap_tok)):
-            if tok is None:
-                continue
-            ids, mask = tok(texts)
-            uids, umask = tok([""])
-            arrays.update({f"{name}_ids": ids, f"{name}_mask": mask,
-                           f"{name}_uncond_ids": uids, f"{name}_uncond_mask": umask})
-        if self.phonemes:
-            phonemes = text_utils.text_to_phonemes(transcription) if transcription else ""
-            arrays["phoneme_idx"] = text_utils.phoneme_ids([phonemes] * batchsize)
-        wav = None
-        if waveform is not None:
-            wav = np.asarray(waveform, np.float32).reshape(-1, np.shape(waveform)[-1])
-            if wav.shape[0] == 1 and batchsize > 1:
-                wav = np.tile(wav, (batchsize, 1))
-        clap_cfg = _first_clap_cfg(self.cfg)
-        if any(s.kind == "clap" and s.clap.embed_mode == "audio" for s in self.cfg.conditioners):
-            arrays["clap_waveform_48k"] = (
-                np.zeros((batchsize, clap_cfg.clip_samples), np.float32) if wav is None else
-                clap.prepare_clap_audio(wav, self.cfg.preprocessing.sampling_rate, clap_cfg))
-        if fbank is not None:
-            arrays["fbank"] = np.asarray(fbank, np.float32)
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
-        batch["ta_kaldi_fbank"] = (
-            torch.zeros((batchsize, 1024, 128), device=self.device) if wav is None
-            else self.kaldi.normalized(wav, target_length=1024))
-        return batch
+        with profiling.span("tokenize", device=False):
+            texts = [text] * batchsize
+            arrays = {}
+            for name, tok in (("t5", self.t5_tok), ("clap", self.clap_tok)):
+                if tok is None:
+                    continue
+                ids, mask = tok(texts)
+                uids, umask = tok([""])
+                arrays.update({f"{name}_ids": ids, f"{name}_mask": mask,
+                               f"{name}_uncond_ids": uids, f"{name}_uncond_mask": umask})
+            if self.phonemes:
+                phonemes = text_utils.text_to_phonemes(transcription) if transcription else ""
+                arrays["phoneme_idx"] = text_utils.phoneme_ids([phonemes] * batchsize)
+            wav = None
+            if waveform is not None:
+                wav = np.asarray(waveform, np.float32).reshape(-1, np.shape(waveform)[-1])
+                if wav.shape[0] == 1 and batchsize > 1:
+                    wav = np.tile(wav, (batchsize, 1))
+            clap_cfg = _first_clap_cfg(self.cfg)
+            if any(s.kind == "clap" and s.clap.embed_mode == "audio" for s in self.cfg.conditioners):
+                arrays["clap_waveform_48k"] = (
+                    np.zeros((batchsize, clap_cfg.clip_samples), np.float32) if wav is None else
+                    clap.prepare_clap_audio(wav, self.cfg.preprocessing.sampling_rate, clap_cfg))
+            if fbank is not None:
+                arrays["fbank"] = np.asarray(fbank, np.float32)
+            batch = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+            batch["ta_kaldi_fbank"] = (
+                torch.zeros((batchsize, 1024, 128), device=self.device) if wav is None
+                else self.kaldi.normalized(wav, target_length=1024))
+            return batch
 
 
 def seed_everything(seed: int, device="cuda") -> torch.Generator:
@@ -286,10 +289,16 @@ def build_model(ckpt_path: Optional[str] = None, config=None, device=None,
     return AudioLDM2(cfg, params, device)
 
 
-def _record_timings(model: AudioLDM2, duration: float, batchsize: int, **stages) -> None:
+def _record_timings(model: AudioLDM2, req: profiling.Request, duration: float, batchsize: int,
+                   **stages) -> None:
+    """The host clock's stages, their total and real-time factor, then the
+    request's spans: ``<span>_device_s`` on CUDA and ``sampler_steps``
+    (``profiling.Request.timings``); the records go to ``model.last_spans``."""
     total = sum(stages.values())
     model.last_timings = {**stages, "total_s": total,
-                          "x_realtime": duration * batchsize / total if total > 0 else 0.0}
+                          "x_realtime": duration * batchsize / total if total > 0 else 0.0,
+                          **req.timings()}
+    model.last_spans = req.spans
 
 
 def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: int = 42,
@@ -307,21 +316,25 @@ def text_to_audio(model: AudioLDM2, text: str, transcription: str = "", seed: in
     prompt's (:func:`rerank_and_select`). ``transcription`` is the speech
     families' text to speak (ignored by the others, as in the JAX package).
     ``latent_t_per_second`` and ``config`` are accepted and ignored, as in
-    the JAX package: the latent length comes from ``model.cfg``."""
+    the JAX package: the latent length comes from ``model.cfg``. The call
+    is one ``utils.profiling.request``: its spans land in
+    ``model.last_spans`` and their device times in ``model.last_timings``."""
     n = int(n_candidate_gen_per_text)
-    gen = torch.Generator(device=model.device).manual_seed(int(seed))
-    t0 = time.perf_counter()
-    batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
-    t1 = time.perf_counter()
-    gen_duration = round_up_duration(duration, duration_bucket) if duration_bucket else duration
-    latent_t_size = int(gen_duration * model.cfg.latent_t_per_second)
-    wav, _ = model.ldm.generate(batch, gen, latent_t_size=latent_t_size, n_gen=n,
-                                guidance=guidance_scale, ddim_steps=ddim_steps, sampler=sampler,
-                                use_ema=use_ema)
-    t2 = time.perf_counter()
-    wav = rerank_and_select(model, wav, text, batchsize, n)
-    t3 = time.perf_counter()
-    _record_timings(model, duration, batchsize, tokenize_s=t1 - t0, generate_s=t2 - t1,
+    with profiling.request(model.device) as req:
+        gen = torch.Generator(device=model.device).manual_seed(int(seed))
+        t0 = time.perf_counter()
+        batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
+        t1 = time.perf_counter()
+        gen_duration = (round_up_duration(duration, duration_bucket) if duration_bucket
+                        else duration)
+        latent_t_size = int(gen_duration * model.cfg.latent_t_per_second)
+        wav, _ = model.ldm.generate(batch, gen, latent_t_size=latent_t_size, n_gen=n,
+                                    guidance=guidance_scale, ddim_steps=ddim_steps,
+                                    sampler=sampler, use_ema=use_ema)
+        t2 = time.perf_counter()
+        wav = rerank_and_select(model, wav, text, batchsize, n)
+        t3 = time.perf_counter()
+    _record_timings(model, req, duration, batchsize, tokenize_s=t1 - t0, generate_s=t2 - t1,
                     rerank_s=t3 - t2)
     n_samples = int(duration * model.cfg.preprocessing.sampling_rate)
     return wav[:, None, :n_samples]
@@ -333,29 +346,30 @@ def rerank_and_select(model: AudioLDM2, wav: np.ndarray, text: str, batchsize: i
     closest to the prompt's text embedding (candidate ``i + j * batchsize``
     belongs to prompt ``i``). The similarities print to stderr. With no
     reranker weights it warns and returns each prompt's first candidate."""
-    if n_gen <= 1:
-        return wav
-    reranker = model.ldm.params.get("reranker_clap")
-    if reranker is None:
-        warnings.warn(
-            "n_candidate_gen_per_text > 1 but no CLAP reranker weights are loaded "
-            "(cfg.reranker_clap is None): returning candidate #1 un-reranked.", stacklevel=2)
-        return wav[:batchsize]
-    ids, mask = model.reranker_tok([text] * wav.shape[0])
-    dev = model.device
-    sim = clap.rerank_score(
-        reranker, model.cfg.reranker_clap, model.cfg.preprocessing.sampling_rate,
-        torch.as_tensor(np.asarray(wav), device=dev), torch.as_tensor(ids, device=dev),
-        torch.as_tensor(mask, device=dev)).cpu().numpy()
-    model.last_similarities = sim
-    best = [i + int(np.argmax(sim[i::batchsize])) * batchsize for i in range(batchsize)]
-    print("Similarity between generated audio and text:", file=sys.stderr)
-    print(" ".join("{:.4f}".format(float(v)) for v in sim), file=sys.stderr)
-    if float(np.max(sim) - np.min(sim)) == 0.0:
-        print("WARNING: all candidate similarities identical — the CLAP embedding path is "
-              "degenerate (argmax is arbitrary)", file=sys.stderr)
-    print("Choose the following indexes as the output:", best, file=sys.stderr)
-    return wav[best]
+    with profiling.span("rerank"):
+        if n_gen <= 1:
+            return wav
+        reranker = model.ldm.params.get("reranker_clap")
+        if reranker is None:
+            warnings.warn(
+                "n_candidate_gen_per_text > 1 but no CLAP reranker weights are loaded "
+                "(cfg.reranker_clap is None): returning candidate #1 un-reranked.", stacklevel=2)
+            return wav[:batchsize]
+        ids, mask = model.reranker_tok([text] * wav.shape[0])
+        dev = model.device
+        sim = clap.rerank_score(
+            reranker, model.cfg.reranker_clap, model.cfg.preprocessing.sampling_rate,
+            torch.as_tensor(np.asarray(wav), device=dev), torch.as_tensor(ids, device=dev),
+            torch.as_tensor(mask, device=dev)).cpu().numpy()
+        model.last_similarities = sim
+        best = [i + int(np.argmax(sim[i::batchsize])) * batchsize for i in range(batchsize)]
+        print("Similarity between generated audio and text:", file=sys.stderr)
+        print(" ".join("{:.4f}".format(float(v)) for v in sim), file=sys.stderr)
+        if float(np.max(sim) - np.min(sim)) == 0.0:
+            print("WARNING: all candidate similarities identical — the CLAP embedding path is "
+                  "degenerate (argmax is arbitrary)", file=sys.stderr)
+        print("Choose the following indexes as the output:", best, file=sys.stderr)
+        return wav[best]
 
 
 def latent_inpaint_mask(shape, time_ratio: Tuple[float, float],
@@ -392,29 +406,30 @@ def super_resolution_and_inpainting(
     length comes from ``model.cfg``."""
     n = int(n_candidate_gen_per_text)
     cfg = model.cfg
-    gen = torch.Generator(device=model.device).manual_seed(int(seed))
-    t0 = time.perf_counter()
     sr = cfg.preprocessing.sampling_rate
-    # mel frames = latent frames per second x the VAE's downsampling
-    target_frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
-    wav_in = read_wav_file(original_audio_file_path,
-                           target_frames * cfg.preprocessing.hop_length, target_sr=sr)
-    fbank = model.mel.fbank(wav_in, target_length=target_frames)  # [1, T, M]
-    mel_in = fbank[..., None].repeat(batchsize, 1, 1, 1)
-    batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
-    z0 = model.ldm.encode_mel(gen, mel_in)
-    batch["inpaint_mask"] = latent_inpaint_mask(
-        z0.shape, time_mask_ratio_start_and_end, freq_mask_ratio_start_and_end).to(z0.device)
-    batch["inpaint_x0"] = z0
-    if z0.is_cuda:  # prepare_s covers the encode, not only its enqueue
-        torch.cuda.synchronize(z0.device)
-    t1 = time.perf_counter()
-    wav, _ = model.ldm.generate(batch, gen, latent_t_size=z0.shape[1], n_gen=n,
-                                guidance=guidance_scale, ddim_steps=ddim_steps, use_mask=True,
-                                sampler=sampler)
-    t2 = time.perf_counter()
-    wav = rerank_and_select(model, wav, text, batchsize, n)
-    t3 = time.perf_counter()
-    _record_timings(model, duration, batchsize, prepare_s=t1 - t0, generate_s=t2 - t1,
+    with profiling.request(model.device) as req:
+        gen = torch.Generator(device=model.device).manual_seed(int(seed))
+        t0 = time.perf_counter()
+        # mel frames = latent frames per second x the VAE's downsampling
+        target_frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
+        wav_in = read_wav_file(original_audio_file_path,
+                               target_frames * cfg.preprocessing.hop_length, target_sr=sr)
+        fbank = model.mel.fbank(wav_in, target_length=target_frames)  # [1, T, M]
+        mel_in = fbank[..., None].repeat(batchsize, 1, 1, 1)
+        batch = model.make_batch(text, transcription=transcription, batchsize=batchsize)
+        z0 = model.ldm.encode_mel(gen, mel_in)
+        batch["inpaint_mask"] = latent_inpaint_mask(
+            z0.shape, time_mask_ratio_start_and_end, freq_mask_ratio_start_and_end).to(z0.device)
+        batch["inpaint_x0"] = z0
+        if z0.is_cuda:  # prepare_s covers the encode, not only its enqueue
+            torch.cuda.synchronize(z0.device)
+        t1 = time.perf_counter()
+        wav, _ = model.ldm.generate(batch, gen, latent_t_size=z0.shape[1], n_gen=n,
+                                    guidance=guidance_scale, ddim_steps=ddim_steps, use_mask=True,
+                                    sampler=sampler)
+        t2 = time.perf_counter()
+        wav = rerank_and_select(model, wav, text, batchsize, n)
+        t3 = time.perf_counter()
+    _record_timings(model, req, duration, batchsize, prepare_s=t1 - t0, generate_s=t2 - t1,
                     rerank_s=t3 - t2)
     return wav[:, None, :int(duration * sr)]

@@ -1,15 +1,37 @@
-"""Profiling helpers on ``torch.profiler``: a trace written to disk and
-tables read back from it, with no tensorboard.
+"""Profiling on ``torch.profiler``: the port's stage spans, a trace written
+to disk, and tables read back from it, with no tensorboard.
 
 The port's counterpart of ``audioldm2_tpu/utils/profiling.py``.
-:func:`trace` records CPU ops and, on a CUDA device, the device's kernels,
-copies and sets (CUPTI), and writes one Chrome trace (JSON) into a
+
+Spans. A request (``pipeline.text_to_audio``,
+``pipeline.super_resolution_and_inpainting``) runs inside :func:`request`,
+whose root span is ``"request"``; each stage boundary under it opens a
+:func:`span`: ``tokenize`` (host only), ``conditioning``, ``prepare_unet``,
+``sampler``, ``vae.decode``, ``vocoder``, ``vae.encode``, ``to_host`` and
+``rerank``; each sampler step a :func:`step` (``"sampler.step"``, around
+the ``"unet"`` range of its UNet call). Every span and step is a
+``torch.profiler.record_function`` range, so a running profiler puts it in
+the device trace on the device ops' clock, and the device's idle gaps can
+be named by the host stage that was running. Inside a request a span also
+keeps a :class:`Span` record: its name, its id and its parent's, the
+request's id, the host clock at entry and exit, and, on a CUDA device, the
+device time between two ``torch.cuda.Event`` s recorded on the current
+stream at entry and exit (the events are read once the request is over,
+after its own ``.cpu()`` copies). A step keeps no record: it counts itself
+on the enclosing span (``Span.steps``). Outside a request spans and steps
+are ranges only. The pipeline exports the records as ``model.last_spans``
+and their sums as ``model.last_timings`` (``<span>_device_s``,
+``sampler_steps``; :meth:`Request.timings`), which the benchmark's
+per-layer readers read.
+
+Traces. :func:`trace` records CPU ops and, on a CUDA device, the device's
+kernels, copies and sets (CUPTI), and writes one Chrome trace (JSON) into a
 directory. :func:`op_table` sums op time by name from the newest trace
 there: device time where the trace holds device ops, else CPU op time.
 :func:`busy_share` and :func:`range_device_ms` read the same trace: the
 union of the device's op intervals over the traced window, and the device
-time of the kernels launched inside a ``torch.profiler.record_function``
-range (the sampler's UNet calls sit in ``"unet"`` ones).
+time of the kernels launched inside a ``record_function`` range (the
+sampler's UNet calls sit in ``"unet"`` ones).
 """
 
 from __future__ import annotations
@@ -17,17 +39,140 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import dataclasses
 import glob
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 # Chrome-trace categories of the device's own ops. The host's runtime calls
 # that launch them ("cuda_runtime", "cuda_driver") are not device time.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@dataclasses.dataclass
+class Span:
+    """One span of a request, as :func:`span` keeps it. ``device_s`` is
+    None off CUDA, for host-only spans, and until the request is over."""
+
+    name: str
+    id: int
+    parent: Optional[int]  # the enclosing span's id; None for the root
+    request: int  # the request's id, shared by all its spans
+    host_start_ns: int  # time.perf_counter_ns()
+    host_end_ns: int = 0
+    device_s: Optional[float] = None
+    steps: int = 0  # the steps (:func:`step`) run directly inside it
+    events: Optional[list] = dataclasses.field(default=None, repr=False)
+
+
+_ids = itertools.count(1)
+# per thread: the request being recorded (a request runs on one thread, and
+# the functions that open its spans take no handle to it)
+_current = threading.local()
+
+
+class Request:
+    """The spans of one request, in the order they opened."""
+
+    def __init__(self, device):
+        self.id = next(_ids)
+        device = torch.device(device)
+        self.device = device if device.type == "cuda" else None
+        self.spans: List[Span] = []
+        self.open: List[Span] = []
+
+    def enter(self, name: str, events: bool) -> Span:
+        rec = Span(name, next(_ids), self.open[-1].id if self.open else None, self.id,
+                   time.perf_counter_ns())
+        if events and self.device is not None:
+            rec.events = [torch.cuda.Event(enable_timing=True)]
+            rec.events[0].record(torch.cuda.current_stream(self.device))
+        self.spans.append(rec)
+        self.open.append(rec)
+        return rec
+
+    def exit(self, rec: Span) -> None:
+        if rec.events is not None:
+            rec.events.append(torch.cuda.Event(enable_timing=True))
+            rec.events[1].record(torch.cuda.current_stream(self.device))
+        rec.host_end_ns = time.perf_counter_ns()
+        self.open.pop()
+
+    def resolve(self) -> None:
+        """Read every span's events into ``device_s``. Called once the
+        request's output is on the host: its copies drained the stream, so
+        each wait here finds its event done, but for the root span's exit
+        event, recorded after the last copy on an idle stream."""
+        for rec in self.spans:
+            if rec.events is not None:
+                start, end = rec.events
+                end.synchronize()
+                rec.device_s = start.elapsed_time(end) / 1e3
+                rec.events = None
+
+    def timings(self) -> Dict[str, float]:
+        """``<name>_device_s`` (``.`` written ``_``), summed over the spans
+        of each name with a device time, and ``<name>_steps`` for each span
+        that ran steps (``sampler_steps``)."""
+        out: Dict[str, float] = collections.Counter()
+        for rec in self.spans:
+            key = rec.name.replace(".", "_")
+            if rec.device_s is not None:
+                out[key + "_device_s"] += rec.device_s
+            if rec.steps:
+                out[key + "_steps"] += rec.steps
+        return dict(out)
+
+
+@contextlib.contextmanager
+def request(device) -> Iterator[Request]:
+    """Record one request on ``device``: the root span ``"request"`` and
+    every span opened under it on this thread. Yields the
+    :class:`Request`; its device times are read when the block ends
+    normally. A request inside a request records on its own and hands the
+    outer one back on exit."""
+    req, outer = Request(device), getattr(_current, "request", None)
+    _current.request = req
+    try:
+        with span("request"):
+            yield req
+    finally:
+        _current.request = outer
+    req.resolve()
+
+
+@contextlib.contextmanager
+def span(name: str, device: bool = True) -> Iterator[None]:
+    """A stage of a request: a ``record_function(name)`` range always and,
+    inside a :func:`request`, a :class:`Span` record, with device events
+    unless ``device`` is False (a host-only stage)."""
+    with torch.profiler.record_function(name):
+        req = getattr(_current, "request", None)
+        if req is None:
+            yield
+            return
+        rec = req.enter(name, device)
+        try:
+            yield
+        finally:
+            req.exit(rec)
+
+
+@contextlib.contextmanager
+def step(name: str) -> Iterator[None]:
+    """One step of a loop: a ``record_function(name)`` range only, counted
+    on the enclosing span inside a request."""
+    req = getattr(_current, "request", None)
+    if req is not None and req.open:
+        req.open[-1].steps += 1
+    with torch.profiler.record_function(name):
+        yield
 
 
 @contextlib.contextmanager
@@ -134,64 +279,3 @@ def range_device_ms(log_dir: str, name: str) -> Tuple[float, int]:
         if counted:
             total += float(e["dur"])
     return total / 1e3, len(host)
-
-
-def _synchronize(device: Optional[torch.device] = None) -> None:
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    elif device is None and torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-class Timer:
-    """Wall-clock timer of a block that waits for the device: on CUDA
-    (``device``, or any initialized CUDA device when None) it synchronizes
-    on entry and on exit. ``elapsed`` is in seconds; with a ``name`` it
-    prints the milliseconds."""
-
-    def __init__(self, name: str = "", device=None):
-        self.name = name
-        self.device = device
-
-    def __enter__(self):
-        _synchronize(self.device)
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        _synchronize(self.device)
-        self.elapsed = time.perf_counter() - self.t0
-        if self.name:
-            print(f"[{self.name}] {self.elapsed * 1000:.2f} ms")
-
-
-def _tensor_devices(out) -> set:
-    if isinstance(out, torch.Tensor):
-        return {out.device}
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (list, tuple)):
-        return set().union(*(_tensor_devices(o) for o in out)) if out else set()
-    return set()
-
-
-def timeit(fn, *args, n: int = 10, warmup: int = 1) -> float:
-    """Median wall seconds of ``fn(*args)`` over ``n`` calls after
-    ``warmup`` ones, each call ending when its output's CUDA devices have
-    finished (a synchronize per device it returned tensors on)."""
-
-    def call():
-        out = fn(*args)
-        for dev in _tensor_devices(out):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-    for _ in range(warmup):
-        call()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        call()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2]

@@ -1,0 +1,9 @@
+"""vae_decode_ms.tput: the device time of the program's ``"vae.decode"`` span
+(``last_timings["vae_decode_device_s"]``, CUDA events), the mean over the
+requests the profiler did not run in, ms."""
+
+from a2bench import spans
+
+
+def read(w):
+    return spans.mean_device_ms(w, "vae_decode_device_s")

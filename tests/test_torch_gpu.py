@@ -951,6 +951,35 @@ def test_tiny_slice_on_the_card_matches_cpu(cuda):
     assert float(np.abs(mels[0] - mels[1]).mean()) < 1e-3
 
 
+def test_request_spans_time_every_stage_on_the_card(cuda):
+    """After a request on the card every evented span has its device time
+    in ``last_timings``, and the stages, each nested in the request span
+    and run one after another on its stream, sum to no more than it."""
+    import dataclasses
+
+    import audioldm2_torch as at
+    from audioldm2_torch import config as config_m
+    from tiny import tiny_t5_model_config
+
+    cfg = dataclasses.replace(config_m.coerce(tiny_t5_model_config()),
+                              reranker_clap=config_m.CLAPConfig())
+    model = at.build_model(config=cfg, device=cuda, seed=0, nonzero_init=True)
+    kw = dict(ddim_steps=4, duration=0.32, duration_bucket=None, n_candidate_gen_per_text=2)
+    at.text_to_audio(model, "rain", seed=1, **kw)  # warm: the kernels' first launches
+    at.text_to_audio(model, "rain", seed=2, **kw)
+    t = model.last_timings
+    stages = ["conditioning", "prepare_unet", "sampler", "vae_decode", "vocoder", "to_host",
+              "rerank"]
+    device = {k: v for k, v in t.items() if k.endswith("_device_s")}
+    assert set(device) == {f"{n}_device_s" for n in ["request"] + stages}
+    assert all(v > 0 for v in device.values()), device
+    assert sum(device[f"{n}_device_s"] for n in stages) <= device["request_device_s"]
+    assert t["sampler_steps"] == 4
+    spans = model.last_spans
+    assert all(s.parent == spans[0].id for s in spans[1:])
+    assert {s.name for s in spans if s.device_s is None} == {"tokenize"}
+
+
 # SHA-256 of the bf16 K3 output at the 18 (M, C, N) the t5 and large-1150k
 # UNets give it, on time_k2_k3.k3_args's inputs, from the tree before K3 and
 # K4 shared one kernel (NVIDIA H100 80GB HBM3).

@@ -1,5 +1,5 @@
 """audioldm2_torch.utils.profiling on the CPU: a trace written to disk, the
-op table and the range and busy readings of it, Timer and timeit; and the
+op table and the range and busy readings of it; and the
 table readers on a hand-written trace with device ops (what the card's
 CUPTI trace holds), so that a kernel is counted once, not again as the
 runtime call that launched it."""
@@ -97,32 +97,3 @@ def test_range_falls_back_to_the_device_side_range(tmp_path):
     with open(tmp_path / "t.json", "w") as f:
         json.dump({"traceEvents": ev}, f)
     assert profiling.range_device_ms(str(tmp_path), "unet") == (pytest.approx(0.02), 0)
-
-
-def test_timer_and_timeit(capsys):
-    with profiling.Timer("block") as t:
-        time.sleep(0.01)
-    assert t.elapsed >= 0.01 and "[block]" in capsys.readouterr().out
-    with profiling.Timer() as t:
-        pass
-    assert capsys.readouterr().out == ""
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return {"y": x * 2, "z": [x]}
-
-    s = profiling.timeit(fn, torch.ones(4), n=5, warmup=2)
-    assert len(calls) == 7 and s >= 0
-
-
-def test_timer_waits_for_the_card(monkeypatch):
-    """On a CUDA device both ends of the block synchronize it."""
-    syncs = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: syncs.append(d))
-    with profiling.Timer(device="cuda:0"):
-        pass
-    assert syncs == ["cuda:0", "cuda:0"]
-    with profiling.Timer(device="cpu"):
-        pass
-    assert len(syncs) == 2
