@@ -73,6 +73,23 @@
 // shared core's K1q, which evaluated silu(x * a + c) of a shifted tap for
 // every tap and every 64-wide N tile and split K through a workspace.
 //
+// The plain conv (a2k_conv2d_bf16) replaces no Pallas kernel: it is every
+// bf16 conv2d of the UNet and the VAE decoder outside the ResBlock bodies,
+// which the JAX package leaves to XLA and cuDNN ran on f32 copies of the bf16
+// operands (FFMA or FFT, not the tensor cores). It is K1's bf16 kernel with
+// its geometry read at run time (GEN, ConvGeo): 1x1 or 3x3 taps (a 1x1 patch
+// has no halo, a tap a chunk), stride 1 or 2 (a tile of tt x ft outputs reads
+// a patch of ((tt - 1) s + k) x ((ft - 1) s + k) positions, each ldmatrix
+// lane's row address stepping s positions), the input read through a
+// nearest-2x upsample in the patch load (the 2x tensor is never written), two
+// concat parts in place, and a prologue of nothing (the patch is used as it
+// lands, zero-filled outside) or the GroupNorm alone (the statistics pass,
+// then x * a + c rounded once to bf16: the spatial transformer's norm before
+// its proj_in). The sums and the epilogue are K1's: bf16 products, f32
+// accumulation, + bias, one rounding, channels-last bf16 stores. Bound at
+// the UNet's shapes by latency (its 1x1 convs are 3-100 us) and at the
+// upsample convs by the tensor cores.
+//
 // K1 in f32 (the sr path's VAE encode) runs the same statistics pass and
 // a2k_gn_silu_conv3x3_f32: the same conv kernel with TX = float, 32-channel
 // chunks and the products in 3xTF32 on the tensor cores (below); bound by
@@ -307,6 +324,14 @@ constexpr int CV_PAD = 8;         // elements of padding per W tile row
 constexpr int CV_MAX_STAGES = 8;  // at most 10: a patch must land before its chunk's first tap
 constexpr int CV_MAX_SPLITS = 8;  // the portable cluster size
 constexpr int CV_MAX_SMEM = 232448;
+// W tiles (64 input channels of one tap each) that a partial of the plain
+// conv sums on the tensor cores before it joins the f32 sum: mma.sync's f32
+// accumulation truncates, so a running sum over all of K drifts (on an H100,
+// 0.52% of bf16 outputs off the exact sum's one rounding at K = 9216, where
+// cuDNN's f32 FFMA left 0.06%); partials of 1, 2, 4 and 8 tiles left 0.017%,
+// 0.015%, 0.020% and 0.035% there, and took 2.1%, 0.6%, 0.4% and 0.1% more
+// time a UNet forward than one partial an N tile.
+constexpr int CV_PART_TILES = 4;
 
 // K1 in f32 (the sr path's VAE encode) is the same kernel with TX = float:
 // the halo'd patch of a channel chunk comes in by cp.async, is activated
@@ -352,13 +377,14 @@ constexpr int CV32_BM = 256, CV32_BN = 64;
 // Shared memory of one bf16 block: two patch buffers, the chunk's a and c
 // (two buffers), the W ring (K1q: two bf16 staging tiles and an int8 ring of
 // rows padded by 16 bytes); the split epilogue's f32 tile reuses it.
-__host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int tt, int ft, int stages,
+// P: the patch's positions, (tt + 2) x (ft + 2) for K1 (ConvGeo::patch).
+__host__ __device__ inline size_t conv_smem_bytes(int BM, int BN, int P, int stages,
                                                   int w_bytes = 2) {
   const size_t ring = w_bytes == 1
                           ? (size_t)2 * CV_CK * (BN + CV_PAD) * sizeof(bf16) +
                                 (size_t)stages * CV_CK * (BN + 16)
                           : (size_t)stages * CV_CK * (BN + CV_PAD) * sizeof(bf16);
-  const size_t main = (size_t)2 * (tt + 2) * (ft + 2) * CV_LD * sizeof(bf16) +
+  const size_t main = (size_t)2 * P * CV_LD * sizeof(bf16) +
                       (size_t)4 * CV_CK * sizeof(float) + ring;
   const size_t epi = (size_t)BM * (BN + 4) * sizeof(float);
   return main > epi ? main : epi;
@@ -386,6 +412,29 @@ struct ConvGeom<float> {
   static constexpr int CK = CV32_CK, LD = CV32_LD, THREADS = CV32_THREADS;
 };
 
+// The plain conv's geometry and prologue (the GEN instantiations, entry
+// a2k_conv2d_bf16); K1, K1q and the f32 K1 fix it at k1_geo: 3x3, stride 1,
+// SAME, GroupNorm + SiLU. The output [B, T, F, Cout] is given beside it; the
+// padding after the input is what the output's size implies (zeros past the
+// input).
+struct ConvGeo {
+  int Ti, Fi;  // the input's T and F as stored
+  int up;      // 1: the input read through a nearest-2x upsample (2 Ti x 2 Fi)
+  int k;       // taps a side: 1 or 3
+  int s;       // stride: 1 or 2
+  int pt, pf;  // padding before T and before F
+  int act;     // prologue: 0 none, 1 silu(x a + c), 2 x a + c (GroupNorm alone)
+
+  // positions of the patch that a tile of tt x ft outputs reads
+  __host__ __device__ int patch(int tt, int ft) const {
+    return ((tt - 1) * s + k) * ((ft - 1) * s + k);
+  }
+};
+
+__host__ __device__ inline ConvGeo k1_geo(int T, int F) {
+  return ConvGeo{T, F, 0, 3, 1, 1, 1, 1};
+}
+
 // f32 -> tf32, round to nearest with ties away from zero (cvt.rna): the
 // result is an f32 whose 13 low mantissa bits are zero.
 __device__ __forceinline__ float to_tf32(float v) {
@@ -410,17 +459,27 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)
 // TW float). TW: the weight's type, TX or int8 (K1q, bf16 only: the ring
 // holds int8 tiles, each converted once into one of two bf16 staging tiles
 // that the products read, and the per-output-channel scale wscale
-// multiplies the f32 sums in the epilogue).
-template <int BM, int BN, typename TW = bf16, typename TX = bf16>
+// multiplies the f32 sums in the epilogue). GEN: the plain conv (bf16 only),
+// its geometry and prologue from `geo` at run time; otherwise k1_geo, as
+// constants. T, F: the output's extent.
+template <int BM, int BN, typename TW = bf16, typename TX = bf16, bool GEN = false>
 __global__ void __launch_bounds__(ConvGeom<TX>::THREADS)
 gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
                     const float* __restrict__ a, const float* __restrict__ c,
                     const TW* __restrict__ w, const float* __restrict__ wscale,
                     const void* __restrict__ bias, bool p16, TX* __restrict__ out, int T, int F,
                     int C1, int C2, int Cout, int tt, int ft, int strip_tiles, int stages,
-                    int chunks_per_split) {
+                    int chunks_per_split, ConvGeo geo) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
   constexpr bool F32 = std::is_same<TX, float>::value;
+  static_assert(!GEN || (!Q && !F32), "the plain conv is bf16 only");
+  // the geometry: taps a side, stride, the nearest-2x read, the prologue,
+  // the input as stored and as read, the padding before it
+  const int KS = GEN ? geo.k : 3, NTAP = KS * KS, STR = GEN ? geo.s : 1;
+  const int UP = GEN ? geo.up : 0, ACT = GEN ? geo.act : 1;
+  const int TI = GEN ? geo.Ti : T, FI = GEN ? geo.Fi : F;
+  const int TV = TI << UP, FV = FI << UP;
+  const int PT = GEN ? geo.pt : 1, PF = GEN ? geo.pf : 1;
   constexpr int CK = ConvGeom<TX>::CK, LD = ConvGeom<TX>::LD, THREADS = ConvGeom<TX>::THREADS;
   constexpr int EPP = 16 / (int)sizeof(TX);  // elements of a 16-byte piece: CK / EPP = 8 a row
   constexpr int WARPS_N = BN / 32, WARPS_M = (THREADS / 32) / WARPS_N;
@@ -438,17 +497,18 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
 
   extern __shared__ __align__(128) unsigned char cv_smem[];
   const int Cin = C1 + C2, n_chunks = (Cin + CK - 1) / CK;
-  const int PW = ft + 2, P = (tt + 2) * PW;  // patch width and positions
+  const int PW = (ft - 1) * STR + KS, P = ((tt - 1) * STR + KS) * PW;  // patch width, positions
   const int t_tiles = (T + tt - 1) / tt, f_tiles = (F + ft - 1) / ft;
   const int b = blockIdx.y / (t_tiles * f_tiles);
   const int tile = blockIdx.y % (t_tiles * f_tiles);
   const int t0 = (tile / f_tiles) * tt, f0 = (tile % f_tiles) * ft;
+  const int pt0 = t0 * STR - PT, pf0 = f0 * STR - PF;  // the patch's origin in the input as read
   const int kc0 = blockIdx.z * chunks_per_split;
   const int nk = min(n_chunks, kc0 + chunks_per_split) - kc0;  // this block's chunks
   const int n_tiles = (Cout + BN - 1) / BN;
   const int tile0 = blockIdx.x * strip_tiles;
   const int my_tiles = min(strip_tiles, n_tiles - tile0);
-  const int per_nt = 9 * nk;           // W tiles of one N tile
+  const int per_nt = NTAP * nk;        // W tiles of one N tile
   const int total = my_tiles * per_nt;  // ... of the strip
 
   // bf16: two patch buffers [2][P][LD], activated in place, then the a, c
@@ -488,13 +548,13 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
     TX* dst = F32 ? patch : patch + (size_t)(seq & 1) * P * LD;
     for (int idx = tid; idx < P * (CK / EPP); idx += THREADS) {
       const int p = idx >> 3, q = idx & 7;
-      const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW, ch = ch0 + q * EPP;
-      const bool ok = tq >= 0 && tq < T && fq >= 0 && fq < F && ch < Cin;
-      const size_t row = ((size_t)b * T + tq) * F + fq;
+      const int tq = pt0 + p / PW, fq = pf0 + p % PW, ch = ch0 + q * EPP;
+      const bool ok = tq >= 0 && tq < TV && fq >= 0 && fq < FV && ch < Cin;
+      const size_t row = ((size_t)b * TI + (tq >> UP)) * FI + (fq >> UP);
       const TX* src = !ok ? x1 : ch < C1 ? x1 + row * C1 + ch : x2 + row * C2 + (ch - C1);
       cp_async16(dst + p * P_LD + q * EPP, src, ok);
     }
-    if (tid < CK / 2) {  // copies of four floats of a, then as many of c
+    if (ACT && tid < CK / 2) {  // copies of four floats of a, then as many of c
       const int which = tid / (CK / 4), ch = ch0 + (tid % (CK / 4)) * 4;
       const bool ok = ch < Cin;
       const float* src = (which ? c : a) + (size_t)b * Cin + ch;
@@ -520,7 +580,7 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
         const bool ok = n_ok && ch0 + j * W_ROWS + w_r < Cin;
         cp_async16(dst + j * W_ROWS * R_LD, ok ? src + (size_t)j * W_ROWS * Cout : w, ok);
       }
-      if (++ld_tap == 9) {
+      if (++ld_tap == NTAP) {
         ld_tap = 0;
         if (++ld_kc == nk) {
           ld_kc = 0;
@@ -533,18 +593,19 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
     cp_async_commit();
   };
 
-  // silu(x * a + c) of the patch of the strip's chunk number `seq`, zero
-  // outside the image and past Cin. bf16: buffer seq & 1, in place, in f32
-  // with one rounding to bf16. f32: from the raw patch, with expf and IEEE
-  // division, split once into the hi and lo planes.
+  // silu(x * a + c) of the patch of the strip's chunk number `seq` (GEN's
+  // act 2: x * a + c), zero outside the image and past Cin. bf16: buffer
+  // seq & 1, in place, in f32 with one rounding to bf16. f32: from the raw
+  // patch, with expf and IEEE division, split once into the hi and lo planes.
+  // Act 0 activates nothing: cp.async zero-filled the patch outside.
   auto activate = [&](int seq) {
     const int ch0 = (kc0 + seq % nk) * CK;
     if constexpr (F32) {
       for (int idx = tid; idx < P * (CK / 4); idx += THREADS) {
         const int p = idx >> 3, q = idx & 7;
-        const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW;
+        const int tq = pt0 + p / PW, fq = pf0 + p % PW;
         float4 h = make_float4(0.f, 0.f, 0.f, 0.f), l = h;
-        if (tq >= 0 && tq < T && fq >= 0 && fq < F && ch0 + q * 4 < Cin) {
+        if (tq >= 0 && tq < TV && fq >= 0 && fq < FV && ch0 + q * 4 < Cin) {
           const float4 v = *reinterpret_cast<const float4*>(patch + p * CK + q * 4);
           const float4 av = *reinterpret_cast<const float4*>(ac + q * 4);
           const float4 cv = *reinterpret_cast<const float4*>(ac + CK + q * 4);
@@ -571,16 +632,16 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
       const float* cs = as + CK;
       for (int idx = tid; idx < P * (CK / 8); idx += THREADS) {
         const int p = idx >> 3, q = idx & 7;
-        const int tq = t0 - 1 + p / PW, fq = f0 - 1 + p % PW;
+        const int tq = pt0 + p / PW, fq = pf0 + p % PW;
         bf16* e = pb + p * LD + q * 8;
         float y[8];
-        if (tq >= 0 && tq < T && fq >= 0 && fq < F && ch0 + q * 8 < Cin) {
+        if (tq >= 0 && tq < TV && fq >= 0 && fq < FV && ch0 + q * 8 < Cin) {
           float v[8];
           unpack8(*reinterpret_cast<const uint4*>(e), v);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float z = v[i] * as[q * 8 + i] + cs[q * 8 + i];
-            y[i] = __fdividef(z, 1.f + __expf(-z));
+            y[i] = ACT == 1 ? __fdividef(z, 1.f + __expf(-z)) : z;
           }
         } else {
 #pragma unroll
@@ -602,7 +663,8 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
   for (int mi = 0; mi < MT; ++mi) {
     const int r = F32 ? wm * WM + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8
                       : wm * WM + mi * 16 + (lane & 15);
-    apos[mi] = (r < tt * ft ? (r / ft) * PW + r % ft : 0) * LD + (lane >> 4) * (F32 ? 4 : 8);
+    apos[mi] = (r < tt * ft ? (r / ft) * STR * PW + (r % ft) * STR : 0) * LD +
+               (lane >> 4) * (F32 ? 4 : 8);
   }
   const int b_off =
       F32 ? (wn * 32 + (lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 4
@@ -666,7 +728,10 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
   }
 
   float acc[MT][4][4];
-  int kt = 0, nt = 0, slot = 0, tap = 0, seq = 0;
+  // GEN: the partial of up to CV_PART_TILES W tiles, summed from zero on the
+  // tensor cores and added to acc in f32
+  float part[MT][4][4];
+  int kt = 0, nt = 0, slot = 0, tap = 0, seq = 0, pk = 0;
   for (int i = 0; i < total; ++i) {
     // W tile i (staged: i + 1), and every patch up to its chunk's, has landed
     cp_async_wait_dyn(stages - 2);
@@ -683,7 +748,7 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
     } else {
       if (tap == 0 && seq + 1 < my_tiles * nk) load_patch(seq + 1);
       load_next();  // tile i + stages - 1 (K1q: i + stages; with the next chunk's patch, at tap 0)
-      if (tap == 0) {  // this chunk's patch has landed: activate it, whole
+      if (tap == 0 && ACT) {  // this chunk's patch has landed: activate it, whole
         activate(seq);
         __syncthreads();
       }
@@ -699,7 +764,7 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
     if constexpr (F32) {
       const float* Bh = reinterpret_cast<const float*>(Ws) + (size_t)(i & 1) * 2 * S_PLANE + b_off;
       const float* Bl = Bh + S_PLANE;
-      const int shift = ((tap / 3) * PW + tap % 3) * LD;
+      const int shift = ((tap / KS) * PW + tap % KS) * LD;
 #pragma unroll
       for (int kk = 0; kk < CK; kk += 8) {
         uint32_t bh[2][4], bl[2][4];
@@ -731,7 +796,7 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
     } else {
       const bf16* Wt = Ws + (size_t)(Q ? i & 1 : slot) * W_STAGE + b_off;
       if (++slot == stages) slot = 0;
-      const bf16* At = patch + (size_t)(seq & 1) * P * LD + ((tap / 3) * PW + tap % 3) * LD;
+      const bf16* At = patch + (size_t)(seq & 1) * P * LD + ((tap / KS) * PW + tap % KS) * LD;
       uint32_t af[2][MT][4], bfr[2][2][4];
       auto fetch = [&](int set, int kk) {
 #pragma unroll
@@ -739,20 +804,44 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
 #pragma unroll
         for (int np = 0; np < 2; ++np) ldmatrix_x4_trans(bfr[set][np], Wt + kk * B_LD + np * 16);
       };
-      fetch(0, 0);
+      auto products = [&](float(&d)[MT][4][4]) {  // d += this W tile's products
+        fetch(0, 0);
 #pragma unroll
-      for (int ks = 0; ks < CK / 16; ++ks) {
-        if (ks + 1 < CK / 16) fetch((ks + 1) & 1, (ks + 1) * 16);
+        for (int ks = 0; ks < CK / 16; ++ks) {
+          if (ks + 1 < CK / 16) fetch((ks + 1) & 1, (ks + 1) * 16);
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
+          for (int mi = 0; mi < MT; ++mi) {
 #pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            mma_bf16_16816(acc[mi][2 * np], af[ks & 1][mi], bfr[ks & 1][np][0],
-                           bfr[ks & 1][np][1]);
-            mma_bf16_16816(acc[mi][2 * np + 1], af[ks & 1][mi], bfr[ks & 1][np][2],
-                           bfr[ks & 1][np][3]);
+            for (int np = 0; np < 2; ++np) {
+              mma_bf16_16816(d[mi][2 * np], af[ks & 1][mi], bfr[ks & 1][np][0],
+                             bfr[ks & 1][np][1]);
+              mma_bf16_16816(d[mi][2 * np + 1], af[ks & 1][mi], bfr[ks & 1][np][2],
+                             bfr[ks & 1][np][3]);
+            }
           }
         }
+      };
+      if constexpr (GEN) {
+        if (pk == 0) {
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[mi][j][e] = 0.f;
+        }
+        products(part);
+        if (++pk == CV_PART_TILES || kt + 1 == per_nt) {
+          pk = 0;
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+        }
+      } else {
+        products(acc);
       }
       // K1q: tile i + 1 into the other staging tile, behind this tile's
       // products, whose tensor-core work its loads and integer work overlap
@@ -760,7 +849,7 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
         if (i + 1 < total) convert((i + 1) % stages, (i + 1) & 1);
       }
     }
-    if (++tap == 9) {
+    if (++tap == NTAP) {
       tap = 0;
       ++seq;
     }
@@ -895,14 +984,17 @@ gn_silu_conv_kernel(const TX* __restrict__ x1, const TX* __restrict__ x2,
   }
 }
 
-template <int BM, int BN, typename TW = bf16, typename TX = bf16>
+// GEN: the plain conv under `geo`; otherwise K1's geometry (k1_geo).
+template <int BM, int BN, typename TW = bf16, typename TX = bf16, bool GEN = false>
 static int conv_launch(const void* x1, const void* x2, const void* a, const void* c,
                        const void* w, const void* bias, bool p16, void* out, int B, int T, int F,
                        int C1, int C2, int Cout, int tt, int ft, int strip_tiles, int stages,
-                       int splits, cudaStream_t stream, const void* wscale = nullptr) {
+                       int splits, cudaStream_t stream, const void* wscale = nullptr,
+                       ConvGeo geo = ConvGeo{}) {
   constexpr bool F32 = std::is_same<TX, float>::value;
   constexpr int CK = ConvGeom<TX>::CK, THREADS = ConvGeom<TX>::THREADS;
-  auto kern = gn_silu_conv_kernel<BM, BN, TW, TX>;
+  if (!GEN) geo = k1_geo(T, F);
+  auto kern = gn_silu_conv_kernel<BM, BN, TW, TX, GEN>;
   static bool configured = false;  // per instantiation: above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err =
@@ -911,7 +1003,7 @@ static int conv_launch(const void* x1, const void* x2, const void* a, const void
     configured = true;
   }
   const size_t smem = F32 ? conv32_smem_bytes(BM, BN, tt, ft, stages)
-                          : conv_smem_bytes(BM, BN, tt, ft, stages, (int)sizeof(TW));
+                          : conv_smem_bytes(BM, BN, geo.patch(tt, ft), stages, (int)sizeof(TW));
   if (smem > (size_t)CV_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int n_chunks = (C1 + C2 + CK - 1) / CK;
   const int cps = (n_chunks + splits - 1) / splits;
@@ -926,7 +1018,7 @@ static int conv_launch(const void* x1, const void* x2, const void* a, const void
   TX* po = static_cast<TX*>(out);
   if (splits == 1) {
     kern<<<grid, THREADS, smem, stream>>>(px1, px2, pa, pc, pw, ps, bias, p16, po, T, F, C1, C2,
-                                          Cout, tt, ft, strip_tiles, stages, cps);
+                                          Cout, tt, ft, strip_tiles, stages, cps, geo);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
@@ -941,7 +1033,7 @@ static int conv_launch(const void* x1, const void* x2, const void* a, const void
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     cudaError_t err = cudaLaunchKernelEx(&cfg, kern, px1, px2, pa, pc, pw, ps, bias, p16, po, T,
-                                         F, C1, C2, Cout, tt, ft, strip_tiles, stages, cps);
+                                         F, C1, C2, Cout, tt, ft, strip_tiles, stages, cps, geo);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -1160,6 +1252,50 @@ int a2k_gn_silu_conv3x3_f32(const void* x1, const void* x2, const void* a, const
   return a2k::conv_launch<a2k::CV32_BM, a2k::CV32_BN, float, float>(
       x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout, tt, ft, strip_tiles, stages,
       splits, s);
+}
+
+// The plain conv on K1's bf16 kernel (the UNet's and the VAE decoder's
+// convs outside the ResBlock bodies): out [B, T, F, Cout] = conv(pro([x1 ;
+// x2]), w) + bias with one rounding, where pro is act 0: nothing, 2: x * a + c
+// (a, c: f32 [B, C1+C2] from a2k_gn_stats, the GroupNorm folded), 1: silu of
+// it; [x1 ; x2] bf16 [B, Ti, Fi, C1 (+C2)] read through a nearest-2x upsample
+// where up is 1; w: bf16 [k, k, C1+C2, Cout] (HWIO), k 1 or 3, stride s 1 or
+// 2, padding pt, pf before T and F (the output's extent gives the rest); bias
+// as a2k_gn_silu_conv3x3_bf16's. The plan's arguments as K1's, stages at most
+// k * k + 1 (the next chunk's patch lands with the W tile issued at its
+// chunk's first tap and must be in before the chunk's last tap is done).
+int a2k_conv2d_bf16(const void* x1, const void* x2, const void* a, const void* c, const void* w,
+                    const void* bias, int param_dtype, void* out, int B, int T, int F, int Ti,
+                    int Fi, int C1, int C2, int Cout, int k, int s, int up, int pt, int pf,
+                    int act, int bm, int bn, int tt, int ft, int strip_tiles, int stages,
+                    int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const a2k::ConvGeo geo{Ti, Fi, up, k, s, pt, pf, act};
+  if (B <= 0 || T <= 0 || F <= 0 || Ti <= 0 || Fi <= 0 || C1 <= 0 || C2 < 0 || Cout <= 0 ||
+      (C1 & 7) || (C2 & 7) || (Cout & 7) || (C2 > 0 && x2 == nullptr) || (k != 1 && k != 3) ||
+      (s != 1 && s != 2) || (up != 0 && up != 1) || pt < 0 || pf < 0 || act < 0 || act > 2 ||
+      (act && (a == nullptr || c == nullptr)) || tt < 1 || ft < 1 || tt * ft > bm ||
+      strip_tiles < 1 || stages < 2 || stages > a2k::CV_MAX_STAGES || stages > k * k + 1 ||
+      splits < 1 || splits > a2k::CV_MAX_SPLITS || (splits > 1 && strip_tiles != 1) ||
+      (param_dtype != 0 && param_dtype != 1) || bias == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool p16 = param_dtype == 1;
+  if ((reinterpret_cast<uintptr_t>(x1) | reinterpret_cast<uintptr_t>(x2) |
+       reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(c) |
+       reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(bias) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+#define A2K_CONV2D(BM_, BN_)                                                                   \
+  if (bm == BM_ && bn == BN_)                                                                  \
+    return a2k::conv_launch<BM_, BN_, a2k::bf16, a2k::bf16, true>(                             \
+        x1, x2, a, c, w, bias, p16, out, B, T, F, C1, C2, Cout, tt, ft, strip_tiles, stages,   \
+        splits, st, nullptr, geo);
+  A2K_CONV2D(256, 64)
+  A2K_CONV2D(128, 128)
+  A2K_CONV2D(64, 128)
+  A2K_CONV2D(64, 64)
+#undef A2K_CONV2D
+  return (int)cudaErrorInvalidValue;
 }
 
 // The shared core: w: [3, 3, C1+C2, Cout] in the activation dtype; bias: f32

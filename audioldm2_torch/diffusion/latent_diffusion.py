@@ -299,8 +299,8 @@ def kernel_launches_per_generate(cfg: ModelConfig, ddim_steps: int, sampler: str
     masked (and T5's biased), HTSAT's biased, AudioMAE's goes to
     ``scaled_dot_product_attention``, and their matmuls and convs are plain
     f32 products."""
-    per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant)
+    per_step = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant, cfg.compute_dtype)
     n = unet_forwards(cfg, ddim_steps, sampler)
-    dec = vae.kernel_launches_per_decode(cfg.vae)
+    dec = vae.kernel_launches_per_decode(cfg.vae, cfg.compute_dtype)
     enc = vae.kernel_launches_per_encode(cfg.vae) if encode else dict.fromkeys(per_step, 0)
     return {k: n * per_step[k] + dec[k] + enc[k] for k in per_step}

@@ -5,8 +5,10 @@ parameter tree (nested dicts of tensors), channels-last activations
 [B, T, F, C], a context-free self-attention SpatialTransformer first at
 every attention level, then one cross-attention SpatialTransformer per
 context slot. The ResBlock bodies, the LN-fused projections, the GEGLU
-output and the self-attention go through the dispatch points of
-``ops.nn``, which launch the Hopper kernels on CUDA tensors.
+output, the self-attention and the plain convs (the stem, skips, the
+transformers' GroupNorm + proj_in and proj_out, down- and upsamples, the
+out_conv) go through the dispatch points of ``ops.nn``, which launch the
+Hopper kernels on CUDA tensors.
 
 The legacy QKV attention block and the EncoderUNet half-UNet classifier
 (JAX ``unet.py:448-558``; no shipped config instantiates either) reuse the
@@ -215,8 +217,7 @@ def _st_block(p, x, context, mask, num_heads, kv=None):
 
 def _spatial_transformer(p, x, context, mask, num_heads, kvs=None):
     b, t, f, c = x.shape
-    h = nn.group_norm(p["norm"], x, eps=GN_EPS_ST)
-    h = nn.conv2d(p["proj_in"], h).reshape(b, t * f, c)
+    h = nn.gn_conv2d(p["norm"], p["proj_in"], x, eps=GN_EPS_ST).reshape(b, t * f, c)
     for d, blk in enumerate(p["blocks"]):
         kv = kvs[d] if kvs is not None else None
         h = _st_block(blk, h, context, mask, num_heads, kv=kv)
@@ -343,7 +344,7 @@ def apply_unet(params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Tensor
         if "self_st" in blk:
             h = _run_sts(blk, h, context_list, context_mask_list, cfg, kv_iter)
         if "upsample" in blk:
-            h = nn.conv2d(blk["upsample"], nn.nearest_upsample_2d(h))
+            h = nn.upsample_conv2d(blk["upsample"], h)
 
     h = nn.group_norm_silu(params["out_norm"], h, eps=GN_EPS_RES)
     return nn.conv2d(params["out_conv"], h)
@@ -450,10 +451,11 @@ def apply_encoder_unet(params, cfg: UNetConfig, x: torch.Tensor,
     return nn.conv2d(params["out_conv"], h)[:, 0, 0, :]
 
 
-def kernel_launches_per_encoder_forward(cfg: UNetConfig) -> dict:
+def kernel_launches_per_encoder_forward(cfg: UNetConfig, compute_dtype: str = "bfloat16") -> dict:
     """Kernel launches of one apply_encoder_unet call: two K1 per ResBlock,
     one K2 per legacy attention block whose head_dim the kernel takes, one
-    K6 (out_norm)."""
+    K6 (out_norm); in bf16 the plain conv for the stem, downsample, skip and
+    out_conv convs that ``nn.conv2d_uses_kernel`` takes."""
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     res = len(cfg.channel_mult) * cfg.num_res_blocks + 2
     attn, ds = 1, 1  # the middle block's
@@ -465,6 +467,8 @@ def kernel_launches_per_encoder_forward(cfg: UNetConfig) -> dict:
     counts["gn_silu_conv3x3"] = 2 * res
     counts["flash_self_attention"] = attn if cfg.num_head_channels in (32, 64, 128) else 0
     counts["group_norm_silu"] = 1
+    if compute_dtype == "bfloat16":
+        counts["conv2d"] = sum(_conv_takes(*cv[:6]) for cv in _plain_convs(cfg, encoder=True))
     return counts
 
 
@@ -679,6 +683,79 @@ def int8_matmul_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int
     return shapes
 
 
+def _plain_convs(cfg: UNetConfig, encoder: bool = False):
+    """(C1, C2, Cout, taps, stride, up, GroupNorm prologue, downsampling
+    factor of the input) of every conv of one forward that goes to the plain
+    conv's dispatch points (``nn.conv2d``, ``gn_conv2d``, ``upsample_conv2d``,
+    ``conv1x1_cat``), in the order apply_unet runs them: the stem, the
+    ResBlocks' 1x1 skips (C2 > 0: the decoder's concat), each spatial
+    transformer's GroupNorm + proj_in and its proj_out, the stride-2
+    downsamples, the upsamples (read through the nearest 2x), the out_conv.
+    ``encoder``: apply_encoder_unet's (no transformers; a 1x1 out_conv on the
+    pooled [B, 1, 1, C], its factor None)."""
+    mc = cfg.model_channels
+    convs = [(cfg.in_channels, 0, mc, 3, 1, 1, False, 1)]
+    sts = 1 + len(cfg.context_dims)
+    res, ladders, ladder_ds = _layout(cfg)
+
+    def ladder(i):
+        c, ds = ladders[i], ladder_ds[i]
+        return [(c, 0, c, 1, 1, 1, True, ds), (c, 0, c, 1, 1, 1, False, ds)] * sts
+
+    li = ri = 0  # the ladders and ResBlocks walked
+    for level in range(len(cfg.channel_mult)):
+        for _ in range(cfg.num_res_blocks):
+            c1, _, cout, ds = res[ri]
+            ri += 1
+            if c1 != cout:
+                convs.append((c1, 0, cout, 1, 1, 1, False, ds))
+            if ds in cfg.attention_resolutions:
+                if not encoder:
+                    convs += ladder(li)
+                li += 1
+        if level != len(cfg.channel_mult) - 1:
+            convs.append((cout, 0, cout, 3, 2, 1, False, ds))
+    ri += 2  # the middle block's ResBlocks keep their width
+    if encoder:
+        return convs + [(cout, 0, cfg.out_channels, 1, 1, 1, False, None)]
+    convs += ladder(li)
+    li += 1
+    for level in reversed(range(len(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            c1, c2, cout, ds = res[ri]
+            ri += 1
+            if c1 + c2 != cout:
+                convs.append((c1, c2, cout, 1, 1, 1, False, ds))
+            if ds in cfg.attention_resolutions:
+                convs += ladder(li)
+                li += 1
+            if level and i == cfg.num_res_blocks:
+                convs.append((cout, 0, cout, 3, 1, 2, False, ds))
+    return convs + [(mc, 0, cfg.out_channels, 3, 1, 1, False, 1)]
+
+
+def _conv_takes(c1, c2, cout, taps, stride, up) -> bool:
+    return nn.conv2d_uses_kernel((taps, taps, c1 + c2, cout), (stride, stride),
+                                 ((0, 0), (0, 0)), (c1, c2) if c2 else (c1,))
+
+
+def plain_conv_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(B, Ti, Fi, C1, C2, Cout, taps, stride, up, gn): calls} of the plain
+    conv's launches in one bf16 apply_unet call on a [batch, latent_t,
+    latent_f] latent, (Ti, Fi) the input's extent as stored (before the
+    nearest 2x where up is 2; a stride-2 SAME conv gives ceil(n / 2)), gn
+    whether the GroupNorm is folded in: every conv of ``_plain_convs`` that
+    ``nn.conv2d_uses_kernel`` takes. The calls sum to
+    kernel_launches_per_forward(cfg)["conv2d"]."""
+    shapes: dict = {}
+    for c1, c2, cout, taps, stride, up, gn, ds in _plain_convs(cfg):
+        if _conv_takes(c1, c2, cout, taps, stride, up):
+            key = (batch, -(-latent_t // ds), -(-latent_f // ds), c1, c2, cout, taps, stride, up,
+                   gn)
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
 def self_attention_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: int) -> dict:
     """{(B, T, H, D): (calls on the chunks of a fused QKV projection, calls
     on three separate projections)} of the K2 launches of one apply_unet
@@ -701,7 +778,8 @@ def self_attention_shapes(cfg: UNetConfig, batch: int, latent_t: int, latent_f: 
     return shapes
 
 
-def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = None) -> dict:
+def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = None,
+                                compute_dtype: str = "bfloat16") -> dict:
     """Kernel launches of one apply_unet call with a context in every
     cross slot whose ``context_dims`` entry is set, from the config and,
     for ``weight_quant="int8"``, the quantization predicates. Per ResBlock
@@ -715,12 +793,18 @@ def kernel_launches_per_forward(cfg: UNetConfig, weight_quant: Optional[str] = N
     projection, as in JAX: a plain LayerNorm, to_q (K5 when quantized),
     plain to_k and to_v, and K2. K6 for the final GroupNorm+SiLU.
 
+    In bf16 (``compute_dtype``), int8 mode or not, the plain conv for every
+    conv of ``plain_conv_shapes``; an f32 forward leaves those convs to
+    cuDNN.
+
     A tp rank launches the same: every call at its narrower slice (the
     shape functions' ``tp``), the int8 predicates on the whole weights'
     shapes, the convs whole."""
     q = weight_quant == "int8"
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     counts["group_norm_silu"] = 1  # out_norm
+    if compute_dtype == "bfloat16":
+        counts["conv2d"] = sum(plain_conv_shapes(cfg, 1, 1, 1).values())
     res, ladders, _ = _layout(cfg)
     for c1, c2, cout, _ in res:
         for a, b in ((c1 + c2, cout), (cout, cout)):

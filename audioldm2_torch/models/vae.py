@@ -5,7 +5,9 @@ ResNet blocks through the K1 dispatch point, single-head mid-block
 attention over all T*M positions (head width 512, which the plain
 attention path takes, as XLA does in the JAX package), the final
 GroupNorm+SiLU through K6, asymmetric-padded stride-2 (or time-stride-4)
-downsampling in the encoder and nearest upsampling in the decoder.
+downsampling in the encoder and nearest upsampling in the decoder (read in
+place by the plain conv kernel on a CUDA bf16 decode, as the decoder's other
+1x1 and 3x3 convs are; ``decode_plain_conv_shapes``).
 Activations are [B, T, M, C]. The encoder serves the sr/inpainting path,
 which runs it in f32.
 """
@@ -183,7 +185,7 @@ def apply_decoder(p, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
         for rb in level["block"]:
             h = _resblock(rb, h)
         if "upsample" in level:
-            h = nn.conv2d(level["upsample"], nn.nearest_upsample_2d(h))
+            h = nn.upsample_conv2d(level["upsample"], h)
         elif "upsample_ts4" in level:
             h = nn.conv2d(level["upsample_ts4"], nn.nearest_upsample_2d(h, 4, 2), padding=2)
     h = nn.group_norm_silu(p["norm_out"], h, eps=GN_EPS)
@@ -272,6 +274,45 @@ def encode_conv_shapes(cfg: VAEConfig, batch: int, t: int, f: int) -> dict:
     return shapes
 
 
+def _decode_plain_convs(cfg: VAEConfig):
+    """(C, Cout, taps, up, upsampling factor of the input) of every conv of
+    one decode that goes to ``nn.conv2d`` or ``nn.upsample_conv2d``, in the
+    order apply_decoder runs them: post_quant_conv, conv_in, the mid
+    attention's q, k, v and proj_out, the ResBlocks' nin_shortcut, the
+    upsamples (up 2: read through the nearest 2x; a time-stride-4 one, 5x5
+    on a (4, 2) upsample, as up 4), conv_out. Stride 1 throughout."""
+    block_in = cfg.ch * cfg.ch_mult[-1]
+    convs = [(cfg.embed_dim, cfg.z_channels, 1, 1, (1, 1)),
+             (cfg.z_channels, block_in, 3, 1, (1, 1))] + [(block_in, block_in, 1, 1, (1, 1))] * 4
+    ut, uf = 1, 1
+    for i in reversed(range(len(cfg.ch_mult))):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        if block_in != block_out:  # the level's first ResBlock
+            convs.append((block_in, block_out, 1, 1, (ut, uf)))
+        block_in = block_out
+        if i != 0:
+            ts4 = (i - 1) in cfg.downsample_time_stride4_levels
+            convs.append((block_in, block_in, 5 if ts4 else 3, 4 if ts4 else 2, (ut, uf)))
+            ut, uf = ut * (4 if ts4 else 2), uf * 2
+    return convs + [(block_in, cfg.out_ch, 3, 1, (ut, uf))]
+
+
+def decode_plain_conv_shapes(cfg: VAEConfig, batch: int, latent_t: int, latent_f: int) -> dict:
+    """{(B, Ti, Fi, C, 0, Cout, taps, 1, up, False): calls} of the plain
+    conv's launches in one bf16 decode of a [batch, latent_t, latent_f]
+    latent, in the form of unet.plain_conv_shapes: every conv of
+    ``_decode_plain_convs`` that ``nn.conv2d_uses_kernel`` takes (not the
+    5x5 time-stride-4 upsample, nor conv_out onto one channel). The calls
+    sum to kernel_launches_per_decode(cfg)["conv2d"]."""
+    shapes: dict = {}
+    for c, cout, taps, up, (ut, uf) in _decode_plain_convs(cfg):
+        if up in (1, 2) and nn.conv2d_uses_kernel((taps, taps, c, cout), (1, 1), ((0, 0),) * 2,
+                                                  (c,)):
+            key = (batch, latent_t * ut, latent_f * uf, c, 0, cout, taps, 1, up, False)
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
 def _launches(cfg: VAEConfig, n_res: int) -> dict:
     """Two K1 per ResBlock, one K6 (norm_out); the single-head mid attention
     takes K2 only if its width is a kernel head_dim (it is 512 in every
@@ -283,13 +324,18 @@ def _launches(cfg: VAEConfig, n_res: int) -> dict:
     return counts
 
 
-def kernel_launches_per_decode(cfg: VAEConfig) -> dict:
+def kernel_launches_per_decode(cfg: VAEConfig, compute_dtype: str = "bfloat16") -> dict:
     """Kernel launches of one decode: two mid-block ResBlocks and
-    num_res_blocks + 1 per level."""
-    return _launches(cfg, 2 + len(cfg.ch_mult) * (cfg.num_res_blocks + 1))
+    num_res_blocks + 1 per level; in bf16 the plain conv for every conv of
+    decode_plain_conv_shapes."""
+    counts = _launches(cfg, 2 + len(cfg.ch_mult) * (cfg.num_res_blocks + 1))
+    if compute_dtype == "bfloat16":
+        counts["conv2d"] = sum(decode_plain_conv_shapes(cfg, 1, 1, 1).values())
+    return counts
 
 
 def kernel_launches_per_encode(cfg: VAEConfig) -> dict:
-    """Kernel launches of one encode: num_res_blocks ResBlocks per level and
-    two mid-block ResBlocks."""
+    """Kernel launches of one encode, in f32 (the sr path's): num_res_blocks
+    ResBlocks per level and two mid-block ResBlocks; its convs outside them
+    stay cuDNN's."""
     return _launches(cfg, 2 + len(cfg.ch_mult) * cfg.num_res_blocks)

@@ -7,12 +7,13 @@ from typing import Dict
 
 KERNEL_NAMES = ("gn_silu_conv3x3", "flash_self_attention", "ln_matmul", "geglu_matmul",
                 "gn_silu_conv3x3_q", "int8_matmul", "ln_matmul_q", "geglu_matmul_q",
-                "group_norm_silu", "v6bd_attention", "v7_attention")
+                "group_norm_silu", "v6bd_attention", "v7_attention", "conv2d")
 
 
 def kernel_wrappers():
     """name -> wrapper of every hand-written kernel, in KERNEL_NAMES order
-    (K1..K4, the int8 kernels K1q, K5, K3q, K4q, then K6, K7 and K8)."""
+    (K1..K4, the int8 kernels K1q, K5, K3q, K4q, then K6, K7, K8 and the
+    plain conv on K1's kernel)."""
     from audioldm2_torch.ops import attention_kernel, attention_variants_kernel as avk
     from audioldm2_torch.ops import groupnorm_kernel, lnmm_kernel
     from audioldm2_torch.ops import resblock_kernel
@@ -29,6 +30,7 @@ def kernel_wrappers():
         "group_norm_silu": groupnorm_kernel.group_norm_silu,
         "v6bd_attention": avk.v6bd_attention,
         "v7_attention": avk.v7_attention,
+        "conv2d": resblock_kernel.conv2d,
     }
 
 
@@ -36,6 +38,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def declined_counts() -> Dict[str, int]:
+    """bf16 CUDA calls that a kernel's dispatch rule declined: "conv2d", the
+    conv2d calls (``nn.conv2d_uses_kernel``) left to the f32-copy path."""
+    from audioldm2_torch.ops import resblock_kernel
+
+    return {"conv2d": resblock_kernel.conv2d.declined}
+
+
 def reset_launch_counts() -> None:
+    """Zero every launch count and the declined counts."""
+    from audioldm2_torch.ops import resblock_kernel
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    resblock_kernel.conv2d.declined = 0

@@ -56,6 +56,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     "a2k_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _I, _P],
+    "a2k_conv2d_bf16": [_P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 21 + [_P],
     "a2k_flash_attention": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P],
     "a2k_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P],
     "a2k_ln_matmul_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
@@ -521,6 +522,17 @@ _CONV_F32_MODEL = _ConvModel({CONV32_TILE: 3.2}, _CONV_BLOCK_COST, 2500.0, 1.5e6
                              _CONV_RED_COST, _CONV_SM_SHARE, {CONV32_TILE: 112})
 
 
+# The plain conv's plan (K1's bf16 kernel with its geometry at run time):
+# K1's model with the tiles' costs, the activation's, the ring's wait and the
+# co-resident blocks' overlap refitted to tools/time_conv2d.py --sweep on an
+# H100 over its 54 UNet shapes of audioldm2-full and audioldm_48k (the picks
+# then within 0.5% and 3.3% of the best measured per forward; see PERF.md);
+# registers from ptxas of its instantiations at 256 threads.
+_CONV2D_MODEL = _CONV_MODEL._replace(
+    tile_cost={(256, 64): 1.05, (128, 128): 1.0, (64, 128): 1.4, (64, 64): 1.6}, act=500.0,
+    ring=2.0e5, share=0.3, regs={(256, 64): 207, (128, 128): 207, (64, 128): 150, (64, 64): 108})
+
+
 class ConvPlan(NamedTuple):
     """How the bf16 K1 kernel covers a [B, T, F, Cin] -> Cout conv: blocks
     of tt x ft output positions of one sample (at most ``bm`` rows of the
@@ -542,16 +554,23 @@ class ConvPlan(NamedTuple):
     smem_bytes: int
 
 
-def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int, w_bytes: int = 2) -> int:
-    """Two patch buffers, the chunk's a and c (two buffers) and the W ring
-    (``w_bytes`` 1, K1q: two bf16 staging tiles and a ring of int8 tiles
-    whose rows are padded by LNMM_Q_PAD bytes); the split epilogue's f32
-    tile [bm, bn + 4] reuses the same memory."""
+def conv_patch(tt: int, ft: int, taps: int = 3, stride: int = 1) -> int:
+    """Positions of the patch that a tile of tt x ft outputs reads: (tt + 2)
+    x (ft + 2) for K1's 3x3 (csrc ConvGeo::patch)."""
+    return ((tt - 1) * stride + taps) * ((ft - 1) * stride + taps)
+
+
+def conv_smem_bytes(bm: int, bn: int, tt: int, ft: int, stages: int, w_bytes: int = 2,
+                    taps: int = 3, stride: int = 1) -> int:
+    """Two patch buffers (``conv_patch``), the chunk's a and c (two
+    buffers) and the W ring (``w_bytes`` 1, K1q: two bf16 staging tiles and a
+    ring of int8 tiles whose rows are padded by LNMM_Q_PAD bytes); the split
+    epilogue's f32 tile [bm, bn + 4] reuses the same memory."""
     if w_bytes == 1:
         ring = 2 * CONV_CK * (bn + CONV_PAD) * 2 + stages * CONV_CK * (bn + LNMM_Q_PAD)
     else:
         ring = stages * CONV_CK * (bn + CONV_PAD) * 2
-    main = 2 * (tt + 2) * (ft + 2) * CONV_LD * 2 + 4 * CONV_CK * 4 + ring
+    main = 2 * conv_patch(tt, ft, taps, stride) * CONV_LD * 2 + 4 * CONV_CK * 4 + ring
     return max(main, bm * (bn + 4) * 4)
 
 
@@ -596,29 +615,89 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
     if ((dtype != "bf16" and not (f32 and w_bytes == 2)) or min(b, t, f) < 1 or cin < 8
             or cout < 8 or cin % 8 or cout % (16 if w_bytes == 1 else 8)):
         return None
+    model = _CONV_F32_MODEL if f32 else _CONV_Q_MODEL if w_bytes == 1 else _CONV_MODEL
+    return _conv_plan(b, t, f, cin, cout, sms, model, f32, w_bytes)
+
+
+def conv2d_takes(taps: int, stride: int, cin: int, cout: int) -> bool:
+    """What the plain conv kernel takes: a ``taps`` x ``taps`` conv (1 or 3)
+    at ``stride`` (1 or 2) over Cin channels onto Cout, both multiples of 8
+    (``nn.conv2d_uses_kernel`` adds what the call's layout must show)."""
+    return (taps in (1, 3) and stride in (1, 2) and cin >= 8 and cout >= 8 and cin % 8 == 0
+            and cout % 8 == 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def conv2d_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int, taps: int = 3,
+                stride: int = 1) -> Optional[ConvPlan]:
+    """The launch plan of the plain conv on K1's bf16 kernel
+    (``a2k_conv2d_bf16``): a [B, t, f, Cout] output (t, f the output's
+    extent) of a ``taps`` x ``taps`` conv at ``stride`` over Cin channels,
+    or None for what ``conv2d_takes`` declines. The cheapest of
+    ``conv2d_candidates``."""
+    cands = conv2d_candidates(b, t, f, cin, cout, sms, taps, stride)
+    return min(cands, key=lambda cp: cp[0])[1] if cands else None
+
+
+def conv2d_candidates(b: int, t: int, f: int, cin: int, cout: int, sms: int, taps: int = 3,
+                      stride: int = 1):
+    """[(cost, ConvPlan)] that conv2d_plan chooses among (tools.time_conv2d
+    --sweep times each): K1's search under ``_CONV2D_MODEL``, where a tile
+    of tt x ft outputs reads a patch of ``conv_patch(tt, ft, taps, stride)``
+    positions, and where two of them do not fit beside the shallowest ring
+    (a stride-2 tile as tall as K1's) tt halves, then ft, until they do; the
+    ring is at most taps^2 + 1 deep (a chunk's patch lands with the W tile
+    issued at the chunk before it, one chunk of taps^2 tiles earlier: a 1x1
+    conv keeps two stages)."""
+    if min(b, t, f) < 1 or not conv2d_takes(taps, stride, cin, cout):
+        return []
+    return list(_conv_candidates(b, t, f, cin, cout, sms, _CONV2D_MODEL, False, 2, taps, stride,
+                                 True))
+
+
+def _conv_plan(b, t, f, cin, cout, sms, model, f32, w_bytes):
+    """gn_silu_conv_plan's search: the cheapest of _conv_candidates (the
+    first of equal costs)."""
+    cands = _conv_candidates(b, t, f, cin, cout, sms, model, f32, w_bytes)
+    best = min(cands, key=lambda cp: cp[0], default=None)
+    return None if best is None else best[1]
+
+
+def _conv_candidates(b, t, f, cin, cout, sms, model, f32, w_bytes, taps=3, stride=1,
+                     plain=False):
+    """(cost, ConvPlan) of every launch the search of gn_silu_conv_plan and,
+    with ``plain``, conv2d_plan weighs: each tile and ring depth that fits,
+    each split that leaves no block empty, the strips whose grid fills the
+    SMs."""
     ck = CONV32_CK if f32 else CONV_CK
     k_chunks = -(-cin // ck)
-    model = _CONV_F32_MODEL if f32 else _CONV_Q_MODEL if w_bytes == 1 else _CONV_MODEL
-    best, best_cost = None, None
+    stage_choices = [s for s in CONV_STAGES if s <= taps * taps + 1]
+    # the widest split with no empty block (10 chunks split 5 ways at most)
+    most_splits = max(-(-k_chunks // -(-k_chunks // w))
+                      for w in range(1, min(CONV_MAX_SPLITS, k_chunks) + 1))
     for (bm, bn), stages in itertools.product((CONV32_TILE,) if f32 else CONV_TILES,
-                                              CONV_STAGES):
+                                              stage_choices):
         ft = min(f, bm)
         tt = min(bm // ft, t)
         while f32 and ft > 8 and conv32_smem_bytes(bm, bn, tt, ft,
                                                    min(CONV_STAGES)) > LNMM_MAX_SMEM:
             ft //= 2
             tt = min(bm // ft, t)
+        while plain and tt * ft > 1 and conv_smem_bytes(
+                bm, bn, tt, ft, min(stage_choices), 2, taps, stride) > LNMM_MAX_SMEM:
+            tt, ft = (-(-tt // 2), ft) if tt > 1 else (tt, -(-ft // 2))
         smem = (conv32_smem_bytes(bm, bn, tt, ft, stages) if f32
-                else conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes))
+                else conv_smem_bytes(bm, bn, tt, ft, stages, w_bytes, taps, stride))
         if smem > LNMM_MAX_SMEM:
             continue
         m_tiles = b * -(-t // tt) * -(-f // ft)
         n_tiles = -(-cout // bn)
         occ = blocks_per_sm(smem, model.regs[(bm, bn)], CONV32_THREADS if f32 else 256)
-        fill = min(sms, m_tiles * n_tiles * min(CONV_MAX_SPLITS, k_chunks))
-        chunk_cost = ((tt + 2) * (ft + 2) * ck * model.act
-                      + 9 * bm * bn * ck * model.tile_cost[(bm, bn)]
-                      + 9 * model.ring / (stages - 1))
+        fill = min(sms, m_tiles * n_tiles * (most_splits if plain else
+                                             min(CONV_MAX_SPLITS, k_chunks)))
+        chunk_cost = (conv_patch(tt, ft, taps, stride) * ck * model.act
+                      + taps * taps * bm * bn * ck * model.tile_cost[(bm, bn)]
+                      + taps * taps * model.ring / (stages - 1))
         for want in range(1, min(CONV_MAX_SPLITS, k_chunks) + 1):
             cps = -(-k_chunks // want)
             splits = -(-k_chunks // cps)  # no empty split
@@ -630,12 +709,9 @@ def gn_silu_conv_plan(b: int, t: int, f: int, cin: int, cout: int, sms: int,
                     continue
                 block_cost = (model.block + strip_tiles * cps * chunk_cost
                               + (bm * bn * splits * model.red if splits > 1 else 0))
-                cost = _waves_cost(blocks, sms, occ, block_cost, model.share)
-                if best_cost is None or cost < best_cost:
-                    best_cost = cost
-                    best = ConvPlan(bm, bn, tt, ft, ck, k_chunks, strip_tiles, stages,
-                                    splits, (strips, m_tiles, splits), smem)
-    return best
+                yield (_waves_cost(blocks, sms, occ, block_cost, model.share),
+                       ConvPlan(bm, bn, tt, ft, ck, k_chunks, strip_tiles, stages, splits,
+                                (strips, m_tiles, splits), smem))
 
 
 GN_STATS_THREADS = 256

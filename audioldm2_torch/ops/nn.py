@@ -14,15 +14,19 @@ do with ``preferred_element_type``; a bias of another dtype than the input
 sends the op through float32 with one rounding at the end.
 
 On a CUDA bf16 input cuDNN rounds the conv product before PyTorch adds
-the bias, so ``conv2d``, ``conv1d`` and ``conv_transpose1d`` convolve exact
-f32 copies there and round once (``_conv_one_rounding``).
+the bias, so ``conv1d`` and ``conv_transpose1d`` convolve exact f32 copies
+there and round once (``_conv_one_rounding``). ``conv2d`` (and
+``gn_conv2d``, ``upsample_conv2d``, ``conv1x1_cat``) on a CUDA bf16 input
+takes the plain conv kernel with the same one rounding
+(``resblock_kernel.conv2d``) where ``conv2d_uses_kernel`` says so; the rest
+keeps the f32 copies, counted as declined.
 
 Dispatch points (``gn_silu_conv``, ``gn_silu_conv_cat``, ``group_norm_silu``,
-``ln_linear``, ``geglu_ff_out``, ``attention``, and ``linear`` for an int8
-weight) route by device: a CPU tensor takes the plain composition; a CUDA
-tensor takes the hand-written Hopper kernel, whose wrapper raises if the
-kernel cannot take the call. A parameter dict with ``"wq"`` (``ops.quant``)
-selects the int8 kernels.
+``ln_linear``, ``geglu_ff_out``, ``attention``, ``linear`` for an int8
+weight, and the plain convs above) route by device: a CPU tensor takes the
+plain composition; a CUDA tensor takes the hand-written Hopper kernel, whose
+wrapper raises if the kernel cannot take the call. A parameter dict with
+``"wq"`` (``ops.quant``) selects the int8 kernels.
 """
 
 from __future__ import annotations
@@ -92,21 +96,65 @@ def _same_pads(size: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, 
     return total // 2, total - total // 2
 
 
+def _conv2d_pads(x_shape, w_shape, stride, padding):
+    """((low, high) in H, (low, high) in W) of a conv2d call."""
+    kh, kw = w_shape[0], w_shape[1]
+    if padding == "SAME":
+        return (_same_pads(x_shape[1], kh, stride[0]), _same_pads(x_shape[2], kw, stride[1]))
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return tuple(tuple(pp) for pp in padding)
+
+
+def conv2d_uses_kernel(w_shape, stride, pads, parts) -> bool:
+    """The one rule that sends a conv2d on a CUDA bf16 input to the plain
+    conv kernel: what its plan takes (``_build.conv2d_takes``: a 1x1 or 3x3
+    weight [k, k, Cin, Cout] at stride 1 or 2, Cin and Cout multiples of 8),
+    square taps, an equal stride in both dims, no negative padding, and
+    every channel part of the input (``parts``: C, or C1, C2 of a concat) a
+    multiple of 8. The rest (the VAE's 5x5 time-stride-4 upsample, its Cout
+    1 conv_out) keeps the f32 copies."""
+    from audioldm2_torch.ops import _build
+
+    k = w_shape[0]
+    return (w_shape[1] == k and stride[0] == stride[1] and min(min(pp) for pp in pads) >= 0
+            and all(c % 8 == 0 for c in parts)
+            and _build.conv2d_takes(k, stride[0], w_shape[2], w_shape[3]))
+
+
+def _conv_kernel(x1, x2, p, stride=(1, 1), pads=((0, 0), (0, 0)), up=1, p_norm=None,
+                 groups=32, eps=1e-5):
+    """The plain conv kernel's output for a CUDA bf16 call that
+    conv2d_uses_kernel takes; None for any other input (a declined CUDA bf16
+    call is counted: ``ops.declined_counts()``)."""
+    if not (x1.is_cuda and x1.dtype == torch.bfloat16):
+        return None
+    from audioldm2_torch.ops import resblock_kernel
+
+    parts = (x1,) if x2 is None else (x1, x2)
+    if not conv2d_uses_kernel(p["w"].shape, stride, pads, [t.shape[-1] for t in parts]):
+        resblock_kernel.conv2d.declined += 1
+        return None
+    gn = (None, None) if p_norm is None else (p_norm["scale"], p_norm["bias"])
+    return resblock_kernel.conv2d(x1, x2, p["w"], p["b"], *gn, stride[0], pads, up, groups, eps)
+
+
 def conv2d(p, x: torch.Tensor, stride: Tuple[int, int] = (1, 1),
            padding: Union[str, int, Sequence[Tuple[int, int]]] = "SAME") -> torch.Tensor:
     """x: [B, H, W, Cin]; p['w']: [kh, kw, Cin, Cout]; padding "SAME" (XLA's
     rule), "VALID", an int for both sides of both dims, or XLA's
     [(low, high), (low, high)]."""
+    pads = _conv2d_pads(x.shape, p["w"].shape, stride, padding)
+    y = _conv_kernel(x, None, p, stride, pads)
+    return conv2d_plain(p, x, stride, pads) if y is None else y
+
+
+def conv2d_plain(p, x: torch.Tensor, stride: Tuple[int, int], pads) -> torch.Tensor:
+    """conv2d on the f32 copies (a CUDA bf16 input) or the plain op: the
+    oracle of the plain conv kernel; ``pads`` as _conv2d_pads gives them."""
     w = p["w"]
-    kh, kw = w.shape[0], w.shape[1]
-    if padding == "SAME":
-        pads = [_same_pads(x.shape[1], kh, stride[0]), _same_pads(x.shape[2], kw, stride[1])]
-    elif padding == "VALID":
-        pads = [(0, 0), (0, 0)]
-    elif isinstance(padding, int):
-        pads = [(padding, padding), (padding, padding)]
-    else:
-        pads = [tuple(pp) for pp in padding]
     xn = x.permute(0, 3, 1, 2)
     (ph0, ph1), (pw0, pw1) = pads
     if ph0 == ph1 and pw0 == pw1:
@@ -308,8 +356,34 @@ def _gn_silu_conv(p_norm, p_conv, x1, x2, groups: int, eps: float):
 def conv1x1_cat(p, x1, x2):
     """1x1 conv over the channel concat [x1 ; x2] as one matmul against the
     [C1+C2, Cout] weight, so both parts' products and the bias are summed
-    before the one rounding (the JAX op's two f32 einsums)."""
+    before the one rounding (the JAX op's two f32 einsums); on a CUDA bf16
+    input the plain conv kernel, reading the two parts in place."""
+    y = _conv_kernel(x1, x2, p)
+    if y is not None:
+        return y
     return _one_rounding(F.linear, torch.cat([x1, x2], -1), p["w"][0, 0].t(), p.get("b"))
+
+
+def gn_conv2d(p_norm, p_conv, x, groups: int = 32, eps: float = 1e-5):
+    """conv2d(p_conv, group_norm(p_norm, x)), 1x1 or 3x3 SAME (the spatial
+    transformer's norm and proj_in): on a CUDA bf16 input the plain conv
+    kernel with the GroupNorm folded into its load, the normalized input
+    rounded once to bf16, as group_norm rounds it."""
+    pads = _conv2d_pads(x.shape, p_conv["w"].shape, (1, 1), "SAME")
+    y = _conv_kernel(x, None, p_conv, pads=pads, p_norm=p_norm, groups=groups, eps=eps)
+    if y is None:
+        y = conv2d_plain(p_conv, group_norm(p_norm, x, groups, eps), (1, 1), pads)
+    return y
+
+
+def upsample_conv2d(p, x):
+    """conv2d(p, nearest_upsample_2d(x)), 3x3 SAME on the 2x grid (the UNet's
+    and the VAE decoder's upsample): on a CUDA bf16 input the plain conv
+    kernel reads x through the upsample, which is never written."""
+    b, t, f, _ = x.shape
+    pads = _conv2d_pads((b, 2 * t, 2 * f), p["w"].shape, (1, 1), "SAME")
+    y = _conv_kernel(x, None, p, pads=pads, up=2)
+    return conv2d_plain(p, nearest_upsample_2d(x), (1, 1), pads) if y is None else y
 
 
 def ln_linear(p_norm, p_lin, x, eps: float = 1e-5):

@@ -21,6 +21,17 @@ the plan declines, the shared core. The GroupNorm scale and bias, the conv
 bias, and K1q's int8 weight and f32 scale are read as stored: no
 conversion kernel runs before a bf16 K1 or K1q launch.
 
+The plain conv (:func:`conv2d`: every bf16 conv2d of the UNet and the VAE
+decoder outside the ResBlock bodies, which cuDNN would run on f32 copies)
+replaces no Pallas function: the JAX package leaves those convs to XLA. It
+is K1's bf16 kernel with its geometry at run time (``a2k_conv2d_bf16``): 1x1
+or 3x3 taps, stride 1 or 2, the input read in place through a nearest-2x
+upsample or as two concat parts, and a prologue of nothing or the GroupNorm
+alone (the statistics pass, then x * a + c rounded once to bf16); bf16
+products with f32 sums, the bias added to them and one rounding, as
+``nn._conv_one_rounding`` computes on f32 copies; the output written
+channels-last in bf16.
+
 :func:`gn_silu_conv3x3` and :func:`gn_silu_conv3x3_q` take their plain
 versions for CPU tensors and the kernels for CUDA tensors; the ``*_plain``
 functions are the oracles. A CUDA call that autograd must record
@@ -38,6 +49,7 @@ from audioldm2_torch.ops import _build, autograd, groupnorm_kernel
 from audioldm2_torch.ops import nn as _nn
 
 BF16 = torch.bfloat16
+SAME3 = ((1, 1), (1, 1))  # a 3x3 SAME conv's padding
 
 
 def gn_silu_conv3x3_plain(x1, x2, gn_scale, gn_bias, w, b, groups: int = 32,
@@ -49,7 +61,7 @@ def gn_silu_conv3x3_plain(x1, x2, gn_scale, gn_bias, w, b, groups: int = 32,
     dt = x1.dtype
     x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
     h = groupnorm_kernel.group_norm_silu_plain(x.float(), gn_scale, gn_bias, groups, eps)
-    y = _nn.conv2d({"w": w.to(dt).float(), "b": b}, h.to(dt).float())
+    y = _nn.conv2d_plain({"w": w.to(dt).float(), "b": b}, h.to(dt).float(), (1, 1), SAME3)
     return y.to(dt)
 
 
@@ -63,7 +75,7 @@ def gn_silu_conv3x3_q_plain(x1, x2, gn_scale, gn_bias, wq, ws, b, groups: int = 
     x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
     h = groupnorm_kernel.group_norm_silu_plain(x.float(), gn_scale, gn_bias, groups, eps)
     zero = torch.zeros(wq.shape[-1], device=x1.device)
-    acc = _nn.conv2d({"w": wq.float(), "b": zero}, h.to(BF16).float())
+    acc = _nn.conv2d_plain({"w": wq.float(), "b": zero}, h.to(BF16).float(), (1, 1), SAME3)
     return (acc * ws.float() + b.float()).to(x1.dtype)
 
 
@@ -222,3 +234,90 @@ def gn_silu_conv3x3_q(x1: torch.Tensor, x2: Optional[torch.Tensor], gn_scale, gn
 
 gn_silu_conv3x3.launches = 0
 gn_silu_conv3x3_q.launches = 0
+
+
+def conv2d_plain(x1, x2, w, b, gn_scale=None, gn_bias=None, stride: int = 1,
+                 pads=((1, 1), (1, 1)), up: int = 1, groups: int = 32, eps: float = 1e-5):
+    """The plain conv's oracle: conv(pro([x1 ; x2])) + b on nn.conv2d's f32
+    copies with one rounding (``nn.conv2d_plain``), where pro is the
+    GroupNorm (gn_scale given) rounded once to x1.dtype, as nn.group_norm
+    rounds it, and the nearest upsample by ``up``."""
+    x = x1 if x2 is None else torch.cat([x1, x2], dim=-1)
+    if gn_scale is not None:
+        x = _nn.group_norm({"scale": gn_scale, "bias": gn_bias}, x, groups, eps)
+    if up > 1:
+        x = _nn.nearest_upsample_2d(x, up, up)
+    return _nn.conv2d_plain({"w": w, "b": b}, x, (stride, stride), pads)
+
+
+def _conv2d_launch(x1, x2, w, b, gn_scale, gn_bias, stride, pads, up, groups, eps, plan=None):
+    """The statistics pass (with a GroupNorm) and a2k_conv2d_bf16 under
+    ``plan``, by default conv2d_plan's (tools.time_conv2d --sweep gives
+    others)."""
+    name = "conv2d"
+    parts = (x1,) if x2 is None else (x1, x2)
+    _build.require_cuda(name, *parts, w)
+    if x1.dtype != BF16:
+        raise TypeError(f"{name}: takes bfloat16, got {x1.dtype}")
+    if x1.dim() != 4 or (x2 is not None and (x2.dim() != 4 or x2.shape[:3] != x1.shape[:3])):
+        raise ValueError(f"{name}: inputs must be [B, T, F, C] with equal B, T, F")
+    bsz, ti, fi, c1 = x1.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    k, cout = w.shape[0], w.shape[-1]
+    if w.dim() != 4 or tuple(w.shape[1:3]) != (k, c1 + c2):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} is not [k, k, {c1 + c2}, Cout]")
+    if b.shape != (cout,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} is not [{cout}]")
+    (pt0, pt1), (pf0, pf1) = pads
+    t = (ti * up + pt0 + pt1 - k) // stride + 1
+    f = (fi * up + pf0 + pf1 - k) // stride + 1
+    dev = x1.device
+    plan = plan or _build.conv2d_plan(bsz, t, f, c1 + c2, cout, _build.sm_count(dev.index or 0),
+                                      k, stride)
+    if plan is None or up not in (1, 2) or min(pt0, pt1, pf0, pf1) < 0 or c1 % 8 or c2 % 8:
+        raise ValueError(f"{name}: the kernel does not take a {k}x{k} conv at stride {stride}, "
+                         f"padding {pads}, upsample {up} of {c1}+{c2} onto {cout} channels")
+    a = c = None
+    if gn_scale is not None:
+        a, c = gn_stats(x1, x2, gn_scale, gn_bias, groups, eps)
+    (bias,), param_code = _build.params_as_stored(dev, b)
+    out = torch.empty((bsz, t, f, cout), device=dev, dtype=BF16)
+    if not (all(t.is_contiguous() for t in (*parts, w)) and _build.aligned16(x1, x2, w, bias,
+                                                                             out)):
+        raise ValueError(f"{name}: tensors must be contiguous and 16-byte aligned")
+    _build.check(_build.lib().a2k_conv2d_bf16(
+        x1.data_ptr(), None if x2 is None else x2.data_ptr(),
+        None if a is None else a.data_ptr(), None if c is None else c.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), param_code, out.data_ptr(), bsz, t, f, ti, fi, c1, c2, cout, k, stride,
+        int(up == 2), pt0, pf0, 0 if a is None else 2, plan.bm, plan.bn, plan.tt, plan.ft,
+        plan.strip_tiles, plan.stages, plan.splits, _build.stream_of(x1),
+    ), "a2k_conv2d_bf16")
+    return out
+
+
+def conv2d(x1: torch.Tensor, x2: Optional[torch.Tensor], w, b, gn_scale=None, gn_bias=None,
+           stride: int = 1, pads=((1, 1), (1, 1)), up: int = 1, groups: int = 32,
+           eps: float = 1e-5) -> torch.Tensor:
+    """The plain conv: x1 [B, Ti, Fi, C1], x2 [B, Ti, Fi, C2] or None; w [k, k,
+    C1+C2, Cout] (HWIO, k 1 or 3), stride 1 or 2, pads ((low, high) in T,
+    (low, high) in F) of the input as read, up 1 or 2 (a nearest upsample
+    read in place); gn_scale, gn_bias [C1+C2]: the GroupNorm before the conv
+    (``groups``, ``eps``), or None. Returns [B, T, F, Cout] in bf16. A
+    bf16 CUDA call is one statistics pass (with a GroupNorm) and one
+    ``a2k_conv2d_bf16``; CPU tensors take conv2d_plain. ``nn`` dispatches
+    here only what ``nn.conv2d_uses_kernel`` takes; a bf16 CUDA call it does
+    not take counts in ``conv2d.declined``."""
+    if not x1.is_cuda:
+        return conv2d_plain(x1, x2, w, b, gn_scale, gn_bias, stride, pads, up, groups, eps)
+    if autograd.needs_grad(x1, x2, w, b, gn_scale, gn_bias):
+        return autograd.KernelFunction.apply(conv2d, conv2d_plain, x1, x2, w, b, gn_scale,
+                                             gn_bias, stride, pads, up, groups, eps)
+    out = _conv2d_launch(x1.contiguous(), None if x2 is None else x2.contiguous(),
+                         w.to(x1.dtype).contiguous(), b, gn_scale, gn_bias, stride, pads, up,
+                         groups, eps)
+    conv2d.launches += 1
+    return out
+
+
+conv2d.launches = 0
+conv2d.declined = 0

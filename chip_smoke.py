@@ -336,6 +336,7 @@ KERNELS = {
                        "tools/ab_attn_variants.py:109"),
     "v7_attention": ("audioldm2_torch/csrc/attention_variants.cu",
                      "tools/ab_attn_variants.py:190"),
+    "conv2d": ("audioldm2_torch/csrc/gn_silu_conv.cu", "none: XLA"),
 }
 ATTENTION_KERNELS = ("flash_self_attention", "v6bd_attention", "v7_attention")
 
@@ -393,17 +394,19 @@ def _wrappers():
         "group_norm_silu": (gk.group_norm_silu, gk.group_norm_silu_plain),
         "v6bd_attention": (avk.v6bd_attention, avk.v6bd_attention_plain),
         "v7_attention": (avk.v7_attention, avk.v7_attention_plain),
+        "conv2d": (rk.conv2d, rk.conv2d_plain),
     }
 
 
 @contextlib.contextmanager
 def patched_dispatch(mode: str, record=None):
+    import torch
     from audioldm2_torch.ops import nn
 
     wrappers = _wrappers()
     orig = {k: getattr(nn, k) for k in
             ("gn_silu_conv", "gn_silu_conv_cat", "ln_linear", "geglu_ff_out", "attention",
-             "linear", "group_norm_silu")}
+             "linear", "group_norm_silu", "_conv_kernel")}
 
     def call(name, args):
         if mode == "plain":
@@ -444,6 +447,18 @@ def patched_dispatch(mode: str, record=None):
             return orig["linear"](p, x)
         return call("int8_matmul", (x, p["wq"], p["ws"], p.get("b")))
 
+    def _conv_kernel(x1, x2, p, stride=(1, 1), pads=((0, 0), (0, 0)), up=1, p_norm=None,
+                     groups=32, eps=1e-5):
+        """A call that nn sends to the plain conv kernel (CUDA bf16, the
+        rule's shapes) as one "conv2d" call; the rest as nn has it."""
+        parts = (x1,) if x2 is None else (x1, x2)
+        if not (x1.is_cuda and x1.dtype == torch.bfloat16 and
+                nn.conv2d_uses_kernel(p["w"].shape, stride, pads, [t.shape[-1] for t in parts])):
+            return orig["_conv_kernel"](x1, x2, p, stride, pads, up, p_norm, groups, eps)
+        gn = (None, None) if p_norm is None else (p_norm["scale"], p_norm["bias"])
+        return call("conv2d", (x1, x2, p["w"].to(x1.dtype), p["b"], *gn, stride[0], pads, up,
+                               groups, eps))
+
     def attention(q, k, v, mask=None, bias=None, scale=None):
         if not nn.attention_uses_kernel(q.shape, k.shape, mask is not None, bias is not None):
             return nn.attention_plain(q, k, v, mask=mask, bias=bias, scale=scale)
@@ -453,7 +468,7 @@ def patched_dispatch(mode: str, record=None):
 
     new = dict(gn_silu_conv=gn_silu_conv, gn_silu_conv_cat=gn_silu_conv_cat,
                ln_linear=ln_linear, geglu_ff_out=geglu_ff_out, attention=attention,
-               linear=linear, group_norm_silu=group_norm_silu)
+               linear=linear, group_norm_silu=group_norm_silu, _conv_kernel=_conv_kernel)
     for k, v in new.items():
         setattr(nn, k, v)
     try:
@@ -760,6 +775,15 @@ def kernel_work(name, args):
         return sum(map(nbytes, args)) + rows * n * out_bytes, 2 * rows * k * n, kind
     if name == "group_norm_silu":  # stats, normalize, affine and SiLU: ~10 f32 ops an element
         return sum(map(nbytes, args)) + nbytes(x), 10 * x.numel(), "f32"
+    if name == "conv2d":  # its input read once (not the upsample), bf16 products
+        x2, w, stride, pads, up = args[1], args[2], args[6], args[7], args[8]
+        k, cin, cout = w.shape[0], w.shape[2], w.shape[3]
+        b, ti, fi = x.shape[:3]
+        t = (ti * up + sum(pads[0]) - k) // stride + 1
+        f = (fi * up + sum(pads[1]) - k) // stride + 1
+        out = b * t * f * cout
+        return (sum(map(nbytes, args[:6])) + out * x.element_size(),
+                2 * out * k * k * cin, kind)
     raise ValueError(f"no work model for {name}")
 
 
@@ -970,8 +994,9 @@ def signature(name, args):
 def describe(sig) -> str:
     name, *rest = sig
     shapes = [("x".join(map(str, r[0])) if r[0] else "scalar") for r in rest
-              if isinstance(r, tuple)]
-    return f"{name}[{', '.join(shapes)}]"
+              if isinstance(r, tuple) and len(r) == 2 and isinstance(r[1], str)]
+    mode = f" stride {rest[6]} up {rest[8]}" if name == "conv2d" else ""
+    return f"{name}[{', '.join(shapes)}]{mode}"
 
 
 # ---------------------------------------------------------------------------
@@ -1011,29 +1036,35 @@ def phase_device():
 
 
 @contextlib.contextmanager
-def _convs_as_before():
-    """The plain convs as before the one-rounding repair: cuDNN's own bf16
-    conv with the bias given to it."""
+def _convs_as(mode: str):
+    """The convs as nn runs them ("now"), or with conv2d kept off the plain
+    conv kernel: on the f32 copies with one rounding ("f32 copies"), or as
+    before the one-rounding repair, cuDNN's own bf16 conv with the bias
+    given to it ("before")."""
     from audioldm2_torch.ops import nn
 
-    saved = nn._conv_one_rounding
-    nn._conv_one_rounding = nn._one_rounding
+    saved = nn._conv_one_rounding, nn._conv_kernel
+    if mode != "now":
+        nn._conv_kernel = lambda *args, **kw: None
+    if mode == "before":
+        nn._conv_one_rounding = nn._one_rounding
     try:
         yield
     finally:
-        nn._conv_one_rounding = saved
+        nn._conv_one_rounding, nn._conv_kernel = saved
 
 
 def phase_rounding(device):
     """The share of bf16 outputs of the plain ops that differ from an f32
     computation rounded once. Each conv's must be at most ROUND_ONCE_SHARE
-    (cuBLAS linear: printed only). Also the share and time of each conv as
-    before the repair."""
+    (cuBLAS linear: printed only); conv2d runs on the plain conv kernel.
+    Also the share and time of each conv as before the repair and, for
+    conv2d, on the f32 copies the kernel replaced."""
     import torch
     from audioldm2_torch.ops import nn
 
-    log("== phase 2: bf16 rounding of the plain ops (cuBLAS/cuDNN), share differing from "
-        "one rounding")
+    log("== phase 2: bf16 rounding of the plain ops (cuBLAS/cuDNN, conv2d on the plain conv "
+        "kernel), share differing from one rounding")
     g = torch.Generator(device=device).manual_seed(3)
 
     def rnd(*shape, scale=1.0):
@@ -1059,15 +1090,19 @@ def phase_rounding(device):
             once = op({k: v.float() for k, v in p.items()}, x.float(), **kw).to(torch.bfloat16)
             is_conv = op is not nn.linear
             row = {}
-            for mode in ("after", "before") if is_conv else ("after",):
-                with _convs_as_before() if mode == "before" else contextlib.nullcontext():
+            modes = ("now", "f32 copies", "before") if op is nn.conv2d else (
+                ("now", "before") if is_conv else ("now",))
+            for mode in modes:
+                with _convs_as(mode):
                     got = op(p, x, **kw)
                     share = (got != once).float().mean().item()
                     row[mode] = (share, cuda_ms(lambda: op(p, x, **kw)))
-            shares[tag] = row["after"][0]
+            shares[tag] = row["now"][0]
             status = ("ok" if shares[tag] <= ROUND_ONCE_SHARE else "FAIL") if is_conv else "info"
             log(f"  {status} {tag}: {shares[tag]:.3e} of outputs differ from one rounding "
-                f"(bound {ROUND_ONCE_SHARE:g} for the convs), {row['after'][1]:.4f} ms"
+                f"(bound {ROUND_ONCE_SHARE:g} for the convs), {row['now'][1]:.4f} ms"
+                + (f"; on the f32 copies {row['f32 copies'][0]:.3e}, "
+                   f"{row['f32 copies'][1]:.4f} ms" if "f32 copies" in row else "")
                 + (f"; before the repair {row['before'][0]:.3e}, {row['before'][1]:.4f} ms"
                    if is_conv else ""))
             if status == "FAIL":
@@ -1194,6 +1229,7 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
     stats = {k: new_stats() for k in names}
     failures = []
     vae = {}  # the VAE's calls (its norms have eps 1e-6), apart from the UNet's
+    slower = []  # plain conv shapes slower on the kernel than on the f32 copies it replaced
 
     for sig, args in first.items():
         name = sig[0]
@@ -1205,6 +1241,11 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         side = side_times(name, args)
         for key, ms in side.items():
             stats[name][key] += n * ms
+        if name == "conv2d":
+            log(f"       bound {max(bound_times(name, args)):.4f} ms; the f32-copy path it "
+                f"replaced (plain) {res[3] / res[2]:.2f}x this kernel")
+            if res[2] > res[3]:
+                slower.append(describe(sig))
         if side:
             parts = []
             if "stats_ms" in side:
@@ -1232,15 +1273,17 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
                              f"parent design) {side['parent_ms']:.4f} ms "
                              f"({side['parent_ms'] / res[2]:.2f}x this kernel)")
             log("       " + "; ".join(parts))
-        if offset_check and sig[-1] == 1e-6:
+        # (a plain conv's eps is the GroupNorm it folds, the UNet's transformers' 1e-6 too)
+        if offset_check and sig[-1] == 1e-6 and name != "conv2d":
             part = vae.setdefault(name, dict.fromkeys(("ms", "plain", "bound", "yardstick"), 0.0))
             for key, ms in (("ms", res[2]), ("plain", res[3]),
                             ("bound", max(bound_times(name, args))),
                             ("yardstick", side.get("yardstick_ms", 0.0))):
                 part[key] += n * ms
 
-    # one shape per kernel in f32 (the smallest recorded), TF32 off
-    for name in names if f32_pass else ():
+    # one shape per kernel in f32 (the smallest recorded), TF32 off; the plain
+    # conv takes bf16 only (nn sends it nothing else)
+    for name in [n for n in names if n != "conv2d"] if f32_pass else ():
         sigs = sorted((s for s in first if s[0] == name),
                       key=lambda s: sum(math.prod(a[0]) for a in s[1:] if isinstance(a, tuple)))
         args = first[sigs[0]]
@@ -1282,6 +1325,9 @@ def phase_kernels(first, counts, offset_check: bool, f32_pass: bool = True):
         log(f"  {name}: {st['shapes']} shapes, one forward: "
             f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, bound "
             f"{st['bound_ms']:.3f} ms{lib}{side}")
+        if name == "conv2d":
+            log(f"    shapes slower on the kernel than on the f32-copy path: {slower or 'none'}")
+            st["slower_than_replaced"] = slower
         if name in vae:
             v = vae[name]
             log(f"    of which the UNet forward {st['ms'] - v['ms']:.3f} ms and the VAE decode "
@@ -2092,16 +2138,18 @@ def audio_request(model, make_batch, steps: int, duration: float):
     modes; [bsz, 1, N] float32, the stages in model.last_timings."""
     import torch
     from audioldm2_torch import pipeline
+    from audioldm2_torch.utils import profiling
 
     def request(bsz, n_steps=steps, dur=duration):
-        t0 = time.perf_counter()
-        batch = make_batch(bsz)
-        t1 = time.perf_counter()
-        gen = torch.Generator(device=model.device).manual_seed(42)
-        wav, _ = model.ldm.generate(batch, gen, n_gen=1, guidance=3.5, ddim_steps=n_steps,
-                                    latent_t_size=int(dur * model.cfg.latent_t_per_second))
-        pipeline._record_timings(model, dur, bsz, batch_s=t1 - t0,
-                                 generate_s=time.perf_counter() - t1)
+        with profiling.request(model.device) as req:
+            t0 = time.perf_counter()
+            batch = make_batch(bsz)
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=model.device).manual_seed(42)
+            wav, _ = model.ldm.generate(batch, gen, n_gen=1, guidance=3.5, ddim_steps=n_steps,
+                                        latent_t_size=int(dur * model.cfg.latent_t_per_second))
+            t2 = time.perf_counter()
+        pipeline._record_timings(model, req, dur, bsz, batch_s=t1 - t0, generate_s=t2 - t1)
         return wav[:, None, :int(dur * model.cfg.preprocessing.sampling_rate)]
     return request
 
@@ -2394,7 +2442,7 @@ def phase_train(model, device):
         raise AssertionError("train step: kernels disagree with the plain path")
 
     log(f"  -- {TRAIN_STEPS} steps of make_full_train_step, an EMA update after each")
-    per_fwd = unet.kernel_launches_per_forward(cfg.unet)
+    per_fwd = unet.kernel_launches_per_forward(cfg.unet, compute_dtype="float32")
     per_enc = vae.kernel_launches_per_encode(cfg.vae)
     expected = {k: per_fwd[k] + per_enc[k] for k in ops.KERNEL_NAMES}
     want_recomputes = {k: per_fwd[k] for k in TRAIN_KERNELS}
@@ -2727,23 +2775,26 @@ def edit_request(model, wav_path: str, t_enc: int, steps: int, duration: float):
     import torch
     import audioldm2_torch as at
     from audioldm2_torch import pipeline
+    from audioldm2_torch.utils import profiling
 
     cfg = model.cfg
     pre = cfg.preprocessing
     frames = int(duration * cfg.latent_t_per_second * cfg.vae.downsample_factor)
 
     def request(bsz):
-        gen = torch.Generator(device=model.device).manual_seed(42)
-        t0 = time.perf_counter()
-        wav_in = at.read_wav_file(wav_path, frames * pre.hop_length, target_sr=pre.sampling_rate)
-        mel = model.mel.fbank(wav_in, target_length=frames)[..., None].repeat(bsz, 1, 1, 1)
-        z0 = model.ldm.encode_mel(gen, mel)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        wav, _ = model.ldm.edit(model.make_batch(EDIT_PROMPT, batchsize=bsz), gen, z0, t_enc,
-                                ddim_steps=steps, guidance=3.5)
-        pipeline._record_timings(model, duration, bsz, encode_s=t1 - t0,
-                                 edit_s=time.perf_counter() - t1)
+        with profiling.request(model.device) as req:
+            gen = torch.Generator(device=model.device).manual_seed(42)
+            t0 = time.perf_counter()
+            wav_in = at.read_wav_file(wav_path, frames * pre.hop_length,
+                                      target_sr=pre.sampling_rate)
+            mel = model.mel.fbank(wav_in, target_length=frames)[..., None].repeat(bsz, 1, 1, 1)
+            z0 = model.ldm.encode_mel(gen, mel)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wav, _ = model.ldm.edit(model.make_batch(EDIT_PROMPT, batchsize=bsz), gen, z0, t_enc,
+                                    ddim_steps=steps, guidance=3.5)
+            t2 = time.perf_counter()
+        pipeline._record_timings(model, req, duration, bsz, encode_s=t1 - t0, edit_s=t2 - t1)
         return wav[:, None, :int(duration * pre.sampling_rate)]
     return request
 
@@ -3513,8 +3564,7 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     large_cond = _ctx_inputs(large_cfg, device, g, batch=6)
     large_first, large_counts = discover_calls(large_cfg, large_unet, None, large_cond, device)
     large_stats = phase_kernels(large_first, large_counts, offset_check=False, f32_pass=False)
-    for name, st in large_stats.items():
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+    merge_errors(stats, large_stats)
     log("  -- 48k path: K1-K4, K6 on the 48k UNet at CFG batch 2 (FiLM y, K2 also on the None "
         "slot's attn2) and its VAE decode at batch 1 (1024 x 256 mel, four levels)")
     k48_unet = unet.init_unet(ini, k48_cfg.unet)
@@ -3533,8 +3583,7 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     k48_enc = phase_kernels(*discover_encode_calls(k48_cfg, k48_vae_f32, k48_mel),
                             offset_check=False, f32_pass=False)
     for part in (k48_stats, k48_enc):
-        for name, st in part.items():
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+        merge_errors(stats, part)
     log("  -- K7 (v6bd) and K8 (v7), the A/B entry point's kernels")
     stats.update(phase_variants(large_first, device))
     del large_first
@@ -3612,6 +3661,16 @@ def run(t5_cfg, full_cfg, large_cfg, k48_cfg, tts_cfg, device, steps: int, durat
     return stats, launches, e2e
 
 
+def merge_errors(stats, part):
+    """Fold another path's phase-3 stats into the record's: the largest
+    error, and the plain conv shapes slower than the f32 copies."""
+    for name, st in part.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], st["max_abs_err"])
+        if "slower_than_replaced" in st:
+            stats[name]["slower_than_replaced"] = (stats[name].get("slower_than_replaced", [])
+                                                   + st["slower_than_replaced"])
+
+
 def encode_check(cfg, vae_f32, mel):
     """One full-width f32 VAE encode (moments), kernels against the
     all-plain path, and the time of both."""
@@ -3653,7 +3712,9 @@ def kernel_record(stats, launches):
          "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
          "bound_ms": st["bound_ms"],
          "bound_by": "operations" if st["ops_ms"] >= st["bytes_ms"] else "bytes",
-         "library_ms": st["library_ms"]}
+         "library_ms": st["library_ms"],
+         **({"slower_than_replaced": st["slower_than_replaced"]}
+            if "slower_than_replaced" in st else {})}
         for name, st in ((n, stats[n]) for n in KERNELS)
     ]}
 

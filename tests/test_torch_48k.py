@@ -45,7 +45,7 @@ from audioldm2_torch.pipeline import latent_inpaint_mask
 from test_torch_full import tiny_clap
 from test_torch_int8 import JAX_OP_TOL, _quantized_trees
 from test_torch_large import _chosen, tiny_reranker
-from test_torch_models import _flatten, nonzero_tree
+from test_torch_models import _flatten, count_plain_conv_dispatches, nonzero_tree
 from test_torch_tts import _injected
 
 torch.set_num_threads(2)
@@ -228,20 +228,22 @@ def test_48k_launch_counts():
     (the self-ST, the None slot) of one block each: K2 on attn1 of both and
     attn2 of both (64, 16 on the None slot's separate q/k/v), K3 on the
     fused QKV of both, the self-ST's attn2 QKV and both GEGLU proj_in (80),
-    K4 32; the decoder 28 K1 (four levels of three ResBlocks, two mid) and
-    K6 once; the encoder 20 K1 and K6 once."""
+    K4 32, the plain conv 87 (as the t5 UNet's: its 16 ladders hold 32
+    spatial transformers); the decoder 28 K1 (four levels of three
+    ResBlocks, two mid), K6 once and 12 plain convs (three nin_shortcuts
+    and three upsamples over four levels); the encoder 20 K1 and K6 once."""
     cfg = at.default_audioldm_config("audioldm_48k")
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(cfg.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 64, "ln_matmul": 80,
-        "geglu_matmul": 32, "group_norm_silu": 1}
+        "geglu_matmul": 32, "group_norm_silu": 1, "conv2d": 87}
     assert tunet.kernel_launches_per_forward(cfg.unet, "int8") == {
         **none, "gn_silu_conv3x3_q": 44, "flash_self_attention": 64, "ln_matmul_q": 80,
-        "geglu_matmul_q": 32, "int8_matmul": 16 * 5, "group_norm_silu": 1}
+        "geglu_matmul_q": 32, "int8_matmul": 16 * 5, "group_norm_silu": 1, "conv2d": 87}
     sa = tunet.self_attention_shapes(cfg.unet, 2, cfg.latent_t_size, cfg.latent_f_size)
     assert sum(f for f, _ in sa.values()) == 48 and sum(s for _, s in sa.values()) == 16
     assert tvae.kernel_launches_per_decode(cfg.vae) == {**none, "gn_silu_conv3x3": 28,
-                                                        "group_norm_silu": 1}
+                                                        "group_norm_silu": 1, "conv2d": 12}
     assert tvae.kernel_launches_per_encode(cfg.vae) == {**none, "gn_silu_conv3x3": 20,
                                                         "group_norm_silu": 1}
     got = tld.kernel_launches_per_generate(cfg, 200, encode=True)
@@ -277,6 +279,7 @@ def test_film_launch_formula_matches_kernel_calls(monkeypatch, quant):
         return orig_attention(q, k, v, mask=mask, bias=bias, scale=scale)
 
     monkeypatch.setattr(nn, "attention", attention)
+    count_plain_conv_dispatches(monkeypatch, calls)
     jtree, _, tq = _quantized_trees(cfg)
     p = tq if quant else tunet.fuse_self_qkv(tparams.from_jax_tree(jtree))
     rng = np.random.default_rng(2)

@@ -22,6 +22,7 @@ from audioldm2_torch.config import UNetConfig, default_audioldm_config
 from audioldm2_torch.models import unet as tunet
 from audioldm2_torch.ops import KERNEL_NAMES
 from audioldm2_torch.ops import nn as tnn
+from test_torch_models import count_plain_conv_dispatches
 from test_torch_models import nonzero_tree as _nonzero_arrays
 
 torch.set_num_threads(2)
@@ -136,6 +137,7 @@ def _count_calls(monkeypatch):
                              ("geglu_ff_out", "geglu_matmul", None),
                              ("attention", "flash_self_attention", uses_kernel)]:
         monkeypatch.setattr(tnn, attr, counting(name, getattr(tnn, attr), cond))
+    count_plain_conv_dispatches(monkeypatch, calls)
     return calls
 
 
@@ -152,11 +154,13 @@ def test_launch_formula_matches_dispatch_calls(monkeypatch, nhc):
 def test_t5_width_classifier_launch_counts():
     """The counts chip_smoke.py holds its encoder path to: the t5 UNet's
     widths, 10 ResBlocks (20 K1), legacy blocks at ds 2, 4, 8 and the
-    middle (7 K2, head_dim 32), one K6."""
+    middle (7 K2, head_dim 32), one K6; in bf16 the plain conv for the
+    stem, 3 downsamples and 3 skips (the out_conv onto 10 channels stays
+    cuDNN's)."""
     cfg = dataclasses.replace(default_audioldm_config("audioldm_16k_crossattn_t5").unet,
                               in_channels=8, out_channels=10)
     assert (cfg.model_channels, cfg.channel_mult, cfg.attention_resolutions,
             cfg.num_head_channels) == (128, (1, 2, 3, 5), (8, 4, 2), 32)
     assert tunet.kernel_launches_per_encoder_forward(cfg) == {
         **dict.fromkeys(KERNEL_NAMES, 0), "gn_silu_conv3x3": 20, "flash_self_attention": 7,
-        "group_norm_silu": 1}
+        "group_norm_silu": 1, "conv2d": 7}

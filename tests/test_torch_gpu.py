@@ -1,7 +1,8 @@
-"""The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, K6, and the A/B
-attention variants K7 and K8) against their plain PyTorch versions on the
-card, the plain bf16 convs' one rounding, and the gradients through K1,
-K2, K3, K4 and K6 under autograd (ops.autograd) against the plain ones.
+"""The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, K6, the A/B
+attention variants K7 and K8, and the plain conv on K1's kernel) against
+their plain PyTorch versions on the card, the plain bf16 convs' one
+rounding, and the gradients through K1, K2, K3, K4, K6 and the plain conv
+under autograd (ops.autograd) against the plain ones.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -1114,7 +1115,20 @@ def _grad_cases(g, device):
     k1 = lambda c2: (r(2, 8, 4, 64, offset=0.5), r(2, 8, 4, c2) if c2 else None,  # noqa: E731
                      r(64 + c2, scale=0.1, offset=1.0), r(64 + c2, scale=0.1),
                      r(3, 3, 64 + c2, 96, scale=(9 * (64 + c2)) ** -0.5), r(96), 32, 1e-5)
+
+    def rb(*shape, scale=1.0, offset=0.0):
+        return _rand(g, shape, torch.bfloat16, device, scale, offset)
+
     return {
+        # the plain conv is bf16 only: a 3x3 stride-2 conv, and the GroupNorm
+        # before a 1x1 over two parts read through the nearest 2x
+        "conv2d": (resblock_kernel.conv2d, resblock_kernel.conv2d_plain,
+                   (rb(2, 9, 5, 64), None, rb(3, 3, 64, 32, scale=1 / 24), rb(32), None, None,
+                    2, ((1, 1), (1, 1)), 1, 32, 1e-5)),
+        "conv2d with GroupNorm": (resblock_kernel.conv2d, resblock_kernel.conv2d_plain,
+                                  (rb(2, 6, 4, 64, offset=0.5), rb(2, 6, 4, 32),
+                                   rb(1, 1, 96, 64, scale=0.1), rb(64), rb(96, offset=1.0),
+                                   rb(96, scale=0.1), 1, ((0, 0), (0, 0)), 2, 32, 1e-6)),
         "K1": (resblock_kernel.gn_silu_conv3x3, resblock_kernel.gn_silu_conv3x3_plain, k1(0)),
         "K1 with x2": (resblock_kernel.gn_silu_conv3x3, resblock_kernel.gn_silu_conv3x3_plain,
                        k1(32)),
@@ -1131,13 +1145,16 @@ def _grad_cases(g, device):
     }
 
 
-@pytest.mark.parametrize("case", ["K1", "K1 with x2", "K2", "K3", "K4", "K6"])
+@pytest.mark.parametrize("case", ["K1", "K1 with x2", "K2", "K3", "K4", "K6", "conv2d",
+                                  "conv2d with GroupNorm"])
 def test_kernels_under_autograd_give_the_plain_gradients(cuda, monkeypatch, case):
     """A CUDA call under grad launches the kernel once (its output within
-    the f32 bound of the plain version's) and its backward recomputes the
-    plain version once: every input's gradient within 1e-5 of autograd of
-    the plain version on the same inputs (the same operations on the same
-    saved inputs)."""
+    the bound of the plain version's in its dtype) and its backward
+    recomputes the plain version once: every input's gradient within 1e-5
+    of autograd of the plain version on the same inputs (the same operations
+    on the same saved inputs; cuDNN deterministic, for the bf16 plain conv's
+    f32 copies)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     g = torch.Generator(device=cuda).manual_seed(0)
     wrapper, plain, args = _grad_cases(g, cuda)[case]
 
@@ -1157,8 +1174,8 @@ def test_kernels_under_autograd_give_the_plain_gradients(cuda, monkeypatch, case
     got = wrapper(*a1)
     want = plain(*a2)
     assert wrapper.launches == launches + 1 and got.grad_fn is not None and not recomputes
-    _check(got.detach(), want.detach(), torch.float32)
-    up = torch.randn(want.shape, generator=g, device=cuda)
+    _check(got.detach(), want.detach(), got.dtype)
+    up = torch.randn(want.shape, generator=g, device=cuda).to(want.dtype)
     got.backward(up)
     want.backward(up)
     assert len(recomputes) == 1
@@ -1275,7 +1292,8 @@ def test_encoder_unet_on_the_card_matches_the_plain_path(cuda, dt):
         counts = ops.launch_counts()
         with patched_dispatch("plain"):
             want = unet.apply_encoder_unet(p, ucfg, x, t)
-    assert counts == unet.kernel_launches_per_encoder_forward(ucfg)
+    assert counts == unet.kernel_launches_per_encoder_forward(
+        ucfg, "bfloat16" if dt == torch.bfloat16 else "float32")
     assert counts["flash_self_attention"] == 2
     _check(got, want, dt)
 
@@ -1336,3 +1354,188 @@ def test_int8_quantization_on_the_card_is_the_cpus_bit_for_bit(cuda):
             assert torch.equal(a.cpu(), b)
     s = w.abs().amax(0)
     assert not torch.equal((s.to(cuda) / 127.0).cpu(), s / 127.0)  # what the scalar divisor gave
+
+
+# ---------------------------------------------------------------------------
+# The plain conv on K1's bf16 kernel: every bf16 conv2d of the UNet and the
+# VAE decoder outside the ResBlock bodies
+# ---------------------------------------------------------------------------
+
+ROUND_ONCE_SHARE = 1e-3
+
+# (B, Ti, Fi, C1, C2, Cout, taps, stride, up, GroupNorm, input offset)
+PLAIN_CONV_MODES = [
+    (2, 16, 8, 128, 0, 128, 3, 1, 1, False, 0.0),   # 3x3, no prologue
+    (2, 16, 8, 128, 0, 128, 1, 1, 1, False, 0.0),   # 1x1
+    (1, 33, 7, 256, 0, 200, 3, 1, 1, False, 0.0),   # ragged T, F and N tile
+    (2, 17, 9, 64, 0, 64, 3, 2, 1, False, 0.0),     # stride 2 on odd T and F
+    (2, 9, 5, 128, 0, 128, 3, 1, 2, False, 0.0),    # read through the nearest 2x, ragged
+    (2, 11, 6, 128, 64, 96, 1, 1, 1, False, 0.0),   # two parts in place
+    (2, 32, 16, 128, 0, 8, 3, 1, 1, False, 0.0),    # Cout 8 (out_conv)
+    (2, 32, 16, 128, 0, 16, 3, 1, 1, False, 0.0),   # Cout 16
+    (2, 32, 16, 8, 0, 128, 3, 1, 1, False, 0.0),    # Cin 8 (the stem)
+    (2, 32, 16, 256, 0, 256, 1, 1, 1, True, 0.0),   # GroupNorm + 1x1 (norm + proj_in)
+    (2, 32, 16, 256, 0, 256, 1, 1, 1, True, 10.0),  # ... offset: GroupNorm cancellation
+    (1, 13, 5, 96, 32, 64, 3, 1, 1, True, 0.0),     # GroupNorm + 3x3, a group straddling parts
+    (2, 32, 2, 640, 0, 640, 3, 1, 1, False, 0.0),   # small M: split over a cluster
+    (2, 32, 2, 640, 0, 640, 1, 1, 1, True, 0.0),    # ... 1x1 with the GroupNorm
+]
+
+
+def _plain_conv_args(g, device, b, ti, fi, c1, c2, cout, taps, stride, up, gn, offset=0.0):
+    bf = torch.bfloat16
+    cin = c1 + c2
+    norm = ((_rand(g, (cin,), bf, device, offset=1.0), _rand(g, (cin,), bf, device)) if gn
+            else (None, None))
+    pad = taps // 2
+    return (_rand(g, (b, ti, fi, c1), bf, device, offset=offset),
+            _rand(g, (b, ti, fi, c2), bf, device) if c2 else None,
+            _rand(g, (taps, taps, cin, cout), bf, device, scale=(taps * taps * cin) ** -0.5),
+            _rand(g, (cout,), bf, device), *norm, stride, ((pad, pad), (pad, pad)), up, 32, 1e-6)
+
+
+def _rounded_once(args):
+    """The conv of the kernel's bf16 operands summed exactly (in float64)
+    with the bias and rounded once to bf16 (cuDNN's f32 convs of the f32
+    copies are no such oracle: at the upsample convs' shapes its FFT and
+    Winograd algorithms left 0.13-0.52% of outputs off); with a GroupNorm,
+    the operand is its affine from the kernel's own statistics pass, x * a
+    + c rounded once to f32 (the kernel's fma) and then to bf16."""
+    x1, x2, w, b, gs, gb, stride, pads, up, groups, eps = args
+    x = x1 if x2 is None else torch.cat([x1, x2], -1)
+    if gs is not None:
+        a, c = (v.double()[:, None, None] for v in resblock_kernel.gn_stats(
+            x1, x2, gs, gb, groups, eps))
+        x = (x.double() * a + c).float().to(torch.bfloat16)
+    d = torch.float64
+    y = resblock_kernel.conv2d_plain(x.to(d), None, w.to(d), b.to(d), None, None, stride, pads,
+                                     up)
+    return y.to(torch.bfloat16)
+
+
+def _check_plain_conv(args):
+    """Within the bf16 bar of the plain version, and at most 1e-3 of the
+    outputs off the one rounding of the f32 sum."""
+    got = resblock_kernel.conv2d(*args)
+    _check(got, resblock_kernel.conv2d_plain(*args), torch.bfloat16)
+    share = (got != _rounded_once(args)).float().mean().item()
+    assert share <= ROUND_ONCE_SHARE, share
+    return got
+
+
+@pytest.mark.parametrize("b,ti,fi,c1,c2,cout,taps,stride,up,gn,offset", PLAIN_CONV_MODES)
+def test_plain_conv_kernel_modes(cuda, b, ti, fi, c1, c2, cout, taps, stride, up, gn, offset):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    launches = resblock_kernel.conv2d.launches
+    args = _plain_conv_args(g, cuda, b, ti, fi, c1, c2, cout, taps, stride, up, gn, offset)
+    with torch.inference_mode():
+        got = _check_plain_conv(args)
+    assert resblock_kernel.conv2d.launches == launches + 1
+    assert got.shape == (b, -(-ti * up // stride), -(-fi * up // stride), cout)
+
+
+def _plain_conv_cells():
+    """Every plain conv shape of the benchmark's two configurations: the
+    UNet at CFG 48 (audioldm2-full, 24 clips) and 16 (audioldm_48k, 8), the
+    VAE decode at 24 and 8."""
+    import audioldm2_torch as at
+    from audioldm2_torch.models import unet, vae
+
+    shapes = set()
+    for name, cfg_batch in (("audioldm2-full", 48), ("audioldm_48k", 16)):
+        cfg = at.default_audioldm_config(name)
+        size = (cfg.latent_t_size, cfg.latent_f_size)
+        shapes |= set(unet.plain_conv_shapes(cfg.unet, cfg_batch, *size))
+        shapes |= set(vae.decode_plain_conv_shapes(cfg.vae, cfg_batch // 2, *size))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("b,ti,fi,c1,c2,cout,taps,stride,up,gn", _plain_conv_cells())
+def test_plain_conv_kernel_at_every_benchmark_shape(cuda, b, ti, fi, c1, c2, cout, taps, stride,
+                                                     up, gn):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    with torch.inference_mode():
+        _check_plain_conv(_plain_conv_args(g, cuda, b, ti, fi, c1, c2, cout, taps, stride, up,
+                                           gn))
+
+
+def test_plain_conv_gives_the_same_bits_twice(cuda):
+    """No atomics in a sum: the kernel (split over a cluster too) and its
+    statistics pass give bitwise equal outputs on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    with torch.inference_mode():
+        for mode in (PLAIN_CONV_MODES[4], PLAIN_CONV_MODES[10], PLAIN_CONV_MODES[12],
+                     PLAIN_CONV_MODES[13]):
+            args = _plain_conv_args(g, cuda, *mode)
+            first = resblock_kernel.conv2d(*args)
+            for _ in range(3):
+                assert torch.equal(resblock_kernel.conv2d(*args), first)
+
+
+def test_bf16_conv2d_rounds_once_on_the_kernel(cuda):
+    """test_bf16_conv_rounds_once_on_the_card's conv2d case now reaches the
+    plain conv kernel: one launch, no declined call."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    p = {"w": _rand(g, (3, 3, 256, 128), torch.bfloat16, cuda, scale=0.02),
+         "b": _rand(g, (128,), torch.bfloat16, cuda)}
+    x = _rand(g, (2, 64, 16, 256), torch.bfloat16, cuda)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = nn.conv2d(p, x)
+        once = nn.conv2d({k: v.float() for k, v in p.items()}, x.float()).to(torch.bfloat16)
+    assert ops.launch_counts()["conv2d"] == 1 and ops.declined_counts() == {"conv2d": 0}
+    assert (got != once).float().mean().item() <= ROUND_ONCE_SHARE
+
+
+def test_plain_conv_takes_a_strided_input_on_the_card(cuda):
+    """A channel slice of a wider tensor (not contiguous) reaches the plain
+    conv kernel through a contiguous copy, gives the oracle's bits there and
+    counts as no declined call."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    wide = _rand(g, (2, 32, 16, 192), torch.bfloat16, cuda)
+    x = wide[..., 64:]
+    p = {"w": _rand(g, (1, 1, 128, 64), torch.bfloat16, cuda, scale=0.05),
+         "b": _rand(g, (64,), torch.bfloat16, cuda)}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = nn.conv2d(p, x)
+        want = nn.conv2d(p, x.contiguous())
+    assert ops.launch_counts()["conv2d"] == 2 and ops.declined_counts() == {"conv2d": 0}
+    assert torch.equal(got, want)
+
+@pytest.mark.parametrize("name,convs", [("audioldm2-full", 119), ("audioldm_48k", 87)])
+def test_unet_forward_declines_no_conv(cuda, name, convs):
+    """A bf16 UNet forward of either benchmark configuration at full width
+    (CFG batch 2) sends every conv to the plain conv kernel and declines
+    none; its launches are kernel_launches_per_forward's; a bf16 VAE decode
+    declines only its conv_out onto one channel."""
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion.latent_diffusion import prepare_unet
+    from audioldm2_torch.models import unet, vae
+    from audioldm2_torch.params import Init, cast_floating
+    from chip_smoke import _ctx_inputs
+
+    cfg = at.default_audioldm_config(name)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    ctxs, masks, y = _ctx_inputs(cfg, cuda, g, 2)
+    x = torch.randn((2, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels),
+                    generator=g, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        unet_p, kv = prepare_unet({"unet": unet.init_unet(Init(g, cuda), cfg.unet)}, cfg, ctxs)
+        ops.reset_launch_counts()
+        out = unet.apply_unet(unet_p, cfg.unet, x, torch.tensor([500, 500], device=cuda), ctxs,
+                              masks, y=y, cross_kv=kv)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == unet.kernel_launches_per_forward(cfg.unet)
+        assert ops.launch_counts()["conv2d"] == convs and ops.declined_counts()["conv2d"] == 0
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
+        del unet_p, kv
+        vae_p = cast_floating(vae.init_vae(Init(g, cuda), cfg.vae), torch.bfloat16)
+        z = torch.randn((1, cfg.latent_t_size, cfg.latent_f_size, cfg.vae.embed_dim),
+                        generator=g, device=cuda).to(torch.bfloat16)
+        ops.reset_launch_counts()
+        vae.decode(vae_p, cfg.vae, z)
+        torch.cuda.synchronize()
+    assert ops.launch_counts() == vae.kernel_launches_per_decode(cfg.vae)
+    assert ops.declined_counts()["conv2d"] == 1
+

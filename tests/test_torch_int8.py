@@ -34,7 +34,7 @@ from audioldm2_torch import params as tparams
 from audioldm2_torch.models import unet as tunet
 from audioldm2_torch.ops import KERNEL_NAMES, lnmm_kernel, quant, resblock_kernel
 from audioldm2_torch.ops import nn as tnn
-from test_torch_models import nonzero_tree
+from test_torch_models import count_plain_conv_dispatches, nonzero_tree
 
 torch.set_num_threads(2)
 
@@ -342,6 +342,7 @@ def test_int8_launch_formula_matches_kernel_calls(monkeypatch):
         return orig_attention(q, k, v, mask=mask, bias=bias, scale=scale)
 
     monkeypatch.setattr(nn, "attention", attention)
+    count_plain_conv_dispatches(monkeypatch, calls)
     assert attention_kernel.flash_self_attention.launches == 0
     jtree, _, tq = _quantized_trees(cfg)
     rng = np.random.default_rng(2)
@@ -357,7 +358,9 @@ def test_full_config_int8_launch_counts():
     """The counts chip_smoke.py holds the audioldm2-full paths to: 22
     ResBlocks (44 convs) and 16 transformer ladders of 3 blocks (a self-ST
     and two cross-STs); every width is a multiple of 128, so int8 quantizes
-    all of them."""
+    all of them. The 119 plain convs (the stem, downsamples, skips, the 48
+    spatial transformers' proj_in and proj_out, upsamples, out_conv) keep
+    bf16 weights in both modes; the VAE decode adds 10."""
     from audioldm2_torch import default_audioldm_config
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
 
@@ -365,12 +368,12 @@ def test_full_config_int8_launch_counts():
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(full.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 64, "ln_matmul": 144,
-        "geglu_matmul": 48, "group_norm_silu": 1}
+        "geglu_matmul": 48, "group_norm_silu": 1, "conv2d": 119}
     assert tunet.kernel_launches_per_forward(full.unet, "int8") == {
         **none, "gn_silu_conv3x3_q": 44, "flash_self_attention": 64, "ln_matmul_q": 144,
-        "geglu_matmul_q": 48, "int8_matmul": 96, "group_norm_silu": 1}
+        "geglu_matmul_q": 48, "int8_matmul": 96, "group_norm_silu": 1, "conv2d": 119}
     full8 = dataclasses.replace(full, weight_quant="int8")
     assert kernel_launches_per_generate(full8, 200) == {
         **none, "gn_silu_conv3x3": 22, "gn_silu_conv3x3_q": 200 * 44,
         "flash_self_attention": 200 * 64, "ln_matmul_q": 200 * 144, "geglu_matmul_q": 200 * 48,
-        "int8_matmul": 200 * 96, "group_norm_silu": 200 + 1}
+        "int8_matmul": 200 * 96, "group_norm_silu": 200 + 1, "conv2d": 200 * 119 + 10}

@@ -1293,3 +1293,249 @@ def test_k5_f32_output_mode_reaches_its_entry(as_if_on_the_card, monkeypatch, wi
         lk.int8_matmul(torch.zeros(4, 20, dtype=bf16), torch.zeros(20, 24, dtype=torch.int8),
                        torch.ones(24), None, out_dtype=torch.float32)
     assert not lib.calls
+
+
+# ---------------------------------------------------------------------------
+# The plain conv (every bf16 conv2d of the UNet and the VAE decoder outside
+# the ResBlock bodies) on K1's bf16 kernel
+# ---------------------------------------------------------------------------
+
+# the benchmark's CFG batches (24 clips of audioldm2-full, 8 of audioldm_48k)
+# and a 3-candidate request's; the decodes at those clip counts
+PLAIN_CONV_CONFIGS = (("audioldm2-full", (48, 6), (24, 3)), ("audioldm_48k", (16, 6), (8, 3)))
+
+
+def _plain_conv_shapes():
+    from audioldm2_torch.models import vae
+
+    shapes = set()
+    for name, batches, decodes in PLAIN_CONV_CONFIGS:
+        cfg = at.default_audioldm_config(name)
+        for batch in batches:
+            shapes |= set(unet.plain_conv_shapes(cfg.unet, batch, cfg.latent_t_size,
+                                                 cfg.latent_f_size))
+        for batch in decodes:
+            shapes |= set(vae.decode_plain_conv_shapes(cfg.vae, batch, cfg.latent_t_size,
+                                                       cfg.latent_f_size))
+    return sorted(shapes)
+
+
+# ragged T and F, Cout 8 and 16, a two-part 1x1, a tall stride-2 tile
+PLAIN_CONV_EDGES = [(1, 5, 3, 64, 0, 8, 3, 1, 1, False), (2, 7, 9, 24, 16, 40, 1, 1, 1, False),
+                    (1, 33, 7, 128, 0, 16, 3, 2, 1, False), (3, 9, 5, 256, 0, 256, 3, 1, 2, False),
+                    (2, 256, 3, 96, 0, 96, 1, 1, 1, True), (1, 1, 1, 640, 0, 640, 3, 2, 1, False)]
+PLAIN_CONV_SHAPES = _plain_conv_shapes() + PLAIN_CONV_EDGES
+
+
+def _plain_conv_out(t, f, taps, stride, up):
+    """The output's extent: SAME at stride 1 (on the 2x grid where up is 2),
+    padding 1 at stride 2 (the downsample)."""
+    return -(-t * up // stride), -(-f * up // stride)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("b,t,f,c1,c2,cout,taps,stride,up,gn", PLAIN_CONV_SHAPES)
+def test_conv2d_plan(b, t, f, c1, c2, cout, taps, stride, up, gn, sms):
+    """The plain conv's plan at every conv shape of the two benchmark
+    configurations' UNets and decodes and at ragged ones: K1's tiles, the
+    tiles cover the output once, whole chunks cover Cin, the strips cover
+    the N tiles once, a patch of the tile's taps and stride fits twice
+    beside the ring, whose depth lets each chunk's patch land before its
+    first tap, and the grid fills the SMs as K1's does, counting the widest
+    split that leaves no block empty (a 1 x 1 output of 640 channels)."""
+    to, fo = _plain_conv_out(t, f, taps, stride, up)
+    plan = _build.conv2d_plan(b, to, fo, c1 + c2, cout, sms, taps, stride)
+    assert plan is not None
+    assert (plan.bm, plan.bn) in _build.CONV_TILES and plan.ck == _build.CONV_CK
+    assert 1 <= plan.tt <= to and 1 <= plan.ft <= fo and plan.tt * plan.ft <= plan.bm
+    strips, m_tiles, splits = plan.grid
+    assert m_tiles == b * math.ceil(to / plan.tt) * math.ceil(fo / plan.ft)
+    assert plan.k_chunks == math.ceil((c1 + c2) / plan.ck)
+    cps = math.ceil(plan.k_chunks / splits)
+    assert 1 <= splits <= _build.CONV_MAX_SPLITS and (splits - 1) * cps < plan.k_chunks
+    n_tiles = math.ceil(cout / plan.bn)
+    assert (strips - 1) * plan.strip_tiles < n_tiles <= strips * plan.strip_tiles
+    assert splits == 1 or plan.strip_tiles == 1
+    patch = ((plan.tt - 1) * stride + taps) * ((plan.ft - 1) * stride + taps)
+    assert patch == _build.conv_patch(plan.tt, plan.ft, taps, stride)
+    main = (2 * patch * _build.CONV_LD * 2 + 4 * plan.ck * 4
+            + plan.stages * plan.ck * (plan.bn + _build.CONV_PAD) * 2)
+    assert plan.smem_bytes == max(main, plan.bm * (plan.bn + 4) * 4) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= min(_build.CONV_MAX_STAGES, taps * taps + 1)
+    blocks = strips * m_tiles * splits
+    most = max(math.ceil(plan.k_chunks / math.ceil(plan.k_chunks / w))
+               for w in range(1, min(_build.CONV_MAX_SPLITS, plan.k_chunks) + 1))
+    fill = min(sms, m_tiles * n_tiles * most)
+    assert blocks >= fill or (blocks <= sms and blocks >= _build.LNMM_MIN_FILL * fill)
+
+
+@pytest.mark.parametrize("taps,stride,cin,cout,taken", [
+    (3, 1, 128, 8, True), (1, 1, 8, 8, True), (3, 2, 640, 640, True), (1, 2, 64, 64, True),
+    (5, 1, 128, 128, False), (2, 1, 128, 128, False), (3, 4, 128, 128, False),
+    (3, 1, 128, 1, False), (3, 1, 4, 128, False), (1, 1, 100, 64, False), (3, 1, 64, 12, False)])
+def test_conv2d_plan_declines_what_the_kernel_does_not_take(taps, stride, cin, cout, taken):
+    """1x1 or 3x3 taps, stride 1 or 2, Cin and Cout multiples of 8: the
+    VAE's 5x5 time-stride-4 upsample and its conv_out onto one channel, and
+    the tiny test UNets' 4 latent channels, keep the f32 copies."""
+    assert (_build.conv2d_plan(2, 16, 8, cin, cout, SMS, taps, stride) is not None) is taken
+    assert nn_conv2d_uses_kernel((taps, taps, cin, cout), (stride, stride), ((0, 0),) * 2,
+                                 (cin,)) is taken
+
+
+def nn_conv2d_uses_kernel(*args):
+    from audioldm2_torch.ops import nn
+
+    return nn.conv2d_uses_kernel(*args)
+
+
+@pytest.mark.parametrize("name,calls,decode_calls", [("audioldm2-full", 119, 10),
+                                                     ("audioldm_48k", 87, 12)])
+def test_plain_conv_shapes_add_up_to_the_launch_count(name, calls, decode_calls):
+    """Every conv of a UNet forward of both benchmark configurations takes
+    the plain conv (none declined: the walk of its convs, ``_plain_convs``,
+    is as long as the shapes' calls), 119 in audioldm2-full (48 spatial
+    transformers) and 87 in audioldm_48k (32); a decode takes all but its
+    conv_out onto one channel. The calls sum to the launch counts."""
+    from audioldm2_torch.models import vae
+
+    cfg = at.default_audioldm_config(name)
+    for batch in (16, 48):
+        got = unet.plain_conv_shapes(cfg.unet, batch, cfg.latent_t_size, cfg.latent_f_size)
+        assert sum(got.values()) == calls == len(unet._plain_convs(cfg.unet))
+        assert sum(got.values()) == unet.kernel_launches_per_forward(cfg.unet)["conv2d"]
+        assert sum(got.values()) == unet.kernel_launches_per_forward(cfg.unet, "int8")["conv2d"]
+        sts = 16 * (1 + len(cfg.unet.context_dims))  # 16 ladders of a self-ST and the cross-STs
+        assert sum(n for k, n in got.items() if k[-1]) == sts  # GroupNorm + proj_in
+        assert {k[7] for k in got} == {1, 2} and {k[8] for k in got} == {1, 2}
+        dec = vae.decode_plain_conv_shapes(cfg.vae, batch, cfg.latent_t_size, cfg.latent_f_size)
+        assert sum(dec.values()) == decode_calls == len(vae._decode_plain_convs(cfg.vae)) - 1
+        assert sum(dec.values()) == vae.kernel_launches_per_decode(cfg.vae)["conv2d"]
+    assert unet.kernel_launches_per_forward(cfg.unet, compute_dtype="float32")["conv2d"] == 0
+    assert vae.kernel_launches_per_decode(cfg.vae, "float32")["conv2d"] == 0
+    assert vae.kernel_launches_per_encode(cfg.vae)["conv2d"] == 0
+
+
+PORT_FAMILIES = ("audioldm_16k_crossattn_t5", "audioldm2-full", "audioldm2-full-large-1150k",
+                 "audioldm_48k", "audioldm2-speech-gigaspeech")
+
+
+@pytest.mark.parametrize("name", PORT_FAMILIES)
+def test_port_census_of_the_plain_convs(name):
+    """The census of the plain convs (every conv2d outside the ResBlock
+    bodies, on K1's bf16 kernel on the card): each conv of a UNet forward of
+    every shipped family is one the kernel takes, so a forward declines
+    none; of a VAE decode all but conv_out onto the one mel channel."""
+    from audioldm2_torch.models import vae
+    from audioldm2_torch.ops import nn
+
+    cfg = at.default_audioldm_config(name)
+
+    def taken(c1, c2, cout, taps, stride):
+        return nn.conv2d_uses_kernel((taps, taps, c1 + c2, cout), (stride, stride),
+                                     ((0, 0), (0, 0)), (c1, c2) if c2 else (c1,))
+
+    convs = unet._plain_convs(cfg.unet)
+    assert convs and all(taken(*cv[:5]) for cv in convs)
+    assert len(convs) == unet.kernel_launches_per_forward(cfg.unet)["conv2d"]
+    declined = [cv for cv in vae._decode_plain_convs(cfg.vae)
+                if not (cv[3] in (1, 2) and taken(cv[0], 0, cv[1], cv[2], 1))]
+    assert declined == [(cfg.vae.ch, 1, 3, 1, declined[0][4])] and cfg.vae.out_ch == 1
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+def test_sweep_times_the_plans_own_candidates(sms):
+    """tools/time_conv2d --sweep times, at each UNet shape of both benchmark
+    configurations, the launches conv2d_plan chooses among, each once, and
+    the plan's pick is the cheapest of them."""
+    from audioldm2_torch.tools import time_conv2d
+
+    for _, _, key, _ in time_conv2d.shapes("unet"):
+        b, ti, fi, c1, c2, cout, taps, stride, up, _ = key
+        t, f = _plain_conv_out(ti, fi, taps, stride, up)
+        cands = time_conv2d.candidates(key, sms)
+        costed = _build.conv2d_candidates(b, t, f, c1 + c2, cout, sms, taps, stride)
+        pick = _build.conv2d_plan(b, t, f, c1 + c2, cout, sms, taps, stride)
+        assert len(set(cands)) == len(cands) and pick in cands
+        assert set(cands) == {plan for _, plan in costed}
+        assert min(cost for cost, _ in costed) == next(c for c, p in costed if p == pick)
+
+def test_a_strided_input_reaches_the_plain_conv_as_a_contiguous_copy(as_if_on_the_card,
+                                                                     monkeypatch):
+    """A bf16 call the rule takes reaches a2k_conv2d_bf16 whatever the
+    input's layout: a channel slice of a wider tensor goes as a contiguous
+    copy, and nothing counts as declined."""
+    from audioldm2_torch import ops
+    from audioldm2_torch.ops import nn
+    from audioldm2_torch.ops import resblock_kernel as rk
+
+    monkeypatch.setattr(rk.conv2d, "declined", 0)
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    wide = torch.zeros(2, 16, 8, 192, dtype=bf16)
+    x = wide[..., :128]
+    assert not x.is_contiguous()
+    p = {"w": torch.zeros(1, 1, 128, 64, dtype=bf16), "b": torch.ones(64, dtype=bf16)}
+    out = nn.conv2d(p, x)
+    args = lib.calls.pop("a2k_conv2d_bf16")
+    assert args[0] != wide.data_ptr() and args[1] is None and not lib.calls
+    assert out.shape == (2, 16, 8, 64) and ops.declined_counts() == {"conv2d": 0}
+
+
+def test_plain_convs_reach_the_kernel_with_parameters_as_stored(as_if_on_the_card, monkeypatch):
+    """The dispatch points of the plain conv on bf16 inputs as on the card:
+    nn.conv2d (3x3 SAME, the stride-2 downsample), upsample_conv2d (read
+    through the nearest 2x), gn_conv2d (the statistics pass, then the conv
+    with the GroupNorm folded in: act 2) and conv1x1_cat (two parts in
+    place) each reach a2k_conv2d_bf16 once with the plan's arguments, the
+    bf16 weight and bias as stored (code 1); a 5x5 conv and a conv onto one
+    channel keep the f32 copies, counted as declined; an f32 input takes no
+    kernel and counts nothing."""
+    from audioldm2_torch import ops
+    from audioldm2_torch.ops import nn
+    from audioldm2_torch.ops import resblock_kernel as rk
+
+    monkeypatch.setattr(rk.conv2d, "declined", 0)
+    lib = as_if_on_the_card
+    bf16 = torch.bfloat16
+    b, t, f, c = 2, 16, 8, 128
+
+    def conv(k, cin, cout):
+        return {"w": torch.zeros(k, k, cin, cout, dtype=bf16), "b": torch.ones(cout, dtype=bf16)}
+
+    x = torch.zeros(b, t, f, c, dtype=bf16)
+    cases = [
+        (lambda p: nn.conv2d(p, x), conv(3, c, c), (t, f, t, f, c, 0, c, 3, 1, 0, 1, 1, 0)),
+        (lambda p: nn.conv2d(p, x, stride=(2, 2), padding=1), conv(3, c, c),
+         (t // 2, f // 2, t, f, c, 0, c, 3, 2, 0, 1, 1, 0)),
+        (lambda p: nn.upsample_conv2d(p, x), conv(3, c, c),
+         (2 * t, 2 * f, t, f, c, 0, c, 3, 1, 1, 1, 1, 0)),
+        (lambda p: nn.conv2d(p, x), conv(1, c, 8), (t, f, t, f, c, 0, 8, 1, 1, 0, 0, 0, 0)),
+        (lambda p: nn.gn_conv2d({"scale": torch.ones(c, dtype=bf16),
+                                 "bias": torch.zeros(c, dtype=bf16)}, p, x, eps=1e-6),
+         conv(1, c, c), (t, f, t, f, c, 0, c, 1, 1, 0, 0, 0, 2)),
+        (lambda p: nn.conv1x1_cat(p, x, x[..., :64].contiguous()), conv(1, c + 64, c),
+         (t, f, t, f, c, 64, c, 1, 1, 0, 0, 0, 0)),
+    ]
+    for call, p, geometry in cases:
+        out = call(p)
+        args = lib.calls.pop("a2k_conv2d_bf16")
+        assert set(lib.calls) <= {"a2k_gn_stats"}
+        stats = lib.calls.pop("a2k_gn_stats", None)
+        assert (stats is not None) is (geometry[-1] == 2)
+        assert args[0] == x.data_ptr() and (args[1] is None) is (geometry[5] == 0)
+        assert (args[2] is None) is (args[3] is None) is (stats is None)
+        assert args[4:8] == (p["w"].data_ptr(), p["b"].data_ptr(), 1, out.data_ptr())
+        assert args[8] == b and args[9:22] == geometry
+        to, fo, cout = geometry[0], geometry[1], geometry[6]
+        plan = _build.conv2d_plan(b, to, fo, geometry[4] + geometry[5], cout, SMS, geometry[7],
+                                  geometry[8])
+        assert args[22:29] == (plan.bm, plan.bn, plan.tt, plan.ft, plan.strip_tiles,
+                               plan.stages, plan.splits)
+        assert out.shape == (b, to, fo, cout) and out.dtype == bf16
+    assert ops.declined_counts() == {"conv2d": 0}
+    for p, kw in ((conv(5, c, c), {}), (conv(3, c, 1), {})):
+        out = nn.conv2d(p, x, **kw)
+        assert not lib.calls and out.dtype == bf16 and out.shape[:3] == (b, t, f)
+    assert ops.declined_counts() == {"conv2d": 2}
+    nn.conv2d(conv(3, c, c), x.float())
+    assert not lib.calls and ops.declined_counts() == {"conv2d": 2}

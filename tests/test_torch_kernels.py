@@ -202,8 +202,10 @@ def test_kernel_launch_counters_stay_zero_on_cpu(rng):
     q4 = _t(rng.standard_normal((1, 8, 4, 32)))
     avk.v6bd_attention(q4, q4, q4, 0.2)
     avk.v7_attention(q4, q4, q4, 0.2)
+    resblock_kernel.conv2d(x, None, torch.zeros(1, 1, 32, 32), torch.zeros(32))
     assert ops.launch_counts() == {"gn_silu_conv3x3": 0, "flash_self_attention": 0,
                                    "ln_matmul": 0, "geglu_matmul": 0, "gn_silu_conv3x3_q": 0,
                                    "int8_matmul": 0, "ln_matmul_q": 0, "geglu_matmul_q": 0,
                                    "group_norm_silu": 0, "v6bd_attention": 0,
-                                   "v7_attention": 0}
+                                   "v7_attention": 0, "conv2d": 0}
+    assert ops.declined_counts() == {"conv2d": 0}

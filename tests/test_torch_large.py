@@ -44,7 +44,7 @@ from audioldm2_torch.models import unet as tunet
 from audioldm2_torch.ops import KERNEL_NAMES
 from test_torch_full import TINY_PANN, TINY_ROBERTA, tiny_full_config
 from test_torch_int8 import JAX_OP_TOL, _quantized_trees
-from test_torch_models import _flatten, nonzero_tree
+from test_torch_models import _flatten, count_plain_conv_dispatches, nonzero_tree
 from tiny import TINY_T5, tiny_clap_config
 
 torch.set_num_threads(2)
@@ -179,6 +179,7 @@ def test_large_launch_formula_matches_kernel_calls(monkeypatch, quant):
         return orig_attention(q, k, v, mask=mask, bias=bias, scale=scale)
 
     monkeypatch.setattr(nn, "attention", attention)
+    count_plain_conv_dispatches(monkeypatch, calls)
     jtree, _, tq = _quantized_trees(cfg)
     ptree = tparams.from_jax_tree(jtree)
     p = tq if quant else tunet.fuse_self_qkv(ptree)
@@ -221,15 +222,17 @@ def test_large_int8_unet_matches_jax():
 def test_large_config_launch_counts():
     """The counts chip_smoke.py holds the large path to: 22 ResBlocks (44
     convs), 16 ladders of 4 spatial transformers (self-ST, two context
-    slots, the None slot) of 2 blocks each; n_gen does not change them."""
+    slots, the None slot) of 2 blocks each (each transformer's proj_in and
+    proj_out plain convs: 128 of the 151); n_gen does not change them."""
     large = at.default_audioldm_config("audioldm2-full-large-1150k")
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(large.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 16 * 2 * 6, "ln_matmul": 352,
-        "geglu_matmul": 128, "group_norm_silu": 1}
+        "geglu_matmul": 128, "group_norm_silu": 1, "conv2d": 151}
     assert tunet.kernel_launches_per_forward(large.unet, "int8") == {
         **none, "gn_silu_conv3x3_q": 44, "flash_self_attention": 192, "ln_matmul_q": 352,
-        "geglu_matmul_q": 128, "int8_matmul": 16 * 2 * (4 * 2 + 1), "group_norm_silu": 1}
+        "geglu_matmul_q": 128, "int8_matmul": 16 * 2 * (4 * 2 + 1), "group_norm_silu": 1,
+        "conv2d": 151}
     got = kernel_launches_per_generate(large, 200)
     assert got["flash_self_attention"] == 200 * 192 and got["gn_silu_conv3x3"] == 200 * 44 + 22
 

@@ -37,6 +37,22 @@ torch.set_num_threads(2)
 TOL = 1e-4
 
 
+def count_plain_conv_dispatches(monkeypatch, calls):
+    """Count in ``calls["conv2d"]`` every conv that reaches the plain conv's
+    dispatch (``nn._conv_kernel``, behind nn.conv2d, gn_conv2d,
+    upsample_conv2d and conv1x1_cat) and that ``nn.conv2d_uses_kernel``
+    takes, on any device: the plain conv launches of the same call in bf16
+    on the card."""
+    orig = tnn._conv_kernel
+
+    def wrapped(x1, x2, p, stride=(1, 1), pads=((0, 0), (0, 0)), *a, **kw):
+        parts = [x1.shape[-1]] + ([] if x2 is None else [x2.shape[-1]])
+        calls["conv2d"] += tnn.conv2d_uses_kernel(p["w"].shape, stride, pads, parts)
+        return orig(x1, x2, p, stride, pads, *a, **kw)
+
+    monkeypatch.setattr(tnn, "_conv_kernel", wrapped)
+
+
 def nonzero_tree(tree, seed=123):
     """numpy copy of a JAX parameter tree with every all-zero leaf redrawn."""
     rng = np.random.default_rng(seed)
@@ -221,6 +237,7 @@ def test_kernel_launch_formula_matches_dispatch_calls(cfg, monkeypatch):
                              ("geglu_ff_out", "geglu_matmul", None),
                              ("attention", "flash_self_attention", uses_kernel)]:
         monkeypatch.setattr(tnn, attr, counting(name, getattr(tnn, attr), cond))
+    count_plain_conv_dispatches(monkeypatch, calls)
     g = torch.Generator().manual_seed(0)
     ini = tparams.Init(g, "cpu")
     p = tunet.init_unet(ini, ucfg)
@@ -237,8 +254,12 @@ def test_kernel_launch_formula_matches_dispatch_calls(cfg, monkeypatch):
 
 def test_full_config_launch_counts():
     """The counts chip_smoke.py holds the t5 main path to: per UNet forward
-    44 K1 (22 ResBlocks), 48 K2, 96 K3, 32 K4, 1 K6 (out_norm); per VAE
-    decode 22 K1 and 1 K6 (norm_out)."""
+    44 K1 (22 ResBlocks), 48 K2, 96 K3, 32 K4, 1 K6 (out_norm) and 87 plain
+    convs (the stem, 3 downsamples, 3 encoder and 12 decoder skips, 32
+    spatial transformers' GroupNorm + proj_in and proj_out, 3 upsamples,
+    the out_conv); per VAE decode 22 K1, 1 K6 (norm_out) and 10 plain convs
+    (post_quant_conv, conv_in, the mid attention's four, 2 nin_shortcuts, 2
+    upsamples; conv_out onto one channel stays cuDNN's)."""
     from audioldm2_torch import default_audioldm_config
     from audioldm2_torch.diffusion.latent_diffusion import kernel_launches_per_generate
 
@@ -246,7 +267,8 @@ def test_full_config_launch_counts():
     none = dict.fromkeys(KERNEL_NAMES, 0)
     assert tunet.kernel_launches_per_forward(full.unet) == {
         **none, "gn_silu_conv3x3": 44, "flash_self_attention": 48, "ln_matmul": 96,
-        "geglu_matmul": 32, "group_norm_silu": 1}
+        "geglu_matmul": 32, "group_norm_silu": 1, "conv2d": 87}
     assert kernel_launches_per_generate(full, 200) == {
         **none, "gn_silu_conv3x3": 200 * 44 + 22, "flash_self_attention": 200 * 48,
-        "ln_matmul": 200 * 96, "geglu_matmul": 200 * 32, "group_norm_silu": 200 + 1}
+        "ln_matmul": 200 * 96, "geglu_matmul": 200 * 32, "group_norm_silu": 200 + 1,
+        "conv2d": 200 * 87 + 10}

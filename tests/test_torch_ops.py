@@ -281,3 +281,52 @@ def test_plain_op_rounds_once_in_bf16_like_jax(op):
     assert got.shape == want.shape
     share = float(np.mean(got != want))
     assert share <= ROUND_ONCE_SHARE, share
+
+
+@pytest.mark.parametrize(
+    "w_shape,stride,pads,parts,expected",
+    [
+        ((3, 3, 8, 128), (1, 1), ((1, 1), (1, 1)), (8,), True),          # UNet stem
+        ((3, 3, 128, 8), (1, 1), ((1, 1), (1, 1)), (128,), True),        # out_conv, Cout 8
+        ((3, 3, 128, 16), (1, 1), ((1, 1), (1, 1)), (128,), True),       # 48k out_conv
+        ((3, 3, 384, 384), (2, 2), ((1, 1), (1, 1)), (384,), True),      # downsample
+        ((1, 1, 640, 640), (1, 1), ((0, 0), (0, 0)), (640,), True),      # proj_in / proj_out
+        ((1, 1, 1024, 640), (1, 1), ((0, 0), (0, 0)), (640, 384), True),  # decoder skip
+        ((1, 1, 8, 8), (1, 1), ((0, 0), (0, 0)), (8,), True),            # post_quant_conv
+        ((5, 5, 128, 128), (1, 1), ((2, 2), (2, 2)), (128,), False),     # VAE time-stride-4
+        ((3, 3, 128, 1), (1, 1), ((1, 1), (1, 1)), (128,), False),       # VAE conv_out
+        ((3, 3, 4, 32), (1, 1), ((1, 1), (1, 1)), (4,), False),          # 4 latent channels
+        ((1, 1, 20, 16), (1, 1), ((0, 0), (0, 0)), (12, 8), False),      # a part of 12
+        ((3, 3, 64, 64), (4, 2), ((0, 0), (0, 0)), (64,), False),        # stride (4, 2)
+        ((3, 3, 64, 64), (1, 1), ((0, -1), (0, 0)), (64,), False),       # cropping
+        ((16, 16, 1, 768), (16, 16), ((0, 0), (0, 0)), (1,), False),     # AudioMAE patches
+    ],
+)
+def test_conv2d_dispatch_rule(w_shape, stride, pads, parts, expected):
+    """The one rule that sends a CUDA bf16 conv2d to the plain conv kernel:
+    1x1 or 3x3, stride 1 or 2 in both dims, no negative padding, Cout and
+    every input part a multiple of 8."""
+    assert tnn.conv2d_uses_kernel(w_shape, stride, pads, parts) is expected
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_conv_dispatch_points_keep_the_cpu_composition(dtype):
+    """On the CPU the new dispatch points are the compositions they replace,
+    bit for bit: gn_conv2d is conv2d of group_norm, upsample_conv2d conv2d
+    of nearest_upsample_2d, and conv2d itself its plain path; none counts a
+    declined call."""
+    from audioldm2_torch import ops
+
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((2, 6, 4, 64))).to(dtype)
+    norm = {"scale": _t(rng.standard_normal(64)).to(dtype),
+            "bias": _t(rng.standard_normal(64)).to(dtype)}
+    p1 = {k: _t(v).to(dtype) for k, v in _conv_p(rng, 1, 1, 64, 64).items()}
+    p3 = {k: _t(v).to(dtype) for k, v in _conv_p(rng, 3, 3, 64, 32).items()}
+    assert torch.equal(tnn.gn_conv2d(norm, p1, x, eps=1e-6),
+                       tnn.conv2d(p1, tnn.group_norm(norm, x, eps=1e-6)))
+    assert torch.equal(tnn.upsample_conv2d(p3, x), tnn.conv2d(p3, tnn.nearest_upsample_2d(x)))
+    assert torch.equal(tnn.conv2d(p3, x, stride=(2, 2), padding=1),
+                       tnn.conv2d_plain(p3, x, (2, 2), ((1, 1), (1, 1))))
+    assert ops.declined_counts() == {"conv2d": 0}
