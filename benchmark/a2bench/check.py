@@ -7,9 +7,11 @@ stage's output with the reference's:
 
 - ``cond_rel``: the UNet's conditioning (FLAN-T5 and the GPT-2 sequence
   generator's tokens on audioldm2-full, the CLAP text embedding as FiLM on
-  audioldm_48k), every row of the uncond || cond stack, against the
-  reference's encoding of the caption: the widest relative L2 gap over the
-  tensors; a mask that differs reads inf;
+  audioldm_48k; on a speech configuration the GPT-2 tokens generated from
+  CLAP and the phoneme encoder of the transcription), every row of the
+  uncond || cond stack, against the reference's encoding of the caption
+  and transcription: the widest relative L2 gap over the tensors; a mask
+  that differs reads inf;
 - ``latent_rel``: the sampled rows' latents after the CFG DDIM loop,
   against the reference's own float32 loop from its own conditioning and
   the same draws (x_T and each step's noise from a generator seeded with
@@ -63,6 +65,7 @@ class Reference:
     def __init__(self, cfg: ModelConfig, tree: Dict, device):
         self.cfg, self.tree, self.device = cfg, tree, device
         self._f32: Dict[str, Dict] = {}
+        self._cond: Dict[tuple, tuple] = {}
         self._latents: Dict[tuple, torch.Tensor] = {}
 
     def sub(self, key: str):
@@ -71,23 +74,29 @@ class Reference:
         return self._f32[key]
 
     @torch.inference_mode()
-    def cond(self, caption: str, mode: str = "f32"):
-        with nn.precision(mode):
-            return conditioning.conditioning({"cond": self.sub("cond")}, self.cfg, caption,
-                                             self.device)
+    def cond(self, caption: str, transcription: str = "", mode: str = "f32"):
+        """The conditioning of one prompt (computed once for each caption,
+        transcription and precision)."""
+        key = (caption, transcription, mode)
+        if key not in self._cond:
+            with nn.precision(mode):
+                self._cond[key] = conditioning.conditioning(
+                    {"cond": self.sub("cond")}, self.cfg, caption, transcription, self.device)
+        return self._cond[key]
 
     @torch.inference_mode()
-    def latents(self, caption: str, seed: int, mix: Dict, rows: Sequence[int],
-                mode: str = "f32") -> torch.Tensor:
+    def latents(self, caption: str, transcription: str, seed: int, mix: Dict,
+                rows: Sequence[int], mode: str = "f32") -> torch.Tensor:
         """The reference's latents (scale_factor * z) of ``rows`` of the
         request's batch: its own conditioning and DDIM loop on the program's
-        draws (computed once for each caption, seed, rows and precision)."""
-        key = (caption, int(seed), tuple(rows), mode)
+        draws (computed once for each prompt, seed, rows and precision)."""
+        key = (caption, transcription, int(seed), tuple(rows), mode)
         if key not in self._latents:
-            self._latents[key] = self._loop(caption, seed, mix, rows, mode)
+            self._latents[key] = self._loop(caption, transcription, seed, mix, rows, mode)
         return self._latents[key]
 
-    def _loop(self, caption: str, seed: int, mix: Dict, rows: Sequence[int], mode: str):
+    def _loop(self, caption: str, transcription: str, seed: int, mix: Dict,
+              rows: Sequence[int], mode: str):
         cfg = self.cfg
         bsz = mix["batchsize"] * mix["n_candidate_gen_per_text"]
         shape = (bsz, work.latent_frames(cfg, mix), cfg.latent_f_size, cfg.latent_channels)
@@ -96,7 +105,7 @@ class Reference:
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         idx = torch.as_tensor(list(rows), device=self.device)
         x_T, noise = generator.ddim_draws(shape, idx, sched, gen, self.device)
-        y, contexts, masks = self.cond(caption, mode)
+        y, contexts, masks = self.cond(caption, transcription, mode)
         r = len(rows)
 
         def stack(t):  # [2, ...] -> [2r, ...]: uncond rows, then cond rows
@@ -170,8 +179,9 @@ def numbers(ref: Reference, cap, mix: Dict, rows: Sequence[int],
     """Every number of one capture against the float32 reference."""
     rows = list(rows)
     sr = ref.cfg.preprocessing.sampling_rate
-    out = {"cond_rel": cond_gap(cap.cond, ref.cond(cap.caption))}
-    out["latent_rel"] = rel_gap(cap.latent[rows], ref.latents(cap.caption, cap.seed, mix, rows))
+    out = {"cond_rel": cond_gap(cap.cond, ref.cond(cap.caption, cap.transcription))}
+    out["latent_rel"] = rel_gap(cap.latent[rows], ref.latents(cap.caption, cap.transcription,
+                                                              cap.seed, mix, rows))
     out["mel_rms"] = rms_gap(cap.mel, ref.mel(cap.latent))
     out["wav_rms"] = rms_gap(cap.wav, ref.wav(cap.mel))
     kept = returned_rows(cap, mix, sr)
@@ -205,8 +215,8 @@ def control_numbers(ref: Reference, cap, mix: Dict, rows: Sequence[int]) -> Dict
     them in float32 with TF32 off), the DDIM loop's UNet, the VAE decode and
     the vocoder in float8 (the program runs them in bf16)."""
     rows = list(rows)
-    f32_cond = ref.cond(cap.caption)
-    tf32_cond = ref.cond(cap.caption, "tf32")
+    f32_cond = ref.cond(cap.caption, cap.transcription)
+    tf32_cond = ref.cond(cap.caption, cap.transcription, "tf32")
     bsz = mix["batchsize"] * mix["n_candidate_gen_per_text"]
     ty, tcontexts, tmasks = tf32_cond
     stacked = ((None if ty is None else torch.cat([ty[:1].expand(bsz, -1),
@@ -216,8 +226,8 @@ def control_numbers(ref: Reference, cap, mix: Dict, rows: Sequence[int]) -> Dict
                 [torch.cat([m[:1].expand(bsz, -1), m[1:].expand(bsz, -1)]) for m in tmasks]),
                bsz)
     out = {"cond_rel": cond_gap(stacked, f32_cond)}
-    out["latent_rel"] = rel_gap(ref.latents(cap.caption, cap.seed, mix, rows, "fp8"),
-                                ref.latents(cap.caption, cap.seed, mix, rows))
+    prompt = (cap.caption, cap.transcription, cap.seed, mix, rows)
+    out["latent_rel"] = rel_gap(ref.latents(*prompt, "fp8"), ref.latents(*prompt))
     out["mel_rms"] = rms_gap(ref.mel(cap.latent, "fp8"), ref.mel(cap.latent))
     out["wav_rms"] = rms_gap(ref.wav(cap.mel, "fp8"), ref.wav(cap.mel))
     if mix["n_candidate_gen_per_text"] > 1:

@@ -82,18 +82,22 @@ def run(cell, pcfg, seed: int, seconds: float, traced_run: bool, device: str,
 
     from a2bench import check, manifest, program, traffic, trace, weights
     from a2bench import window as window_m
+    from a2bench.reference import conditioning
     from a2bench.reference import config as rc
 
     cuda = device == "cuda"
     mix = cell.mix
     traffic.check_mix(mix)
     rcfg = rc.from_dict(cell.config_file["config"])
+    prompts = cell.prompts()
+    if conditioning.reads_transcription(rcfg) and not all(t for _, t in prompts):
+        return (f"{cell.config_file['model_name']} speaks a transcription, and "
+                f"traffic/{mix['captions']} has a line without one")
     tree = weights.make(rcfg, seed, device)
     unet_values = weights.count(tree["unet"])
     prog = program.Program(pcfg, tree, device)
-    captions = cell.captions()
-    caption, wseed = traffic.warmup(captions, seed)
-    prog.request(mix, caption, wseed, steps=mix["warmup_ddim_steps"], keep=False)
+    caption, transcription, wseed = traffic.warmup(prompts, seed)
+    prog.request(mix, caption, wseed, transcription, steps=mix["warmup_ddim_steps"], keep=False)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -102,11 +106,11 @@ def run(cell, pcfg, seed: int, seconds: float, traced_run: bool, device: str,
     # one would start after `seconds`; the last one started runs to its end
     caps, errors = [], []
     recorder = trace.Recorder(TRACED_STEPS) if traced_run else None
-    stream = traffic.requests(mix, captions, seed)
+    stream = traffic.requests(mix, prompts, seed)
     t_first: Optional[float] = None
     attempted = 0
     while t_first is None or time.perf_counter() - t_first < seconds:
-        caption, rseed = next(stream)
+        caption, transcription, rseed = next(stream)
         attempted += 1
         if t_first is None:
             t_first = time.perf_counter()
@@ -115,7 +119,7 @@ def run(cell, pcfg, seed: int, seconds: float, traced_run: bool, device: str,
             if recorder is not None and first:
                 recorder.start()
                 prog.on_step = recorder.step
-            caps.append(prog.request(mix, caption, rseed))
+            caps.append(prog.request(mix, caption, rseed, transcription))
         except Exception:  # a failed request counts against the run and the loop goes on
             errors.append(traceback.format_exc())
             print(errors[-1], file=sys.stderr, flush=True)

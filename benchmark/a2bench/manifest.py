@@ -15,6 +15,8 @@ import json
 import os
 from typing import Dict, List
 
+from a2bench import traffic
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the benchmark's folder
 ROOT = os.path.dirname(HERE)  # the checkout
 
@@ -54,9 +56,10 @@ class Cell:
     def chips(self) -> int:
         return int(self.entry["chips"])
 
-    def captions(self) -> List[str]:
-        with open(os.path.join(HERE, "traffic", self.mix["captions"])) as f:
-            return [line.strip() for line in f if line.strip() and not line.startswith("#")]
+    def prompts(self) -> List[traffic.Prompt]:
+        """The mix's prompts file (``traffic/<captions>``), as
+        ``traffic.read_prompts`` reads it."""
+        return traffic.read_prompts(os.path.join(HERE, "traffic", self.mix["captions"]))
 
 
 def reports(metric: Dict, cell: str) -> bool:

@@ -37,6 +37,7 @@ class Capture:
 
     caption: str
     seed: int
+    transcription: str = ""
     cond: Optional[tuple] = None  # ((y, contexts, masks), bsz)
     latent: Optional[torch.Tensor] = None  # scale_factor * z, [B * n, T, F, C]
     mel: Optional[torch.Tensor] = None  # [B * n, T_mel, M, 1]
@@ -125,18 +126,20 @@ class Program:
         self._originals.clear()
         self.model = None
 
-    def request(self, mix: Dict, caption: str, seed: int, steps: Optional[int] = None,
-                keep: bool = True) -> Capture:
+    def request(self, mix: Dict, caption: str, seed: int, transcription: str = "",
+                steps: Optional[int] = None, keep: bool = True) -> Capture:
         """One text-to-audio request at the mix's sizes; returns its Capture
         (``start`` and ``end`` on the host clock, the output already on the
-        host, so the device has finished). ``keep=False`` keeps no tensor."""
-        cap = Capture(caption=caption, seed=int(seed))
+        host, so the device has finished). ``transcription`` is what a
+        speech configuration speaks ("" is the call without one).
+        ``keep=False`` keeps no tensor."""
+        cap = Capture(caption=caption, seed=int(seed), transcription=transcription)
         self.current = cap if keep else None
         self.model.last_similarities = None
         cap.start = time.perf_counter()
         with torch.profiler.record_function("a2bench.request"):
             out = self.pipeline.text_to_audio(
-                self.model, caption, seed=int(seed),
+                self.model, caption, transcription=transcription, seed=int(seed),
                 ddim_steps=int(steps or mix["ddim_steps"]), duration=mix["duration"],
                 batchsize=mix["batchsize"], guidance_scale=mix["guidance_scale"],
                 n_candidate_gen_per_text=mix["n_candidate_gen_per_text"],

@@ -1,27 +1,31 @@
 """The conditioning stages of the reference: the tokenizers, FLAN-T5's
-encoder, RoBERTa and CLAP's text embedding, and the GPT-2 sequence
-generator.
+encoder, RoBERTa and CLAP's text embedding, the VITS phoneme pipeline and
+text encoder, and the GPT-2 sequence generator.
 
 A frozen copy of ``audioldm2_torch/utils/text.py`` (the hash fallback
-tokenizer, the only one without a tokenizer cache), ``models/t5.py``,
-``models/roberta.py``, the text half of ``models/clap.py``,
-``models/gpt2.py``, ``models/sequence_gen.py`` and
-``models/conditioners.py``, in float32. The sequence generator runs GPT-2
-over the whole sequence at every step, with no KV cache.
+tokenizer, the only one without a tokenizer cache, and the phoneme
+pipeline), ``models/t5.py``, ``models/roberta.py``, the text half of
+``models/clap.py``, ``models/phoneme.py``, ``models/gpt2.py``,
+``models/sequence_gen.py`` and ``models/conditioners.py``, in float32.
+The sequence generator runs GPT-2 over the whole sequence at every step,
+with no KV cache.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import re
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from a2bench.reference import nn
 from a2bench.reference.config import (CLAPConfig, ConditionerSpec, FlanT5Config, GPT2Config,
-                                      ModelConfig, RobertaConfig, text_tower)
+                                      ModelConfig, PhonemeEncoderConfig, RobertaConfig,
+                                      text_tower)
 
 # special ids of each tokenizer family (public HF constants)
 SPECIALS = {
@@ -118,6 +122,109 @@ def clap_text(params, cfg: CLAPConfig, ids: torch.Tensor, mask: torch.Tensor) ->
                              roberta_pooled(params["text_branch"], tcfg, ids, mask)))
 
 
+# --- the VITS phoneme pipeline and text encoder ---------------------------------
+
+# VITS's symbol table: a symbol's id is its position ("_", the pad, is 0)
+_PAD = "_"
+_PUNCTUATION = ';:,.!?¡¿—…"«»“” '
+_LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+_LETTERS_IPA = (
+    "ɑɐɒæɓʙβɔɕçɗɖðʤəɘɚɛɜɝɞɟʄɡɠɢʛɦɧħɥʜɨɪʝɭɬɫɮʟɱɯɰŋɳɲɴøɵɸθœɶʘɹɺɾɻʀʁɽʂʃʈʧʉʊʋⱱʌɣɤʍχʎʏʑʐʒʔʡʕʢǀǁǂǃˈˌːˑʼʴʰʱʲʷˠˤ˞↓↑→↗↘'̩'ᵻ"
+)
+_SPECIAL = "♪☎☒☝⚠"
+
+VITS_SYMBOLS = [_PAD] + list(_PUNCTUATION) + list(_LETTERS) + list(_LETTERS_IPA) + list(_SPECIAL)
+_SYMBOL_TO_ID = {s: i for i, s in enumerate(VITS_SYMBOLS)}
+
+_ABBREVIATIONS = [
+    (re.compile(r"\b%s\." % abbr, re.IGNORECASE), full)
+    for abbr, full in [
+        ("mrs", "misess"), ("mr", "mister"), ("dr", "doctor"), ("st", "saint"),
+        ("co", "company"), ("jr", "junior"), ("maj", "major"), ("gen", "general"),
+        ("drs", "doctors"), ("rev", "reverend"), ("lt", "lieutenant"),
+        ("hon", "honorable"), ("sgt", "sergeant"), ("capt", "captain"),
+        ("esq", "esquire"), ("ltd", "limited"), ("col", "colonel"), ("ft", "fort"),
+    ]
+]
+END_MARKER = "⚠"  # the last of _SPECIAL
+PHONEME_MASK_FILL = -1e4  # VITS's attentions.py fills masked logits with it
+
+
+def text_to_phonemes(text: str) -> str:
+    """english_cleaners2: tags dropped, lowercase, abbreviations expanded,
+    then espeak's IPA with stress and punctuation where ``phonemizer`` and
+    espeak are installed, else the cleaned graphemes (all in the symbol
+    table); runs of white space as one space."""
+    text = re.sub(r"<.*?>", "", text).lower()
+    for pattern, replacement in _ABBREVIATIONS:
+        text = pattern.sub(replacement, text)
+    try:
+        from phonemizer import phonemize
+
+        phonemes = phonemize(text, language="en-us", backend="espeak", strip=True,
+                             preserve_punctuation=True, with_stress=True)
+    except Exception:  # any failure of the optional step keeps the graphemes, as the program does
+        phonemes = text
+    return re.sub(r"\s+", " ", phonemes)
+
+
+def phoneme_ids(phonemes: str, pad_length: int) -> np.ndarray:
+    """[1, pad_length] ids: the phonemes and the end marker, a symbol
+    outside the table as the pad symbol, cut at ``pad_length`` and padded
+    on the right with 0."""
+    seq = [_SYMBOL_TO_ID.get(s, _SYMBOL_TO_ID[_PAD]) for s in phonemes + END_MARKER]
+    seq = seq[:pad_length]
+    return np.asarray([seq + [0] * (pad_length - len(seq))], np.int32)
+
+
+def _rel_table(emb_rel: torch.Tensor, window: int, length: int) -> torch.Tensor:
+    """[L, L, d]: the relative embedding of j - i, zero where |j - i| > window."""
+    pos = torch.arange(length, device=emb_rel.device)
+    rel = pos[None, :] - pos[:, None]
+    table = emb_rel[0].float()[(rel + window).clamp(0, 2 * window)]
+    return torch.where((rel.abs() <= window)[..., None], table, torch.zeros_like(table))
+
+
+def _rel_attention(p, x: torch.Tensor, keep: torch.Tensor, cfg: PhonemeEncoderConfig):
+    """Windowed relative-position attention, one key and one value table
+    shared by the heads; x: [B, L, h], keep: [B, 1, L, L]."""
+    heads = cfg.n_heads
+    scale = 1.0 / math.sqrt(cfg.hidden_channels // heads)
+    q, k, v = (nn.split_heads(nn.conv1d(p[n], x, padding=0), heads) for n in "qkv")
+    table_k = _rel_table(p["emb_rel_k"], cfg.window_size, x.shape[1])
+    table_v = _rel_table(p["emb_rel_v"], cfg.window_size, x.shape[1])
+    scores = torch.einsum("bihd,bjhd->bhij", q, k) * scale
+    scores = scores + torch.einsum("bihd,ijd->bhij", q, table_k) * scale
+    weights = torch.softmax(torch.where(keep, scores, torch.full_like(scores, PHONEME_MASK_FILL)),
+                            dim=-1)
+    out = torch.einsum("bhij,bjhd->bihd", weights, v)
+    out = out + torch.einsum("bhij,ijd->bihd", weights, table_v)
+    return nn.conv1d(p["o"], nn.merge_heads(out), padding=0)
+
+
+def phoneme_encode(params, cfg: PhonemeEncoderConfig, ids: torch.Tensor):
+    """The VITS text encoder: [B, pad_length] ids -> (the encoding [B, L, h],
+    the mask [B, L], 1 on the first ``length`` positions, ``length`` the
+    ids other than the pad). The embedding scaled by sqrt(h), then per layer
+    the attention and the kernel-``kernel_size`` conv FFN (padding
+    ((k - 1) // 2, k // 2)), each under the mask and followed by its
+    post-LayerNorm; the positional embedding added at the output."""
+    lengths = (ids != cfg.pad_token_id).sum(dim=-1)
+    pos = torch.arange(ids.shape[1], device=ids.device)
+    x_mask = (pos[None, :] < lengths[:, None]).float()
+    m = x_mask[..., None]
+    x = params["emb"].float()[ids.long()] * math.sqrt(cfg.hidden_channels) * m
+    keep = (x_mask[:, None, :, None] * x_mask[:, None, None, :]) > 0
+    pad = (0, 0, (cfg.kernel_size - 1) // 2, cfg.kernel_size // 2)  # the time axis of [B, L, C]
+    for layer in params["layers"]:
+        x = nn.layer_norm(layer["ln1"], x + _rel_attention(layer["attn"], x, keep, cfg))
+        f = layer["ffn"]
+        h = torch.relu(nn.conv1d(f["conv1"], F.pad(x * m, pad), padding=0))
+        h = nn.conv1d(f["conv2"], F.pad(h * m, pad), padding=0) * m
+        x = nn.layer_norm(layer["ln2"], x + h)
+    return x * m + params["pos_emb"].float(), x_mask
+
+
 # --- GPT-2 sequence generator --------------------------------------------------
 
 
@@ -182,13 +289,16 @@ def sequence_generate(params, spec: ConditionerSpec, batch: Dict) -> torch.Tenso
 
 def encode(params, spec: ConditionerSpec, batch: Dict):
     """("crossattn", (ctx, mask)) or ("film", emb [B, D]) of one conditioner
-    on the batch's ``t5_*`` / ``clap_*`` ids and masks."""
+    on the batch's ``t5_*`` / ``clap_*`` ids and masks and its
+    ``phoneme_idx``."""
     if spec.kind == "flan_t5":
         ctx = t5_encode(params["t5"], spec.flan_t5, batch["t5_ids"], batch["t5_mask"])
         return "crossattn", (ctx, batch["t5_mask"].float())
     if spec.kind == "clap":
         return "film", clap_text(params["clap"], spec.clap, batch["clap_ids"],
                                  batch["clap_mask"])
+    if spec.kind == "phoneme":
+        return "crossattn", phoneme_encode(params, spec.phoneme, batch["phoneme_idx"])
     if spec.kind == "sequence_gen":
         tokens = sequence_generate(params, spec, batch)
         return "crossattn", (tokens, torch.ones(tokens.shape[:2], device=tokens.device))
@@ -211,8 +321,11 @@ def unconditional(params, spec: ConditionerSpec, batch: Dict):
     raise ValueError(f"conditioner kind {spec.kind!r} is not in the reference")
 
 
-def token_batch(cfg: ModelConfig, text: str, device) -> Dict[str, torch.Tensor]:
-    """The prompt's and ""'s token ids and masks, one row each."""
+def token_batch(cfg: ModelConfig, text: str, transcription: str,
+                device) -> Dict[str, torch.Tensor]:
+    """The prompt's and ""'s token ids and masks, one row each, and where a
+    phoneme encoder reads them the transcription's phoneme ids (those of
+    "" where there is none)."""
     t5_len = _t5_max_length(cfg.conditioners)
     clap_len = _first_clap(cfg.conditioners).text_max_length
     out = {}
@@ -224,6 +337,10 @@ def token_batch(cfg: ModelConfig, text: str, device) -> Dict[str, torch.Tensor]:
         uids, umask = tokenize(family, [""], length)
         out.update({f"{name}_ids": ids, f"{name}_mask": mask, f"{name}_uncond_ids": uids,
                     f"{name}_uncond_mask": umask})
+    for s in _walk(cfg.conditioners):
+        if s.kind == "phoneme":
+            phonemes = text_to_phonemes(transcription) if transcription else ""
+            out["phoneme_idx"] = phoneme_ids(phonemes, s.phoneme.pad_length)
     return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
 
 
@@ -231,6 +348,12 @@ def _walk(specs):
     for s in specs:
         yield s
         yield from _walk(s.nested)
+
+
+def reads_transcription(cfg: ModelConfig) -> bool:
+    """Whether a conditioner of ``cfg`` (nested ones included) encodes the
+    transcription: a speech configuration."""
+    return any(s.kind == "phoneme" for s in _walk(cfg.conditioners))
 
 
 def _t5_max_length(specs):
@@ -247,10 +370,10 @@ def _first_clap(specs) -> CLAPConfig:
     return CLAPConfig()
 
 
-def conditioning(params, cfg: ModelConfig, text: str, device):
+def conditioning(params, cfg: ModelConfig, text: str, transcription: str, device):
     """The UNet inputs of one prompt: (y [2, D] or None, contexts
     [[2, L, D]], masks [[2, L]]), the unconditional row first."""
-    batch = token_batch(cfg, text, device)
+    batch = token_batch(cfg, text, transcription, device)
     y, contexts, masks = None, [], []
     for spec in cfg.conditioners:
         kind, vc = encode(params["cond"][spec.name], spec, batch)

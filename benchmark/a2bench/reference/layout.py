@@ -15,8 +15,8 @@ import torch
 
 from a2bench.reference.config import (AudioMAEConfig, CLAPConfig, ConditionerSpec,
                                       FlanT5Config, GPT2Config, HTSATConfig, ModelConfig,
-                                      RobertaConfig, UNetConfig, VAEConfig, VocoderConfig,
-                                      audio_tower, text_tower)
+                                      PhonemeEncoderConfig, RobertaConfig, UNetConfig,
+                                      VAEConfig, VocoderConfig, audio_tower, text_tower)
 
 
 def _leaf(*shape) -> torch.Tensor:
@@ -304,6 +304,25 @@ def audiomae(cfg: AudioMAEConfig):
             "blocks": blocks, "norm": norm(d)}
 
 
+def phoneme(cfg: PhonemeEncoderConfig):
+    """The VITS text encoder: per layer the q/k/v/o 1x1 convs and the
+    relative key and value tables [1, 2w + 1, h / heads], two LayerNorms and
+    the FFN's convs; the embedding, the m/logs head ``proj`` (drawn, never
+    read) and the positional embedding."""
+    h = cfg.hidden_channels
+    rel = (1, 2 * cfg.window_size + 1, h // cfg.n_heads)
+    layers = [{"attn": {"q": conv1d(1, h, h), "k": conv1d(1, h, h), "v": conv1d(1, h, h),
+                        "o": conv1d(1, h, h), "emb_rel_k": _leaf(*rel),
+                        "emb_rel_v": _leaf(*rel)},
+               "ln1": norm(h),
+               "ffn": {"conv1": conv1d(cfg.kernel_size, h, cfg.filter_channels),
+                       "conv2": conv1d(cfg.kernel_size, cfg.filter_channels, h)},
+               "ln2": norm(h)}
+              for _ in range(cfg.n_layers)]
+    return {"emb": _leaf(cfg.vocab_size, h), "layers": layers, "proj": conv1d(1, h, 2 * h),
+            "pos_emb": _leaf(1, cfg.pad_length, h)}
+
+
 def conditioner(spec: ConditionerSpec):
     if spec.kind == "flan_t5":
         return {"t5": t5(spec.flan_t5)}
@@ -311,6 +330,8 @@ def conditioner(spec: ConditionerSpec):
         return {"clap": clap(spec.clap)}
     if spec.kind == "audiomae_pooled":
         return {"audiomae": audiomae(spec.audiomae)}
+    if spec.kind == "phoneme":
+        return phoneme(spec.phoneme)
     if spec.kind == "sequence_gen":
         sg = spec.sequence_gen
         return {"sos": _leaf(32, 768), "eos": _leaf(32, 768), "gpt2": gpt2(sg.gpt2),

@@ -51,9 +51,9 @@ def main(argv=None) -> int:
         seed = args.first_seed + 7919 * i
         tree = weights.make(rcfg, seed, "cuda")
         prog = program.Program(program.config(name), tree, "cuda")
-        caption, rseed = next(traffic.requests(mix, cell.captions(), seed))
+        caption, transcription, rseed = next(traffic.requests(mix, cell.prompts(), seed))
         _, rows = check.sample(traffic.rng(seed, 1), 1, mix)
-        cap = prog.request(mix, caption, rseed)
+        cap = prog.request(mix, caption, rseed, transcription)
         prog.close()
         ref = check.Reference(rcfg, tree, "cuda")
         t0 = time.perf_counter()

@@ -4,7 +4,8 @@ A tiny cell runs through ``harness.run`` on the CPU (the look for the
 card skipped) with the program's bf16 path, once sound and once with each
 fault the cells can have planted in the program underneath: a sampler
 whose steps leave the state unchanged, half of the batch left out of the
-decode, a waveform altered where the vocoder makes it, and, with
+decode, a waveform altered where the vocoder makes it, on a speech
+configuration the transcription lost where the batch is made, and, with
 candidates, the rerank's pick altered. The limits are set above the
 sound run's own readings at this size; each fault has to come out not
 correct. The control (the reference in TF32 for the conditioning and the
@@ -13,6 +14,7 @@ above the sound program and fail its limits.
 """
 
 import os
+import pkgutil
 import sys
 import time
 
@@ -42,11 +44,23 @@ def _limits_above(result):
 
 
 @pytest.fixture(scope="module")
-def full_cell():
-    cell, pcfg = tiny.tiny_cell("full", batchsize=4, rows=2)
-    sound = _run(cell, pcfg)
-    cell.limits = _limits_above(sound)
-    return cell, pcfg
+def cells():
+    """kind -> (cell, program config) of a tiny cell at batch 4, its limits
+    above its sound run's readings (each made once)."""
+    made = {}
+
+    def get(kind):
+        if kind not in made:
+            cell, pcfg = tiny.tiny_cell(kind, batchsize=4, rows=2)
+            cell.limits = _limits_above(_run(cell, pcfg))
+            made[kind] = cell, pcfg
+        return made[kind]
+    return get
+
+
+@pytest.fixture(scope="module")
+def full_cell(cells):
+    return cells("full")
 
 
 def _silence_first_clip(original):
@@ -73,30 +87,42 @@ def _half_decode(original):
     return decode
 
 
+def _transcription_lost(original):
+    def make_batch(self, text, transcription="", *args, **kwargs):
+        return original(self, text, "", *args, **kwargs)
+    return make_batch
+
+
+# fault -> (the cell's kind, the owner of the function, its name, the fault
+# made from the original, the number that has to read above its limit)
 FAULTS = {
-    "step_returns_state_unchanged": ("audioldm2_torch.diffusion.ddim", "ddim_sample",
-                                     _frozen_sampler),
-    "half_batch_left_out": ("audioldm2_torch.diffusion.latent_diffusion", "decode_latent",
-                            _half_decode),
-    "answer_altered": ("audioldm2_torch.models.vocoder", "apply_vocoder", _silence_first_clip),
+    "step_returns_state_unchanged": ("full", "audioldm2_torch.diffusion.ddim", "ddim_sample",
+                                     _frozen_sampler, None),
+    "half_batch_left_out": ("full", "audioldm2_torch.diffusion.latent_diffusion",
+                            "decode_latent", _half_decode, None),
+    "answer_altered": ("full", "audioldm2_torch.models.vocoder", "apply_vocoder",
+                       _silence_first_clip, None),
+    "transcription_lost": ("tts", "audioldm2_torch.pipeline:AudioLDM2", "make_batch",
+                           _transcription_lost, "cond_rel"),
 }
 
 
-def test_sound_run_is_correct(full_cell):
-    cell, pcfg = full_cell
+@pytest.mark.parametrize("kind", ["full", "tts"])
+def test_sound_run_is_correct(cells, kind):
+    cell, pcfg = cells(kind)
     assert _run(cell, pcfg)["correct"]
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_fault_is_not_correct(full_cell, fault, monkeypatch):
-    import importlib
-
-    cell, pcfg = full_cell
-    module_name, attr, make = FAULTS[fault]
-    module = importlib.import_module(module_name)
-    monkeypatch.setattr(module, attr, make(getattr(module, attr)))
+def test_fault_is_not_correct(cells, fault, monkeypatch):
+    kind, owner, attr, make, number = FAULTS[fault]
+    cell, pcfg = cells(kind)
+    owner = pkgutil.resolve_name(owner)
+    monkeypatch.setattr(owner, attr, make(getattr(owner, attr)))
     result = _run(cell, pcfg)
     assert not result["correct"], result["checks"]
+    if number is not None:
+        assert result["checks"][number]["value"] > cell.limits[number], result["checks"]
 
 
 def test_altered_pick_is_not_correct(monkeypatch):
@@ -122,10 +148,10 @@ def test_control_reads_above_the_program(full_cell):
     torch.set_num_threads(4)
     rcfg = rc.from_dict(cell.config_file["config"])
     tree = weights.make(rcfg, SEED, "cpu")
-    caption, rseed = next(traffic.requests(cell.mix, cell.captions(), SEED))
+    caption, transcription, rseed = next(traffic.requests(cell.mix, cell.prompts(), SEED))
     _, rows = check.sample(traffic.rng(SEED, 1), 1, cell.mix)
     sound = program.Program(pcfg, tree, "cpu")
-    cap = sound.request(cell.mix, caption, rseed)
+    cap = sound.request(cell.mix, caption, rseed, transcription)
     sound.close()
     ref = check.Reference(rcfg, tree, "cpu")
     lower = check.numbers(ref, cap, cell.mix, rows, cell.limits)

@@ -45,8 +45,10 @@ def test_the_reference_imports_nothing_of_the_program():
     for path in _sources(os.path.join(BENCH, "a2bench", "reference")):
         names = _top_level_imports(path)
         assert "audioldm2_torch" not in names, path
+        # phonemizer: the phoneme pipeline's optional espeak step, as the program's
         assert names <= {"__future__", "contextlib", "contextvars", "dataclasses", "hashlib",
-                         "math", "re", "typing", "numpy", "torch", "a2bench"}, (path, names)
+                         "math", "re", "typing", "numpy", "torch", "a2bench",
+                         "phonemizer"}, (path, names)
 
 
 def test_only_the_program_module_imports_the_program():

@@ -98,7 +98,7 @@ def test_cells_configs_and_their_files(bench):
     for w in bench["workloads"]:
         cell = manifest.Cell(bench, w["name"])
         traffic.check_mix(cell.mix)
-        assert len(cell.captions()) >= 16
+        assert len(cell.prompts()) >= 16
         assert cell.limits and all(v >= 0 for v in cell.limits.values())
         for m in cell.end_to_end + cell.per_layer:
             assert callable(manifest.reader(m["name"]))

@@ -3,7 +3,8 @@
 Both sides run in float32 on the same bf16-valued weights, so every stage
 agrees to float32 rounding: the whole run (conditioning, the CFG DDIM loop
 from the same draws, the VAE decode, the vocoder, the rerank and its pick)
-through ``harness.run``, and the tree's layout leaf for leaf.
+through ``harness.run``, the tree's layout leaf for leaf, and the phoneme
+ids of every transcription the benchmark holds.
 """
 
 import dataclasses
@@ -14,19 +15,21 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
 import tiny  # noqa: E402
-from a2bench import harness, weights  # noqa: E402
+from a2bench import harness, traffic, weights  # noqa: E402
+from a2bench.reference import conditioning, layout, rerank  # noqa: E402
 from a2bench.reference import config as rc  # noqa: E402
-from a2bench.reference import layout, rerank  # noqa: E402
 
 F32_LIMITS = {"cond_rel": 1e-5, "latent_rel": 1e-4, "mel_rms": 1e-5, "wav_rms": 1e-6,
               "returned_mismatch": 0, "sim_abs": 1e-5, "pick_mismatch": 0}
 
 
-@pytest.mark.parametrize("name", ["audioldm2-full", "audioldm_48k"])
+@pytest.mark.parametrize("name", ["audioldm2-full", "audioldm_48k",
+                                  "audioldm2-speech-gigaspeech"])
 def test_layout_is_the_programs_tree(name):
     from audioldm2_torch import config as pc
     from audioldm2_torch import params as pp
@@ -62,7 +65,8 @@ def _f32_cell(kind, **kw):
 
 
 @pytest.mark.parametrize("kind,kw", [("full", dict(batchsize=2)),
-                                     ("k48", dict(batchsize=1, candidates=3, rows=2))])
+                                     ("k48", dict(batchsize=1, candidates=3, rows=2)),
+                                     ("tts", dict(batchsize=2))])
 def test_reference_agrees_with_the_plain_program(kind, kw):
     torch.set_num_threads(4)
     cell, pcfg = _f32_cell(kind, **kw)
@@ -71,6 +75,36 @@ def test_reference_agrees_with_the_plain_program(kind, kw):
     assert result["correct"], checks
     assert set(checks) == set(cell.limits)
     assert result["failed"] == 0 and result["attempted"] >= 1
+
+
+def test_a_speech_configuration_without_transcriptions_is_refused():
+    cell, pcfg = tiny.tiny_cell("tts")
+    cell.mix["captions"] = "captions.txt"
+    result = harness.run(cell, pcfg, 3_000_000_023, 0.1, False, "cpu", time.perf_counter())
+    assert isinstance(result, str) and "transcription" in result, result
+
+
+EDGE_TRANSCRIPTIONS = ["", "Dr. Smith and Mrs. Jones", "A <b>tag</b>   and   spaces",
+                       "Forty two is 42, a symbol outside the table", "word " * 80]
+
+
+def test_reference_phoneme_ids_are_the_programs():
+    """Every transcription of the prompts file, and a few edges (none, an
+    abbreviation, a tag, digits outside the symbol table, past 310), reads
+    the program's ids; no line of the file holds a symbol outside the table
+    or passes 310."""
+    from audioldm2_torch.utils import text
+
+    path = os.path.join(tiny.BENCH, "traffic", "speech_prompts.txt")
+    lines = [t for _, t in traffic.read_prompts(path)]
+    assert len(lines) >= 40 and all(lines)
+    for t in lines + EDGE_TRANSCRIPTIONS:
+        phonemes = conditioning.text_to_phonemes(t) if t else ""
+        want = text.phoneme_ids([text.text_to_phonemes(t) if t else ""] * 2)
+        got = conditioning.phoneme_ids(phonemes, 310)
+        assert got.shape == (1, 310) and np.array_equal(np.tile(got, (2, 1)), want), t
+        if t in lines:
+            assert np.count_nonzero(got) == len(phonemes) + 1 <= 310, t
 
 
 def test_rerank_resample_agrees():

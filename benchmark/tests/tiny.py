@@ -1,10 +1,13 @@
 """Cells of the benchmark at a tiny width, for runs on the CPU.
 
-``tiny_cell("full")`` and ``tiny_cell("k48")`` are audioldm2-full and
-audioldm_48k in miniature (a small UNet, VAE, vocoder, FLAN-T5 and one
-GPT-2 layer; CLAP at its fixed published width, the only one the program
-has) with a mix of the cells' kind at two DDIM steps. Each returns the
-cell (the attributes ``harness.run`` reads) and the program's config.
+``tiny_cell("full")``, ``tiny_cell("k48")`` and ``tiny_cell("tts")`` are
+audioldm2-full, audioldm_48k and audioldm2-speech-gigaspeech in miniature
+(a small UNet, VAE, vocoder, FLAN-T5, phoneme encoder and one GPT-2
+layer; CLAP at its fixed published width, the only one the program has)
+with a mix of the cells' kind at two DDIM steps; the speech cell's mix
+reads ``traffic/speech_prompts.txt``, the others' ``captions.txt``. Each
+returns the cell (the attributes ``harness.run`` reads) and the program's
+config.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ for p in (BENCH, ROOT):
     if p not in sys.path:
         sys.path.insert(0, p)
 
+from a2bench import traffic  # noqa: E402
 from a2bench.reference import config as rc  # noqa: E402
+
+# the published phoneme encoder's vocabulary, window and pad length at a
+# small width
+TINY_PHONEME = dict(hidden_channels=16, filter_channels=32, n_heads=2, n_layers=2)
 
 
 def _program_config(kind: str):
@@ -45,6 +53,22 @@ def _program_config(kind: str):
             unet=dataclasses.replace(unet, context_dims=(None,), extra_film_condition_dim=512),
             conditioners=(pc.ConditionerSpec(name="film_clap_cond1", kind="clap", clap=clap),),
             latent_t_size=8, latent_f_size=8, latent_channels=4, latent_t_per_second=4.0)
+    if kind == "tts":
+        phoneme = pc.ConditionerSpec(name="crossattn_vits_phoneme", kind="phoneme",
+                                     cond_stage_key="phoneme_idx",
+                                     phoneme=pc.PhonemeEncoderConfig(**TINY_PHONEME))
+        seqgen = pc.ConditionerSpec(
+            name="crossattn_audiomae_generated", kind="sequence_gen", cond_stage_key="all",
+            sequence_gen=pc.SequenceGenConfig(
+                sequence_gen_length=4,
+                sequence_input_keys=("film_clap_cond1", "crossattn_vits_phoneme"),
+                sequence_input_embed_dims=(512, TINY_PHONEME["hidden_channels"]),
+                gpt2=pc.GPT2Config(n_layer=1)),
+            nested=(pc.ConditionerSpec(name="film_clap_cond1", kind="clap", clap=clap), phoneme))
+        return pc.ModelConfig(
+            name="tiny-tts", preprocessing=pre, vae=vae, vocoder=vocoder,
+            unet=dataclasses.replace(unet, context_dims=(768,)), conditioners=(seqgen,),
+            latent_t_size=8, latent_f_size=8, latent_channels=4, latent_t_per_second=4.0)
     t5 = pc.FlanT5Config(d_model=64, d_kv=16, d_ff=96, num_layers=2, num_heads=4,
                          max_length=16)
     t5_spec = pc.ConditionerSpec(name="crossattn_flan_t5", kind="flan_t5", flan_t5=t5)
@@ -62,7 +86,8 @@ def _program_config(kind: str):
 
 
 def tiny_cell(kind: str, candidates: int = 1, batchsize: int = 2, rows: int = 1):
-    """(cell, program config) of a tiny cell: ``kind`` "full" or "k48"."""
+    """(cell, program config) of a tiny cell: ``kind`` "full", "k48" or
+    "tts"."""
     pcfg = _program_config(kind)
     config = json.loads(json.dumps(rc.to_dict(pcfg)))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
@@ -70,7 +95,8 @@ def tiny_cell(kind: str, candidates: int = 1, batchsize: int = 2, rows: int = 1)
     e2e = "request_s" if candidates > 1 else "audio_s_per_s"
     mix = {"batchsize": batchsize, "n_candidate_gen_per_text": candidates, "ddim_steps": 2,
            "guidance_scale": 3.5, "duration": 2.0, "duration_bucket": 2.5,
-           "captions": "captions.txt", "warmup_ddim_steps": 2, "check": {"rows": rows}}
+           "captions": "speech_prompts.txt" if kind == "tts" else "captions.txt",
+           "warmup_ddim_steps": 2, "check": {"rows": rows}}
     limits = {"cond_rel": 1e-5, "latent_rel": 1e-2, "mel_rms": 1e-2, "wav_rms": 1e-3,
               "returned_mismatch": 0}
     if candidates > 1:
@@ -79,10 +105,6 @@ def tiny_cell(kind: str, candidates: int = 1, batchsize: int = 2, rows: int = 1)
         name=f"tiny.{kind}", chips=1, entry={}, config_entry={"file": "(tiny)"},
         config_file={"model_name": pcfg.name, "config": config}, mix=mix, limits=limits,
         end_to_end=[m for m in bench["end_to_end"] if m["name"] in (e2e, "setup_s")],
-        per_layer=[], captions=lambda: _captions())
+        per_layer=[],
+        prompts=lambda: traffic.read_prompts(os.path.join(BENCH, "traffic", mix["captions"])))
     return cell, pcfg
-
-
-def _captions():
-    with open(os.path.join(BENCH, "traffic", "captions.txt")) as f:
-        return [line.strip() for line in f if line.strip() and not line.startswith("#")]
