@@ -6,6 +6,10 @@ projected to 768-d, wrapped with learned per-source SOS/EOS tokens,
 concatenated and truncated to ``max_context - sequence_gen_length``; GPT-2
 then generates ``sequence_gen_length`` continuous tokens from a KV cache.
 The JAX ``lax.scan`` is a Python loop of ``sequence_gen_length`` steps.
+Inside a request (``utils.profiling``) generation opens three spans,
+``seqgen.prefix`` (the nested conditioners and input linears),
+``seqgen.prefill`` and ``seqgen.decode``, and each decode step is a
+``seqgen.token`` step counted on ``seqgen.decode``.
 Every nested conditioner is drawn, as in JAX; those outside
 ``sequence_input_keys`` (the AudioMAE spec of audioldm2-full and the
 speech families) feed no prefix, so generation never encodes them.
@@ -21,6 +25,7 @@ from audioldm2_torch.config import ConditionerSpec
 from audioldm2_torch.models import gpt2
 from audioldm2_torch.ops import nn
 from audioldm2_torch.params import Init
+from audioldm2_torch.utils import profiling
 
 
 def input_specs(spec: ConditionerSpec):
@@ -82,10 +87,12 @@ def generate(params, spec: ConditionerSpec, batch) -> torch.Tensor:
     the input of decode step i (the first is GPT-2's hidden state at the
     last valid prefix position)."""
     sg = spec.sequence_gen
-    seq, mask = assemble_prefix(params, spec, batch)
+    with profiling.span("seqgen.prefix"):
+        seq, mask = assemble_prefix(params, spec, batch)
     b, l_pre, _ = seq.shape
     steps = sg.sequence_gen_length
-    hidden, cache = gpt2.prefill(params["gpt2"], sg.gpt2, seq, mask, l_pre + steps)
+    with profiling.span("seqgen.prefill"):
+        hidden, cache = gpt2.prefill(params["gpt2"], sg.gpt2, seq, mask, l_pre + steps)
     content_len = mask.sum(dim=1).long()
     # pads can sit mid-sequence (before the EOS wrapper token)
     idx = torch.arange(l_pre, device=seq.device)
@@ -93,9 +100,11 @@ def generate(params, spec: ConditionerSpec, batch) -> torch.Tensor:
     g = hidden[torch.arange(b, device=seq.device), last_idx]
     cache_mask = torch.nn.functional.pad(mask, (0, steps))
     tokens = []
-    for i in range(steps):
-        tokens.append(g)
-        g, cache = gpt2.step(params["gpt2"], sg.gpt2, g, cache, cache_mask, l_pre + i,
-                             content_len + i)
-        cache_mask[:, l_pre + i] = 1.0
+    with profiling.span("seqgen.decode"):
+        for i in range(steps):
+            tokens.append(g)
+            with profiling.step("seqgen.token"):
+                g, cache = gpt2.step(params["gpt2"], sg.gpt2, g, cache, cache_mask, l_pre + i,
+                                     content_len + i)
+                cache_mask[:, l_pre + i] = 1.0
     return torch.stack(tokens, dim=1)

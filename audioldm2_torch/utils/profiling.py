@@ -9,7 +9,10 @@ whose root span is ``"request"``; each stage boundary under it opens a
 :func:`span`: ``tokenize`` (host only), ``conditioning``, ``prepare_unet``,
 ``sampler``, ``vae.decode``, ``vocoder``, ``vae.encode``, ``to_host`` and
 ``rerank``; each sampler step a :func:`step` (``"sampler.step"``, around
-the ``"unet"`` range of its UNet call). Every span and step is a
+the ``"unet"`` range of its UNet call). Inside ``conditioning`` the GPT-2
+sequence generator (``models/sequence_gen.py``) opens ``seqgen.prefix``,
+``seqgen.prefill`` and ``seqgen.decode``, and each generated token is a
+``"seqgen.token"`` step (``seqgen_decode_steps``). Every span and step is a
 ``torch.profiler.record_function`` range, so a running profiler puts it in
 the device trace on the device ops' clock, and the device's idle gaps can
 be named by the host stage that was running. Inside a request a span also

@@ -981,6 +981,48 @@ def test_request_spans_time_every_stage_on_the_card(cuda):
     assert {s.name for s in spans if s.device_s is None} == {"tokenize"}
 
 
+def test_speech_request_times_the_token_loop_on_the_card(cuda):
+    """A speech request (CLAP and a narrow phoneme encoder into a one-layer
+    GPT-2 of 512 tokens) times ``seqgen.prefix``, ``seqgen.prefill`` and
+    ``seqgen.decode`` on the device inside ``conditioning`` and counts 512
+    ``seqgen.token`` steps."""
+    import dataclasses
+
+    import audioldm2_torch as at
+    from audioldm2_torch import config as config_m
+    from tiny import tiny_t5_model_config
+
+    phoneme = config_m.ConditionerSpec(
+        name="crossattn_vits_phoneme", kind="phoneme", cond_stage_key="phoneme_idx",
+        phoneme=config_m.PhonemeEncoderConfig(hidden_channels=16, filter_channels=32,
+                                              n_heads=2, n_layers=2))
+    clap = config_m.ConditionerSpec(name="film_clap_cond1", kind="clap",
+                                    clap=config_m.CLAPConfig())
+    seqgen = config_m.ConditionerSpec(
+        name="crossattn_audiomae_generated", kind="sequence_gen", cond_stage_key="all",
+        sequence_gen=config_m.SequenceGenConfig(
+            sequence_gen_length=512,
+            sequence_input_keys=("film_clap_cond1", "crossattn_vits_phoneme"),
+            sequence_input_embed_dims=(512, 16), gpt2=config_m.GPT2Config(n_layer=1)),
+        nested=(clap, phoneme))
+    base = config_m.coerce(tiny_t5_model_config())
+    cfg = dataclasses.replace(base, unet=dataclasses.replace(base.unet, context_dims=(768,)),
+                              conditioners=(seqgen,))
+    model = at.build_model(config=cfg, device=cuda, seed=0, nonzero_init=True)
+    kw = dict(transcription="The quick brown fox jumps.", ddim_steps=2, duration=0.32,
+              duration_bucket=None, n_candidate_gen_per_text=1)
+    at.text_to_audio(model, "a man speaks", seed=1, **kw)  # warm
+    at.text_to_audio(model, "a man speaks", seed=2, **kw)
+    t = model.last_timings
+    names = ["seqgen_prefix", "seqgen_prefill", "seqgen_decode"]
+    assert all(t[f"{n}_device_s"] > 0 for n in names), t
+    assert sum(t[f"{n}_device_s"] for n in names) <= t["conditioning_device_s"]
+    assert t["seqgen_decode_steps"] == 512
+    spans = model.last_spans
+    (cond,) = [s for s in spans if s.name == "conditioning"]
+    assert [s.name for s in spans if s.parent == cond.id] == [n.replace("_", ".") for n in names]
+
+
 # SHA-256 of the bf16 K3 output at the 18 (M, C, N) the t5 and large-1150k
 # UNets give it, on time_k2_k3.k3_args's inputs, from the tree before K3 and
 # K4 shared one kernel (NVIDIA H100 80GB HBM3).
