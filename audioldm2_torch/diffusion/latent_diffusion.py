@@ -7,8 +7,10 @@ config's compute dtype (bf16 for the shipped configs) as the JAX package's
 cast_tree does, while the latents and the sampler math stay float32.
 Cross-attention K/V, the fused self-attention QKV weights and, in the int8
 serving mode, the quantized UNet weights are built once per call, outside
-the step loop. The samplers are DDIM, PLMS and ancestral DDPM, each with the
-inpainting mask blend; the VAE encoder runs on the uncast f32 weights.
+the step loop. On the card the step loop's UNet forward is one CUDA graph
+a request, captured at its second call and replayed at every later one
+(``unet_graph``). The samplers are DDIM, PLMS and ancestral DDPM, each with
+the inpainting mask blend; the VAE encoder runs on the uncast f32 weights.
 ``LatentDiffusionModel.edit`` is the audio-to-audio pair of
 ``ddim.stochastic_encode`` and ``ddim.ddim_decode`` on an encoded latent.
 On a dp x tp mesh (``parallel.serve.ShardedGenerator``) each rank runs
@@ -24,7 +26,7 @@ import torch
 
 from audioldm2_torch.config import ModelConfig
 from audioldm2_torch.diffusion.schedule import DiffusionSchedule
-from audioldm2_torch.diffusion import ddim, ddpm_ancestral, plms
+from audioldm2_torch.diffusion import ddim, ddpm_ancestral, plms, unet_graph
 from audioldm2_torch.models import conditioners, unet, vae, vocoder
 from audioldm2_torch.ops.nn import full_f32
 from audioldm2_torch.params import cast_floating
@@ -131,17 +133,24 @@ def guided_eps_fn(params, cfg: ModelConfig, batch, n_gen: int, guidance: float):
 def conditioned_eps_fn(params, cfg: ModelConfig, y, contexts, masks, guidance: float):
     """eps_fn on given UNet inputs (``encode_conditioning``'s, stacked
     uncond || cond when ``guidance`` != 1), the per-call UNet transforms
-    done once."""
+    done once. On the card the UNet forward is one CUDA graph, captured at
+    the second call and replayed from then on (``unet_graph``), inside the
+    ``"unet"`` range; the guidance combine stays eager. The graph goes
+    with the returned function."""
     cdtype = compute_dtype(cfg)
     contexts_c = [c.to(cdtype) for c in contexts]
     y_c = y.to(cdtype) if y is not None else None
     unet_p, cross_kv = prepare_unet(params, cfg, contexts_c)
 
+    def forward(x, t):
+        return unet.apply_unet(unet_p, cfg.unet, x.to(cdtype), t, context_list=contexts_c,
+                               context_mask_list=masks, y=y_c, cross_kv=cross_kv).float()
+
+    graphed = unet_graph.GraphedForward(forward)
+
     def model_fn(x, t):
         with torch.profiler.record_function("unet"):
-            eps = unet.apply_unet(unet_p, cfg.unet, x.to(cdtype), t, context_list=contexts_c,
-                                  context_mask_list=masks, y=y_c, cross_kv=cross_kv)
-        return eps.float()
+            return graphed(x, t)
 
     return ddim.cfg_eps_fn(model_fn, guidance) if guidance != 1.0 else model_fn
 
@@ -201,6 +210,7 @@ def _generate_impl(params, batch, cfg: ModelConfig, schedule: DiffusionSchedule,
     else:
         z = ddim.ddim_sample(eps_fn, shape, schedule, num_steps=ddim_steps, eta=ddim_eta,
                              noise=noise, **common)
+    del eps_fn  # the request's UNet graph and cast weights, before the decode
     return decode_latent(params, cfg, z)
 
 
@@ -274,6 +284,7 @@ class LatentDiffusionModel:
         z_t = ddim.stochastic_encode(z0, t_enc, self.schedule, ddim_steps, noise=noise,
                                      generator=generator)
         z = ddim.ddim_decode(eps_fn, z_t, self.schedule, t_enc, ddim_steps)
+        del eps_fn  # the UNet graph and cast weights, before the decode
         wav, mel = decode_latent(self.params, self.cfg, z)
         with profiling.span("to_host"):
             return wav.cpu().numpy(), mel.cpu().numpy()

@@ -46,6 +46,17 @@ def declined_counts() -> Dict[str, int]:
     return {"conv2d": resblock_kernel.conv2d.declined}
 
 
+def add_counts(launches: Dict[str, int], declined: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x the given launch and declined counts (a CUDA graph's
+    replay adds the launches that its capture recorded)."""
+    from audioldm2_torch.ops import resblock_kernel
+
+    wrappers = kernel_wrappers()
+    for name, n in launches.items():
+        wrappers[name].launches += times * n
+    resblock_kernel.conv2d.declined += times * declined["conv2d"]
+
+
 def reset_launch_counts() -> None:
     """Zero every launch count and the declined counts."""
     from audioldm2_torch.ops import resblock_kernel

@@ -22,8 +22,10 @@ device time between two ``torch.cuda.Event`` s recorded on the current
 stream at entry and exit (the events are read once the request is over,
 after its own ``.cpu()`` copies). A step keeps no record: it counts itself
 on the enclosing span (``Span.steps``). Outside a request spans and steps
-are ranges only. The pipeline exports the records as ``model.last_spans``
-and their sums as ``model.last_timings`` (``<span>_device_s``,
+are ranges only. Inside a request :func:`count` keeps named counters
+(``unet_graph_captures``, ``unet_graph_replays``: ``diffusion/unet_graph``).
+The pipeline exports the records as ``model.last_spans`` and their sums
+and the counters as ``model.last_timings`` (``<span>_device_s``,
 ``sampler_steps``; :meth:`Request.timings`), which the benchmark's
 per-layer readers read.
 
@@ -89,6 +91,7 @@ class Request:
         self.device = device if device.type == "cuda" else None
         self.spans: List[Span] = []
         self.open: List[Span] = []
+        self.counters: Dict[str, int] = collections.Counter()  # :func:`count`'s
 
     def enter(self, name: str, events: bool) -> Span:
         rec = Span(name, next(_ids), self.open[-1].id if self.open else None, self.id,
@@ -121,8 +124,9 @@ class Request:
 
     def timings(self) -> Dict[str, float]:
         """``<name>_device_s`` (``.`` written ``_``), summed over the spans
-        of each name with a device time, and ``<name>_steps`` for each span
-        that ran steps (``sampler_steps``)."""
+        of each name with a device time, ``<name>_steps`` for each span
+        that ran steps (``sampler_steps``), and every :func:`count` counter
+        under its name, 0 included."""
         out: Dict[str, float] = collections.Counter()
         for rec in self.spans:
             key = rec.name.replace(".", "_")
@@ -130,6 +134,7 @@ class Request:
                 out[key + "_device_s"] += rec.device_s
             if rec.steps:
                 out[key + "_steps"] += rec.steps
+        out.update(self.counters)
         return dict(out)
 
 
@@ -176,6 +181,14 @@ def step(name: str) -> Iterator[None]:
         req.open[-1].steps += 1
     with torch.profiler.record_function(name):
         yield
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (0 makes the counter present) to the counter ``name`` of
+    the request recorded on this thread; nothing outside a request."""
+    req = getattr(_current, "request", None)
+    if req is not None:
+        req.counters[name] += n
 
 
 @contextlib.contextmanager

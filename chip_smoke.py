@@ -1845,14 +1845,16 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
     """call(bsz) -> waveform, with the launch counts set to 0 just before and
     read just after; checks the output, the conditioning, that no CUDA
     tensor reached a plain version, that no bf16 call reached the shared
-    core, the counts and that no split-K workspace was allocated. Returns
-    (wall, counts, {stage: wall}) with the sequence generator's and the
-    vocoder's walls."""
+    core, the counts, that no split-K workspace was allocated and that the
+    UNet graph replayed every step but the first (``unet_graph_counts``).
+    Returns (wall, counts, {stage: wall}) with the sequence generator's and
+    the vocoder's walls and the graph's captures and replays."""
     import numpy as np
     import torch
     from audioldm2_torch import ops
 
     cond, on_core, work = {}, {}, {}
+    timings_before = model.last_timings
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1917,7 +1919,28 @@ def one_request(model, call, expected, bsz: int, duration: float, label: str):
             f"norm; rerank_s {model.last_timings['rerank_s']:.4f}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
+    stages.update(unet_graph_counts(model, timings_before))
     return wall, counts, stages
+
+
+def unet_graph_counts(model, timings_before) -> dict:
+    """The UNet graph's captures and replays of the request whose
+    ``last_timings`` replaced ``timings_before`` (none where the call left
+    them as they were); on the card each sampler step but the eager first
+    must be a replay."""
+    import torch
+
+    t = model.last_timings
+    if t is timings_before or "unet_graph_replays" not in t:
+        return {}
+    got = {k: t[k] for k in ("unet_graph_captures", "unet_graph_replays")}
+    steps = t.get("sampler_steps", 0)
+    log(f"    UNet graph: {got['unet_graph_captures']} captures, {got['unet_graph_replays']} "
+        f"replays of {steps} sampler steps")
+    if torch.device(model.device).type == "cuda" and got["unet_graph_replays"] < steps - 1:
+        raise AssertionError(f"{got['unet_graph_replays']} UNet graph replays in a request of "
+                             f"{steps} steps: each step but the eager first should replay")
+    return got
 
 
 PROMPTS = [("A dog barking in the distance.", 1), ("Rain on a tin roof.", 1),
@@ -1953,9 +1976,13 @@ def phase_requests(tag, model, request, expected, steps: int, duration: float, l
             stage_walls.setdefault(k, []).append(round(v, 4))
     p50 = sorted(walls[1])[len(walls[1]) // 2]
     s_audio = duration * 2 / walls[2][0] if walls[2] else None
+    graph = {k: stage_walls[k] for k in ("unet_graph_captures", "unet_graph_replays")
+             if k in stage_walls}
     log(f"  path {tag} end to end ({duration} s clips, {steps} steps): p50 latency at batch 1 "
         f"{p50:.3f} s over {len(walls[1])} requests"
-        + (f"; {s_audio:.3f} s-audio/s at batch 2" if s_audio else "; no batch-2 request"))
+        + (f"; {s_audio:.3f} s-audio/s at batch 2" if s_audio else "; no batch-2 request")
+        + (f"; UNet graph captures {graph['unet_graph_captures']}, replays "
+           f"{graph['unet_graph_replays']} a request" if graph else ""))
     return launches, {"p50_s": p50, "s_audio_per_s": s_audio, "batch1_s": walls[1],
                       "batch2_s": walls[2], **stage_walls}
 

@@ -1,8 +1,9 @@
 """The Hopper kernels (K1-K4, the int8 K1q, K3q, K4q, K5, K6, the A/B
 attention variants K7 and K8, and the plain conv on K1's kernel) against
 their plain PyTorch versions on the card, the plain bf16 convs' one
-rounding, and the gradients through K1, K2, K3, K4, K6 and the plain conv
-under autograd (ops.autograd) against the plain ones.
+rounding, the gradients through K1, K2, K3, K4, K6 and the plain conv
+under autograd (ops.autograd) against the plain ones, and the UNet
+forward's CUDA graph (diffusion/unet_graph.py) against the eager forward.
 
 Run on a machine with an NVIDIA GPU (and no JAX, hence no tests/conftest.py):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
@@ -1581,3 +1582,152 @@ def test_unet_forward_declines_no_conv(cuda, name, convs):
     assert ops.launch_counts() == vae.kernel_launches_per_decode(cfg.vae)
     assert ops.declined_counts()["conv2d"] == 1
 
+
+
+# The UNet forward on one CUDA graph a request (diffusion/unet_graph.py):
+# the full, 48k (FiLM y) and speech (512-token mask) UNets, bf16 and int8.
+GRAPH_UNETS = [(name, wq) for name in ("audioldm2-full", "audioldm_48k",
+                                       "audioldm2-speech-gigaspeech") for wq in (None, "int8")]
+
+
+@pytest.mark.parametrize("name,weight_quant", GRAPH_UNETS)
+def test_graphed_unet_forward_gives_the_eager_bits(cuda, name, weight_quant):
+    """conditioned_eps_fn's UNet forward at guidance 1 and CFG batch 2 on
+    the graph (an eager call, a capture, then replays), each call with its
+    own x and t, bit for bit the eager ``apply_unet``'s; no output is
+    overwritten by a later replay, and the launches count each call as one
+    forward's."""
+    import dataclasses
+
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion import latent_diffusion as ld
+    from audioldm2_torch.models import unet
+    from audioldm2_torch.params import Init
+    from chip_smoke import _ctx_inputs
+
+    cfg = dataclasses.replace(at.default_audioldm_config(name), weight_quant=weight_quant)
+    g = torch.Generator(device=cuda).manual_seed(26)
+    ctxs, masks, y = _ctx_inputs(cfg, cuda, g, 2)
+    if name.startswith("audioldm2-speech"):  # GPT-2's 512 tokens, one row's last 200 masked
+        ctxs = [torch.randn((2, 512, 768), generator=g, device=cuda).to(torch.bfloat16)]
+        masks = [torch.ones((2, 512), device=cuda)]
+        masks[0][0, 312:] = 0.0
+    shape = (2, cfg.latent_t_size, cfg.latent_f_size, cfg.latent_channels)
+    calls = []
+    with torch.inference_mode():
+        params = {"unet": unet.init_unet(Init(g, cuda), cfg.unet)}
+        model_fn = ld.conditioned_eps_fn(params, cfg, y, ctxs, masks, 1.0)
+        unet_p, kv = ld.prepare_unet(params, cfg, ctxs)
+        ops.reset_launch_counts()
+        for i in range(6):
+            x = torch.randn(shape, generator=g, device=cuda)
+            t = torch.full((2,), 999 - 150 * i, dtype=torch.int32, device=cuda)
+            calls.append((x, t, model_fn(x, t)))
+        counts = ops.launch_counts()
+        for x, t, got in calls:
+            want = unet.apply_unet(unet_p, cfg.unet, x.to(torch.bfloat16), t, ctxs, masks, y=y,
+                                   cross_kv=kv).float()
+            assert torch.equal(got, want)
+    per_forward = unet.kernel_launches_per_forward(cfg.unet, cfg.weight_quant, cfg.compute_dtype)
+    assert counts == {k: 6 * v for k, v in per_forward.items()}
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 16, 320), (3, 256, 32, 128)])
+def test_k6_cooperative_launch_is_captured_and_replayed(cuda, shape):
+    """K6's cooperative launch captured on a side stream and replayed on
+    new inputs gives the eager launch's bits."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gamma = torch.randn(shape[-1], generator=g, device=cuda)
+    beta = torch.randn(shape[-1], generator=g, device=cuda)
+    static = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        with torch.cuda.stream(stream):
+            groupnorm_kernel.group_norm_silu(static, gamma, beta)  # the stream's barrier words
+            graph.capture_begin()
+            out = groupnorm_kernel.group_norm_silu(static, gamma, beta)
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        for _ in range(4):
+            x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+            static.copy_(x)
+            graph.replay()
+            assert torch.equal(out, groupnorm_kernel.group_norm_silu(x, gamma, beta))
+
+
+def _tiny_model(cuda, compute_dtype):
+    import dataclasses
+
+    import audioldm2_torch as at
+    from audioldm2_torch import config as config_m
+    from tiny import tiny_t5_model_config
+
+    cfg = dataclasses.replace(config_m.coerce(tiny_t5_model_config()), compute_dtype=compute_dtype)
+    return at.build_model(config=cfg, device=cuda, seed=0, nonzero_init=True)
+
+
+GRAPH_KW = dict(duration=0.32, duration_bucket=None, n_candidate_gen_per_text=1)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_plms_at_guidance_1_on_the_graph_gives_the_eager_waveform(cuda, monkeypatch,
+                                                                  compute_dtype):
+    """PLMS keeps its last three eps and, at guidance 1, the eps is the
+    UNet call's own output: a graphed request (one eager call, one capture,
+    five replays) gives the eager request's waveform bit for bit."""
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion import unet_graph
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = _tiny_model(cuda, compute_dtype)
+    kw = dict(seed=3, ddim_steps=5, guidance_scale=1.0, sampler="plms", **GRAPH_KW)
+    graphed = at.text_to_audio(model, "a dog barking", **kw)
+    t = model.last_timings
+    assert (t["unet_graph_captures"], t["unet_graph_replays"], t["sampler_steps"]) == (1, 5, 6)
+    monkeypatch.setattr(unet_graph, "engages", lambda device: False)
+    eager = at.text_to_audio(model, "a dog barking", **kw)
+    assert model.last_timings["unet_graph_replays"] == 0
+    assert np.array_equal(graphed, eager)
+
+
+def test_launch_counts_after_a_graphed_request_are_the_eager_ones(cuda, monkeypatch):
+    """The launch counts after a graphed request are
+    ``kernel_launches_per_generate``'s and the eager request's."""
+    import audioldm2_torch as at
+    from audioldm2_torch.diffusion import latent_diffusion as ld
+    from audioldm2_torch.diffusion import unet_graph
+
+    model = _tiny_model(cuda, "bfloat16")
+    at.text_to_audio(model, "rain", seed=1, ddim_steps=5, **GRAPH_KW)  # warm
+    counts = []
+    for engaged in (True, False):
+        if not engaged:
+            monkeypatch.setattr(unet_graph, "engages", lambda device: False)
+        ops.reset_launch_counts()
+        at.text_to_audio(model, "rain", seed=2, ddim_steps=5, **GRAPH_KW)
+        counts.append((ops.launch_counts(), ops.declined_counts()))
+        t = model.last_timings
+        assert (t["unet_graph_captures"], t["unet_graph_replays"]) == ((1, 4) if engaged
+                                                                       else (0, 0))
+    assert counts[0] == counts[1]
+    assert counts[0][0] == ld.kernel_launches_per_generate(model.cfg, 5)
+
+
+def test_per_stream_scratch_does_not_grow_across_graphed_requests(cuda):
+    """K1's statistics counters and K6's barrier words and partials are
+    cached per (device, stream): graphed requests, each on one capture
+    stream, add no entry after the first."""
+    import audioldm2_torch as at
+    from audioldm2_torch.ops import _build
+
+    caches = (_build.gn_counter, _build.gn_barrier, _build.gn_partials)
+    model = _tiny_model(cuda, "bfloat16")
+    sizes = []
+    for seed in range(4):
+        at.text_to_audio(model, "rain", seed=seed, ddim_steps=4, **GRAPH_KW)
+        assert model.last_timings["unet_graph_replays"] == 3
+        sizes.append([c.cache_info().currsize for c in caches])
+    assert sizes[0][0] >= 1 and sizes[0][1] >= 1
+    assert sizes[1:] == [sizes[0]] * 3
